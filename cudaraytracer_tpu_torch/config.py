@@ -1,0 +1,69 @@
+"""Configuration / flag layer.
+
+Counterpart of ``cudaraytracer_tpu/config.py`` for the options the port
+implements, with the same defaults (the reference's constants: depth 12,
+seed 1984, a 1280x720 window), plus ``device`` (default ``cuda``).  The
+JAX package's accel, adaptive, denoise, NEE, QMC and fence options wait
+for the port of the code they configure.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+
+@dataclasses.dataclass
+class RenderConfig:
+    width: int = 1280
+    height: int = 720
+    spp: int = 36  # reference m_SamplesPerPixel (CudaLayer.h:123); the
+    #                default number of progressive frames of `render`
+    max_depth: int = 12  # reference m_MaxDepth (CudaLayer.h:124)
+    seed: int = 1984  # reference curand seed (Kernel.cu:163,175)
+    t_min: float = 0.001  # reference radiance loop t_min (Kernel.cu:40)
+    scene: str = "default"
+    camera_model: str = "two_plane"  # two_plane (reference parity) | look_at
+    rr_start: int = 2  # Russian-roulette start bounce (0 = off; unbiased)
+    aperture: float = 0.0  # defocus-blur lens diameter (look_at camera)
+    focus_dist: float = 10.0
+    progressive_spp: int = 4  # samples per progressive frame (one launch)
+    device: str = "cuda"  # torch device; "cpu" runs the plain versions
+
+
+def add_arguments(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    from .models.scenes import SCENES
+
+    d = RenderConfig()
+    parser.add_argument("--width", type=int, default=d.width)
+    parser.add_argument("--height", type=int, default=d.height)
+    parser.add_argument("--spp", type=int, default=d.spp)
+    parser.add_argument("--max-depth", dest="max_depth", type=int, default=d.max_depth)
+    parser.add_argument("--seed", type=int, default=d.seed)
+    parser.add_argument("--t-min", dest="t_min", type=float, default=d.t_min)
+    parser.add_argument("--scene", choices=list(SCENES), default=d.scene,
+                        help="the megakernel renders sphere-only scenes so "
+                             "far (rtow_final, rtow_big); the default scene "
+                             "has rects and raises NotImplementedError")
+    # default None = resolve from the scene registry in from_args
+    parser.add_argument("--camera-model", dest="camera_model",
+                        choices=["two_plane", "look_at"], default=None)
+    parser.add_argument("--rr-start", dest="rr_start", type=int, default=d.rr_start)
+    parser.add_argument("--aperture", type=float, default=d.aperture)
+    parser.add_argument("--focus-dist", dest="focus_dist", type=float, default=d.focus_dist)
+    parser.add_argument("--progressive-spp", dest="progressive_spp", type=int,
+                        default=d.progressive_spp)
+    parser.add_argument("--device", default=d.device,
+                        help="torch device: cuda (the kernels) or cpu (the "
+                             "plain PyTorch versions)")
+    return parser
+
+
+def from_args(args: argparse.Namespace) -> RenderConfig:
+    fields = {f.name for f in dataclasses.fields(RenderConfig)}
+    kw = {k: v for k, v in vars(args).items() if k in fields}
+    if kw.get("camera_model") is None:
+        from .models.scenes import camera_model_for
+
+        kw["camera_model"] = camera_model_for(kw.get("scene", RenderConfig.scene))
+    return RenderConfig(**kw)

@@ -1,0 +1,273 @@
+"""Camera: ray generation + host-side fly controller.
+
+PyTorch counterpart of ``cudaraytracer_tpu/models/camera.py``.  Two
+ray-generation models:
+
+  * ``two_plane`` — the reference's camera model: rays go from a near
+    plane offset by ``fov * forward`` to a far plane offset by
+    ``(10 / fov) * forward``, with screen offsets scaled by 1/width on both
+    axes (reference Kernel.cu:130-148).  Row 0 of its image is the BOTTOM.
+  * ``look_at`` — the RTOW thin-lens camera with vertical fov, aperture
+    (defocus blur) and focus distance.  Row 0 of its image is the TOP.
+
+``CameraParams`` is a plain dataclass of NumPy values; the ray
+generators turn it into torch tensors on the device of the jitter ``xi``
+they are given.  The megakernel does its own raygen from the packed
+camera vector (``ops/cuda/tables.py::pack_camera_np``); these functions
+are the per-ray reference for it and for the XLA-path port to come.
+
+The host controller reproduces the reference fly camera
+(Camera.cpp:28-118): WASD/Space/Ctrl movement at SPEED=0.05 (x2 with
+Shift), yaw/pitch mouse look at SENSITIVITY=0.1 with pitch clamped to
++/-89 deg, C resets position, scroll zooms fov clamped to [1, 120] deg.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from ..utils.vec import cross, normalize
+
+SPEED = 0.05  # reference Camera.h:6
+SENSITIVITY = 0.1  # reference Camera.h:7
+DEFAULT_POSITION = (0.0, 2.0, 12.0)  # reference CudaLayer.cpp:43
+DEFAULT_ORIENTATION = (0.0, 0.0, -1.0)  # reference Camera.h m_Orientation
+DEFAULT_FOV_DEG = 45.0  # reference Camera.h m_Fov
+DEFAULT_NEAR = 0.1  # reference Camera.h m_NearPlane
+DEFAULT_FAR = 10.0  # reference Camera.h m_FarPlane
+
+
+@dataclasses.dataclass(frozen=True)
+class CameraParams:
+    """Camera uniforms (analog of InputStruct, SharedStructs.h:3-24, minus
+    the background colors which live on the scene)."""
+
+    origin: np.ndarray  # f32[3]
+    forward: np.ndarray  # f32[3] (reference m_Orientation)
+    up: np.ndarray  # f32[3] orthonormalized camera up
+    near: np.float32  # near plane scale
+    far: np.float32  # far plane scale
+    fov: np.float32  # vertical fov in RADIANS
+    aperture: np.float32  # lens diameter (0 = pinhole; look_at model only)
+    focus_dist: np.float32  # focus distance (look_at model only)
+
+
+def make_camera_params(
+    origin=DEFAULT_POSITION,
+    forward=DEFAULT_ORIENTATION,
+    world_up=(0.0, 1.0, 0.0),
+    fov_deg: float = DEFAULT_FOV_DEG,
+    near: float = DEFAULT_NEAR,
+    far: float = DEFAULT_FAR,
+    aperture: float = 0.0,
+    focus_dist: float = 10.0,
+) -> CameraParams:
+    """Build params the way CudaLayer fills InputStruct (CudaLayer.cpp:45-62):
+    up is re-orthonormalized from forward and world up.  Host-side NumPy:
+    the fly camera rebuilds params every frame."""
+    fwd = np.asarray(forward, np.float32)
+    wup = np.asarray(world_up, np.float32)
+    right = np.cross(fwd, wup)
+    right = right / max(float(np.linalg.norm(right)), 1e-12)
+    up = np.cross(fwd, right)
+    up = up / max(float(np.linalg.norm(up)), 1e-12)
+    # glm cross(orientation, right) points down for the default frame; the
+    # reference then uses it directly, making v positive toward screen-up
+    # because v = (center.y - y).  We keep the same convention: up here is the
+    # vector used by the kernel, i.e. cross(forward, right) normalized.
+    return CameraParams(
+        origin=np.asarray(origin, np.float32),
+        forward=fwd,
+        up=up.astype(np.float32),
+        near=np.float32(near),
+        far=np.float32(far),
+        fov=np.float32(math.radians(fov_deg)),
+        aperture=np.float32(aperture),
+        focus_dist=np.float32(focus_dist),
+    )
+
+
+def _vec(x, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+
+def generate_rays_two_plane(cam: CameraParams, width: int, height: int,
+                            xi: torch.Tensor, y0: int = 0,
+                            tile_h: int | None = None):
+    """Primary rays of the reference two-plane model (Kernel.cu:130-148)
+    for the pixel jitter ``xi`` f32[2, tile_h, width] (0.5 = pixel
+    centers).  Returns (org[R,3], dir[R,3]) on ``xi``'s device, R =
+    width*tile_h, row-major pixels of the band starting at row ``y0``."""
+    if tile_h is None:
+        tile_h = height
+    dev = xi.device
+    x = torch.arange(width, dtype=torch.float32, device=dev)[None, :]
+    y = (torch.arange(tile_h, dtype=torch.float32, device=dev)
+         + float(y0))[:, None]
+    # u,v both divided by WIDTH, v measured downward from the image center
+    u = ((x - width / 2.0) + xi[0]) / width  # [H,W]
+    v = ((height / 2.0 - y) + xi[1]) / width
+
+    up = _vec(cam.up, dev)
+    fwd = _vec(cam.forward, dev)
+    origin = _vec(cam.origin, dev)
+    near, far, fov = (float(np.float32(cam.near)), float(np.float32(cam.far)),
+                      _vec(cam.fov, dev))
+    right = normalize(cross(up, fwd))
+    dist = u[..., None] * right + v[..., None] * up  # [H,W,3]
+    start = near * dist + origin + fov * fwd
+    second = far * dist + (1.0 / fov * 10.0) * fwd + origin
+    dirn = normalize(second - start)
+    r = width * tile_h
+    return start.reshape(r, 3), dirn.reshape(r, 3)
+
+
+def look_at_frame(cam: CameraParams, aspect: float, device="cpu"):
+    """Thin-lens frustum of the RTOW look_at camera as torch tensors:
+    (u_axis, v_axis, lower_left, horizontal, vertical).  RTOW convention:
+    w points backward; the basis is built from WORLD up."""
+    fov = _vec(cam.fov, device)
+    focus = _vec(cam.focus_dist, device)
+    half_h = torch.tan(fov / 2.0)
+    half_w = aspect * half_h
+    w = normalize(-_vec(cam.forward, device))
+    world_up = torch.tensor([0.0, 1.0, 0.0], device=device)
+    u_axis = normalize(cross(world_up, w))
+    v_axis = cross(w, u_axis)
+    lower_left = (
+        _vec(cam.origin, device)
+        - half_w * focus * u_axis
+        - half_h * focus * v_axis
+        - focus * w
+    )
+    horizontal = 2.0 * half_w * focus * u_axis
+    vertical = 2.0 * half_h * focus * v_axis
+    return u_axis, v_axis, lower_left, horizontal, vertical
+
+
+def generate_rays_look_at(cam: CameraParams, width: int, height: int,
+                          xi: torch.Tensor, lens: torch.Tensor | None = None,
+                          y0: int = 0, tile_h: int | None = None):
+    """Primary rays of the RTOW thin-lens camera for the pixel jitter
+    ``xi`` f32[2, tile_h, width] and unit-disk lens points ``lens``
+    f32[tile_h, width, 2] (scaled by aperture/2 here; None = pinhole).
+    Directions are NOT normalized (the JAX raygen's convention)."""
+    if tile_h is None:
+        tile_h = height
+    dev = xi.device
+    u_axis, v_axis, lower_left, horizontal, vertical = look_at_frame(
+        cam, width / height, dev)
+    x = torch.arange(width, dtype=torch.float32, device=dev)[None, :]
+    y = (torch.arange(tile_h, dtype=torch.float32, device=dev)
+         + float(y0))[:, None]
+    if lens is None:
+        lens = torch.zeros((tile_h, width, 2), dtype=torch.float32, device=dev)
+    else:
+        lens = (_vec(cam.aperture, dev) / 2.0) * lens
+    s = (x + xi[0]) / width  # [H,W] in [0,1)
+    t = (height - 1.0 - y + xi[1]) / height  # image row 0 = top of screen
+
+    offset = lens[..., 0:1] * u_axis + lens[..., 1:2] * v_axis
+    org = _vec(cam.origin, dev) + offset
+    target = lower_left + s[..., None] * horizontal + t[..., None] * vertical
+    dirn = target - org
+    r = width * tile_h
+    org = torch.broadcast_to(org, (tile_h, width, 3))
+    return org.reshape(r, 3), dirn.reshape(r, 3)
+
+
+RAY_GENERATORS = {
+    "two_plane": generate_rays_two_plane,
+    "look_at": generate_rays_look_at,
+}
+
+
+class FlyCamera:
+    """Host-side interactive camera (reference Camera.cpp:28-118)."""
+
+    def __init__(
+        self,
+        position=DEFAULT_POSITION,
+        fov_deg: float = DEFAULT_FOV_DEG,
+        near: float = DEFAULT_NEAR,
+        far: float = DEFAULT_FAR,
+    ):
+        self.home = tuple(float(c) for c in position)
+        self.position = list(self.home)
+        self.yaw = 270.0  # reference Camera.h m_Yaw
+        self.pitch = 0.0
+        self.fov_deg = float(fov_deg)
+        self.near = float(near)
+        self.far = float(far)
+        self.speed = SPEED
+        self.sensitivity = SENSITIVITY
+        self.version = 0
+        self._update_orientation()
+
+    def _update_orientation(self):
+        cy, sy = math.cos(math.radians(self.yaw)), math.sin(math.radians(self.yaw))
+        cp, sp = math.cos(math.radians(self.pitch)), math.sin(math.radians(self.pitch))
+        d = (cy * cp, sp, sy * cp)
+        n = math.sqrt(sum(c * c for c in d))
+        self.orientation = tuple(c / n for c in d)
+
+    # -------- input handling (keys are lowercase strings / names) --------
+    def process_keys(self, keys, shift: bool = False):
+        """Apply one tick of held keys: w/a/s/d/space/ctrl move, c resets
+        (Camera.cpp:39-68)."""
+        speed = self.speed * (2.0 if shift else 1.0)
+        ox, oy, oz = self.orientation
+        # right = normalize(cross(orientation, up)) with up = (0,1,0)
+        rx, ry, rz = -oz, 0.0, ox
+        rn = math.sqrt(rx * rx + rz * rz) or 1.0
+        rx, rz = rx / rn, rz / rn
+        moved = False
+        for k in keys:
+            if k == "w":
+                self.position = [p + speed * o for p, o in zip(self.position, (ox, oy, oz))]
+            elif k == "s":
+                self.position = [p - speed * o for p, o in zip(self.position, (ox, oy, oz))]
+            elif k == "d":
+                self.position = [p + speed * o for p, o in zip(self.position, (rx, ry, rz))]
+            elif k == "a":
+                self.position = [p - speed * o for p, o in zip(self.position, (rx, ry, rz))]
+            elif k == "space":
+                self.position[1] += speed
+            elif k == "ctrl":
+                self.position[1] -= speed
+            elif k == "c":
+                self.position = list(self.home)
+            else:
+                continue
+            moved = True
+        if moved:
+            self.version += 1
+        return moved
+
+    def process_mouse(self, dx: float, dy: float):
+        """Right-drag look: dx right, dy up, in pixels (Camera.cpp:71-116)."""
+        self.yaw += dx * self.sensitivity
+        self.pitch += dy * self.sensitivity
+        self.pitch = max(-89.0, min(89.0, self.pitch))
+        self._update_orientation()
+        self.version += 1
+
+    def process_scroll(self, dy: float):
+        """Scroll zoom, fov clamped to [1, 120] deg (Camera.cpp:28-35)."""
+        self.fov_deg = max(1.0, min(120.0, self.fov_deg - dy))
+        self.version += 1
+
+    def params(self, aperture: float = 0.0, focus_dist: float = 10.0) -> CameraParams:
+        return make_camera_params(
+            origin=self.position,
+            forward=self.orientation,
+            fov_deg=self.fov_deg,
+            near=self.near,
+            far=self.far,
+            aperture=aperture,
+            focus_dist=focus_dist,
+        )

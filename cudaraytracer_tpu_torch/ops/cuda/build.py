@@ -1,0 +1,124 @@
+"""Build and load the port's CUDA kernels.
+
+The kernels in ``cudaraytracer_tpu_torch/csrc/`` are compiled by ``nvcc``
+for Hopper (``sm_90a``) into one shared library with a plain C interface,
+loaded with ctypes.  The build happens on first use, from the sources in
+the checkout only, into ``build/cudaraytracer_tpu_torch/<hash>/`` at the
+repo root (``build/`` is git-ignored).  ``<hash>`` covers the sources and
+the flags, so a stale library is never loaded.  A failed build raises.
+
+Flags: ``-fmad=false`` keeps nvcc from contracting ``a*b+c`` into FMAs, so
+each float operation rounds on its own, like the plain PyTorch versions
+the kernels are checked against; no ``--use_fast_math``.  ``-Xptxas=-v``
+records registers and spills in ``nvcc.log`` beside the library.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "cudaraytracer_tpu_torch"
+SOURCES = ("rng.cuh", "search.cuh", "hit_kernel.cu", "render_kernel.cu")
+CU_FILES = ("hit_kernel.cu", "render_kernel.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
+)
+LIB_NAME = "libcrt_kernels.so"
+
+_p = ctypes.c_void_p
+_i = ctypes.c_int
+_f = ctypes.c_float
+# C signatures of the entries in csrc/*.cu (pointers and the stream as
+# c_void_p: a bare Python int would be passed as a 32-bit int)
+SIGNATURES = {
+    "crt_closest_hit": [_p, _p, _p, _i, _i, _i, _i, _i, _i, _p, _p, _i, _i,
+                        _f, _p, _p, _p],
+    "crt_render_sample": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p,
+                          ctypes.c_uint32, _i, _i, _i, _i, _i, _i, _f, _f,
+                          _p, _p, _p],
+}
+
+
+class BuildError(RuntimeError):
+    """nvcc is missing or refused the kernel sources."""
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def find_nvcc() -> str:
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found:
+        cands.append(found)
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise BuildError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                     "the CUDA kernels cannot be built")
+
+
+def build() -> dict:
+    """Compile the library unless a build of these exact sources exists.
+
+    Returns {"path", "seconds" (0.0 when reused), "log" (nvcc output)}."""
+    out_dir = BUILD_ROOT / source_hash()
+    lib = out_dir / LIB_NAME
+    log = out_dir / "nvcc.log"
+    if lib.is_file():
+        return {"path": lib, "seconds": 0.0,
+                "log": log.read_text() if log.is_file() else ""}
+    nvcc = find_nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+           *(str(CSRC / f) for f in CU_FILES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    text = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise BuildError(f"nvcc failed (exit {proc.returncode}):\n"
+                         f"{' '.join(cmd)}\n{text}")
+    log.write_text(text)
+    os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    return {"path": lib, "seconds": seconds, "log": text}
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Build if needed, load once per process, declare the C signatures."""
+    lib = ctypes.CDLL(str(build()["path"]))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.crt_error_string.argtypes = [ctypes.c_int]
+    lib.crt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib: ctypes.CDLL, name: str, rc: int):
+    """Raise if a C entry reported a CUDA error."""
+    if rc != 0:
+        msg = lib.crt_error_string(rc).decode(errors="replace")
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")

@@ -1,0 +1,541 @@
+"""Host half of the megakernel: scene-table and camera packing.
+
+PyTorch-package copy of the host half of
+``cudaraytracer_tpu/ops/pallas/render_kernel.py`` (NumPy, so the tables are
+bit-identical to the JAX package's ``pack_scene_tables(force_numpy=True)``):
+the ``S_*``/``P_*`` row layout, Morton-ordered clusters and superclusters
+with their AABBs, the f32[38] camera vector, and ``tables_to_torch`` to put
+the tables on a device.  The native C++ packer waits for a later port.
+"""
+
+from __future__ import annotations
+
+import typing as _t
+
+import numpy as np
+import torch
+
+# ----------------------------------------------------------------- tables
+# Search table S: f32[16, NP] — one column per primitive (Morton-sorted).
+# Rows 13-15 hold the triangle's second edge (spare for other types).
+S_CX, S_CY, S_CZ, S_R2, S_PTYPE, S_KAX, S_CK, S_CA, S_CB, S_HA, S_HB, \
+    S_AAX, S_BAX = range(13)
+# Triangle columns (BEYOND-REFERENCE prim type 4) overlay the rect rows —
+# type dispatch means no column ever reads both meanings.  The per-prim
+# test is the Havel-Herout precomputed-plane form ("Yet Faster
+# Ray-Triangle Intersection", IEEE TVCG 2010): the packers precompute
+# (in f64, rounded once to f32)
+#   N  = e1 x e2 (UNnormalized),  d_n = N.v0          (plane equation)
+#   n1 = (e2 x N)/(N.N),          d1 = -v0.n1         (u barycentric plane)
+#   m2 = (N x e1)/(N.N),          d2 = -v0.m2         (v barycentric plane)
+# so in-kernel  t = (d_n - N.o)/(N.d);  p = o + t d;  u = p.n1 + d1;
+# v = p.m2 + d2 — no cross product and a single inv-multiply per prim.
+# Row map: KAX/AAX/BAX = N;
+# CX/CY/CZ = n1; CK/CA/CB = m2; rows 13-15 = d_n, d1, d2.  R2/HA/HB stay
+# -1 so the sphere/rect tests of a MIXED cluster can never hit a triangle
+# column (Cauchy-Schwarz / extent<0).
+S_NX, S_NY, S_NZ = S_KAX, S_AAX, S_BAX
+S_N1X, S_N1Y, S_N1Z = S_CX, S_CY, S_CZ
+S_M2X, S_M2Y, S_M2Z = S_CK, S_CA, S_CB
+S_DN, S_D1, S_D2 = 13, 14, 15
+# Constant-density MEDIA (prim SPHERE + mat ISOTROPIC, BEYOND-REFERENCE
+# RTOW book-2 ConstantMedium) pack as ptype 5: sphere rows (center, R2)
+# plus the DENSITY in the rect-only S_CK row (spheres never read it).
+S_DENS = S_CK
+# MOVING spheres (BEYOND-REFERENCE RTOW book-2 motion blur): the shutter
+# velocity rides the rect-only S_CK/S_CA/S_CB rows of PLAIN sphere
+# columns (zero for static spheres, so the motion test reduces exactly).
+# Media cannot move (S_CK holds their density) — documented limit.
+S_VX, S_VY, S_VZ = S_CK, S_CA, S_CB
+# Payload table P: f32[P_ROWS, NP] — winning-primitive attributes, read
+# once per hit at the winner's column:
+#   MPARAM = fuzz|ior|light (mutually exclusive by material type, exact)
+#   PACKA/PACKB = albedo/albedo2 RGB as 8:8:8 in an exact-integer f32
+#   PACKC = mat + 4*tex + 16*ptype + 128*neg_r + 256*(tex_id+1) (exact
+#   small ints; ptype gets 3 bits for the triangle type; neg_r carries the
+#   sphere-radius sign for the hollow-glass idiom — the normal is (p-c)/r
+#   with SIGNED r, Hittable.cuh:96)
+#   CX/CY/CZ double as the UNIT outward normal for triangle columns (the
+#   kernel's sphere/rect normal reconstruction never reads them for type 4)
+# No radius row: the sphere normal is normalize(p - c), identical to
+# (p - c)/r at the hit point.
+# With image-texture support (pack_scene_tables(with_uv=True)) two extra
+# rows carry the rect half-extents for in-kernel UV computation.
+P_CX, P_CY, P_CZ, P_MPARAM, P_PACKA, P_PACKB, P_PACKC, \
+    P_HA, P_HB = range(9)
+P_ROWS = 7
+P_ROWS_UV = 9
+
+def p_rows_for(with_uv: bool, with_vattrs: bool,
+               with_motion: bool = False) -> int:
+    base = P_ROWS_UV if with_uv else P_ROWS
+    if with_vattrs:
+        base += 3
+        if with_uv:
+            base += 6
+    if with_motion:
+        base += 3  # sphere velocity (vx, vy, vz) — normal reconstruction
+    return base
+
+
+# Cluster sizes are the JAX package's (its tuning was done for the TPU and
+# is kept so the tables stay bit-identical; an H100 sweep is later work).
+CLUSTER = 28  # primitives per cluster (default; see pick_cluster_super)
+SUPER = 4  # clusters per supercluster (default)
+BIG = 3.0e38
+
+
+def pick_cluster_super(n_prims: int) -> tuple[int, int]:
+    """Scene-size-adaptive (CLUSTER, SUPER); one setting so far."""
+    del n_prims
+    return CLUSTER, SUPER
+
+
+def _morton3(x: np.ndarray) -> np.ndarray:
+    """30-bit Morton code from normalized [0,1) centroid coords."""
+    def spread(v):
+        v = v.astype(np.uint64)
+        v = (v | (v << 16)) & np.uint64(0x30000FF)
+        v = (v | (v << 8)) & np.uint64(0x300F00F)
+        v = (v | (v << 4)) & np.uint64(0x30C30C3)
+        v = (v | (v << 2)) & np.uint64(0x9249249)
+        return v
+
+    q = np.clip((x * 1024).astype(np.int64), 0, 1023)
+    return (spread(q[:, 0]) << 2) | (spread(q[:, 1]) << 1) | spread(q[:, 2])
+
+
+class SceneTables(_t.NamedTuple):
+    """Packed kernel tables (NumPy, Morton-ordered, padded)."""
+
+    S: "np.ndarray"  # f32[16, NP] search table
+    P: "np.ndarray"  # f32[P_ROWS(_UV), NP] payload table (packed, see P_* rows)
+    clusters: "np.ndarray"  # f32[7, NC] cluster AABBs + kind row (0 sph, 1 rect, 2 mixed)
+    supers: "np.ndarray"  # f32[6, NSC] supercluster AABBs
+    n_super: int
+    prim_map: "np.ndarray"  # i32[NP] packed column -> scene slot (-1 pad)
+    cluster: int = CLUSTER  # prims/cluster these tables were packed with
+    super_: int = SUPER  # clusters/supercluster (kernel must use the same)
+    vattrs: bool = False  # P has per-vertex attr rows (pass has_vattrs=)
+    motion: bool = False  # P has velocity rows (pass has_motion=)
+
+
+def _npad_for(scene, cluster: int = CLUSTER, super_: int = SUPER) -> int:
+    span = cluster * super_
+    # + n_seg*(cluster-1): segment alignment padding in the worst case —
+    # each segment (big, spheres, rects, triangles[, media]) pads to a
+    # cluster multiple.  Media add a 5th segment, so flipping a scene's
+    # media-ness changes the table width once, like growing capacity.
+    idx = scene.active_indices()
+    n_seg = 5 if bool((scene.mat_type[idx] == 4).any()) else 4
+    cap = max(scene.capacity, span) + n_seg * (cluster - 1)
+    return ((cap + span - 1) // span) * span
+
+
+def _valid_tex_ids(scene, tex_id, tex_t=None):
+    """Remap out-of-range or EMPTY atlas slots to -1 so the kernel's single
+    has_data test covers them: the reference returns cyan for missing image
+    data (Texture.cuh:88-89); without the remap an unloaded slot would
+    defer and then sample a zeroed atlas (black) in the epilogue.
+
+    Only IMAGE rows (tex_t == 2) are remapped: noise rows REPURPOSE tex_id
+    as the marble scale (ops/textures.py) and must pack through verbatim."""
+    tid = np.array(tex_id, np.int64)
+    slots = scene.atlas.shape[0]
+    bad = (tid < 0) | (tid >= slots)
+    safe = np.clip(tid, 0, slots - 1)
+    empty = (scene.tex_hw[safe, 0] <= 0) | (scene.tex_hw[safe, 1] <= 0)
+    mask = bad | empty
+    if tex_t is not None:
+        mask = mask & (np.asarray(tex_t) == 2)
+    tid[mask] = -1
+    return tid
+
+
+def _image_mean_albedo(scene, tex_t, tex_id, albedo):
+    """Replace image-textured prims' albedo with the atlas slot's mean color
+    (used for second-and-later image hits along a path, see _render_kernel).
+    The per-slot mean is memoized: one pass per distinct slot."""
+    albedo = np.array(albedo, np.float32)
+    slot_mean: dict = {}
+    for row, (tt, tid) in enumerate(zip(tex_t, tex_id)):
+        if tt == 2 and 0 <= tid < scene.atlas.shape[0]:
+            h, w = scene.tex_hw[tid]
+            if h > 0 and w > 0:
+                if tid not in slot_mean:
+                    slot_mean[tid] = (
+                        scene.atlas[tid, :h, :w].astype(np.float32) / 255.0
+                    ).mean((0, 1))
+                albedo[row] = slot_mean[tid]
+    return albedo
+
+
+def pack_scene_tables(scene, with_uv: bool = False,
+                      cluster: int = CLUSTER,
+                      super_: int = SUPER,
+                      with_vattrs: bool = False) -> SceneTables:
+    """Pack the ACTIVE primitives into kernel tables (NumPy).
+
+    Morton-ordered and padded to a multiple of CLUSTER*SUPER, keyed on the
+    scene's capacity so edits never change table shapes.  ``with_uv=True``
+    adds the rect half-extent rows for in-kernel UV computation
+    (image-texture scenes).  Mirrors ``_pack_scene_tables_numpy`` of the
+    JAX package line for line.
+    """
+    from ...models.bvh import primitive_aabbs
+
+    idx = scene.active_indices()
+    span = cluster * super_
+    npad = _npad_for(scene, cluster, super_)
+
+    has_motion = bool((scene.velocity[scene.active_indices()] != 0).any())
+    S = np.zeros((16, npad), np.float32)
+    P = np.zeros((p_rows_for(with_uv, with_vattrs, has_motion), npad),
+                 np.float32)
+    # padding lanes can never hit: r^2 = -1 makes the sphere discriminant
+    # strictly negative (Cauchy-Schwarz) and half-extents of -1 fail the
+    # rect bounds test, so the kernel needs no per-primitive active test
+    S[S_R2, :] = -1.0
+    S[S_HA, :] = -1.0
+    S[S_HB, :] = -1.0
+
+    n = len(idx)
+    clusters = np.zeros((7, max(1, npad // cluster)), np.float32)
+    # degenerate point box at +BIG: _box_any's strict tfar > tnear rejects
+    # it for every ray (an INVERTED box would be re-sorted by the slab
+    # min/max and pass, running 16 wasted prim tests per wave)
+    clusters[0:6, :] = BIG
+    supers = np.zeros((6, max(1, npad // span)), np.float32)
+    supers[0:6, :] = BIG
+    prim_map = np.full(npad, -1, np.int32)
+    n_super = 1
+
+    if n:
+        bmin0, bmax0 = primitive_aabbs(scene, idx)
+        cent = 0.5 * (bmin0 + bmax0)
+        extent = cent.max(0) - cent.min(0)
+        norm = (cent - cent.min(0)) / np.where(extent > 0, extent, 1.0)
+        order = np.argsort(_morton3(norm), kind="stable")
+        # Segment the Morton order into: BIG primitives first (the search
+        # clips every AABB test by the running best_t, so testing
+        # high-hit-probability primitives like the ground collapses best_t
+        # immediately), then spheres, then rects.  Sphere/rect segregation
+        # keeps clusters HOMOGENEOUS: the kernel picks a sphere-only or
+        # rect-only primitive loop per cluster (the `kind` row), so mixed
+        # scenes don't pay the dual type test on every primitive.
+        d = bmax0 - bmin0
+        area = d[:, 0] * d[:, 1] + d[:, 1] * d[:, 2] + d[:, 2] * d[:, 0]
+        big = area > 50.0 * np.median(area)
+        t_all = scene.prim_type[idx].astype(np.int64)
+        is_med = ((t_all == 0) | (t_all == 5)) \
+            & (scene.mat_type[idx] == 4)  # ISOTROPIC (sphere or BOX)
+        big = big & ~is_med  # media NEVER share clusters with surfaces:
+        # the medium test replaces the whole prim loop for kind-4
+        # clusters, and mixed (dual) clusters must stay media-free
+        is_tri = (t_all == 4) & ~is_med
+        is_rect = (t_all != 0) & ~is_tri & ~is_med
+        segs = [
+            order[big[order]],
+            order[~big[order] & ~is_rect[order] & ~is_tri[order]
+                  & ~is_med[order]],
+            order[~big[order] & is_rect[order]],
+            order[~big[order] & is_tri[order]],
+            order[is_med[order]],
+        ]
+        cols: list[int] = []  # position in `idx`, or -1 for alignment padding
+        for seg in segs:
+            cols.extend(int(v) for v in seg)
+            while len(cols) % cluster:
+                cols.append(-1)
+        ncols = len(cols)
+        assert ncols <= npad, (ncols, npad)
+        cols_arr = np.asarray(cols, np.int64)
+        real = cols_arr >= 0
+        rsel = cols_arr[real]  # positions in idx-space
+        rdst = np.nonzero(real)[0]  # destination columns
+
+        sidx = idx[rsel]  # scene slots, packed order
+        t = scene.prim_type[sidx].astype(np.int64)
+        med = ((t == 0) | (t == 5)) & (scene.mat_type[sidx] == 4)
+        boxm = med & (t == 5)  # BOX-bounded media (half-extents in edge1)
+        t = np.where(med, 5, t)  # media pack as ptype 5 (module comment)
+        c = scene.center[sidx]
+        sz = scene.size[sidx]
+        k_ax = np.choose(t, [0, 2, 1, 0, 0, 0])
+        a_ax = np.choose(t, [0, 0, 0, 1, 0, 0])
+        b_ax = np.choose(t, [0, 1, 2, 2, 0, 0])
+        ea = np.choose(t, [0, 0, 0, 1, 0, 0])
+        rows = np.arange(len(sidx))
+        S[S_CX, rdst], S[S_CY, rdst], S[S_CZ, rdst] = c[:, 0], c[:, 1], c[:, 2]
+        S[S_R2, rdst] = sz[:, 0] * sz[:, 0]
+        S[S_PTYPE, rdst] = t
+        S[S_KAX, rdst] = k_ax
+        S[S_AAX, rdst] = a_ax
+        S[S_BAX, rdst] = b_ax
+        S[S_CK, rdst] = c[rows, k_ax]
+        S[S_CA, rdst] = c[rows, a_ax]
+        S[S_CB, rdst] = c[rows, b_ax]
+        S[S_HA, rdst] = 0.5 * np.where(ea == 0, sz[:, 0], sz[:, 1])
+        S[S_HB, rdst] = 0.5 * np.where(ea == 0, sz[:, 1], sz[:, 0])
+        if med.any():
+            md = rdst[med]
+            # medium columns: sphere center/R2 stay; density rides the
+            # rect-only S_CK row; rect extents stay -1 (can't rect-hit)
+            S[S_DENS, md] = scene.density[sidx][med]
+            S[S_HA, md] = -1.0
+            S[S_HB, md] = -1.0
+        if boxm.any():
+            # BOX-bounded medium columns: R2 = -1 (the sphere-chord
+            # branch can never fire) and the half-extents ride S_HA /
+            # S_HB / S_CA — S_HA > 0 is the in-kernel is_box flag
+            # (sphere media and cluster padding both carry S_HA = -1)
+            bd = rdst[boxm]
+            he = np.abs(scene.edge1[sidx][boxm]).astype(np.float32)
+            S[S_R2, bd] = -1.0
+            S[S_HA, bd] = he[:, 0]
+            S[S_HB, bd] = he[:, 1]
+            S[S_CA, bd] = he[:, 2]
+            yawv = np.asarray(scene.edge2[sidx][boxm][:, 0], np.float64)
+            if (yawv != 0).any():
+                # yaw-ROTATED box media (has_rot_media static gate):
+                # cos/sin ride the triangle-only rows 13/14 (spare for
+                # ptype-5 columns).  Scene-level gate: zero-yaw scenes
+                # keep their byte-identical historical tables
+                S[S_DN, bd] = np.cos(yawv)
+                S[S_D1, bd] = np.sin(yawv)
+        if has_motion:
+            # plain-sphere columns carry the shutter velocity in the
+            # rect-only rows (zero for static spheres — the motion test
+            # reduces exactly); the payload velocity rows feed the
+            # winner's normal reconstruction at the path's time
+            sph = (t == 0)
+            vel = np.asarray(scene.velocity[sidx], np.float32)
+            sd_ = rdst[sph]
+            S[S_VX, sd_] = vel[sph, 0]
+            S[S_VY, sd_] = vel[sph, 1]
+            S[S_VZ, sd_] = vel[sph, 2]
+            vb_ = p_rows_for(with_uv, with_vattrs)
+            P[vb_ + 0, rdst] = vel[:, 0] * (t == 0)
+            P[vb_ + 1, rdst] = vel[:, 1] * (t == 0)
+            P[vb_ + 2, rdst] = vel[:, 2] * (t == 0)
+
+        mat = scene.mat_type[sidx].astype(np.int64)
+        # one row for the material's single parameter (mutually exclusive:
+        # fuzz for metal, ior for dielectric, light for diffuse_light,
+        # density for isotropic media — though the SEARCH reads density
+        # from S_DENS; the payload row is informational for media)
+        P[P_MPARAM, rdst] = np.choose(
+            mat, [np.zeros(len(sidx)), scene.fuzz[sidx],
+                  scene.ior[sidx], scene.light[sidx],
+                  scene.density[sidx]],
+        )
+
+        def pack_rgb(a):
+            q = np.clip(np.rint(a * 255.0), 0, 255).astype(np.int64)
+            return (q[:, 0] * 65536 + q[:, 1] * 256 + q[:, 2]).astype(np.float32)
+
+        tex_t = scene.tex_type[sidx].astype(np.int64)
+        tex_id = _valid_tex_ids(scene, scene.tex_id[sidx], tex_t)
+        albedo = np.array(scene.albedo[sidx], np.float32)
+        if with_uv:
+            albedo = _image_mean_albedo(scene, tex_t, tex_id, albedo)
+        P[P_PACKA, rdst] = pack_rgb(albedo)
+        P[P_PACKB, rdst] = pack_rgb(scene.albedo2[sidx])
+        neg_r = (sz[:, 0] < 0).astype(np.int64)
+        mat_p = np.where(med, 0, mat)  # media: is_iso = ptype16 > 4.5
+        P[P_PACKC, rdst] = (
+            mat_p + 4 * tex_t + 16 * t + 128 * neg_r
+            + 256 * (np.maximum(tex_id, -1) + 1)
+        ).astype(np.float32)
+        P[P_CX, rdst], P[P_CY, rdst], P[P_CZ, rdst] = c.T
+        if with_uv:
+            P[P_HA, rdst] = S[S_HA, rdst]
+            P[P_HB, rdst] = S[S_HB, rdst]
+        prim_map[rdst] = sidx
+
+        # ---- triangle columns (type 4): overlay the rect rows ----
+        tri = t == 4
+        if tri.any():
+            e1 = np.asarray(scene.edge1[sidx][tri], np.float32)
+            e2 = np.asarray(scene.edge2[sidx][tri], np.float32)
+            n2 = np.cross(e1, e2).astype(np.float32)
+            td = rdst[tri]
+            S[S_R2, td] = -1.0  # sphere/rect tests can never hit (mixed
+            S[S_HA, td] = -1.0  # clusters): negative r^2 / extents
+            S[S_HB, td] = -1.0
+            # Havel-Herout plane precompute (module tables comment) in f64,
+            # rounded once to f32 on store.  Op ordering mirrors the native
+            # packer EXACTLY (bit-identity enforced by tests/test_mesh.py).
+            nd = n2.astype(np.float64)
+            e1d, e2d = e1.astype(np.float64), e2.astype(np.float64)
+            v0d = np.asarray(c[tri], np.float64)
+            den = nd[:, 0] * nd[:, 0] + nd[:, 1] * nd[:, 1] + nd[:, 2] * nd[:, 2]
+            den = np.maximum(den, 1e-300)  # degenerate tri: |N.d|<=eps rejects
+            n1 = np.cross(e2d, nd) / den[:, None]
+            m2 = np.cross(nd, e1d) / den[:, None]
+            d_n = nd[:, 0] * v0d[:, 0] + nd[:, 1] * v0d[:, 1] + nd[:, 2] * v0d[:, 2]
+            d1 = -(v0d[:, 0] * n1[:, 0] + v0d[:, 1] * n1[:, 1] + v0d[:, 2] * n1[:, 2])
+            d2 = -(v0d[:, 0] * m2[:, 0] + v0d[:, 1] * m2[:, 1] + v0d[:, 2] * m2[:, 2])
+            S[S_NX, td], S[S_NY, td], S[S_NZ, td] = nd.T
+            S[S_N1X, td], S[S_N1Y, td], S[S_N1Z, td] = n1.T
+            S[S_M2X, td], S[S_M2Y, td], S[S_M2Z, td] = m2.T
+            S[S_DN, td], S[S_D1, td], S[S_D2, td] = d_n, d1, d2
+            # payload CX/CY/CZ = unit outward normal (two-sided shading
+            # flips by sign(d . n) in-kernel, like make_hit_record)
+            nh = n2 / np.maximum(
+                np.linalg.norm(n2, axis=1, keepdims=True), np.float32(1e-20))
+            P[P_CX, td], P[P_CY, td], P[P_CZ, td] = nh.astype(np.float32).T
+
+            if with_vattrs:
+                # per-vertex attr rows (module P-table comment): quantized
+                # vertex normals (+uv rows with_uv).  All-f32 op order must
+                # match the native packer when that learns these rows.
+                vn_base = P_ROWS_UV if with_uv else P_ROWS
+
+                def pack_vn(vn):
+                    vn = np.asarray(vn, np.float32)
+                    q = np.floor(
+                        (vn * np.float32(0.5) + np.float32(0.5))
+                        * np.float32(255.0) + np.float32(0.5)
+                    ).astype(np.int64)
+                    packed = (q[:, 0] * 65536 + q[:, 1] * 256
+                              + q[:, 2]).astype(np.float32)
+                    packed[(vn == 0).all(1)] = 0.0  # flat sentinel
+                    return packed
+
+                P[vn_base + 0, td] = pack_vn(scene.vnorm0[sidx][tri])
+                P[vn_base + 1, td] = pack_vn(scene.vnorm1[sidx][tri])
+                P[vn_base + 2, td] = pack_vn(scene.vnorm2[sidx][tri])
+                if with_uv:
+                    ub_ = vn_base + 3
+                    u0 = np.asarray(scene.uv0[sidx][tri], np.float32)
+                    u1 = np.asarray(scene.uv1[sidx][tri], np.float32)
+                    u2 = np.asarray(scene.uv2[sidx][tri], np.float32)
+                    P[ub_ + 0, td], P[ub_ + 1, td] = u0.T
+                    P[ub_ + 2, td], P[ub_ + 3, td] = (u1 - u0).T
+                    P[ub_ + 4, td], P[ub_ + 5, td] = (u2 - u0).T
+
+        bmin = bmin0[rsel]
+        bmax = bmax0[rsel]
+        col_of = np.full(ncols, -1, np.int64)
+        col_of[rdst] = np.arange(len(rdst))
+        nc_used = ncols // cluster
+        n_super = max(1, (ncols + span - 1) // span)
+        for ci in range(nc_used):
+            members = [col_of[k] for k in range(ci * cluster, (ci + 1) * cluster)
+                       if col_of[k] >= 0]
+            if not members:
+                continue
+            clusters[0:3, ci] = bmin[members].min(0)
+            clusters[3:6, ci] = bmax[members].max(0)
+            # kind row: 0 all spheres, 1 all rects, 3 all triangles,
+            # 4 all MEDIA (segment-segregated, never mixed), 2 mixed
+            kinds = set(
+                0 if int(v) == 0 else (
+                    3 if int(v) == 4 else (4 if int(v) == 5 else 1))
+                for v in t[members]
+            )
+            clusters[6, ci] = float(kinds.pop()) if len(kinds) == 1 else 2.0
+        for si in range(n_super):
+            members = [col_of[k] for k in range(si * span, min(ncols, (si + 1) * span))
+                       if col_of[k] >= 0]
+            if not members:
+                continue
+            supers[0:3, si] = bmin[members].min(0)
+            supers[3:6, si] = bmax[members].max(0)
+
+    return SceneTables(S, P, clusters, supers, n_super, prim_map,
+                       cluster, super_, vattrs=with_vattrs,
+                       motion=has_motion)
+
+
+def pack_camera_np(cam, background_start, background_end,
+                   width: int, height: int, t_min: float):
+    """Camera + sky -> the np.float32[38] uniform vector the megakernel
+    reads (the analog of InputStruct, SharedStructs.h:3-24):
+
+      0:3 origin, 3:6 lower_left, 6:9 horizontal, 9:12 vertical,
+      12:15 u_axis, 15:18 v_axis (look_at frustum), 18 lens radius,
+      19 near, 20 far, 21 fov, 22:25 two-plane right, 25:28 up, 28 t_min,
+      29:32 forward, 32:35 background_start, 35:38 background_end.
+    """
+    import math as _m
+
+    def nrm(v):
+        return v / max(float(np.linalg.norm(v)), 1e-12)
+
+    origin = np.asarray(cam.origin, np.float32)
+    fwd = np.asarray(cam.forward, np.float32)
+    up = np.asarray(cam.up, np.float32)
+    fov = float(cam.fov)
+    focus = float(cam.focus_dist)
+    # look_at frustum (models/camera.py::look_at_frame, numpy form)
+    half_h = _m.tan(fov / 2.0)
+    half_w = (width / height) * half_h
+    w = nrm(-fwd)
+    world_up = np.array([0.0, 1.0, 0.0], np.float32)
+    u_axis = nrm(np.cross(world_up, w))
+    v_axis = np.cross(w, u_axis)
+    lower_left = (origin - half_w * focus * u_axis
+                  - half_h * focus * v_axis - focus * w)
+    horizontal = 2.0 * half_w * focus * u_axis
+    vertical = 2.0 * half_h * focus * v_axis
+    right_tp = nrm(np.cross(up, fwd))
+    return np.concatenate([
+        origin, lower_left, horizontal, vertical, u_axis, v_axis,
+        np.array([float(cam.aperture) / 2.0, float(cam.near),
+                  float(cam.far), fov], np.float32),
+        right_tp, up,
+        np.array([t_min], np.float32),
+        fwd,
+        np.asarray(background_start, np.float32).reshape(3),
+        np.asarray(background_end, np.float32).reshape(3),
+    ]).astype(np.float32)
+
+
+
+class TorchTables(_t.NamedTuple):
+    """SceneTables on a torch device (contiguous f32 tables)."""
+
+    S: torch.Tensor  # f32[16, NP]
+    P: torch.Tensor  # f32[P_ROWS(_UV), NP]
+    clusters: torch.Tensor  # f32[7, NC]
+    supers: torch.Tensor  # f32[6, NSC]
+    n_super: int
+    prim_map: torch.Tensor  # i32[NP]
+    cluster: int
+    super_: int
+
+
+def tables_to_torch(t: SceneTables, device) -> TorchTables:
+    """Upload packed tables to ``device`` (kilobytes per scene edit)."""
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return TorchTables(put(t.S), put(t.P), put(t.clusters), put(t.supers),
+                       int(t.n_super), put(t.prim_map), int(t.cluster),
+                       int(t.super_))
+
+
+def unsupported_features(scene) -> list[str]:
+    """Scene features of the active primitives that the CUDA megakernel
+    does not render yet (empty for sphere-only scenes with lambertian,
+    metal, dielectric or light materials and constant or checker
+    textures, like rtow_final).  The kernel's other branches are still to
+    be ported (ROADMAP.md, Queue 2)."""
+    idx = scene.active_indices()
+    pt = scene.prim_type[idx]
+    found = []
+    if ((pt >= 1) & (pt <= 3)).any():
+        found.append("rects (has_rects)")
+    if (pt == 4).any():
+        found.append("triangles (has_tris)")
+    if (scene.mat_type[idx] == 4).any() or (pt == 5).any():
+        found.append("media (has_media)")
+    if (scene.tex_type[idx] == 2).any():
+        found.append("image textures")
+    if (scene.tex_type[idx] == 3).any():
+        found.append("noise textures (has_noise)")
+    if (scene.velocity[idx] != 0).any():
+        found.append("moving spheres (has_motion)")
+    return found

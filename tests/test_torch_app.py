@@ -1,0 +1,125 @@
+"""The port's entry point and render loop: the CLI render on the CPU, the
+refusal to fall back when CUDA is asked for and absent, and an import
+that needs no JAX."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(2)
+
+from cudaraytracer_tpu_torch.config import RenderConfig  # noqa: E402
+from cudaraytracer_tpu_torch.models import scenes as tscenes  # noqa: E402
+from cudaraytracer_tpu_torch.ops.cuda import render_kernel as rk  # noqa: E402
+from cudaraytracer_tpu_torch.viewer.app import Application, RenderLayer  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def run_cli(args, tmp_path):
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    return subprocess.run(
+        [sys.executable, "-m", "cudaraytracer_tpu_torch", *args],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+
+
+def test_cli_render_cpu_writes_upright_png(tmp_path):
+    out = tmp_path / "rtow.png"
+    proc = run_cli(["render", "--device", "cpu", "--scene", "rtow_final",
+                    "--width", "32", "--height", "18", "--frames", "2",
+                    "-o", str(out)], tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    from PIL import Image
+
+    with Image.open(out) as im:
+        assert im.size == (32, 18)
+        img = np.asarray(im.convert("RGB")).astype(np.float32)
+    # upright: the top rows are sky (bright, blue), the bottom rows ground
+    assert img[:3].mean() > img[-3:].mean()
+    assert img[:3, :, 2].mean() > 200.0
+
+
+def test_cli_default_device_without_gpu_fails(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device works here")
+    proc = run_cli(["render", "--scene", "rtow_final", "--width", "8",
+                    "--height", "8", "--frames", "1",
+                    "-o", str(tmp_path / "x.png")], tmp_path)
+    assert proc.returncode != 0
+    assert "torch.cuda.is_available() is False" in proc.stderr
+    assert not (tmp_path / "x.png").exists()
+
+
+def test_import_without_jax():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "import cudaraytracer_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "assert not any(k == 'jax' or k.startswith(('jax.', 'cudaraytracer_tpu.'))\n"
+        "               or k == 'cudaraytracer_tpu' for k in sys.modules\n"
+        "               if sys.modules[k] is not None)\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def small_cfg(**kw):
+    base = dict(scene="rtow_final", camera_model="look_at", width=16,
+                height=8, device="cpu", progressive_spp=2, max_depth=4)
+    base.update(kw)
+    return RenderConfig(**base)
+
+
+def test_progressive_accumulates_and_resets_on_edit():
+    app = Application(small_cfg())
+    rl = app.setup_default_layers()
+    n0 = rk.render_sample_plain.launches
+    assert app.run(max_frames=3) == 3
+    assert rk.render_sample_plain.launches == n0 + 3
+    assert rl._spp_done == 6
+    acc = rl._accum.clone()
+    assert float(acc.sum()) > 0
+    rl.fly.process_keys(["w"])  # camera edit resets accumulation
+    app.run(max_frames=1)
+    assert rl._spp_done == 2
+    rl.scene.update(int(rl.scene.active_indices()[1]), albedo=(1, 0, 0))
+    app.run(max_frames=1)
+    assert rl._spp_done == 2
+    rgba = rl.framebuffer_rgba8()
+    assert rgba.shape == (8, 16, 4) and rgba.dtype == np.uint8
+    assert (rgba[..., 3] == 255).all()
+    mean = rl.radiance_mean()
+    assert mean.shape == (8, 16, 3) and np.isfinite(mean).all()
+    app.close()
+
+
+def test_two_plane_framebuffer_is_flipped():
+    cfg = small_cfg(camera_model="two_plane")
+    scene = tscenes.rtow_final_scene()
+    rl = RenderLayer(cfg, scene=scene)
+    rl._sync_scene()
+    rl.on_update()
+    rad = rl._accum.numpy()
+    disp = rl.radiance_mean()
+    np.testing.assert_allclose(disp, rad[::-1] / rl._spp_done, rtol=1e-6)
+
+
+def test_unsupported_scene_raises():
+    with pytest.raises(NotImplementedError, match="rects.*--scene rtow_final"):
+        RenderLayer(small_cfg(scene="default", camera_model="two_plane"))\
+            ._sync_scene()
+
+
+def test_cuda_device_without_gpu_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        RenderLayer(small_cfg(device="cuda"))

@@ -1,0 +1,58 @@
+"""The PyTorch port's table packer against the JAX package's NumPy packer:
+S, P, clusters, supers, prim_map and n_super must be bit-identical."""
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(2)
+
+from cudaraytracer_tpu.models import scenes as jscenes  # noqa: E402
+from cudaraytracer_tpu.ops.pallas import render_kernel as jrk  # noqa: E402
+
+from cudaraytracer_tpu_torch.models import scenes as tscenes  # noqa: E402
+from cudaraytracer_tpu_torch.ops.cuda import tables as ttab  # noqa: E402
+
+
+@pytest.mark.parametrize("name", ["rtow_final", "rtow_big", "default",
+                                  "cornell_smoke", "bounce", "marble"])
+def test_tables_bit_identical(name):
+    ref = jrk.pack_scene_tables(jscenes.SCENES[name][0](), force_numpy=True)
+    ours = ttab.pack_scene_tables(tscenes.SCENES[name][0]())
+    for f in ("S", "P", "clusters", "supers", "prim_map"):
+        a, b = getattr(ours, f), getattr(ref, f)
+        assert a.dtype == b.dtype, f
+        np.testing.assert_array_equal(a, b, err_msg=f)
+    assert ours.n_super == ref.n_super
+    assert (ours.cluster, ours.super_, ours.vattrs, ours.motion) == \
+        (ref.cluster, ref.super_, ref.vattrs, ref.motion)
+
+
+def test_layout_constants_match_jax():
+    for c in ("S_CX", "S_CY", "S_CZ", "S_R2", "S_PTYPE", "S_HA", "S_HB",
+              "P_CX", "P_MPARAM", "P_PACKA", "P_PACKB", "P_PACKC", "P_ROWS",
+              "P_ROWS_UV", "CLUSTER", "SUPER", "BIG"):
+        assert getattr(ttab, c) == getattr(jrk, c), c
+    for args in [(False, False), (True, False), (True, True, True)]:
+        assert ttab.p_rows_for(*args) == jrk.p_rows_for(*args)
+
+
+def test_rtow_final_main_path_sizes():
+    """Capacity 512 pads to NP = 672: 24 clusters of 28, 6 supers of 4."""
+    t = ttab.pack_scene_tables(tscenes.rtow_final_scene())
+    assert t.S.shape == (16, 672) and t.P.shape == (7, 672)
+    assert t.clusters.shape == (7, 24) and t.supers.shape == (6, 6)
+    assert ttab.unsupported_features(tscenes.rtow_final_scene()) == []
+    assert ttab.unsupported_features(tscenes.default_scene()) == \
+        ["rects (has_rects)"]
+
+
+def test_tables_to_torch_round_trip():
+    t = ttab.pack_scene_tables(tscenes.rtow_final_scene())
+    tt = ttab.tables_to_torch(t, "cpu")
+    for f in ("S", "P", "clusters", "supers", "prim_map"):
+        x = getattr(tt, f)
+        assert isinstance(x, torch.Tensor) and x.is_contiguous()
+        np.testing.assert_array_equal(x.numpy(), getattr(t, f))
+    assert (tt.n_super, tt.cluster, tt.super_) == (t.n_super, t.cluster,
+                                                   t.super_)
