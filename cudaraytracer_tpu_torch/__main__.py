@@ -1,12 +1,17 @@
-"""CLI entry: render offline through the CUDA megakernel.
+"""CLI entry: render offline through the CUDA kernels.
 
+  python -m cudaraytracer_tpu_torch render -o out.png
+  python -m cudaraytracer_tpu_torch render --denoise --aov aov.npz -o out.png
   python -m cudaraytracer_tpu_torch render --scene rtow_final -o out.png
   python -m cudaraytracer_tpu_torch render --device cpu --width 64 --height 36 ...
 
-``--device`` defaults to ``cuda``; with no GPU the command fails with a
-clear error instead of falling back.  ``--device cpu`` runs the kernels'
-plain PyTorch versions.  The JAX package's ``serve`` and ``bench``
-subcommands, ``--obj`` and ``--aov`` wait for later ports.
+With no ``--scene`` it renders the default scene.  ``--denoise`` filters
+the displayed image with the à-trous denoiser over the G-buffer; ``--aov
+PATH`` writes the G-buffer (``.npz``: raw arrays; any other path: a prefix
+for three PNGs).  ``--device`` defaults to ``cuda``; with no GPU the
+command fails with a clear error instead of falling back.  ``--device
+cpu`` runs the kernels' plain PyTorch versions.  The JAX package's
+``serve`` and ``bench`` subcommands and ``--obj`` wait for later ports.
 """
 
 from __future__ import annotations
@@ -45,7 +50,44 @@ def cmd_render(cfg, args):
     else:
         save_png(args.output, rl.framebuffer_rgba8(), flip_vertical=False)
     rtlog.rt_info("Wrote %s", args.output)
+    if args.aov:
+        _write_aov(rl, args.aov)
     app.close()
+
+
+def _write_aov(rl, path: str):
+    """Export the G-buffer AOVs: .npz = raw f32 arrays; any other path is
+    a prefix for three PNG visualizations (normal mapped 0.5n+0.5, albedo
+    gamma-2 like the display, depth over its 95th percentile)."""
+    import numpy as np
+
+    from .utils.image import save_png
+
+    aov = rl.aov()
+    if path.lower().endswith(".npz"):
+        np.savez(path, **aov)
+        rtlog.rt_info("Wrote %s (normal/albedo/depth f32 arrays)", path)
+        return
+
+    def u8(x):
+        return (np.clip(x, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+
+    hit = aov["depth"] > 0
+    vis = {
+        "normal": u8(aov["normal"] * 0.5 + 0.5),
+        "albedo": u8(np.sqrt(np.clip(aov["albedo"], 0.0, 1.0))),
+        # robust scale: a ground plane's horizon depth is enormous and a
+        # max normalization would crush everything else to black
+        "depth": u8(aov["depth"] / max(
+            float(np.percentile(aov["depth"][hit], 95.0))
+            if hit.any() else 1.0, 1e-6)),
+    }
+    for name, img in vis.items():
+        if img.ndim == 2:
+            img = np.repeat(img[..., None], 3, axis=-1)
+        out = f"{path}_{name}.png"
+        save_png(out, img, flip_vertical=False)
+        rtlog.rt_info("Wrote %s", out)
 
 
 def main(argv=None):
@@ -56,6 +98,9 @@ def main(argv=None):
     p_render.add_argument("-o", "--output", default="render.png")
     p_render.add_argument("--frames", type=int, default=None,
                           help="progressive frames (default: --spp)")
+    p_render.add_argument("--aov", default=None, metavar="PATH",
+                          help="also write the G-buffer: PATH.npz = raw "
+                               "arrays, else PNGs PATH_{normal,albedo,depth}")
     args = parser.parse_args(argv)
 
     rtlog.init()

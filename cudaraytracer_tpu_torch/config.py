@@ -3,8 +3,8 @@
 Counterpart of ``cudaraytracer_tpu/config.py`` for the options the port
 implements, with the same defaults (the reference's constants: depth 12,
 seed 1984, a 1280x720 window), plus ``device`` (default ``cuda``).  The
-JAX package's accel, adaptive, denoise, NEE, QMC and fence options wait
-for the port of the code they configure.
+JAX package's accel, adaptive, NEE, QMC and fence options wait for the
+port of the code they configure.
 """
 
 from __future__ import annotations
@@ -28,6 +28,11 @@ class RenderConfig:
     aperture: float = 0.0  # defocus-blur lens diameter (look_at camera)
     focus_dist: float = 10.0
     progressive_spp: int = 4  # samples per progressive frame (one launch)
+    denoise: bool = False  # display-time à-trous denoiser with G-buffer
+    #                        edge stopping (ops/denoise.py); applied at
+    #                        display/export time only, never to the
+    #                        accumulator
+    denoise_iters: int = 4  # à-trous iterations (filter radius 2^i px)
     device: str = "cuda"  # torch device; "cpu" runs the plain versions
 
 
@@ -42,9 +47,11 @@ def add_arguments(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--seed", type=int, default=d.seed)
     parser.add_argument("--t-min", dest="t_min", type=float, default=d.t_min)
     parser.add_argument("--scene", choices=list(SCENES), default=d.scene,
-                        help="the megakernel renders sphere-only scenes so "
-                             "far (rtow_final, rtow_big); the default scene "
-                             "has rects and raises NotImplementedError")
+                        help="default, rtow_final, rtow_big, cornell and "
+                             "cornell_mesh_light render; scenes with noise "
+                             "textures, media or motion raise "
+                             "NotImplementedError until their kernel "
+                             "branches are ported")
     # default None = resolve from the scene registry in from_args
     parser.add_argument("--camera-model", dest="camera_model",
                         choices=["two_plane", "look_at"], default=None)
@@ -53,6 +60,9 @@ def add_arguments(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--focus-dist", dest="focus_dist", type=float, default=d.focus_dist)
     parser.add_argument("--progressive-spp", dest="progressive_spp", type=int,
                         default=d.progressive_spp)
+    parser.add_argument("--denoise", action="store_true", default=d.denoise)
+    parser.add_argument("--denoise-iters", dest="denoise_iters", type=int,
+                        default=d.denoise_iters)
     parser.add_argument("--device", default=d.device,
                         help="torch device: cuda (the kernels) or cpu (the "
                              "plain PyTorch versions)")

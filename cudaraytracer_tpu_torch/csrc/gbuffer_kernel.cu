@@ -1,0 +1,119 @@
+// G-buffer kernel: one deterministic primary-visibility pass.
+//
+// Replaces cudaraytracer_tpu/ops/pallas/gbuffer_kernel.py::_gbuffer_kernel
+// (:62, launched by pallas_gbuffer :418) for the resident tables without
+// images, vertex attributes, noise, media or motion.  Per pixel: a
+// pixel-CENTRE pinhole ray (:109-141, jitter 0.5 and no lens offset, unit
+// direction so t is the world distance), the closest hit (search.cuh),
+// the winner's normal as the megakernel computes it (surface.cuh) turned
+// to face the viewer (:326-331: n.d > 0 -> -n), the first-hit
+// constant/checker albedo (:333-339) or the sky gradient on a miss
+// (:396-410), and best_t as depth.  Outputs, written image-shaped:
+// normal f32[H, W, 3] (0 on a miss), albedo f32[H, W, 3], depth f32[H, W]
+// (0 on a miss).
+//
+// What bounds it on the card: instruction issue in the search, as in the
+// megakernel; device-memory traffic is the 28 output bytes per pixel.
+// Design: one thread per pixel, per-ray culling.  The TPU kernel's devices
+// are left out: the camera-distance sort of superclusters (:148-181; the
+// closest hit does not depend on visit order) and the masked payload loop
+// (:223-251; the kernel reads the winner's P column).
+#include <cuda_runtime.h>
+
+#include "search.cuh"
+#include "surface.cuh"
+
+namespace {
+
+constexpr int kBlockX = 16;
+constexpr int kBlockY = 8;
+
+struct Params {
+  crt::SearchTables tb;
+  const float* P;    // f32[7, np] payload table
+  const float* cam;  // f32[38] packed camera (tables.py::pack_camera_np)
+  int width, height, two_plane;
+  float inv_w, inv_h;  // 1/width, 1/height rounded from double
+};
+
+template <bool kRects, bool kTris>
+__global__ void __launch_bounds__(kBlockX * kBlockY)
+gbuffer_kernel(Params p, float* __restrict__ normal, float* __restrict__ albedo,
+               float* __restrict__ depth) {
+  const int x = blockIdx.x * kBlockX + threadIdx.x;
+  const int y = blockIdx.y * kBlockY + threadIdx.y;
+  if (x >= p.width || y >= p.height) return;
+  const float* __restrict__ cam = p.cam;
+  float ox, oy, oz, dx, dy, dz;
+  crt::primary_ray(cam, p.two_plane, static_cast<float>(x),
+                   static_cast<float>(y), 0.5f, 0.5f, 0.0f, 0.0f, p.width,
+                   p.height, p.inv_w, p.inv_h, ox, oy, oz, dx, dy, dz);
+  const crt::Ray ray = crt::make_ray(ox, oy, oz, dx, dy, dz);
+  float best_t = crt::kBig;
+  const int j =
+      crt::closest_hit<kRects, kTris>(p.tb, ray, __ldg(cam + 28), best_t);
+
+  const size_t pix = static_cast<size_t>(y) * p.width + x;
+  float* __restrict__ n_out = normal + 3 * pix;
+  float* __restrict__ a_out = albedo + 3 * pix;
+  if (j < 0) {
+    crt::sky_rgb(cam, dy, a_out[0], a_out[1], a_out[2]);
+    n_out[0] = n_out[1] = n_out[2] = 0.0f;
+    depth[pix] = 0.0f;
+    return;
+  }
+  const int np = p.tb.np;
+  const float* __restrict__ P = p.P;
+  const int packc = static_cast<int>(__ldg(P + crt::P_PACKC * np + j));
+  const float px = ox + best_t * dx;
+  const float py = oy + best_t * dy;
+  const float pz = oz + best_t * dz;
+  float nx, ny, nz;
+  crt::hit_normal<kRects || kTris>(P, np, j, packc, px, py, pz, dx, dy, dz,
+                                   nx, ny, nz);
+  // front-facing feature normal: both faces are one edge-stopping region
+  const float face = (dx * nx + dy * ny + dz * nz) > 0.0f ? -1.0f : 1.0f;
+  n_out[0] = nx * face;
+  n_out[1] = ny * face;
+  n_out[2] = nz * face;
+  crt::texture_rgb(packc, static_cast<int>(__ldg(P + crt::P_PACKA * np + j)),
+                   static_cast<int>(__ldg(P + crt::P_PACKB * np + j)), px,
+                   py, pz, a_out[0], a_out[1], a_out[2]);
+  depth[pix] = best_t;
+}
+
+}  // namespace
+
+// Plain C entry for ctypes.  Returns cudaGetLastError() after the launch.
+extern "C" int crt_gbuffer(const float* S, const float* P,
+                           const float* clusters, const float* supers,
+                           int np, int nc, int nsc, int n_super, int cluster,
+                           int super_, const float* cam, int width,
+                           int height, int two_plane, float inv_w,
+                           float inv_h, int has_rects, int has_tris,
+                           float* normal, float* albedo, float* depth,
+                           void* stream) {
+  if (width <= 0 || height <= 0) return 0;
+  Params p;
+  p.tb = crt::SearchTables{S, clusters, supers, np, nc, nsc,
+                           n_super, cluster, super_};
+  p.P = P;
+  p.cam = cam;
+  p.width = width;
+  p.height = height;
+  p.two_plane = two_plane;
+  p.inv_w = inv_w;
+  p.inv_h = inv_h;
+  const dim3 block(kBlockX, kBlockY);
+  const dim3 grid((width + kBlockX - 1) / kBlockX,
+                  (height + kBlockY - 1) / kBlockY);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (has_tris) {
+    gbuffer_kernel<true, true><<<grid, block, 0, st>>>(p, normal, albedo, depth);
+  } else if (has_rects) {
+    gbuffer_kernel<true, false><<<grid, block, 0, st>>>(p, normal, albedo, depth);
+  } else {
+    gbuffer_kernel<false, false><<<grid, block, 0, st>>>(p, normal, albedo, depth);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -5,7 +5,9 @@ for Hopper (``sm_90a``) into one shared library with a plain C interface,
 loaded with ctypes.  The build happens on first use, from the sources in
 the checkout only, into ``build/cudaraytracer_tpu_torch/<hash>/`` at the
 repo root (``build/`` is git-ignored).  ``<hash>`` covers the sources and
-the flags, so a stale library is never loaded.  A failed build raises.
+the flags, so a stale library is never loaded.  Each ``.cu`` file is
+compiled to an object by its own ``nvcc``, all started together, and the
+objects are then linked; a failed build raises.
 
 Flags: ``-fmad=false`` keeps nvcc from contracting ``a*b+c`` into FMAs, so
 each float operation rounds on its own, like the plain PyTorch versions
@@ -26,11 +28,12 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "cudaraytracer_tpu_torch"
-SOURCES = ("rng.cuh", "search.cuh", "hit_kernel.cu", "render_kernel.cu")
-CU_FILES = ("hit_kernel.cu", "render_kernel.cu")
+SOURCES = ("rng.cuh", "search.cuh", "surface.cuh", "hit_kernel.cu",
+           "render_kernel.cu", "gbuffer_kernel.cu")
+CU_FILES = ("hit_kernel.cu", "render_kernel.cu", "gbuffer_kernel.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC",
 )
 LIB_NAME = "libcrt_kernels.so"
 
@@ -41,10 +44,12 @@ _f = ctypes.c_float
 # c_void_p: a bare Python int would be passed as a 32-bit int)
 SIGNATURES = {
     "crt_closest_hit": [_p, _p, _p, _i, _i, _i, _i, _i, _i, _p, _p, _i, _i,
-                        _f, _p, _p, _p],
+                        _f, _i, _i, _p, _p, _p],
     "crt_render_sample": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p,
                           ctypes.c_uint32, _i, _i, _i, _i, _i, _i, _f, _f,
-                          _p, _p, _p],
+                          _i, _i, _p, _p, _p],
+    "crt_gbuffer": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p, _i, _i, _i,
+                    _f, _f, _i, _i, _p, _p, _p, _p],
 }
 
 
@@ -88,17 +93,30 @@ def build() -> dict:
                 "log": log.read_text() if log.is_file() else ""}
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / f) for f in CU_FILES)]
+    tag = f"{os.getpid()}.tmp"
+    tmp = out_dir / f".{LIB_NAME}.{tag}"
+    objs = [out_dir / f".{Path(f).stem}.{tag}.o" for f in CU_FILES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    # one nvcc per source, all running at once; then one link
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o),
+                               str(CSRC / f)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for f, o in zip(CU_FILES, objs)]
+    steps = [(p.args, p.communicate()[0], p.returncode) for p in procs]
+    if all(rc == 0 for _, _, rc in steps):
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+               *(str(o) for o in objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        steps.append((cmd, proc.stdout + proc.stderr, proc.returncode))
     seconds = time.perf_counter() - t0
-    text = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise BuildError(f"nvcc failed (exit {proc.returncode}):\n"
-                         f"{' '.join(cmd)}\n{text}")
+    for o in objs:
+        o.unlink(missing_ok=True)
+    text = "".join(out for _, out, _ in steps)
+    for cmd, out, rc in steps:
+        if rc != 0:
+            tmp.unlink(missing_ok=True)
+            raise BuildError(f"nvcc failed (exit {rc}):\n"
+                             f"{' '.join(cmd)}\n{out}")
     log.write_text(text)
     os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
     return {"path": lib, "seconds": seconds, "log": text}

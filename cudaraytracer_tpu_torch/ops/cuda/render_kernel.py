@@ -1,8 +1,9 @@
 """Path-tracing megakernel: wrapper and plain PyTorch version.
 
 Port of ``cudaraytracer_tpu/ops/pallas/render_kernel.py::
-pallas_render_sample`` for the resident, sphere-only branch
-(``has_rects=False``, no feature flags).  ``render_sample`` keeps the JAX
+pallas_render_sample`` for the resident tables with the flags
+``has_rects``/``has_tris`` (spheres, rects and triangles without vertex
+attributes) and no other feature flag.  ``render_sample`` keeps the JAX
 calling convention and returns the radiance SUM over ``spp`` samples,
 f32[height, width, 3] (plus the int64 ray count with ``with_stats``).
 
@@ -15,9 +16,12 @@ f32[height, width, 3] (plus the int64 ray count with ``with_stats``).
   pixels except where a transcendental function's last bit sends a path
   another way.
 
-Both count their launches (``render_sample.launches``,
-``render_sample_plain.launches``).  Rows: look_at writes row 0 = image
-top, two_plane row 0 = image bottom (the JAX package's conventions).
+``primary_rays``, ``hit_normal``, ``texture_rgb`` and ``sky_rgb`` are the
+plain versions of ``csrc/surface.cuh``, shared with the G-buffer's plain
+version.  Both entry points count their launches
+(``render_sample.launches``, ``render_sample_plain.launches``).  Rows:
+look_at writes row 0 = image top, two_plane row 0 = image bottom (the JAX
+package's conventions).
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import torch
 
 from ...utils import rng
 from . import build
-from .hit_kernel import brute_closest, check_search_tables
+from .hit_kernel import brute_closest, check_search_tables, search_work
 from .tables import (BIG, CLUSTER, P_CX, P_CY, P_CZ, P_MPARAM, P_PACKA,
                      P_PACKB, P_PACKC, P_ROWS, SUPER)
 
@@ -35,14 +39,16 @@ CAMERA_MODELS = ("look_at", "two_plane")
 CAM_LEN = 38
 
 
-def _check(S, P, clusters, supers, n_super, cam_vec, max_depth, width,
-           height, camera_model, spp, rr_start, cluster, super_):
+def check_frame_args(S, P, clusters, supers, n_super, cam_vec, width,
+                     height, camera_model, cluster, super_):
+    """Raise unless the tables, the f32[38] camera, the camera model and
+    the image size are what the image kernels take."""
     check_search_tables(S, clusters, supers, n_super, cluster, super_)
     if not isinstance(P, torch.Tensor) or P.dtype != torch.float32 \
             or P.dim() != 2 or tuple(P.shape) != (P_ROWS, S.shape[1]):
         raise ValueError(
-            f"P must be f32[{P_ROWS}, {S.shape[1]}] (the sphere-only kernel "
-            f"takes no uv/vattr/motion rows), got "
+            f"P must be f32[{P_ROWS}, {S.shape[1]}] (the kernel takes no "
+            f"uv/vattr/motion rows yet), got "
             f"{getattr(P, 'dtype', type(P))}{list(getattr(P, 'shape', []))}")
     if not isinstance(cam_vec, torch.Tensor) \
             or cam_vec.dtype != torch.float32 \
@@ -58,6 +64,12 @@ def _check(S, P, clusters, supers, n_super, cam_vec, max_depth, width,
         raise ValueError(f"camera_model must be one of {CAMERA_MODELS}")
     if width <= 0 or height <= 0:
         raise ValueError(f"bad image size {width}x{height}")
+
+
+def _check(S, P, clusters, supers, n_super, cam_vec, max_depth, width,
+           height, camera_model, spp, rr_start, cluster, super_):
+    check_frame_args(S, P, clusters, supers, n_super, cam_vec, width, height,
+                     camera_model, cluster, super_)
     if spp < 0 or max_depth < 0 or rr_start < 0:
         raise ValueError("spp, max_depth and rr_start must be >= 0")
     if spp * max_depth >= 1 << (32 - rng.SLOT_BITS):
@@ -71,14 +83,106 @@ def _unpack_rgb(v: torch.Tensor):
             (v & 255).to(torch.float32) * k)
 
 
+def primary_rays(cam, xs, ys, jx, jy, lx, ly, width: int, height: int,
+                 camera_model: str):
+    """surface.cuh::primary_ray on tensors: unit-direction rays through
+    image points (xs + jx, ys + jy) of the packed camera ``cam`` (a list
+    of 38 floats); look_at offsets the origin by (lx, ly) on the lens
+    axes.  Returns (ox, oy, oz, dx, dy, dz)."""
+    inv_w = 1.0 / width
+    if camera_model == "look_at":
+        s = (xs + jx) * inv_w
+        t = (float(height - 1) - ys + jy) * (1.0 / height)
+        ox = cam[0] + lx * cam[12] + ly * cam[15]
+        oy = cam[1] + lx * cam[13] + ly * cam[16]
+        oz = cam[2] + lx * cam[14] + ly * cam[17]
+        dx = cam[3] + s * cam[6] + t * cam[9] - ox
+        dy = cam[4] + s * cam[7] + t * cam[10] - oy
+        dz = cam[5] + s * cam[8] + t * cam[11] - oz
+    else:
+        u = ((xs - width * 0.5) + jx) * inv_w
+        v = ((height * 0.5 - ys) + jy) * inv_w
+        near, far, fov = cam[19], cam[20], cam[21]
+        distx = u * cam[22] + v * cam[25]
+        disty = u * cam[23] + v * cam[26]
+        distz = u * cam[24] + v * cam[27]
+        # scalar products rounded in f32, as the kernel computes them
+        f = np.float32
+        k2 = f(f(1.0) / f(fov)) * f(10.0)
+        ox = near * distx + cam[0] + float(f(fov) * f(cam[29]))
+        oy = near * disty + cam[1] + float(f(fov) * f(cam[30]))
+        oz = near * distz + cam[2] + float(f(fov) * f(cam[31]))
+        dx = far * distx + float(k2 * f(cam[29])) + cam[0] - ox
+        dy = far * disty + float(k2 * f(cam[30])) + cam[1] - oy
+        dz = far * distz + float(k2 * f(cam[31])) + cam[2] - oz
+    dn = 1.0 / torch.sqrt(torch.clamp(dx * dx + dy * dy + dz * dz,
+                                      min=1e-12))
+    return ox, oy, oz, dx * dn, dy * dn, dz * dn
+
+
+def hit_normal(P, j, packc, px, py, pz, dx, dy, dz, flat: bool):
+    """surface.cuh::hit_normal for winners ``j`` (i64) with PACKC values
+    ``packc`` (i32): spheres (p - c)/r with the signed radius; with
+    ``flat`` (has_rects or has_tris) rects the one-hot k axis of their
+    ptype and triangles their payload normal, flipped against d."""
+    ncx = px - P[P_CX][j]
+    ncy = py - P[P_CY][j]
+    ncz = pz - P[P_CZ][j]
+    rinv = 1.0 / torch.sqrt(torch.clamp(
+        ncx * ncx + ncy * ncy + ncz * ncz, min=1e-20))
+    rinv = torch.where(((packc >> 7) & 1) != 0, -rinv, rinv)
+    nx, ny, nz = ncx * rinv, ncy * rinv, ncz * rinv
+    if not flat:
+        return nx, ny, nz
+    ptype = (packc >> 4) & 7
+    kax = torch.where(ptype == 1, 2, torch.where(ptype == 2, 1, 0))
+    is_tri = ptype == 4
+    rnx = torch.where(is_tri, P[P_CX][j], (kax == 0).to(torch.float32))
+    rny = torch.where(is_tri, P[P_CY][j], (kax == 1).to(torch.float32))
+    rnz = torch.where(is_tri, P[P_CZ][j], (kax == 2).to(torch.float32))
+    flip = torch.where(dx * rnx + dy * rny + dz * rnz < 0.0, 1.0, -1.0)
+    is_sph = ptype == 0
+    return (torch.where(is_sph, nx, rnx * flip),
+            torch.where(is_sph, ny, rny * flip),
+            torch.where(is_sph, nz, rnz * flip))
+
+
+def texture_rgb(packc, pa, pb, px, py, pz):
+    """surface.cuh::texture_rgb: constant or checker color at p from the
+    8:8:8 albedo rows ``pa``/``pb`` (i32) and the PACKC texture type."""
+    sines = torch.sin(10.0 * px) * torch.sin(10.0 * py) * torch.sin(10.0 * pz)
+    even = (((packc >> 2) & 3) == 1) & ~(sines < 0.0)
+    return _unpack_rgb(torch.where(even, pb, pa))
+
+
+def sky_rgb(cam, dy):
+    """surface.cuh::sky_rgb: the background gradient for unit dy."""
+    sky_t = 0.5 * (dy + 1.0)
+    return tuple((1.0 - sky_t) * cam[32 + c] + sky_t * cam[35 + c]
+                 for c in range(3))
+
+
+# Float operations outside the search, counted as lower bounds from
+# csrc/render_kernel.cu (random-number hashing is integer work and is not
+# counted): a primary ray, a miss (sky), and a hit shaded as the cheapest
+# material (lambertian: hit point, normal, texture, in-sphere draw,
+# roulette, new direction).
+SHADE_OPS = {"raygen": 50, "miss": 20, "hit": 80}
+
+
 def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
                         max_depth, *, width: int, height: int,
                         camera_model: str = "look_at", spp: int = 1,
                         rr_start: int = 0, with_stats: bool = False,
-                        stream: int = 0, cluster: int = CLUSTER,
-                        super_: int = SUPER):
+                        stream: int = 0, has_rects: bool = False,
+                        has_tris: bool = False, cluster: int = CLUSTER,
+                        super_: int = SUPER, work: dict | None = None):
     """Plain PyTorch version of the megakernel (see the module docstring).
-    Same arguments and results as ``render_sample``; runs on any device."""
+    Same arguments and results as ``render_sample``; runs on any device.
+
+    ``work``: a dict to which the run adds what the kernel's work is
+    counted from: "raygen", "miss" and "hit" lanes and the search's tests
+    (``hit_kernel.search_work``, replayed per iteration; slow)."""
     spp, max_depth, rr_start = int(spp), int(max_depth), int(rr_start)
     _check(S, P, clusters, supers, n_super, cam_vec, max_depth, width,
            height, camera_model, spp, rr_start, cluster, super_)
@@ -88,13 +192,12 @@ def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
     cam = [float(v) for v in cam_vec.detach().cpu().tolist()]
     t_min = cam[28]
     key = rng.key_for(int(seed), int(stream))
-    inv_w = 1.0 / width
-    inv_h = 1.0 / height
     n = width * height
     pix = torch.arange(n, dtype=torch.int64, device=dev)
     xs_all = (pix % width).to(f32)
     ys_all = (pix // width).to(f32)
     pk_all = rng.pixel_keys(key, pix)
+    flat = has_rects or has_tris
 
     o = torch.zeros((3, n), dtype=f32, device=dev)
     d = torch.zeros((3, n), dtype=f32, device=dev)
@@ -105,7 +208,6 @@ def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
     done = torch.zeros(n, dtype=torch.int32, device=dev)
     depth = torch.zeros(n, dtype=torch.int32, device=dev)
     nrays = 0
-    pcx, pcy, pcz = P[P_CX], P[P_CY], P[P_CZ]
     p_mparam = P[P_MPARAM]
     p_packa = P[P_PACKA].to(torch.int32)
     p_packb = P[P_PACKB].to(torch.int32)
@@ -122,40 +224,18 @@ def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
         ib = ia[need[ia]]
         if ib.numel():
             pk = pk_all[ib]
-            xs, ys = xs_all[ib], ys_all[ib]
             jx = rng.uniform(pk, it, rng.SLOT_JX)
             jy = rng.uniform(pk, it, rng.SLOT_JY)
+            lx = ly = None
             if camera_model == "look_at":
-                s = (xs + jx) * inv_w
-                t = (float(height - 1) - ys + jy) * inv_h
                 lx, ly = rng.unit_disk(rng.uniform(pk, it, rng.SLOT_LENS_R),
                                        rng.uniform(pk, it, rng.SLOT_LENS_TH),
                                        cam[18])
-                nox = cam[0] + lx * cam[12] + ly * cam[15]
-                noy = cam[1] + lx * cam[13] + ly * cam[16]
-                noz = cam[2] + lx * cam[14] + ly * cam[17]
-                ndx = cam[3] + s * cam[6] + t * cam[9] - nox
-                ndy = cam[4] + s * cam[7] + t * cam[10] - noy
-                ndz = cam[5] + s * cam[8] + t * cam[11] - noz
-            else:
-                u = ((xs - width * 0.5) + jx) * inv_w
-                v = ((height * 0.5 - ys) + jy) * inv_w
-                near, far, fov = cam[19], cam[20], cam[21]
-                distx = u * cam[22] + v * cam[25]
-                disty = u * cam[23] + v * cam[26]
-                distz = u * cam[24] + v * cam[27]
-                f = np.float32
-                k2 = f(f(1.0) / f(fov)) * f(10.0)
-                nox = near * distx + cam[0] + float(f(fov) * f(cam[29]))
-                noy = near * disty + cam[1] + float(f(fov) * f(cam[30]))
-                noz = near * distz + cam[2] + float(f(fov) * f(cam[31]))
-                ndx = far * distx + float(k2 * f(cam[29])) + cam[0] - nox
-                ndy = far * disty + float(k2 * f(cam[30])) + cam[1] - noy
-                ndz = far * distz + float(k2 * f(cam[31])) + cam[2] - noz
-            dn = 1.0 / torch.sqrt(torch.clamp(
-                ndx * ndx + ndy * ndy + ndz * ndz, min=1e-12))
+            nox, noy, noz, ndx, ndy, ndz = primary_rays(
+                cam, xs_all[ib], ys_all[ib], jx, jy, lx, ly, width, height,
+                camera_model)
             o[0, ib], o[1, ib], o[2, ib] = nox, noy, noz
-            d[0, ib], d[1, ib], d[2, ib] = ndx * dn, ndy * dn, ndz * dn
+            d[0, ib], d[1, ib], d[2, ib] = ndx, ndy, ndz
             tp[:, ib] = 1.0
             depth[ib] = 0
             alive[ib] = True
@@ -163,20 +243,28 @@ def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
         # ---- closest hit of every live lane ----
         ox, oy, oz = o[0, ia], o[1, ia], o[2, ia]
         dx, dy, dz = d[0, ia], d[1, ia], d[2, ia]
-        best_t, col = brute_closest(
-            S, torch.stack([ox, oy, oz], 1), torch.stack([dx, dy, dz], 1),
-            t_min, torch.full_like(ox, BIG))
+        org, dirn = torch.stack([ox, oy, oz], 1), torch.stack([dx, dy, dz], 1)
+        best_t, col = brute_closest(S, org, dirn, t_min,
+                                    torch.full_like(ox, BIG), has_rects,
+                                    has_tris)
         hit = col >= 0
         cont_a = torch.zeros_like(hit)
+        if work is not None:
+            nh = int(hit.sum())
+            for k, v in (("raygen", ib.numel()), ("hit", nh),
+                         ("miss", ia.numel() - nh), *search_work(
+                             S, clusters, supers, n_super, org, dirn, t_min,
+                             has_rects=has_rects, has_tris=has_tris,
+                             cluster=cluster, super_=super_).items()):
+                work[k] = work.get(k, 0) + v
 
         # ---- sky on a miss ----
         mi = ~hit
         if mi.any():
             im = ia[mi]
-            sky_t = 0.5 * (dy[mi] + 1.0)
+            sky = sky_rgb(cam, dy[mi])
             for c in range(3):
-                rad[c, im] = rad[c, im] + tp[c, im] * (
-                    (1.0 - sky_t) * cam[32 + c] + sky_t * cam[35 + c])
+                rad[c, im] = rad[c, im] + tp[c, im] * sky[c]
 
         if hit.any():
             ih = ia[hit]
@@ -186,26 +274,13 @@ def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
             pk = pk_all[ih]
             packc = p_packc[j]
             mat = packc & 3
-            tex = (packc >> 2) & 3
-            neg_r = ((packc >> 7) & 1) != 0
             mparam = p_mparam[j]
             px = ox[hit] + bt * hx
             py = oy[hit] + bt * hy
             pz = oz[hit] + bt * hz
-            ncx = px - pcx[j]
-            ncy = py - pcy[j]
-            ncz = pz - pcz[j]
-            rinv = 1.0 / torch.sqrt(torch.clamp(
-                ncx * ncx + ncy * ncy + ncz * ncz, min=1e-20))
-            rinv = torch.where(neg_r, -rinv, rinv)
-            nx, ny, nz = ncx * rinv, ncy * rinv, ncz * rinv
-
-            # constant / checker texture
-            sines = (torch.sin(10.0 * px) * torch.sin(10.0 * py)
-                     * torch.sin(10.0 * pz))
-            even = (tex == 1) & ~(sines < 0.0)
-            texr, texg, texb = _unpack_rgb(
-                torch.where(even, p_packb[j], p_packa[j]))
+            nx, ny, nz = hit_normal(P, j, packc, px, py, pz, hx, hy, hz, flat)
+            texr, texg, texb = texture_rgb(packc, p_packa[j], p_packb[j], px,
+                                           py, pz)
 
             is_lamb = mat == 0
             is_metal = mat == 1
@@ -308,18 +383,20 @@ render_sample_plain.launches = 0
 def render_sample(S, P, clusters, supers, n_super, cam_vec, seed, max_depth,
                   *, width: int, height: int, camera_model: str = "look_at",
                   spp: int = 1, rr_start: int = 0, with_stats: bool = False,
-                  stream: int = 0, cluster: int = CLUSTER,
+                  stream: int = 0, has_rects: bool = False,
+                  has_tris: bool = False, cluster: int = CLUSTER,
                   super_: int = SUPER):
-    """``spp`` samples per pixel of the sphere-only megakernel ->
-    f32[height, width, 3] radiance SUM (divide by spp to display), plus the
-    int64 ray count (a 0-d tensor on the device) with ``with_stats``.
+    """``spp`` samples per pixel of the megakernel -> f32[height, width, 3]
+    radiance SUM (divide by spp to display), plus the int64 ray count (a
+    0-d tensor on the device) with ``with_stats``.
 
     Arguments follow ``pallas_render_sample``: the packed tables S, P,
     clusters, supers and ``n_super`` (tables.tables_to_torch), the f32[38]
     camera vector (tables.pack_camera_np), the launch ``seed`` and
-    ``stream`` (the generator key, utils/rng.py), ``max_depth`` and the
-    Russian-roulette start bounce.  CUDA tensors launch the kernel; CPU
-    tensors run ``render_sample_plain``.
+    ``stream`` (the generator key, utils/rng.py), ``max_depth``, the
+    Russian-roulette start bounce and the scene's static flags
+    ``has_rects``/``has_tris`` (tables.prim_flags).  CUDA tensors launch
+    the kernel; CPU tensors run ``render_sample_plain``.
     """
     spp, max_depth, rr_start = int(spp), int(max_depth), int(rr_start)
     _check(S, P, clusters, supers, n_super, cam_vec, max_depth, width,
@@ -329,7 +406,8 @@ def render_sample(S, P, clusters, supers, n_super, cam_vec, seed, max_depth,
             S, P, clusters, supers, n_super, cam_vec, seed, max_depth,
             width=width, height=height, camera_model=camera_model, spp=spp,
             rr_start=rr_start, with_stats=with_stats, stream=stream,
-            cluster=cluster, super_=super_)
+            has_rects=has_rects, has_tris=has_tris, cluster=cluster,
+            super_=super_)
     if S.device.type != "cuda":
         raise ValueError(f"render_sample runs on cuda or cpu, not {S.device}")
     out = torch.empty((height, width, 3), dtype=torch.float32,
@@ -344,7 +422,7 @@ def render_sample(S, P, clusters, supers, n_super, cam_vec, seed, max_depth,
             cam_vec.data_ptr(), rng.key_for(int(seed), int(stream)),
             max_depth, width, height, spp, rr_start,
             int(camera_model == "two_plane"), 1.0 / width, 1.0 / height,
-            out.data_ptr(), nrays.data_ptr(),
+            int(has_rects), int(has_tris), out.data_ptr(), nrays.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     build.check(lib, "crt_render_sample", rc)
     render_sample.launches += 1

@@ -517,19 +517,26 @@ def tables_to_torch(t: SceneTables, device) -> TorchTables:
                        int(t.super_))
 
 
+def prim_flags(scene) -> tuple[bool, bool]:
+    """(has_rects, has_tris) of the scene's active primitives: the static
+    flags the kernels take, computed as the JAX package's megakernel
+    pipeline computes them."""
+    pt = scene.prim_type[scene.active_indices()]
+    return bool(((pt >= 1) & (pt <= 3)).any()), bool((pt == 4).any())
+
+
 def unsupported_features(scene) -> list[str]:
-    """Scene features of the active primitives that the CUDA megakernel
-    does not render yet (empty for sphere-only scenes with lambertian,
-    metal, dielectric or light materials and constant or checker
-    textures, like rtow_final).  The kernel's other branches are still to
-    be ported (ROADMAP.md, Queue 2)."""
+    """Scene features of the active primitives that the CUDA kernels do
+    not render yet (empty for scenes of spheres, rects and triangles
+    without vertex attributes, with lambertian, metal, dielectric or light
+    materials and constant or checker textures, like rtow_final and the
+    default scene).  The kernels' other branches are still to be ported
+    (ROADMAP.md, Queue 2)."""
     idx = scene.active_indices()
     pt = scene.prim_type[idx]
     found = []
-    if ((pt >= 1) & (pt <= 3)).any():
-        found.append("rects (has_rects)")
-    if (pt == 4).any():
-        found.append("triangles (has_tris)")
+    if scene.has_vertex_attrs:
+        found.append("triangles with vertex attributes (has_vattrs)")
     if (scene.mat_type[idx] == 4).any() or (pt == 5).any():
         found.append("media (has_media)")
     if (scene.tex_type[idx] == 2).any():

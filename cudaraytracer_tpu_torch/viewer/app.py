@@ -8,14 +8,17 @@ render path of the megakernel:
   * ``RenderLayer`` owns the scene, the fly camera, the progressive
     accumulator and a ``_CudaPipeline``; one ``on_update`` adds
     ``progressive_spp`` samples (one kernel launch) and any camera or scene
-    edit resets the accumulation.
+    edit resets the accumulation.  With ``cfg.denoise`` the display and
+    the HDR export are the à-trous-denoised mean over a G-buffer computed
+    once per scene and camera version (one G-buffer kernel launch);
+    ``aov()`` exports that G-buffer.
   * ``Application.run`` drives the layers for N frames (headless) or
     forever.
 
 The device is explicit (``cfg.device``, default ``cuda``).  A CUDA device
 that is not there raises; nothing falls back to the CPU, and a failed
-frame raises out of ``run``.  The server, checkpoints, denoise, adaptive
-sampling and the XLA-path renderers wait for later ports.
+frame raises out of ``run``.  The server, checkpoints, adaptive sampling
+and the XLA-path renderers wait for later ports.
 """
 
 from __future__ import annotations
@@ -29,9 +32,12 @@ import torch
 from ..config import RenderConfig
 from ..models import scenes as scene_lib
 from ..models.camera import FlyCamera
+from ..ops.cuda.gbuffer_kernel import gbuffer
 from ..ops.cuda.render_kernel import render_sample
-from ..ops.cuda.tables import (pack_camera_np, pack_scene_tables,
+from ..ops.cuda.tables import (pack_camera_np, pack_scene_tables, prim_flags,
                                tables_to_torch, unsupported_features)
+from ..ops.denoise import atrous_denoise
+from ..ops.gbuffer import GBuffer
 from ..ops.pack import to_rgba8, tonemap
 from ..utils import logging as rtlog
 from .metrics import Metrics
@@ -92,41 +98,56 @@ class LayerStack:
 
 
 class _CudaPipeline:
-    """Megakernel dispatch path: packed tables on the device and one
-    ``render_sample`` launch per progressive frame (the JAX package's
-    ``_PallasPipeline`` without adaptive, G-buffer or NEE support)."""
+    """Megakernel dispatch path: packed tables on the device, one
+    ``render_sample`` launch per progressive frame and one ``gbuffer``
+    launch per G-buffer (the JAX package's ``_PallasPipeline`` without
+    adaptive or NEE support)."""
 
     def __init__(self, scene, cfg: RenderConfig, device: torch.device):
         missing = unsupported_features(scene)
         if missing:
             raise NotImplementedError(
-                "the CUDA megakernel renders sphere-only scenes with "
-                "constant/checker textures so far; this scene uses "
-                + ", ".join(missing) + " (render --scene rtow_final or "
-                "rtow_big; the other branches are ROADMAP.md, Queue 2)")
+                "the CUDA kernels render spheres, rects and triangles "
+                "without vertex attributes, with constant/checker textures, "
+                "so far; this scene uses " + ", ".join(missing)
+                + " (the other branches are ROADMAP.md, Queue 2)")
         t = pack_scene_tables(scene)
         self._tabs = tables_to_torch(t, device)
+        self._flags = dict(zip(("has_rects", "has_tris"), prim_flags(scene)))
         self._cfg = cfg
         self._device = device
         self._bg = (np.asarray(scene.background_start, np.float32),
                     np.asarray(scene.background_end, np.float32))
+
+    def _cam_vec(self, cam) -> torch.Tensor:
+        cfg = self._cfg
+        return torch.from_numpy(pack_camera_np(
+            cam, *self._bg, cfg.width, cfg.height, cfg.t_min)).to(self._device)
 
     def accumulate(self, cam, frame_index: int, max_depth: int,
                    accum: torch.Tensor, spp: int = 1) -> torch.Tensor:
         """Add ``spp`` samples to the radiance sum ``accum`` (in place: the
         f32[H,W,3] sum is the largest buffer of the loop)."""
         cfg = self._cfg
-        cam_vec = torch.from_numpy(pack_camera_np(
-            cam, *self._bg, cfg.width, cfg.height, cfg.t_min)).to(self._device)
         # the seed rule of the JAX pipeline: injective in frame_index
         seed = (cfg.seed * 2654435761 + frame_index) & 0x7FFFFFFF
         tb = self._tabs
         out = render_sample(
-            tb.S, tb.P, tb.clusters, tb.supers, tb.n_super, cam_vec, seed,
-            max_depth, width=cfg.width, height=cfg.height,
-            camera_model=cfg.camera_model, spp=spp, rr_start=cfg.rr_start,
-            cluster=tb.cluster, super_=tb.super_)
+            tb.S, tb.P, tb.clusters, tb.supers, tb.n_super,
+            self._cam_vec(cam), seed, max_depth, width=cfg.width,
+            height=cfg.height, camera_model=cfg.camera_model, spp=spp,
+            rr_start=cfg.rr_start, cluster=tb.cluster, super_=tb.super_,
+            **self._flags)
         return accum.add_(out)
+
+    def gbuffer(self, cam) -> GBuffer:
+        """Pixel-centre primary pass over this pipeline's tables -> GBuffer
+        (render-oriented rows)."""
+        cfg, tb = self._cfg, self._tabs
+        return gbuffer(tb.S, tb.P, tb.clusters, tb.supers, tb.n_super,
+                       self._cam_vec(cam), width=cfg.width,
+                       height=cfg.height, camera_model=cfg.camera_model,
+                       cluster=tb.cluster, super_=tb.super_, **self._flags)
 
 
 class RenderLayer(Layer):
@@ -152,6 +173,8 @@ class RenderLayer(Layer):
         self._frame_index = 0
         self._spp_done = 0
         self._pipeline: _CudaPipeline | None = None
+        self._gb_key = None
+        self._gb: GBuffer | None = None
         self._accum = self._zeros_accum()
 
     def _pose_fly_at(self, cam0):
@@ -214,18 +237,55 @@ class RenderLayer(Layer):
         self.metrics.frame_end(cfg.width * cfg.height * batch)
 
     # -------------------------------------------------------- output
-    def framebuffer_rgba8(self) -> np.ndarray:
-        """uint8[H,W,4], display-oriented (row 0 = top).  The two_plane
-        camera renders row 0 = bottom (the reference's GL convention) and
-        is flipped here; look_at renders row 0 = top already."""
-        img = to_rgba8(tonemap(self._accum, self._display_divisor()))
-        img = img.cpu().numpy()
+    def _gbuffer(self) -> GBuffer:
+        """First-hit feature buffers for the display-time denoiser, cached
+        per (scene, camera) version: they depend on those alone, so
+        accumulation frames pay nothing."""
+        cfg = self.cfg
+        key = (self._scene_version, self._cam_version, cfg.width,
+               cfg.height, cfg.camera_model)
+        if self._gb_key != key:
+            cam = self.fly.params(aperture=cfg.aperture,
+                                  focus_dist=cfg.focus_dist)
+            self._gb = self._pipeline.gbuffer(cam)
+            self._gb_key = key
+        return self._gb
+
+    def _denoised_mean(self) -> torch.Tensor:
+        """Denoised mean LINEAR radiance f32[H,W,3] (render-oriented).  The
+        accumulator is never touched, so toggling the denoiser is lossless."""
+        return atrous_denoise(self._accum / self._display_divisor(),
+                              self._gbuffer(),
+                              iterations=int(self.cfg.denoise_iters))
+
+    def _display_oriented(self, img: np.ndarray) -> np.ndarray:
+        """Row 0 = image top: the two_plane camera renders row 0 = bottom
+        (the reference's GL convention) and is flipped here; look_at
+        renders row 0 = top already."""
         return img[::-1] if self.cfg.camera_model == "two_plane" else img
 
+    def framebuffer_rgba8(self) -> np.ndarray:
+        """uint8[H,W,4], display-oriented; denoised under cfg.denoise."""
+        if self.cfg.denoise:
+            disp = tonemap(self._denoised_mean(), 1)
+        else:
+            disp = tonemap(self._accum, self._display_divisor())
+        return self._display_oriented(to_rgba8(disp).cpu().numpy())
+
     def radiance_mean(self) -> np.ndarray:
-        """Mean LINEAR radiance f32[H,W,3], display-oriented (HDR export)."""
-        img = (self._accum / self._display_divisor()).cpu().numpy()
-        return img[::-1] if self.cfg.camera_model == "two_plane" else img
+        """Mean LINEAR radiance f32[H,W,3], display-oriented (HDR export);
+        denoised under cfg.denoise."""
+        img = (self._denoised_mean() if self.cfg.denoise
+               else self._accum / self._display_divisor())
+        return self._display_oriented(img.cpu().numpy())
+
+    def aov(self) -> dict:
+        """G-buffer AOVs as display-oriented numpy arrays: ``normal``
+        f32[H,W,3] (unit, zeros on a miss), ``albedo`` f32[H,W,3]
+        (first-hit texture color, sky on a miss), ``depth`` f32[H,W]
+        (world distance, 0 on a miss)."""
+        return {k: self._display_oriented(v.cpu().numpy())
+                for k, v in self._gbuffer()._asdict().items()}
 
     def _display_divisor(self) -> int:
         """Accumulated samples per pixel (every pixel gets every sample)."""

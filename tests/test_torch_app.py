@@ -113,9 +113,8 @@ def test_two_plane_framebuffer_is_flipped():
 
 
 def test_unsupported_scene_raises():
-    with pytest.raises(NotImplementedError, match="rects.*--scene rtow_final"):
-        RenderLayer(small_cfg(scene="default", camera_model="two_plane"))\
-            ._sync_scene()
+    with pytest.raises(NotImplementedError, match="noise textures"):
+        RenderLayer(small_cfg(scene="marble"))._sync_scene()
 
 
 def test_cuda_device_without_gpu_raises():
@@ -123,3 +122,68 @@ def test_cuda_device_without_gpu_raises():
         pytest.skip("a GPU is present")
     with pytest.raises(RuntimeError, match="--device cpu"):
         RenderLayer(small_cfg(device="cuda"))
+
+
+def test_cli_bare_render_cpu(tmp_path):
+    """No --scene: the default scene (rects) renders."""
+    out = tmp_path / "default.png"
+    proc = run_cli(["render", "--device", "cpu", "--width", "32",
+                    "--height", "18", "--frames", "1", "-o", str(out)],
+                   tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    from PIL import Image
+
+    with Image.open(out) as im:
+        assert im.size == (32, 18)
+
+
+def test_cli_aov_npz_writes_the_gbuffer(tmp_path):
+    aov = tmp_path / "aov.npz"
+    proc = run_cli(["render", "--device", "cpu", "--width", "24",
+                    "--height", "12", "--frames", "1", "--denoise",
+                    "--aov", str(aov), "-o", str(tmp_path / "x.png")],
+                   tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    with np.load(aov) as z:
+        assert set(z.files) == {"normal", "albedo", "depth"}
+        assert z["normal"].shape == (12, 24, 3)
+        assert z["albedo"].shape == (12, 24, 3)
+        assert z["depth"].shape == (12, 24)
+        assert (z["depth"] > 0).any() and (z["depth"] == 0).any()
+
+
+def test_denoised_display_differs_from_raw():
+    cfg = small_cfg(scene="default", camera_model="two_plane", width=24,
+                    height=12)
+    app = Application(cfg)
+    rl = app.setup_default_layers()
+    app.run(max_frames=2)
+    raw = rl.radiance_mean()
+    acc = rl._accum.clone()
+    rl.cfg.denoise = True
+    den = rl.radiance_mean()
+    rgba = rl.framebuffer_rgba8()
+    assert den.shape == raw.shape and np.isfinite(den).all()
+    assert np.abs(den - raw).max() > 1e-3
+    assert rgba.shape == (12, 24, 4)
+    assert torch.equal(rl._accum, acc)  # the denoiser never touches it
+    app.close()
+
+
+@pytest.mark.parametrize("model", ["two_plane", "look_at"])
+def test_aov_is_display_oriented(model):
+    """aov() flips the render-oriented G-buffer for two_plane only, like
+    the framebuffer; it is computed once per scene and camera version."""
+    cfg = small_cfg(scene="default", camera_model=model, width=16, height=8)
+    rl = RenderLayer(cfg)
+    rl._sync_scene()
+    gb = rl._gbuffer()
+    assert rl._gbuffer() is gb
+    aov = rl.aov()
+    flip = model == "two_plane"
+    for k, v in gb._asdict().items():
+        np.testing.assert_array_equal(aov[k],
+                                      v.numpy()[::-1] if flip else v.numpy())
+    rl.fly.process_keys(["w"])
+    rl._sync_scene()
+    assert rl._gbuffer() is not gb

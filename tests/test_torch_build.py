@@ -81,3 +81,23 @@ def test_launch_error_code_raises():
     build.check(Lib, "crt_render_sample", 0)
     with pytest.raises(RuntimeError, match="too many resources"):
         build.check(Lib, "crt_render_sample", 701)
+
+
+def test_build_runs_one_nvcc_per_source_then_links(isolated, monkeypatch):
+    """Each .cu file gets its own nvcc -c (started together), then one
+    nvcc -shared links the objects; the objects do not outlive the build."""
+    calls = isolated / "calls.txt"
+    monkeypatch.setenv("CUDA_HOME", fake_nvcc(
+        isolated, f'echo "$@" >> {calls}; '
+                  'while [ "$1" != "-o" ]; do shift; done; shift; '
+                  'echo obj > "$1"'))
+    out = build.build()
+    lines = calls.read_text().splitlines()
+    compiles = [ln for ln in lines if " -c " in f" {ln} "]
+    links = [ln for ln in lines if "-shared" in ln]
+    assert len(compiles) == len(build.CU_FILES) and len(links) == 1
+    for f in build.CU_FILES:
+        assert sum(ln.endswith(f) for ln in compiles) == 1
+    assert all(ln.count(".o") >= len(build.CU_FILES) for ln in links)
+    assert sorted(p.name for p in out["path"].parent.iterdir()) == \
+        [build.LIB_NAME, "nvcc.log"]

@@ -1,5 +1,8 @@
 """The port's closest hit (ops/cuda/hit_kernel.py) against the JAX
-package's Pallas closest-hit kernel, run in interpret mode on the CPU."""
+package's Pallas closest-hit kernel, run in interpret mode on the CPU:
+the sphere branch on rtow_final, the rect and triangle branches on the
+default scene and on cornell_mesh_light, and the work count of the
+culled search."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -120,3 +123,75 @@ def test_closest_hit_rejects_bad_input(rtow):
         hit_kernel.closest_hit(tt.S.to("meta"), tt.clusters.to("meta"),
                                tt.supers.to("meta"), tt.n_super, 1,
                                org.to("meta"), dirn.to("meta"))
+
+
+def flat_scene_rays(name, seed, n):
+    """Seeded rays for the rect/triangle scenes: origins inside the
+    Cornell room, or above the default scene's checkered plane."""
+    rs = np.random.RandomState(seed)
+    if name == "default":
+        lo, hi = (-4.0, -0.4, -4.0), (4.0, 3.0, 4.0)
+    else:
+        lo, hi = (-2.4, 0.1, -2.4), (2.4, 4.9, 4.0)
+    o = rs.uniform(lo, hi, (n, 3)).astype(np.float32)
+    d = rs.randn(n, 3).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return o, d
+
+
+@pytest.mark.parametrize("name", ["cornell_mesh_light", "default"])
+def test_rect_tri_closest_hit_matches_pallas(name):
+    """has_rects/has_tris: hit masks equal, t to rtol 1e-5, columns equal
+    except at genuine t-ties (the rect and triangle formulas are the
+    Pallas kernel's, op for op; no sphere here is ill-conditioned)."""
+    t = ttab.pack_scene_tables(tscenes.SCENES[name][0]())
+    jt = jrk.pack_scene_tables(jscenes.SCENES[name][0](), force_numpy=True)
+    flags = ttab.prim_flags(tscenes.SCENES[name][0]())
+    assert flags == ((True, True) if name == "cornell_mesh_light"
+                     else (True, False))
+    o, d = flat_scene_rays(name, 3, R)
+    hj, tj, cj = (np.asarray(v) for v in pallas_closest_hit(
+        jnp.asarray(jt.S), jnp.asarray(jt.clusters), jnp.asarray(jt.supers),
+        jt.n_super, N_ALIVE, jnp.asarray(o), jnp.asarray(d), has_rects=True,
+        has_tris=True, interpret=True))
+    tt = ttab.tables_to_torch(t, "cpu")
+    hp, tp, cp = (v.numpy() for v in hit_kernel.closest_hit(
+        tt.S, tt.clusters, tt.supers, tt.n_super, N_ALIVE,
+        torch.from_numpy(o), torch.from_numpy(d), has_rects=flags[0],
+        has_tris=flags[1]))
+    alive = np.arange(R) < N_ALIVE
+    np.testing.assert_array_equal(hp[alive], hj[alive])
+    both = hp & hj
+    assert both.sum() > 0.5 * N_ALIVE  # inside the room nearly every ray hits
+    np.testing.assert_allclose(tp[both], tj[both], rtol=1e-5)
+    diff = both & (cp != cj)
+    if diff.any():
+        np.testing.assert_allclose(tp[diff], tj[diff], rtol=1e-6)
+    ptype = t.S[ttab.S_PTYPE, cp[both]]
+    assert ((ptype >= 1) & (ptype <= 3)).any()  # rects won
+    if flags[1]:
+        assert (ptype == 4).any()  # and triangles won
+    assert not hp[~alive].any() and (cp[~alive] == -1).all()
+
+
+def test_search_work_counts_the_culled_tests():
+    """search_work replays the kernel's traversal: every ray tests every
+    supercluster box, primitive tests come in whole clusters, and a ray
+    that leaves the scene's bounds tests boxes and nothing else."""
+    scene = tscenes.cornell_mesh_light_scene()
+    tt = ttab.tables_to_torch(ttab.pack_scene_tables(scene), "cpu")
+    o, d = flat_scene_rays("cornell_mesh_light", 5, 256)
+    w = hit_kernel.search_work(tt.S, tt.clusters, tt.supers, tt.n_super,
+                               torch.from_numpy(o), torch.from_numpy(d),
+                               has_rects=True, has_tris=True)
+    assert set(w) == {"box", "sphere", "rect", "tri"}
+    assert w["box"] >= 256 * tt.n_super
+    assert w["rect"] > 0 and w["tri"] > 0 and w["sphere"] >= 0
+    assert all(v % tt.cluster == 0 for k, v in w.items()
+               if k in ("rect", "tri"))
+    away = hit_kernel.search_work(
+        tt.S, tt.clusters, tt.supers, tt.n_super,
+        torch.tensor([[0.0, 50.0, 0.0]]), torch.tensor([[0.0, 1.0, 0.0]]),
+        has_rects=True, has_tris=True)
+    assert away == {"box": tt.n_super, "sphere": 0, "rect": 0, "tri": 0}
+    assert hit_kernel.search_ops(away) == tt.n_super * hit_kernel.OPS["box"]

@@ -15,6 +15,7 @@ from cudaraytracer_tpu_torch.ops.cuda import tables as ttab  # noqa: E402
 
 
 @pytest.mark.parametrize("name", ["rtow_final", "rtow_big", "default",
+                                  "cornell", "cornell_mesh_light",
                                   "cornell_smoke", "bounce", "marble"])
 def test_tables_bit_identical(name):
     ref = jrk.pack_scene_tables(jscenes.SCENES[name][0](), force_numpy=True)
@@ -43,8 +44,7 @@ def test_rtow_final_main_path_sizes():
     assert t.S.shape == (16, 672) and t.P.shape == (7, 672)
     assert t.clusters.shape == (7, 24) and t.supers.shape == (6, 6)
     assert ttab.unsupported_features(tscenes.rtow_final_scene()) == []
-    assert ttab.unsupported_features(tscenes.default_scene()) == \
-        ["rects (has_rects)"]
+    assert ttab.unsupported_features(tscenes.default_scene()) == []
 
 
 def test_tables_to_torch_round_trip():
@@ -56,3 +56,19 @@ def test_tables_to_torch_round_trip():
         np.testing.assert_array_equal(x.numpy(), getattr(t, f))
     assert (tt.n_super, tt.cluster, tt.super_) == (t.n_super, t.cluster,
                                                    t.super_)
+
+
+def test_prim_flags_and_unsupported_features():
+    """(has_rects, has_tris) as the JAX pipeline computes them; triangles
+    with vertex attributes and the other unported branches are named."""
+    assert ttab.prim_flags(tscenes.rtow_final_scene()) == (False, False)
+    assert ttab.prim_flags(tscenes.default_scene()) == (True, False)
+    assert ttab.prim_flags(tscenes.cornell_mesh_light_scene()) == (True, True)
+    assert ttab.unsupported_features(tscenes.cornell_mesh_light_scene()) == []
+    assert ttab.unsupported_features(tscenes.marble_scene()) == \
+        ["noise textures (has_noise)"]
+    s = tscenes.cornell_mesh_light_scene()
+    s.add_triangle((0, 0, 0), (1, 0, 0), (0, 1, 0),
+                   normals=[(0, 0, 1), (0, 0, 1), (0, 0, 1)])
+    assert ttab.unsupported_features(s) == \
+        ["triangles with vertex attributes (has_vattrs)"]
