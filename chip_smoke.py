@@ -4,14 +4,21 @@
 
 Builds the port's CUDA kernels from ``cudaraytracer_tpu_torch/csrc/`` (one
 nvcc per source, run together), checks each against its plain PyTorch
-version on the card, drives the two CLI paths (``python -m
-cudaraytracer_tpu_torch render`` with no ``--scene``: the default scene,
-two_plane camera, 1280x720, with ``--denoise --aov``; and the same flags
-on ``--scene rtow_final``) with the launch counts set to 0 before each
-and read after it, and times every kernel and the denoiser at the
-main-path shapes.  Every phase prints one JSON line; any failure raises
-and the script exits non-zero.  The last lines are the card's name and
-power limit (nvidia-smi), the per-kernel summary, and the result object.
+version on the card, drives the CLI paths (``python -m
+cudaraytracer_tpu_torch render`` at 1280x720 with ``--denoise --aov``:
+``--scene terrain_big``, the largest scene, 20,000 smooth image-textured
+triangles; ``--obj`` on an OBJ model written to a temporary directory,
+with ``--obj-smooth``; ``--scene rtow_final``; and no ``--scene``, the
+default scene) with the launch counts set to 0 before each and read after
+it, and times every kernel and the denoiser at the main-path shapes.
+Every phase prints one JSON line; any failure raises and the script exits
+non-zero.  The last lines are the card's name and power limit
+(nvidia-smi), the per-kernel summary, and the result object.
+
+Every scene is set up as the render loop sets it up
+(``viewer/app.py::_CudaPipeline``): uv rows and the image atlas where a
+primitive has an image texture, vertex-attribute rows where a mesh has
+vertex normals or uvs.
 
 Each kernel's ``bound_ms`` is the least time the card could take for the
 work of the timed call: the larger of its bytes (tables and inputs read
@@ -20,9 +27,12 @@ once, outputs written once) over 3.35 TB/s and its float operations over
 run's data: the plain versions replay the kernels' culled search and
 count the box and primitive tests each ray really runs
 (``hit_kernel.search_work``), plus the shading per ray (lower bounds,
-``render_kernel.SHADE_OPS``, ``gbuffer_kernel.GBUFFER_OPS``).  No single
-PyTorch call computes a closest hit, a path trace or a G-buffer, so
-``library_ms`` is null for all three.
+``render_kernel.SHADE_OPS``, ``gbuffer_kernel.GBUFFER_OPS``, with the
+smooth normals and image lookups this run's rays made).  The bytes count
+the tables, the outputs and, for image hits, three bytes per texel read
+(at most the atlas's used texels).  No single PyTorch call computes a
+closest hit, a path trace or a G-buffer, so ``library_ms`` is null for
+all three.
 
 Tolerances, and why:
 
@@ -50,15 +60,22 @@ Tolerances, and why:
   and 3,199), which the limits catch and a 1% limit would not.  The same
   limits hold on the default scene and on cornell_mesh_light (rects and
   triangles, lights of strength 3-60) at 1280x720, where the sound kernel
-  also read 0 pixels differing, equal means and equal ray counts.
+  also read 0 pixels differing, equal means and equal ray counts.  They
+  hold unchanged for the vertex-attribute and image branches, on
+  terrain, mesh_smooth, rtow_image, mirror_room and terrain_big (the
+  main path's scene) at 1280x720: the smooth normal and the texel lookup
+  are exact float and integer work, and the plain version's atan2/acos
+  run on the card, in CUDA's own atan2f/acosf.
 * G-buffer: the kernel and its plain version do the same float
   operations on the same pixel-centre rays, so the hit masks must be
   equal and each buffer (normal, albedo, depth) must agree to 1e-6
   absolute on every pixel (GBUF_ATOL), on rtow_final (look_at) and on the
-  default scene (two_plane) at 1280x720.  The sound kernel read equal
-  masks and a max abs error of 0 on every buffer of both scenes on an
-  H100 (PERF.md); the limit leaves one float32 rounding step of room on
-  the unit-scale normal and albedo and nothing on a depth above 8.
+  default scene (two_plane) at 1280x720, and on terrain, rtow_image and
+  terrain_big (vertex attributes, image textures).  The sound kernel read
+  equal masks and a max abs error of 0 on every buffer of rtow_final and
+  default on an H100 (PERF.md); the limit leaves one float32 rounding
+  step of room on the unit-scale normal and albedo and nothing on a depth
+  above 8.
 """
 
 from __future__ import annotations
@@ -101,6 +118,7 @@ def main():
 
     from cudaraytracer_tpu_torch import __main__ as cli
     from cudaraytracer_tpu_torch.models import scenes
+    from cudaraytracer_tpu_torch.utils import mesh
     from cudaraytracer_tpu_torch.ops.cuda import build
     from cudaraytracer_tpu_torch.ops.cuda.gbuffer_kernel import (
         GBUFFER_OPS, gbuffer, gbuffer_plain)
@@ -109,7 +127,8 @@ def main():
     from cudaraytracer_tpu_torch.ops.cuda.render_kernel import (
         SHADE_OPS, render_sample, render_sample_plain)
     from cudaraytracer_tpu_torch.ops.cuda.tables import (
-        BIG, pack_camera_np, pack_scene_tables, prim_flags, tables_to_torch)
+        BIG, atlas_to_torch, has_images, pack_camera_np, pack_scene_tables,
+        prim_flags, tables_to_torch)
     from cudaraytracer_tpu_torch.ops.denoise import atrous_denoise
 
     # ---- 1. device ----
@@ -132,9 +151,11 @@ def main():
     ptxas, entry, spill = {}, None, 0
     for ln in info["log"].splitlines():  # nvcc -Xptxas=-v, per instantiation
         m = re.search(r"(render_kernel|closest_hit_kernel|gbuffer_kernel)"
-                      r"ILb(\d)ELb(\d)E", ln)
+                      r"I((?:Lb[01]E)+)E", ln)
         if "Compiling entry function" in ln and m:
-            entry = f"{m.group(1)}<{m.group(2)},{m.group(3)}>"
+            # template flags: rects, tris[, vattrs, images]
+            flags = ",".join(re.findall(r"Lb([01])E", m.group(2)))
+            entry = f"{m.group(1)}<{flags}>"
         elif entry and (m := re.search(r"(\d+) bytes spill stores", ln)):
             spill = int(m.group(1))
         elif entry and (m := re.search(r"Used (\d+) registers", ln)):
@@ -146,21 +167,37 @@ def main():
           "flags": " ".join(build.NVCC_FLAGS), "ptxas": ptxas})
 
     class Setup:
-        """A registered scene's tables, flags and camera on the card."""
+        """A registered scene's tables, flags and camera on the card, set
+        up as the render loop sets them up (_CudaPipeline)."""
 
         def __init__(self, name):
             self.name = name
             self.scene = scenes.SCENES[name][0]()
             self.cam = scenes.SCENES[name][1]()
             self.model = scenes.camera_model_for(name)
-            self.tb = tables_to_torch(pack_scene_tables(self.scene), dev)
-            self.flags = dict(zip(("has_rects", "has_tris"),
-                                  prim_flags(self.scene)))
+            images = has_images(self.scene)
+            self.tb = tables_to_torch(
+                pack_scene_tables(self.scene, with_uv=images), dev)
+            # has_rects/has_tris for the search alone (closest hit)
+            self.search_flags = dict(zip(("has_rects", "has_tris"),
+                                         prim_flags(self.scene)))
+            self.flags = dict(self.search_flags, has_vattrs=self.tb.vattrs)
+            # the texels an image lookup can read: the used atlas slots
+            self.atlas_bytes = 0
+            if images:
+                self.flags.update(zip(("atlas", "tex_hw"),
+                                      atlas_to_torch(self.scene, dev)))
+                hw = self.scene.tex_hw
+                self.atlas_bytes = 3 * int((hw[:, 0] * hw[:, 1]).sum())
             tb = self.tb
             self.tabs = (tb.S, tb.clusters, tb.supers, tb.n_super)
             self.table_bytes = 4 * (tb.S.numel() + tb.P.numel()
                                     + tb.clusters.numel()
                                     + tb.supers.numel() + 38)
+
+        def texel_bytes(self, work):
+            """Three bytes per texel read, at most the used atlas."""
+            return min(3 * work.get("image", 0), self.atlas_bytes)
 
         def cam_vec(self, w, h):
             return torch.from_numpy(pack_camera_np(
@@ -175,6 +212,11 @@ def main():
     rtow = Setup("rtow_final")
     default = Setup("default")
     cml = Setup("cornell_mesh_light")
+    terrain = Setup("terrain")
+    terrain_big = Setup("terrain_big")
+    smooth = Setup("mesh_smooth")
+    rimage = Setup("rtow_image")
+    mirror = Setup("mirror_room")
 
     def cuda_ms(fn, reps):
         """Median ms of ``reps`` timed calls after one warm-up call."""
@@ -208,13 +250,14 @@ def main():
         org_t = torch.from_numpy(org).to(dev)
         dir_t = torch.from_numpy(dirn).to(dev)
         n0 = closest_hit.launches
-        hk, tk, ck = closest_hit(*su.tabs, n_alive, org_t, dir_t, **su.flags)
+        hk, tk, ck = closest_hit(*su.tabs, n_alive, org_t, dir_t,
+                                 **su.search_flags)
         torch.cuda.synchronize()
         if closest_hit.launches != n0 + 1:
             raise AssertionError("closest_hit did not count its launch")
         p0 = closest_hit_plain.launches
         hp, tp_, cp = closest_hit_plain(*su.tabs, n_alive, org_t, dir_t,
-                                        **su.flags)
+                                        **su.search_flags)
         if closest_hit_plain.launches != p0 + 1:
             raise AssertionError("closest_hit_plain did not count its call")
         hk, tk, ck = hk.cpu().numpy(), tk.cpu().numpy(), ck.cpu().numpy()
@@ -238,16 +281,16 @@ def main():
                 and (ck[dead] == -1).all()):
             raise AssertionError("dead rays must report (BIG, -1)")
         ms = cuda_ms(lambda: closest_hit(*su.tabs, n_alive, org_t, dir_t,
-                                         **su.flags), 10)
+                                         **su.search_flags), 10)
         _, plain_ms = host_ms(lambda: closest_hit_plain(
-            *su.tabs, n_alive, org_t, dir_t, **su.flags))  # warm
+            *su.tabs, n_alive, org_t, dir_t, **su.search_flags))  # warm
         work = search_work(*su.tabs, org_t[:n_alive], dir_t[:n_alive],
-                           **su.flags)
+                           **su.search_flags)
         # tables once, 24 B in and 8 B (t, col) out per ray
         bd = bound(su.table_bytes + 32 * n_rays, search_ops(work))
         err = float(t_err.max()) if t_err.size else 0.0
         ptype = su.tb.S[4].cpu().numpy()[ck[both]]
-        emit({"phase": "closest_hit", "scene": su.name, **su.flags,
+        emit({"phase": "closest_hit", "scene": su.name, **su.search_flags,
               "rays": n_rays, "n_alive": n_alive, "hits": int(hk.sum()),
               "hits_by_ptype": {str(int(v)): int((ptype == v).sum())
                                 for v in np.unique(ptype)},
@@ -282,10 +325,13 @@ def main():
             ops = search_ops({k: work[k] for k in ("box", "sphere", "rect",
                                                    "tri")})
             ops += sum(SHADE_OPS[k] * work[k] for k in SHADE_OPS)
-            # tables once, the f32[h, w, 3] sum and the ray count written
-            res.update(bound(su.table_bytes + 12 * w * h + 8, ops),
-                       work=work)
-        emit({"phase": "megakernel_check", "scene": su.name, **su.flags,
+            # tables once, the texels read, the f32[h, w, 3] sum and the
+            # ray count written
+            res.update(bound(su.table_bytes + su.texel_bytes(work)
+                             + 12 * w * h + 8, ops), work=work)
+        emit({"phase": "megakernel_check", "scene": su.name,
+              **su.search_flags, "has_vattrs": su.tb.vattrs,
+              "has_images": su.atlas_bytes > 0,
               "size": [w, h], "spp": SPP_MAIN, "depth": DEPTH,
               "rr_start": RR, "seed": seed,
               "share_within_1e-3": 1.0 - differing / (w * h),
@@ -306,6 +352,7 @@ def main():
 
     # ---- 5. G-buffer, kernel against plain ----
     def gbuf_check(su):
+        """Kernel against plain at 1280x720; raise on a miss."""
         w, h = W_MAIN, H_MAIN
         args = su.frame_args(w, h)
         kw = dict(width=w, height=h, camera_model=su.model, **su.flags)
@@ -327,8 +374,10 @@ def main():
         ops = search_ops({k: work[k] for k in ("box", "sphere", "rect",
                                                "tri")})
         ops += sum(GBUFFER_OPS[k] * work[k] for k in GBUFFER_OPS)
-        bd = bound(su.table_bytes + 28 * w * h, ops)
-        emit({"phase": "gbuffer_check", "scene": su.name, **su.flags,
+        bd = bound(su.table_bytes + su.texel_bytes(work) + 28 * w * h, ops)
+        emit({"phase": "gbuffer_check", "scene": su.name,
+              **su.search_flags, "has_vattrs": su.tb.vattrs,
+              "has_images": su.atlas_bytes > 0,
               "camera_model": su.model, "size": [w, h],
               "hit_share": float(hit_k.float().mean()),
               "hit_masks_differ": int((hit_k != hit_p).sum()),
@@ -344,6 +393,8 @@ def main():
 
     _, gb_rtow = gbuf_check(rtow)
     gb_default_buf, gb_default = gbuf_check(default)
+    gb_new = {su.name: gbuf_check(su)[1]
+              for su in (terrain, rimage, terrain_big)}
 
     # ---- 6. the two CLI paths, counts set to 0 before, read after ----
     counted = (render_sample, render_sample_plain, gbuffer, gbuffer_plain,
@@ -393,8 +444,19 @@ def main():
         return launches, arr
 
     with tempfile.TemporaryDirectory() as tmp:
-        cli_path("rtow_final", ["--scene", "rtow_final"], tmp)
-        launches, den = cli_path("default", [], tmp)
+        by_path = {}
+        by_path["terrain_big"], _ = cli_path(
+            "terrain_big", ["--scene", "terrain_big"], tmp)
+        # the model viewer: an OBJ (a torus without normals or uvs, so
+        # --obj-smooth computes its vertex normals) written by save_obj
+        obj = os.path.join(tmp, "torus.obj")
+        mesh.save_obj(obj, *mesh.torus(1.0, 0.35, segments=48, sides=24))
+        by_path["obj"], _ = cli_path(
+            "obj", ["--obj", obj, "--obj-smooth", "--obj-mat", "metal",
+                    "--obj-fuzz", "0.05"], tmp)
+        by_path["rtow_final"], _ = cli_path(
+            "rtow_final", ["--scene", "rtow_final"], tmp)
+        by_path["default"], den = cli_path("default", [], tmp)
         # the raw mean of the same frames: the denoiser must change it
         raw_png = os.path.join(tmp, "raw.png")
         cli.main(["render", "--width", str(W_MAIN), "--height", str(H_MAIN),
@@ -410,19 +472,29 @@ def main():
 
     # ---- 7. time and check the megakernel at the main-path shape ----
     timing = {}
-    for su, spps in ((rtow, (1, SPP_MAIN)), (default, (SPP_MAIN,)),
-                     (cml, (SPP_MAIN,))):
+    for su, spps, size in ((rtow, (1, SPP_MAIN), (W_MAIN, H_MAIN)),
+                           (default, (SPP_MAIN,), (W_MAIN, H_MAIN)),
+                           (cml, (SPP_MAIN,), (W_MAIN, H_MAIN)),
+                           (terrain, (SPP_MAIN,), (W_MAIN, H_MAIN)),
+                           (terrain_big, (SPP_MAIN,), (W_MAIN, H_MAIN)),
+                           (smooth, (SPP_MAIN,), (W_MAIN, H_MAIN)),
+                           (rimage, (SPP_MAIN,), (W_MAIN, H_MAIN)),
+                           (mirror, (SPP_MAIN,), (W_MAIN, H_MAIN))):
         for s in spps:
-            args = (*su.frame_args(W_MAIN, H_MAIN), 7, DEPTH)
-            kw = dict(width=W_MAIN, height=H_MAIN, camera_model=su.model,
+            args = (*su.frame_args(*size), 7, DEPTH)
+            kw = dict(width=size[0], height=size[1], camera_model=su.model,
                       spp=s, rr_start=RR, **su.flags)
             _, nr = render_sample(*args, **kw, with_stats=True)
             ms = cuda_ms(lambda: render_sample(*args, **kw), 10)
             timing[f"{su.name}/{s}spp"] = {
                 "ms": ms, "rays": int(nr),
-                "mrays_per_s": int(nr) / (ms * 1e-3) / 1e6}
+                "mrays_per_s": int(nr) / (ms * 1e-3) / 1e6,
+                # the plain time and the bound come from the checks below
+                # (SPP_MAIN only)
+                "plain_ms": None, "bound_ms": None, "bound_by": None}
     checks = {su.name: mega_check(su, W_MAIN, H_MAIN, 7, with_bound=True)
-              for su in (rtow, default, cml)}
+              for su in (rtow, default, cml, terrain, smooth, rimage,
+                         mirror, terrain_big)}
     mega_err = max(mega_err, *(c["max_abs_err"] for c in checks.values()))
     for name, c in checks.items():
         timing[f"{name}/{SPP_MAIN}spp"].update(
@@ -444,7 +516,9 @@ def main():
     emit({"phase": "denoise_timing", "shape": [W_MAIN, H_MAIN],
           "iterations": 4, "ms": den_ms, "nvidia_smi": smi})
 
-    mk = timing[f"default/{SPP_MAIN}spp"]
+    # the main path: render --scene terrain_big --denoise --aov
+    launches = by_path["terrain_big"]
+    mk = timing[f"terrain_big/{SPP_MAIN}spp"]
     print(smi, flush=True)
     emit({"kernels": [
         {"name": "render_sample", "route": "cuda",
@@ -452,12 +526,15 @@ def main():
          "replaces": "cudaraytracer_tpu/ops/pallas/render_kernel.py:1406",
          "launches": launches["render_sample"], "max_abs_err": mega_err,
          "tolerance": "<=0.01% of pixels off by >1e-3; mean and rays rtol "
-                      "1e-4; rtow_final at 320x180 and 1280x720, default "
-                      "and cornell_mesh_light at 1280x720",
+                      "1e-4; rtow_final at 320x180 and 1280x720; default, "
+                      "cornell_mesh_light, terrain, mesh_smooth, rtow_image, "
+                      "mirror_room and terrain_big at 1280x720",
          "ms": mk["ms"], "plain_ms": mk["plain_ms"],
          "bound_ms": mk["bound_ms"], "bound_by": mk["bound_by"],
-         "library_ms": None, "timed": f"default {W_MAIN}x{H_MAIN} "
-                                      f"{SPP_MAIN} spp",
+         "library_ms": None,
+         "timed": f"terrain_big {W_MAIN}x{H_MAIN} {SPP_MAIN} spp",
+         "launches_by_path": {k: v["render_sample"]
+                              for k, v in by_path.items()},
          "by_scene": {k: v for k, v in timing.items()}},
         {"name": "closest_hit", "route": "cuda",
          "source": "cudaraytracer_tpu_torch/csrc/hit_kernel.cu",
@@ -473,14 +550,19 @@ def main():
          "source": "cudaraytracer_tpu_torch/csrc/gbuffer_kernel.cu",
          "replaces": "cudaraytracer_tpu/ops/pallas/gbuffer_kernel.py:62",
          "launches": launches["gbuffer"],
-         "max_abs_err": max(gb_rtow["max_abs_err"], gb_default["max_abs_err"]),
+         "max_abs_err": max(gb_rtow["max_abs_err"], gb_default["max_abs_err"],
+                            *(v["max_abs_err"] for v in gb_new.values())),
          "tolerance": f"hit masks equal; every buffer within {GBUF_ATOL}; "
-                      "rtow_final and default at 1280x720",
-         "ms": gb_default["ms"], "plain_ms": gb_default["plain_ms"],
-         "bound_ms": gb_default["bound_ms"],
-         "bound_by": gb_default["bound_by"], "library_ms": None,
-         "timed": f"default {W_MAIN}x{H_MAIN}",
-         "by_scene": {"rtow_final": gb_rtow, "default": gb_default}},
+                      "rtow_final, default, terrain, rtow_image and "
+                      "terrain_big at 1280x720",
+         "ms": gb_new["terrain_big"]["ms"],
+         "plain_ms": gb_new["terrain_big"]["plain_ms"],
+         "bound_ms": gb_new["terrain_big"]["bound_ms"],
+         "bound_by": gb_new["terrain_big"]["bound_by"], "library_ms": None,
+         "timed": f"terrain_big {W_MAIN}x{H_MAIN}",
+         "launches_by_path": {k: v["gbuffer"] for k, v in by_path.items()},
+         "by_scene": {"rtow_final": gb_rtow, "default": gb_default,
+                      **gb_new}},
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -2,16 +2,20 @@
 
   python -m cudaraytracer_tpu_torch render -o out.png
   python -m cudaraytracer_tpu_torch render --denoise --aov aov.npz -o out.png
-  python -m cudaraytracer_tpu_torch render --scene rtow_final -o out.png
+  python -m cudaraytracer_tpu_torch render --scene terrain_big -o out.png
+  python -m cudaraytracer_tpu_torch render --obj model.obj --obj-smooth
   python -m cudaraytracer_tpu_torch render --device cpu --width 64 --height 36 ...
 
-With no ``--scene`` it renders the default scene.  ``--denoise`` filters
-the displayed image with the à-trous denoiser over the G-buffer; ``--aov
-PATH`` writes the G-buffer (``.npz``: raw arrays; any other path: a prefix
-for three PNGs).  ``--device`` defaults to ``cuda``; with no GPU the
-command fails with a clear error instead of falling back.  ``--device
-cpu`` runs the kernels' plain PyTorch versions.  The JAX package's
-``serve`` and ``bench`` subcommands and ``--obj`` wait for later ports.
+With no ``--scene`` it renders the default scene.  ``--obj PATH`` loads a
+Wavefront OBJ model, normalizes it onto the checkered ground and renders
+it (``--obj-mat``, ``--obj-albedo``, ``--obj-fuzz``, ``--obj-ior``,
+``--obj-smooth``).  ``--denoise`` filters the displayed image with the
+à-trous denoiser over the G-buffer; ``--aov PATH`` writes the G-buffer
+(``.npz``: raw arrays; any other path: a prefix for three PNGs).
+``--device`` defaults to ``cuda``; with no GPU the command fails with a
+clear error instead of falling back.  ``--device cpu`` runs the kernels'
+plain PyTorch versions.  The JAX package's ``serve`` and ``bench``
+subcommands wait for later ports.
 """
 
 from __future__ import annotations
@@ -101,9 +105,41 @@ def main(argv=None):
     p_render.add_argument("--aov", default=None, metavar="PATH",
                           help="also write the G-buffer: PATH.npz = raw "
                                "arrays, else PNGs PATH_{normal,albedo,depth}")
+    p_render.add_argument("--obj", default=None, metavar="PATH",
+                          help="render a Wavefront OBJ model: loads it, "
+                               "normalizes it onto the checkered ground and "
+                               "registers it as the active scene (overrides "
+                               "--scene); per-vertex uvs/normals are kept")
+    p_render.add_argument("--obj-mat", dest="obj_mat", default="lambertian",
+                          choices=["lambertian", "metal", "dielectric",
+                                   "light"])
+    p_render.add_argument("--obj-albedo", dest="obj_albedo",
+                          default="0.75,0.73,0.70", metavar="R,G,B")
+    p_render.add_argument("--obj-fuzz", dest="obj_fuzz", type=float,
+                          default=0.0)
+    p_render.add_argument("--obj-ior", dest="obj_ior", type=float,
+                          default=1.5)
+    p_render.add_argument("--obj-smooth", dest="obj_smooth",
+                          action="store_true",
+                          help="compute smooth vertex normals when the file "
+                               "has none")
     args = parser.parse_args(argv)
 
     rtlog.init()
+    if args.obj:
+        from .models import scene as scene_mod
+        from .models import scenes as scene_lib
+
+        mat = {"lambertian": scene_mod.LAMBERTIAN, "metal": scene_mod.METAL,
+               "dielectric": scene_mod.DIELECTRIC,
+               "light": scene_mod.DIFFUSE_LIGHT}[args.obj_mat]
+        albedo = tuple(float(x) for x in args.obj_albedo.split(","))
+        args.scene = scene_lib.register_obj_scene(
+            args.obj, mat_type=mat, albedo=albedo, fuzz=args.obj_fuzz,
+            ior=args.obj_ior, smooth=args.obj_smooth)
+        # camera_model stays as parsed: None resolves to the registry's
+        # look_at; an explicit --camera-model still wins
+        rtlog.rt_info("Registered OBJ scene %r from %s", args.scene, args.obj)
     cfg = config_mod.from_args(args)
     if args.frames is None:
         args.frames = cfg.spp

@@ -47,9 +47,8 @@ def add_arguments(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--seed", type=int, default=d.seed)
     parser.add_argument("--t-min", dest="t_min", type=float, default=d.t_min)
     parser.add_argument("--scene", choices=list(SCENES), default=d.scene,
-                        help="default, rtow_final, rtow_big, cornell and "
-                             "cornell_mesh_light render; scenes with noise "
-                             "textures, media or motion raise "
+                        help="scenes with noise textures, media or motion "
+                             "(marble, smoke, cornell_smoke, bounce) raise "
                              "NotImplementedError until their kernel "
                              "branches are ported")
     # default None = resolve from the scene registry in from_args

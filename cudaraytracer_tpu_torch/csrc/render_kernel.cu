@@ -1,32 +1,42 @@
 // Path-tracing megakernel, resident tables: spheres, rects and
-// triangles without vertex attributes.
+// triangles, with or without vertex attributes, and image textures.
 //
 // Replaces cudaraytracer_tpu/ops/pallas/render_kernel.py::_render_kernel
 // (:1406, launched by pallas_render_sample :2517) for the flags
-// has_rects/has_tris and no other feature flag: raygen (look_at thin
-// lens and two_plane, :1491-1539), in-kernel path regeneration until spp
-// samples are done (:1594-1639), the closest-hit search (search.cuh), the
-// winner's payload (an indexed read of its P column, where the TPU kernel
-// scanned with masked selects, :1782-1808), the 8:8:8 / PACKC unpack
-// (:1811-1835), the normal (:1838-1911: spheres with the neg_r sign,
-// rects and triangles with the SetFaceNormal flip), sky on a miss
-// (:1914-1921), constant/checker texture (:1942-1947),
+// has_rects/has_tris/has_vattrs/has_images and no other feature flag:
+// raygen (look_at thin lens and two_plane, :1491-1539), in-kernel path
+// regeneration until spp samples are done (:1594-1639), the closest-hit
+// search (search.cuh; it carries the winner's barycentrics when
+// has_vattrs, or has_tris with has_images, :1569), the winner's payload
+// (an indexed read of its P column, where the TPU kernel scanned with
+// masked selects, :1782-1808), the 8:8:8 / PACKC unpack (:1811-1835), the
+// normal (:1838-1911: spheres with the neg_r sign, rects and triangles
+// with the SetFaceNormal flip, smooth vertex normals), sky on a miss
+// (:1914-1921), constant/checker/image texture (:1942-2053),
 // lambertian/metal/dielectric scatter and emission (:2055-2161), the
 // termination rule (:2410) and Russian roulette from rr_start
 // (:2411-2429).  The loop bound is spp * max_depth iterations (:2462).
+// Image textures follow the XLA renderer, not the TPU kernel: the texel
+// is read at every image hit (surface.cuh::image_rgb) where the TPU
+// kernel deferred two records per lane to an XLA epilogue and shaded
+// later hits with the atlas mean, so every lane completes exactly spp
+// samples and there is no per-pixel count plane.
 // Output: the radiance SUM over the spp samples, f32[height, width, 3],
 // and the number of rays traced.
 //
 // What bounds it on the card: instruction issue and divergence.  The
 // tables are a few tens of kilobytes, read at warp-uniform addresses and
-// served from L1/L2; device-memory traffic is one 12-byte store per pixel.
+// served from L1/L2 (terrain_big's 20,000 triangles make ~4.5 MB, still
+// L2-resident); device-memory traffic is one 12-byte store per pixel
+// plus, with images, three texel bytes per image hit.
 // Paths end at different depths, so the lanes of a warp diverge.  Design:
 // one thread per pixel runs the per-lane state machine of the TPU
 // kernel's bounce_body, each thread looping independently (a finished
 // lane stops; there is no whole-tile wave).  Materials take a branch each,
 // so the dielectric's 1/ior and its infinities never touch other lanes.
 // The static flags are template parameters, so the sphere-only
-// instantiation carries no rect or triangle code.  Random numbers come
+// instantiation carries no rect or triangle code, and the others no
+// vertex-attribute or image code they do not use.  Random numbers come
 // from rng.cuh with a fixed slot per draw.  The ray count is summed per
 // block and added with one 64-bit atomic per block.
 //
@@ -53,7 +63,7 @@ constexpr float kThird = static_cast<float>(1.0 / 3.0);
 
 struct Params {
   crt::SearchTables tb;
-  const float* P;    // f32[7, np] payload table
+  const float* P;    // f32[p_rows, np] payload table (tables.p_rows_for)
   const float* cam;  // f32[38] packed camera (tables.py::pack_camera_np)
   uint32_t key;      // utils/rng.py key_for(seed, stream)
   int max_depth, width, height, spp, rr_start, two_plane;
@@ -63,9 +73,13 @@ struct Params {
 using crt::rsqrt_;
 
 // Trace all spp samples of pixel (x, y); returns the rays traced.
-template <bool kRects, bool kTris>
-__device__ unsigned long long trace_pixel(const Params& p, int x, int y,
-                                          float* __restrict__ out) {
+template <bool kRects, bool kTris, bool kVattrs, bool kImages>
+__device__ unsigned long long trace_pixel(const Params& p,
+                                          const crt::Atlas& atlas, int x,
+                                          int y, float* __restrict__ out) {
+  // the winner's barycentrics feed the smooth normal and a triangle's uv
+  constexpr bool kUV = kVattrs || (kTris && kImages);
+  constexpr int vn_base = crt::vn_base_for(kImages);
   const float* __restrict__ cam = p.cam;
   const uint32_t pk =
       crt::pixel_key(p.key, static_cast<uint32_t>(y) *
@@ -107,7 +121,9 @@ __device__ unsigned long long trace_pixel(const Params& p, int x, int y,
 
     const crt::Ray ray = crt::make_ray(ox, oy, oz, dx, dy, dz);
     float best_t = crt::kBig;
-    const int j = crt::closest_hit<kRects, kTris>(p.tb, ray, t_min, best_t);
+    crt::Bary bc{0.0f, 0.0f};
+    const int j = crt::closest_hit<kRects, kTris, kUV>(p.tb, ray, t_min,
+                                                        best_t, bc);
 
     bool cont = false;
     if (j < 0) {
@@ -130,10 +146,13 @@ __device__ unsigned long long trace_pixel(const Params& p, int x, int y,
       const float py = oy + best_t * dy;
       const float pz = oz + best_t * dz;
       float nx, ny, nz;
-      crt::hit_normal<kRects || kTris>(P, np, j, packc, px, py, pz, dx, dy,
-                                       dz, nx, ny, nz);
+      crt::hit_normal<kRects || kTris, kVattrs>(P, np, j, packc, px, py, pz,
+                                                dx, dy, dz, nx, ny, nz,
+                                                vn_base, bc.u, bc.v);
       float texr, texg, texb;
-      crt::texture_rgb(packc, pa, pb, px, py, pz, texr, texg, texb);
+      crt::surface_rgb<kRects, kTris, kVattrs, kImages>(
+          P, np, j, packc, pa, pb, px, py, pz, nx, ny, nz, atlas, vn_base,
+          bc.u, bc.v, texr, texg, texb);
 
       if (mat == 3) {
         // diffuse light: emit and end the path (Material.cuh:160-177)
@@ -239,15 +258,16 @@ __device__ unsigned long long trace_pixel(const Params& p, int x, int y,
   return nrays;
 }
 
-template <bool kRects, bool kTris>
+template <bool kRects, bool kTris, bool kVattrs, bool kImages>
 __global__ void __launch_bounds__(kThreads)
 render_kernel(Params p, float* __restrict__ out,
-              unsigned long long* __restrict__ nrays_out) {
+              unsigned long long* __restrict__ nrays_out, crt::Atlas atlas) {
   const int x = blockIdx.x * kBlockX + threadIdx.x;
   const int y = blockIdx.y * kBlockY + threadIdx.y;
   unsigned long long rays = 0;
   if (x < p.width && y < p.height) {
-    rays = trace_pixel<kRects, kTris>(p, x, y, out + 3 * (static_cast<size_t>(y) * p.width + x));
+    rays = trace_pixel<kRects, kTris, kVattrs, kImages>(
+        p, atlas, x, y, out + 3 * (static_cast<size_t>(y) * p.width + x));
   }
   // block sum of the ray counts, one 64-bit atomic per block
   for (int off = 16; off > 0; off >>= 1) {
@@ -264,10 +284,22 @@ render_kernel(Params p, float* __restrict__ out,
   }
 }
 
+template <bool kRects, bool kTris, bool kVattrs, bool kImages>
+void launch(const Params& p, const crt::Atlas& atlas, float* out,
+            unsigned long long* nrays, cudaStream_t st) {
+  const dim3 block(kBlockX, kBlockY);
+  const dim3 grid((p.width + kBlockX - 1) / kBlockX,
+                  (p.height + kBlockY - 1) / kBlockY);
+  render_kernel<kRects, kTris, kVattrs, kImages>
+      <<<grid, block, 0, st>>>(p, out, nrays, atlas);
+}
+
 }  // namespace
 
 // Plain C entry for ctypes.  ``nrays`` must be zeroed by the caller.
-// Returns cudaGetLastError() after the launch.
+// ``atlas``/``tex_hw`` (uint8[slots, ah, aw, 3], i32[slots, 2]) are read
+// only with has_images; has_vattrs needs has_tris.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int crt_render_sample(const float* S, const float* P,
                                  const float* clusters, const float* supers,
                                  int np, int nc, int nsc, int n_super,
@@ -275,7 +307,10 @@ extern "C" int crt_render_sample(const float* S, const float* P,
                                  uint32_t key, int max_depth, int width,
                                  int height, int spp, int rr_start,
                                  int two_plane, float inv_w, float inv_h,
-                                 int has_rects, int has_tris, float* out,
+                                 int has_rects, int has_tris, int has_vattrs,
+                                 int has_images, const unsigned char* atlas,
+                                 const int* tex_hw, int slots, int ah,
+                                 int aw, float* out,
                                  unsigned long long* nrays, void* stream) {
   if (width <= 0 || height <= 0) return 0;
   Params p;
@@ -292,16 +327,25 @@ extern "C" int crt_render_sample(const float* S, const float* P,
   p.two_plane = two_plane;
   p.inv_w = inv_w;
   p.inv_h = inv_h;
-  const dim3 block(kBlockX, kBlockY);
-  const dim3 grid((width + kBlockX - 1) / kBlockX,
-                  (height + kBlockY - 1) / kBlockY);
+  // the atlas is a kernel argument of its own, after Params: a larger
+  // Params changes the code (registers, spills) of the instantiations
+  // that never read it
+  const crt::Atlas at{atlas, tex_hw, slots, ah, aw};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (has_tris) {
-    render_kernel<true, true><<<grid, block, 0, st>>>(p, out, nrays);
+  // the instantiations scenes use: (rects, tris) of spheres only, +rects,
+  // +rects+tris, each with and without images; vertex attributes with tris
+  if (has_vattrs) {
+    if (has_images) launch<true, true, true, true>(p, at, out, nrays, st);
+    else launch<true, true, true, false>(p, at, out, nrays, st);
+  } else if (has_tris) {
+    if (has_images) launch<true, true, false, true>(p, at, out, nrays, st);
+    else launch<true, true, false, false>(p, at, out, nrays, st);
   } else if (has_rects) {
-    render_kernel<true, false><<<grid, block, 0, st>>>(p, out, nrays);
+    if (has_images) launch<true, false, false, true>(p, at, out, nrays, st);
+    else launch<true, false, false, false>(p, at, out, nrays, st);
   } else {
-    render_kernel<false, false><<<grid, block, 0, st>>>(p, out, nrays);
+    if (has_images) launch<false, false, false, true>(p, at, out, nrays, st);
+    else launch<false, false, false, false>(p, at, out, nrays, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

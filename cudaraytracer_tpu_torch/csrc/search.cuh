@@ -3,14 +3,17 @@
 // Replaces the search of the JAX megakernel,
 // cudaraytracer_tpu/ops/pallas/render_kernel.py::hierarchical_search
 // (:1084) with the per-primitive tests of _make_search_parts (:808), for
-// the branches without media, motion or vertex attributes.  It computes
+// the branches without media or motion.  It computes
 // the same thing: superclusters gate clusters gate a 28-primitive loop,
 // with the same slab test as _box_any (:838-856, inverse direction
 // 1 / (d == 0 ? 1e-30 : d)), the same sphere test (:858-885: the o-c
 // quadratic with a == 1, sqrt(disc) as dpos * rsqrt(dpos), root choice
 // t0 > t_min ? t0 : nb + sq, and best_t as the upper window), the rect
 // test (:887-906) and the Havel-Herout triangle test (:908-928).  It
-// returns the packed column of the winner, or -1.
+// returns the packed column of the winner, or -1.  With kUV it also keeps
+// the winner's barycentrics (u, v) beside best_t, as the TPU search's
+// carry_uv does (:1569) for vertex attributes and image textures on
+// triangles.
 //
 // closest_hit<kRects, kTris> mirrors the static flags has_rects/has_tris.
 // Without either, every cluster runs the sphere loop, as the sphere-only
@@ -58,6 +61,11 @@ struct SearchTables {
 struct Ray {
   float ox, oy, oz, dx, dy, dz;  // unit direction
   float ivx, ivy, ivz;           // slab-test inverse direction
+};
+
+// The winner's barycentrics: the triangle test's plane values u, v.
+struct Bary {
+  float u, v;
 };
 
 __device__ __forceinline__ Ray make_ray(float ox, float oy, float oz,
@@ -140,10 +148,13 @@ __device__ __forceinline__ void rect_test(const float* __restrict__ S,
 }
 
 // Havel-Herout triangle (ops/cuda/tables.py): t = (d_n - N.o) / (N.d),
-// then the barycentric planes u = p.n1 + d1, v = p.m2 + d2.
+// then the barycentric planes u = p.n1 + d1, v = p.m2 + d2 (kept in bc
+// for a winner when kUV).
+template <bool kUV>
 __device__ __forceinline__ void tri_test(const float* __restrict__ S, int np,
                                          int j, const Ray& r, float t_min,
-                                         float& best_t, int& best_j) {
+                                         float& best_t, int& best_j,
+                                         Bary& bc) {
   const float nx = __ldg(S + S_KAX * np + j);
   const float ny = __ldg(S + S_AAX * np + j);
   const float nz = __ldg(S + S_BAX * np + j);
@@ -163,30 +174,36 @@ __device__ __forceinline__ void tri_test(const float* __restrict__ S, int np,
       t_t < best_t) {
     best_t = t_t;
     best_j = j;
+    if (kUV) {
+      bc.u = u;
+      bc.v = v;
+    }
   }
 }
 
 // A column of a mixed cluster: its S_PTYPE picks the test.  Rects are
 // ptypes 1-3 only, so a ptype-5 medium never fakes a rect hit.
-template <bool kTris>
+template <bool kTris, bool kUV>
 __device__ __forceinline__ void dual_test(const float* __restrict__ S, int np,
                                           int j, const Ray& r, float t_min,
-                                          float& best_t, int& best_j) {
+                                          float& best_t, int& best_j,
+                                          Bary& bc) {
   const float ptype = __ldg(S + S_PTYPE * np + j);
   if (ptype < 0.5f) {
     sphere_test(S, np, j, r, t_min, best_t, best_j);
   } else if (ptype < 3.5f) {
     rect_test(S, np, j, r, t_min, best_t, best_j);
   } else if (kTris) {
-    tri_test(S, np, j, r, t_min, best_t, best_j);
+    tri_test<kUV>(S, np, j, r, t_min, best_t, best_j, bc);
   }
 }
 
-// Closest hit in (t_min, best_t); updates best_t, returns the column or -1.
-template <bool kRects, bool kTris>
+// Closest hit in (t_min, best_t); updates best_t (and with kUV the
+// winner's barycentrics bc), returns the column or -1.
+template <bool kRects, bool kTris, bool kUV>
 __device__ __forceinline__ int closest_hit(const SearchTables& tb,
                                            const Ray& r, float t_min,
-                                           float& best_t) {
+                                           float& best_t, Bary& bc) {
   int best_j = -1;
   for (int si = 0; si < tb.n_super; ++si) {
     if (!box_hit(tb.supers, tb.nsc, si, r, t_min, best_t)) continue;
@@ -212,16 +229,26 @@ __device__ __forceinline__ int closest_hit(const SearchTables& tb,
         }
       } else if (!kTris || kind < 2.5f) {
         for (int j = j0; j < j_end; ++j) {
-          dual_test<kTris>(tb.S, tb.np, j, r, t_min, best_t, best_j);
+          dual_test<kTris, kUV>(tb.S, tb.np, j, r, t_min, best_t, best_j,
+                                bc);
         }
       } else {
         for (int j = j0; j < j_end; ++j) {
-          tri_test(tb.S, tb.np, j, r, t_min, best_t, best_j);
+          tri_test<kUV>(tb.S, tb.np, j, r, t_min, best_t, best_j, bc);
         }
       }
     }
   }
   return best_j;
+}
+
+// The search without the barycentrics.
+template <bool kRects, bool kTris>
+__device__ __forceinline__ int closest_hit(const SearchTables& tb,
+                                           const Ray& r, float t_min,
+                                           float& best_t) {
+  Bary unused;
+  return closest_hit<kRects, kTris, false>(tb, r, t_min, best_t, unused);
 }
 
 }  // namespace crt

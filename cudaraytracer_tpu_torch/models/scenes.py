@@ -3,10 +3,11 @@
 PyTorch-package copy of ``cudaraytracer_tpu/models/scenes.py`` (NumPy
 host code, so the builders are the same functions and produce the same
 arrays).  ``rtow_final`` is the main path: the "Ray Tracing in One
-Weekend" final scene (~488 spheres, checkered ground).  The scenes whose
-builders need mesh or image-texture code (``rtow_image``, ``mirror_room``,
-``mesh_demo``, ``mesh_smooth``, ``terrain``, ``terrain_big``,
-``book2_final``, OBJ import) wait for the port of those modules.
+Weekend" final scene (~488 spheres, checkered ground).  The mesh and
+image-texture scenes (``rtow_image``, ``mirror_room``, ``mesh_demo``,
+``mesh_smooth``, ``terrain``, ``terrain_big``) and OBJ import
+(``register_obj_scene``) are here; ``book2_final`` waits for the noise,
+media and motion branches.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from .scene import (
     CHECKER,
     DIELECTRIC,
     DIFFUSE_LIGHT,
+    IMAGE,
     LAMBERTIAN,
     METAL,
     NOISE,
@@ -140,6 +142,80 @@ def rtow_big_scene(seed: int = 1984, capacity: int = 1024) -> Scene:
     return scene
 
 
+def procedural_globe_image(h: int = 256, w: int = 512) -> np.ndarray:
+    """Deterministic earth-like RGB test image (no image files needed):
+    latitude color bands + longitude 'continents' from low-frequency
+    sinusoids.  Used by ``rtow_image_scene`` so the image-texture render
+    path (Texture.cuh:70-109 semantics) has a first-class benchmark scene."""
+    yy = np.linspace(0.0, np.pi, h)[:, None]
+    xx = np.linspace(0.0, 2.0 * np.pi, w)[None, :]
+    land = (
+        np.sin(3.0 * xx + 1.7) * np.sin(2.0 * yy + 0.3)
+        + 0.6 * np.sin(7.0 * xx) * np.sin(5.0 * yy)
+    ) > 0.35
+    lat = np.sin(yy) * np.ones_like(xx)
+    r = np.where(land, 0.35 + 0.25 * lat, 0.05 + 0.05 * lat)
+    g = np.where(land, 0.45 + 0.30 * lat, 0.15 + 0.20 * lat)
+    b = np.where(land, 0.25 + 0.15 * lat, 0.45 + 0.35 * lat)
+    ice = np.abs(np.cos(yy)) > 0.92
+    rgb = np.stack([r, g, b], -1)
+    rgb = np.where(ice[..., None] & np.ones_like(rgb, bool), 0.9, rgb)
+    return (np.clip(rgb, 0.0, 1.0) * 255.0).astype(np.uint8)
+
+
+def rtow_image_scene(seed: int = 1984, capacity: int = 512) -> Scene:
+    """RTOW final scene with the big lambertian sphere image-textured
+    (a procedural globe): the megakernel's image-texture branch on a
+    sphere (the spherical uv map)."""
+    scene = rtow_final_scene(seed=seed, capacity=capacity)
+    slot = scene.load_image_texture(procedural_globe_image())
+    # the big lambertian sphere at (-4, 1, 0)
+    for i in scene.active_indices():
+        if (
+            scene.prim_type[i] == 0
+            and np.allclose(scene.center[i], (-4.0, 1.0, 0.0))
+        ):
+            scene.update(i, tex_type=IMAGE, tex_id=slot)
+            break
+    return scene
+
+
+def mirror_room_scene(capacity: int = 16) -> Scene:
+    """An image-textured metal mirror facing an image-textured area light:
+    every camera ray picks up TWO image-texture factors (mirror texel x
+    light texel), and the texel colours the light's emission.  Also a
+    good chrome-room stress for the rect uv map."""
+    scene = Scene(capacity=capacity, background_start=(0.02, 0.02, 0.03),
+                  background_end=(0.02, 0.02, 0.03))
+    # mirror texture: warm/cool split panels
+    texa = np.zeros((64, 128, 3), np.uint8)
+    texa[:, :64] = (235, 150, 60)
+    texa[:, 64:] = (70, 150, 235)
+    texa[31:33] = (240, 240, 240)  # thin horizon stripe
+    sa = scene.load_image_texture(texa)
+    # light texture: vertical color bands (visible only via the mirror)
+    texb = np.zeros((64, 128, 3), np.uint8)
+    for k, col in enumerate(((255, 60, 60), (60, 255, 60),
+                             (60, 60, 255), (255, 255, 100))):
+        texb[:, k * 32:(k + 1) * 32] = col
+    sb = scene.load_image_texture(texb)
+    scene.add_xy_rect((0.0, 1.5, -2.5), 7.0, 4.0, mat_type=METAL, fuzz=0.0,
+                      tex_type=IMAGE, tex_id=sa)
+    scene.add_xy_rect((0.0, 1.5, 2.5), 14.0, 8.0, mat_type=DIFFUSE_LIGHT,
+                      light=1.6, tex_type=IMAGE, tex_id=sb)
+    # floor + a glass sphere between camera and mirror for refraction paths
+    scene.add_xz_rect((0.0, -0.5, 0.0), 40.0, 40.0, mat_type=LAMBERTIAN,
+                      albedo=(0.35, 0.35, 0.38))
+    scene.add_sphere((1.2, 0.3, -1.0), 0.8, mat_type=DIELECTRIC, ior=1.5)
+    return scene
+
+
+def mirror_room_camera(**kw):
+    return make_camera_params(
+        origin=(0.0, 1.2, 1.5), forward=(0.0, 0.05, -1.0), fov_deg=55.0, **kw
+    )
+
+
 def cornell_like_scene(capacity: int = 64) -> Scene:
     """A box room from xy/xz/yz rects + an emissive ceiling light + spheres.
 
@@ -203,6 +279,219 @@ def cornell_mesh_light_scene(capacity: int = 64) -> Scene:
     scene.add_sphere((1.2, 0.6, 0.8), 0.6, mat_type=LAMBERTIAN,
                      albedo=(0.55, 0.64, 0.72))
     return scene
+
+
+def mesh_demo_scene(capacity: int = 1024) -> Scene:
+    """Triangle-mesh showcase (BEYOND-REFERENCE: the reference has no mesh
+    support, Hittable.cuh:30-38): a metal icosphere, a lambertian torus and
+    a glass-slab box — ~750 triangles — over a checkered ground, plus one
+    classic glass sphere.  Exercises kind-3 clusters in the megakernel and
+    the Moller-Trumbore branch in every accel path at a realistic mesh
+    primitive count."""
+    from ..utils import mesh
+
+    scene = Scene(capacity=capacity)
+    scene.add_xz_rect((0.0, -0.5, 0.0), 60.0, 60.0, mat_type=LAMBERTIAN,
+                      tex_type=CHECKER, albedo=(0.2, 0.3, 0.1),
+                      albedo2=(0.9, 0.9, 0.9))
+    v, f = mesh.icosphere(2)  # 320 faces
+    scene.add_mesh(mesh.transformed(v, scale=0.85, translate=(-1.6, 0.35, -2.2)),
+                   f, mat_type=METAL, albedo=(0.85, 0.82, 0.75), fuzz=0.03)
+    v, f = mesh.torus(0.9, 0.32, segments=20, sides=10)  # 400 faces
+    scene.add_mesh(mesh.transformed(v, rotate_y=0.6, translate=(1.4, 0.0, -2.6)),
+                   f, mat_type=LAMBERTIAN, albedo=(0.75, 0.25, 0.2))
+    v, f = mesh.box((1.0, 1.6, 0.25))  # 12 faces
+    scene.add_mesh(mesh.transformed(v, rotate_y=-0.4, translate=(0.0, 0.3, -3.6)),
+                   f, mat_type=METAL, albedo=(0.7, 0.8, 0.9), fuzz=0.0)
+    scene.add_sphere((0.1, 0.1, -1.3), 0.6, mat_type=DIELECTRIC, ior=1.5)
+    return scene
+
+
+def mesh_demo_camera(**kw):
+    return make_camera_params(
+        origin=(0.0, 1.0, 1.8), forward=(0.0, -0.18, -1.0), fov_deg=50.0, **kw
+    )
+
+
+def mesh_smooth_scene(capacity: int = 1024) -> Scene:
+    """mesh_demo with PER-VERTEX ATTRIBUTES (round 3): the same geometry,
+    but the icosphere and torus carry smooth vertex normals and the
+    icosphere a spherical uv map — the benchmark scene for the vattr
+    payload-row + plane-select cost in the megakernel (BASELINE.md)."""
+    import numpy as np
+
+    from ..utils import mesh
+
+    scene = Scene(capacity=capacity)
+    scene.add_xz_rect((0.0, -0.5, 0.0), 60.0, 60.0, mat_type=LAMBERTIAN,
+                      tex_type=CHECKER, albedo=(0.2, 0.3, 0.1),
+                      albedo2=(0.9, 0.9, 0.9))
+    v, f = mesh.icosphere(2)  # 320 faces; unit sphere: normals == verts
+    theta = np.arccos(np.clip(-v[:, 1], -1.0, 1.0))
+    phi = np.arctan2(-v[:, 2], v[:, 0]) + np.pi
+    uvs = np.stack([phi / (2 * np.pi), theta / np.pi], 1).astype(np.float32)
+    scene.add_mesh(mesh.transformed(v, scale=0.85, translate=(-1.6, 0.35, -2.2)),
+                   f, uvs=uvs, normals=v,
+                   mat_type=METAL, albedo=(0.85, 0.82, 0.75), fuzz=0.03)
+    v, f = mesh.torus(0.9, 0.32, segments=20, sides=10)  # 400 faces
+    scene.add_mesh(mesh.transformed(v, rotate_y=0.6, translate=(1.4, 0.0, -2.6)),
+                   f, smooth=True, mat_type=LAMBERTIAN,
+                   albedo=(0.75, 0.25, 0.2))
+    v, f = mesh.box((1.0, 1.6, 0.25))  # 12 faces, stays faceted (flat rows)
+    scene.add_mesh(mesh.transformed(v, rotate_y=-0.4, translate=(0.0, 0.3, -3.6)),
+                   f, mat_type=METAL, albedo=(0.7, 0.8, 0.9), fuzz=0.0)
+    scene.add_sphere((0.1, 0.1, -1.3), 0.6, mat_type=DIELECTRIC, ior=1.5)
+    return scene
+
+
+def terrain_scene(capacity: int = 1024, n: int = 23) -> Scene:
+    """Textured heightfield terrain (round 3): a (n-1)^2-quad grid mesh —
+    968 triangles at the default — with smooth area-weighted vertex
+    normals and a height-painted image texture sampled through per-vertex
+    uvs, plus a metal and a glass sphere.  The mesh-family scaling
+    workload at the proven ~1000-primitive table size (rtow_big envelope,
+    BASELINE.md), exercising vattr payload rows + image textures +
+    triangle clusters together."""
+    from ..utils import mesh
+
+    # deterministic rolling heightfield on a [-4, 4]^2 grid
+    xs = np.linspace(-4.0, 4.0, n, dtype=np.float64)
+    zs = np.linspace(-4.0, 4.0, n, dtype=np.float64)
+    X, Z = np.meshgrid(xs, zs, indexing="ij")
+    H = (0.55 * np.sin(1.1 * X) * np.cos(0.8 * Z)
+         + 0.25 * np.sin(2.3 * X + 1.7) * np.sin(1.9 * Z + 0.4)
+         + 0.12 * np.cos(3.7 * X - 2.1 * Z))
+    V = np.stack([X, H - 0.5, Z], -1).reshape(-1, 3).astype(np.float32)
+    idx = np.arange(n * n).reshape(n, n)
+    a, b = idx[:-1, :-1].ravel(), idx[1:, :-1].ravel()
+    c, d = idx[1:, 1:].ravel(), idx[:-1, 1:].ravel()
+    # CCW seen from +y (outward normal up): (a, d, c) and (a, c, b)
+    F = np.concatenate([np.stack([a, d, c], 1),
+                        np.stack([a, c, b], 1)]).astype(np.int64)
+    U, W2 = np.meshgrid(np.linspace(0, 1, n), np.linspace(0, 1, n),
+                        indexing="ij")
+    uvs = np.stack([U, W2], -1).reshape(-1, 2).astype(np.float32)
+
+    # height-painted texture: deep green valleys -> rocky gray -> snow.
+    # The mesh uvs are (u = x fraction, v = z fraction) and the sampler
+    # (ops/textures.py, Texture.cuh:81-105 semantics) reads
+    # img[(1 - v) * h, u * w], so color(hn)[ix, iz] must land at
+    # img[n-1-iz, ix]: paint color(hn).T[::-1].
+    hn = (H - H.min()) / max(float(H.max() - H.min()), 1e-9)
+    # paint at 8x the grid resolution (bilinear-upsampled heights) so the
+    # nearest-neighbor sampler shows smooth bands, not 23x23 blocks
+    up = 8
+    m = n * up
+    # texel c holds grid coordinate that the SAMPLER maps to it: the
+    # sampler takes u = ix/(n-1) to col floor(u*m), so invert col -> grid
+    # coord with c/m*(n-1) (+half-texel centering)
+    g = np.clip((np.arange(m) + 0.5) / m * (n - 1), 0, n - 1)
+    i0 = np.floor(g).astype(int)
+    i1 = np.minimum(i0 + 1, n - 1)
+    f = g - i0
+    rows = (hn[i0][:, i0] * (1 - f)[None, :] + hn[i0][:, i1] * f[None, :])
+    rows1 = (hn[i1][:, i0] * (1 - f)[None, :] + hn[i1][:, i1] * f[None, :])
+    t = rows * (1 - f)[:, None] + rows1 * f[:, None]  # [m, m], indexed (x, z)
+    lo = np.array([0.18, 0.42, 0.12])
+    mid = np.array([0.45, 0.40, 0.33])
+    hi = np.array([0.92, 0.94, 0.97])
+    w_lo = np.clip(1.0 - t / 0.72, 0.0, 1.0)
+    w_hi = np.clip((t - 0.78) / 0.22, 0.0, 1.0)
+    w_mid = np.clip(1.0 - w_lo - w_hi, 0.0, 1.0)
+    img = (w_lo[..., None] * lo + w_mid[..., None] * mid
+           + w_hi[..., None] * hi)
+    img = np.clip(img * 255.0, 0, 255).astype(np.uint8)
+    img = np.ascontiguousarray(img.transpose(1, 0, 2)[::-1])
+
+    scene = Scene(capacity=capacity)
+    slot = scene.load_image_texture(img)
+    scene.add_mesh(V, F, uvs=uvs, normals=mesh.vertex_normals(V, F),
+                   mat_type=LAMBERTIAN, tex_type=IMAGE, tex_id=slot)
+    scene.add_sphere((-1.2, 0.45, -0.6), 0.55, mat_type=METAL,
+                     albedo=(0.85, 0.83, 0.78), fuzz=0.02)
+    scene.add_sphere((1.3, 0.35, 0.9), 0.45, mat_type=DIELECTRIC, ior=1.5)
+    return scene
+
+
+def terrain_big_scene(capacity: int = 32768, n: int = 101) -> Scene:
+    """Large-scene workload: the terrain heightfield at 20,000 textured
+    smooth-shaded triangles (capacity 32768).  The CUDA kernels read their
+    tables from global memory, so the ~4.5 MB of tables need no other
+    layout than the small scenes'."""
+    return terrain_scene(capacity=capacity, n=n)
+
+
+def terrain_camera(**kw):
+    return make_camera_params(
+        origin=(0.0, 2.4, 5.2), forward=(0.0, -0.42, -1.0), fov_deg=55.0,
+        **kw,
+    )
+
+
+def register_obj_scene(path, name: str | None = None, *,
+                       mat_type: int = LAMBERTIAN,
+                       albedo=(0.75, 0.73, 0.70), fuzz: float = 0.0,
+                       ior: float = 1.5, light: float = 1.0,
+                       smooth: bool = False) -> str:
+    """Load a Wavefront OBJ and register it as a model-viewer scene.
+
+    BEYOND-REFERENCE (the reference bakes one hard-coded world at startup,
+    CudaLayer.cpp:103-256; its ImGuiFileDialog loads only textures): the
+    mesh is normalized — centered, scaled to a 2-unit max extent, rested on
+    the checkered ground plane — and registered in SCENES/CAMERA_MODELS
+    under ``name`` (default ``obj:<stem>``), so the CLI (``--obj``) renders
+    it like a built-in.  Per-vertex uvs/normals in the file are kept
+    (smooth shading + exact texturing); ``smooth=True`` computes
+    area-weighted vertex normals when the file has none.  Returns the
+    registered name.
+    """
+    import os
+
+    from ..utils import mesh as meshlib
+
+    m = meshlib.load_obj_full(path)
+    v = m.vertices.astype(np.float64)
+    lo, hi = v.min(0), v.max(0)
+    scale = 2.0 / max(float((hi - lo).max()), 1e-12)
+    center = 0.5 * (lo + hi)
+    v = (v - center) * scale
+    v[:, 1] -= float(v[:, 1].min()) + 0.5  # rest on the y=-0.5 ground
+    v = v.astype(np.float32)
+
+    n_faces = len(m.faces)
+    attrs = dict(m.attrs())
+    if smooth and "normals" not in attrs:
+        attrs["smooth"] = True
+    mat_kw = dict(mat_type=mat_type, albedo=albedo)
+    if mat_type == METAL:
+        mat_kw["fuzz"] = fuzz
+    elif mat_type == DIELECTRIC:
+        mat_kw["ior"] = ior
+    elif mat_type == DIFFUSE_LIGHT:
+        mat_kw["light"] = light
+
+    def make_scene(capacity: int | None = None) -> Scene:
+        cap = capacity if capacity is not None else n_faces + 16
+        scene = Scene(capacity=cap)
+        scene.add_xz_rect((0.0, -0.5, 0.0), 60.0, 60.0, mat_type=LAMBERTIAN,
+                          tex_type=CHECKER, albedo=(0.2, 0.3, 0.1),
+                          albedo2=(0.9, 0.9, 0.9))
+        scene.add_mesh(v, m.faces, **attrs, **mat_kw)
+        return scene
+
+    def make_cam(**kw):
+        return make_camera_params(
+            origin=(0.0, 0.9, 2.6), forward=(0.0, -0.22, -1.0),
+            fov_deg=50.0, **kw,
+        )
+
+    if name is None:
+        stem = os.path.splitext(os.path.basename(
+            getattr(path, "name", None) or str(path)))[0]
+        name = f"obj:{stem}"
+    SCENES[name] = (make_scene, make_cam)
+    CAMERA_MODELS[name] = "look_at"
+    return name
 
 
 def marble_scene(capacity: int = 16) -> Scene:
@@ -334,9 +623,15 @@ def bounce_camera(**kw):
 SCENES = {
     "default": (default_scene, default_scene_camera),
     "rtow_final": (rtow_final_scene, rtow_final_camera),
+    "rtow_image": (rtow_image_scene, rtow_final_camera),
     "rtow_big": (rtow_big_scene, rtow_final_camera),
     "cornell": (cornell_like_scene, cornell_like_camera),
     "cornell_mesh_light": (cornell_mesh_light_scene, cornell_like_camera),
+    "mirror_room": (mirror_room_scene, mirror_room_camera),
+    "mesh_demo": (mesh_demo_scene, mesh_demo_camera),
+    "mesh_smooth": (mesh_smooth_scene, mesh_demo_camera),
+    "terrain": (terrain_scene, terrain_camera),
+    "terrain_big": (terrain_big_scene, terrain_camera),
     "marble": (marble_scene, marble_camera),
     "smoke": (smoke_scene, smoke_camera),
     "cornell_smoke": (cornell_smoke_scene, cornell_smoke_camera),
@@ -349,13 +644,19 @@ SCENES = {
 CAMERA_MODELS = {
     "default": "two_plane",
     "rtow_final": "look_at",
+    "rtow_image": "look_at",
     "rtow_big": "look_at",
     "cornell": "two_plane",
     "cornell_mesh_light": "two_plane",
+    "mirror_room": "two_plane",
+    "mesh_demo": "look_at",
     "marble": "look_at",
     "smoke": "look_at",
     "cornell_smoke": "two_plane",
     "bounce": "look_at",
+    "mesh_smooth": "look_at",
+    "terrain": "look_at",
+    "terrain_big": "look_at",
 }
 
 

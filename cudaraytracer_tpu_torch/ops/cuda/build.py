@@ -47,9 +47,10 @@ SIGNATURES = {
                         _f, _i, _i, _p, _p, _p],
     "crt_render_sample": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p,
                           ctypes.c_uint32, _i, _i, _i, _i, _i, _i, _f, _f,
-                          _i, _i, _p, _p, _p],
+                          _i, _i, _i, _i, _p, _p, _i, _i, _i, _p, _p, _p],
     "crt_gbuffer": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p, _i, _i, _i,
-                    _f, _f, _i, _i, _p, _p, _p, _p],
+                    _f, _f, _i, _i, _i, _i, _p, _p, _i, _i, _i, _p, _p, _p,
+                    _p],
 }
 
 

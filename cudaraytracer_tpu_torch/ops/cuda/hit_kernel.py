@@ -69,12 +69,15 @@ def _axis(ax, x, y, z):
     return torch.where(ax < 0.5, x, torch.where(ax < 1.5, y, z))
 
 
-def _prim_tests(S, o, d, t_min, best_t0, has_rects, has_tris):
+def _prim_tests(S, o, d, t_min, best_t0, has_rects, has_tris,
+                with_uv=False):
     """csrc/search.cuh's per-primitive tests of rays (o, d) against every
-    column of S, op for op: (hit bool[R, NP], t f32[R, NP]).  Without
-    either flag every column gets the sphere test; with one, S_PTYPE
-    picks it (the test the kernel's cluster kind and dual dispatch run on
-    that column: 0 sphere, 1-3 rect, 4 triangle with has_tris)."""
+    column of S, op for op: (hit bool[R, NP], t f32[R, NP]), and with
+    ``with_uv`` the triangle test's barycentrics (u, v) f32[R, NP] (0 on
+    other columns).  Without either flag every column gets the sphere
+    test; with one, S_PTYPE picks it (the test the kernel's cluster kind
+    and dual dispatch run on that column: 0 sphere, 1-3 rect, 4 triangle
+    with has_tris)."""
     ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
     dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
     win = best_t0[:, None]
@@ -94,7 +97,7 @@ def _prim_tests(S, o, d, t_min, best_t0, has_rects, has_tris):
     hit = (disc > 0.0) & (ts > t_min) & (ts < win)
     del disc, dpos, sq, nb, t0, bq, cq
     if not (has_rects or has_tris):
-        return hit, ts
+        return (hit, ts, None, None) if with_uv else (hit, ts)
     ptype = S[S_PTYPE]
     # rect: plane t by a true division, |p_a - c_a| <= h_a
     kax, aax, bax = S[S_KAX], S[S_AAX], S[S_BAX]
@@ -129,28 +132,37 @@ def _prim_tests(S, o, d, t_min, best_t0, has_rects, has_tris):
         is_tri = ptype > 3.5
         t = torch.where(is_tri, t_t, t)
         hit = torch.where(is_tri, hit_t, hit)
-    return hit, t
+        if with_uv:
+            return hit, t, torch.where(is_tri, u, 0.0), \
+                torch.where(is_tri, v, 0.0)
+    return (hit, t, None, None) if with_uv else (hit, t)
 
 
 def brute_closest(S: torch.Tensor, org: torch.Tensor, dirn: torch.Tensor,
                   t_min: float, best_t0: torch.Tensor,
-                  has_rects: bool = False, has_tris: bool = False):
+                  has_rects: bool = False, has_tris: bool = False,
+                  with_uv: bool = False):
     """Closest hit over EVERY column of S, in (t_min, best_t0).
 
     The per-prim arithmetic is csrc/search.cuh's, op for op
     (``_prim_tests``).  Returns (best_t f32[R], col i64[R]): best_t0 and
     -1 where nothing is hit; on equal t the lowest column wins, as in the
-    kernel's in-order strict-less search."""
+    kernel's in-order strict-less search.  ``with_uv`` adds the winner's
+    barycentrics (u, v) f32[R] (0 unless a triangle won), what the
+    kernel's search carries with kUV."""
     t_min = float(np.float32(t_min))
     n = org.shape[0]
     best_t = best_t0.clone()
     col = torch.full((n,), -1, dtype=torch.int64, device=org.device)
+    bu = torch.zeros((n,), dtype=torch.float32, device=org.device)
+    bv = torch.zeros_like(bu)
     per_ray = max(S.shape[1], 1) * (3 if (has_rects or has_tris) else 1)
     chunk = max(1, _CHUNK_ELEMS.get(org.device.type, 1 << 24) // per_ray)
     for a in range(0, n, chunk):
         b = min(n, a + chunk)
-        hit, ts = _prim_tests(S, org[a:b], dirn[a:b], t_min, best_t0[a:b],
-                              has_rects, has_tris)
+        hit, ts, *uv = _prim_tests(S, org[a:b], dirn[a:b], t_min,
+                                   best_t0[a:b], has_rects, has_tris,
+                                   with_uv)
         tm = torch.where(hit, ts, torch.full_like(ts, BIG))
         tbest = tm.min(dim=1).values
         first = torch.argmax((hit & (tm == tbest[:, None])).to(torch.uint8),
@@ -158,6 +170,12 @@ def brute_closest(S: torch.Tensor, org: torch.Tensor, dirn: torch.Tensor,
         any_hit = hit.any(dim=1)
         best_t[a:b] = torch.where(any_hit, tbest, best_t0[a:b])
         col[a:b] = torch.where(any_hit, first, torch.full_like(first, -1))
+        if with_uv and uv[0] is not None:
+            for out, w in zip((bu, bv), uv):
+                won = w.gather(1, first[:, None])[:, 0]
+                out[a:b] = torch.where(any_hit, won, 0.0)
+    if with_uv:
+        return best_t, col, bu, bv
     return best_t, col
 
 

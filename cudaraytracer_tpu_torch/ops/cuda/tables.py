@@ -66,9 +66,16 @@ P_CX, P_CY, P_CZ, P_MPARAM, P_PACKA, P_PACKB, P_PACKC, \
 P_ROWS = 7
 P_ROWS_UV = 9
 
+
+def vn_base_for(with_uv: bool) -> int:
+    """First vertex-attribute row of P: after the rect half-extent rows
+    P_HA/P_HB in tables packed with_uv (image scenes)."""
+    return P_ROWS_UV if with_uv else P_ROWS
+
+
 def p_rows_for(with_uv: bool, with_vattrs: bool,
                with_motion: bool = False) -> int:
-    base = P_ROWS_UV if with_uv else P_ROWS
+    base = vn_base_for(with_uv)
     if with_vattrs:
         base += 3
         if with_uv:
@@ -134,9 +141,8 @@ def _npad_for(scene, cluster: int = CLUSTER, super_: int = SUPER) -> int:
 
 def _valid_tex_ids(scene, tex_id, tex_t=None):
     """Remap out-of-range or EMPTY atlas slots to -1 so the kernel's single
-    has_data test covers them: the reference returns cyan for missing image
-    data (Texture.cuh:88-89); without the remap an unloaded slot would
-    defer and then sample a zeroed atlas (black) in the epilogue.
+    tex_id >= 0 test covers them: the reference returns cyan for missing
+    image data (Texture.cuh:88-89).
 
     Only IMAGE rows (tex_t == 2) are remapped: noise rows REPURPOSE tex_id
     as the marble scale (ops/textures.py) and must pack through verbatim."""
@@ -154,8 +160,10 @@ def _valid_tex_ids(scene, tex_id, tex_t=None):
 
 def _image_mean_albedo(scene, tex_t, tex_id, albedo):
     """Replace image-textured prims' albedo with the atlas slot's mean color
-    (used for second-and-later image hits along a path, see _render_kernel).
-    The per-slot mean is memoized: one pass per distinct slot."""
+    (the JAX megakernel shades its third and later image hits with it).
+    Kept so the tables stay bit-identical to the JAX package's: the CUDA
+    kernels sample the atlas at every image hit and never read this
+    albedo.  The per-slot mean is memoized: one pass per distinct slot."""
     albedo = np.array(albedo, np.float32)
     slot_mean: dict = {}
     for row, (tt, tid) in enumerate(zip(tex_t, tex_id)):
@@ -173,16 +181,21 @@ def _image_mean_albedo(scene, tex_t, tex_id, albedo):
 def pack_scene_tables(scene, with_uv: bool = False,
                       cluster: int = CLUSTER,
                       super_: int = SUPER,
-                      with_vattrs: bool = False) -> SceneTables:
+                      with_vattrs: bool | None = None) -> SceneTables:
     """Pack the ACTIVE primitives into kernel tables (NumPy).
 
     Morton-ordered and padded to a multiple of CLUSTER*SUPER, keyed on the
     scene's capacity so edits never change table shapes.  ``with_uv=True``
-    adds the rect half-extent rows for in-kernel UV computation
-    (image-texture scenes).  Mirrors ``_pack_scene_tables_numpy`` of the
-    JAX package line for line.
+    adds the rect half-extent rows and the triangles' uv rows for
+    in-kernel UV computation (image-texture scenes, ``has_images``).
+    ``with_vattrs`` defaults to the scene's own ``has_vertex_attrs``, as
+    in the JAX package.  Mirrors ``_pack_scene_tables_numpy`` of the JAX
+    package line for line.
     """
     from ...models.bvh import primitive_aabbs
+
+    if with_vattrs is None:
+        with_vattrs = bool(scene.has_vertex_attrs)
 
     idx = scene.active_indices()
     span = cluster * super_
@@ -390,7 +403,7 @@ def pack_scene_tables(scene, with_uv: bool = False,
                 # per-vertex attr rows (module P-table comment): quantized
                 # vertex normals (+uv rows with_uv).  All-f32 op order must
                 # match the native packer when that learns these rows.
-                vn_base = P_ROWS_UV if with_uv else P_ROWS
+                vn_base = vn_base_for(with_uv)
 
                 def pack_vn(vn):
                     vn = np.asarray(vn, np.float32)
@@ -505,16 +518,35 @@ class TorchTables(_t.NamedTuple):
     prim_map: torch.Tensor  # i32[NP]
     cluster: int
     super_: int
+    vattrs: bool = False  # P has the vertex-attribute rows (has_vattrs)
 
 
 def tables_to_torch(t: SceneTables, device) -> TorchTables:
-    """Upload packed tables to ``device`` (kilobytes per scene edit)."""
+    """Upload packed tables to ``device`` (kilobytes to megabytes per
+    scene edit)."""
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     return TorchTables(put(t.S), put(t.P), put(t.clusters), put(t.supers),
                        int(t.n_super), put(t.prim_map), int(t.cluster),
-                       int(t.super_))
+                       int(t.super_), bool(t.vattrs))
+
+
+def has_images(scene) -> bool:
+    """Does an active primitive use an image texture?  The static flag
+    ``has_images`` of the kernels and the ``with_uv`` of the packer, as
+    the JAX package's megakernel pipeline computes it."""
+    return bool((scene.tex_type[scene.active_indices()] == 2).any())
+
+
+def atlas_to_torch(scene, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The scene's image atlas uint8[S,AH,AW,3] and its valid (height,
+    width) per slot, i32[S,2], on ``device``: what the kernels' image
+    branch reads.  Upload once per scene edit (3 MiB for the default
+    4 x 512 x 512 atlas)."""
+    return (torch.from_numpy(np.ascontiguousarray(scene.atlas)).to(device),
+            torch.from_numpy(np.ascontiguousarray(
+                scene.tex_hw, dtype=np.int32)).to(device))
 
 
 def prim_flags(scene) -> tuple[bool, bool]:
@@ -527,20 +559,16 @@ def prim_flags(scene) -> tuple[bool, bool]:
 
 def unsupported_features(scene) -> list[str]:
     """Scene features of the active primitives that the CUDA kernels do
-    not render yet (empty for scenes of spheres, rects and triangles
-    without vertex attributes, with lambertian, metal, dielectric or light
-    materials and constant or checker textures, like rtow_final and the
-    default scene).  The kernels' other branches are still to be ported
-    (ROADMAP.md, Queue 2)."""
+    not render yet (empty for scenes of spheres, rects and triangles, with
+    or without vertex attributes, with lambertian, metal, dielectric or
+    light materials and constant, checker or image textures).  The
+    kernels' other branches are still to be ported (ROADMAP.md, Queue
+    2)."""
     idx = scene.active_indices()
     pt = scene.prim_type[idx]
     found = []
-    if scene.has_vertex_attrs:
-        found.append("triangles with vertex attributes (has_vattrs)")
     if (scene.mat_type[idx] == 4).any() or (pt == 5).any():
         found.append("media (has_media)")
-    if (scene.tex_type[idx] == 2).any():
-        found.append("image textures")
     if (scene.tex_type[idx] == 3).any():
         found.append("noise textures (has_noise)")
     if (scene.velocity[idx] != 0).any():

@@ -4,14 +4,17 @@
 
 For each fault below, copies this package into a temporary directory,
 edits one line of a CUDA source there, builds that copy and compares its
-kernels with the unchanged plain versions at 1280x720 (megakernel 4 spp,
-depth 12, rr 2, seed 7 on default and cornell_mesh_light; G-buffer on
-default, cornell_mesh_light and rtow_final; closest hit on 2^20 seeded
-rays in the Cornell room).  "sound" is the unedited copy.  Prints one
-JSON line per fault: pixels off by more than 1e-3, the relative change
-of the mean and of the ray count, G-buffer masks and pixels off by more
-than 1e-6, closest-hit masks and columns.  Needs a GPU and nvcc; the
-checkout is never edited.
+kernels with the unchanged plain versions at 1280x720 on the fault's
+scenes, set up as the render loop sets them up (megakernel 4 spp, depth
+12, rr 2, seed 7, on every scene but rtow_final; G-buffer on every
+scene; closest hit on 2^20 seeded rays in the Cornell room).  "sound" is
+the unedited copy, checked on every scene.  Prints one JSON line per
+fault: pixels off by more than 1e-3, the relative change of the mean and
+of the ray count, G-buffer masks and pixels off by more than 1e-6,
+closest-hit masks and columns, and "caught": whether chip_smoke.py's
+limits (more than 0.01% of pixels or 1e-4 on mean or rays; any G-buffer
+mask or pixel; any closest-hit mask or column) would fail the copy.
+Needs a GPU and nvcc; the checkout is never edited.
 """
 
 from __future__ import annotations
@@ -27,41 +30,63 @@ from pathlib import Path
 
 PKG = Path(__file__).resolve().parents[1]
 
-# name -> [(file under the package, text, replacement)]
+FLAT = ("default", "cornell_mesh_light", "rtow_final")
+TEXTURED = ("mesh_smooth", "terrain", "rtow_image", "mirror_room")
+
+# name -> ([(file under the package, text, replacement)], scenes)
 FAULTS = {
-    "sound": [],
+    "sound": ([], FLAT + TEXTURED),
     # a ray through the shared edge of two triangles misses both
-    "tri_edge": [("csrc/search.cuh", "u + v <= 1.0f", "u + v < 1.0f")],
+    "tri_edge": ([("csrc/search.cuh", "u + v <= 1.0f", "u + v < 1.0f")],
+                 FLAT),
     # a ray on a rect's edge misses it
-    "rect_extent": [(
+    "rect_extent": ([(
         "csrc/search.cuh",
         "fabsf(p_a - __ldg(S + S_CA * np + j)) <= __ldg(S + S_HA * np + j)",
         "fabsf(p_a - __ldg(S + S_CA * np + j)) < __ldg(S + S_HA * np + j)")],
+        FLAT),
     # rect and triangle normals point away from the ray's side
-    "rect_flip": [(
+    "rect_flip": ([(
         "csrc/surface.cuh",
         "(dx * rnx + dy * rny + dz * rnz) < 0.0f ? 1.0f : -1.0f",
-        "(dx * rnx + dy * rny + dz * rnz) > 0.0f ? 1.0f : -1.0f")],
+        "(dx * rnx + dy * rny + dz * rnz) > 0.0f ? 1.0f : -1.0f")], FLAT),
     # triangles hit from one side only
-    "tri_one_sided": [("csrc/search.cuh",
-                       "const bool ok = fabsf(denom) > 1e-9f;",
-                       "const bool ok = denom > 1e-9f;")],
+    "tri_one_sided": ([("csrc/search.cuh",
+                        "const bool ok = fabsf(denom) > 1e-9f;",
+                        "const bool ok = denom > 1e-9f;")], FLAT),
+    # the interpolated vertex normal is not renormalized
+    "smooth_unnormalized": ([(
+        "csrc/surface.cuh",
+        "const float irl = rsqrt_(fmaxf(ix * ix + iy * iy + iz * iz, "
+        "1e-20f));",
+        "const float irl = 1.0f;")], ("mesh_smooth", "terrain")),
+    # the texel row is read from the top (v not flipped)
+    "texel_v_unflipped": ([(
+        "csrc/surface.cuh",
+        "const float cv = 1.0f - fminf(fmaxf(vv, 0.0f), 1.0f);",
+        "const float cv = fminf(fmaxf(vv, 0.0f), 1.0f);")],
+        ("terrain", "rtow_image", "mirror_room")),
 }
 
 CHECK = r'''
-import json, numpy as np, torch
+import json, sys, numpy as np, torch
 from cudaraytracer_tpu_torch.models import scenes
 from cudaraytracer_tpu_torch.ops.cuda.gbuffer_kernel import gbuffer, gbuffer_plain
 from cudaraytracer_tpu_torch.ops.cuda.hit_kernel import closest_hit, closest_hit_plain
 from cudaraytracer_tpu_torch.ops.cuda.render_kernel import render_sample, render_sample_plain
 from cudaraytracer_tpu_torch.ops.cuda.tables import (
-    pack_camera_np, pack_scene_tables, prim_flags, tables_to_torch)
+    atlas_to_torch, has_images, pack_camera_np, pack_scene_tables,
+    prim_flags, tables_to_torch)
 dev, W, H, res = torch.device("cuda"), 1280, 720, {}
-for name in ("default", "cornell_mesh_light", "rtow_final"):
+for name in json.loads(sys.argv[1]):
     sc, cam = scenes.SCENES[name][0](), scenes.SCENES[name][1]()
     model = scenes.camera_model_for(name)
-    tb = tables_to_torch(pack_scene_tables(sc), dev)
-    fl = dict(zip(("has_rects", "has_tris"), prim_flags(sc)))
+    img = has_images(sc)
+    tb = tables_to_torch(pack_scene_tables(sc, with_uv=img), dev)
+    hit_fl = dict(zip(("has_rects", "has_tris"), prim_flags(sc)))
+    fl = dict(hit_fl, has_vattrs=tb.vattrs)
+    if img:
+        fl.update(zip(("atlas", "tex_hw"), atlas_to_torch(sc, dev)))
     cv = torch.from_numpy(pack_camera_np(cam, sc.background_start,
                                          sc.background_end, W, H, 1e-3)).to(dev)
     a = (tb.S, tb.P, tb.clusters, tb.supers, tb.n_super, cv)
@@ -93,16 +118,30 @@ for name in ("default", "cornell_mesh_light", "rtow_final"):
         d /= np.linalg.norm(d, axis=1, keepdims=True)
         o, d = (torch.from_numpy(v.astype(np.float32)).to(dev) for v in (o, d))
         hk, _, ck = closest_hit(tb.S, tb.clusters, tb.supers, tb.n_super, n,
-                                o, d, **fl)
+                                o, d, **hit_fl)
         hp, _, cp = closest_hit_plain(tb.S, tb.clusters, tb.supers,
-                                      tb.n_super, n, o, d, **fl)
+                                      tb.n_super, n, o, d, **hit_fl)
         res[name + "/closest_hit"] = {"masks": int((hk != hp).sum()),
                                       "columns": int((ck != cp).sum())}
 print("RESULT " + json.dumps(res))
 '''
 
 
-def run_fault(name: str, edits, tmp: str) -> dict:
+def caught(res: dict) -> bool:
+    """Would chip_smoke.py's limits fail this copy?"""
+    for key, r in res.items():
+        if key.endswith("/megakernel") and (
+                r["pixels"] > 1e-4 * 1280 * 720 or r["mean_rel"] > 1e-4
+                or r["rays_rel"] > 1e-4):
+            return True
+        if key.endswith("/gbuffer") and (r["masks"] or r["pixels"]):
+            return True
+        if key.endswith("/closest_hit") and (r["masks"] or r["columns"]):
+            return True
+    return False
+
+
+def run_fault(name: str, edits, scene_names, tmp: str) -> dict:
     root = os.path.join(tmp, name)
     shutil.copytree(PKG, os.path.join(root, PKG.name),
                     ignore=shutil.ignore_patterns("__pycache__"))
@@ -112,7 +151,8 @@ def run_fault(name: str, edits, tmp: str) -> dict:
         if text.count(old) != 1:
             raise RuntimeError(f"{name}: {old!r} not found once in {rel}")
         p.write_text(text.replace(old, new))
-    proc = subprocess.run([sys.executable, "-c", CHECK], cwd=root,
+    proc = subprocess.run([sys.executable, "-c", CHECK,
+                           json.dumps(list(scene_names))], cwd=root,
                           env=dict(os.environ, PYTHONPATH=root),
                           capture_output=True, text=True, timeout=900)
     for line in proc.stdout.splitlines():
@@ -127,9 +167,11 @@ def main(argv=None):
     args = ap.parse_args(argv)
     results = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for name, edits in FAULTS.items():
-            results[name] = run_fault(name, edits, tmp)
-            print(json.dumps({"fault": name, **results[name]}), flush=True)
+        for name, (edits, scene_names) in FAULTS.items():
+            results[name] = run_fault(name, edits, scene_names, tmp)
+            print(json.dumps({"fault": name,
+                              "caught": caught(results[name]),
+                              **results[name]}), flush=True)
     if args.out:
         Path(args.out).write_text(json.dumps(results, indent=1))
 

@@ -15,7 +15,9 @@ torch.set_num_threads(2)
 from cudaraytracer_tpu_torch.config import RenderConfig  # noqa: E402
 from cudaraytracer_tpu_torch.models import scenes as tscenes  # noqa: E402
 from cudaraytracer_tpu_torch.ops.cuda import render_kernel as rk  # noqa: E402
-from cudaraytracer_tpu_torch.viewer.app import Application, RenderLayer  # noqa: E402
+from cudaraytracer_tpu_torch.utils import mesh as tmesh  # noqa: E402
+from cudaraytracer_tpu_torch.viewer.app import (  # noqa: E402
+    Application, RenderLayer, _CudaPipeline)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -187,3 +189,62 @@ def test_aov_is_display_oriented(model):
     rl.fly.process_keys(["w"])
     rl._sync_scene()
     assert rl._gbuffer() is not gb
+
+
+@pytest.mark.parametrize("name,vattrs,images", [
+    ("rtow_image", False, True), ("mirror_room", False, True),
+    ("mesh_demo", False, False), ("mesh_smooth", True, False),
+    ("terrain", True, True), ("terrain_big", True, True)])
+def test_mesh_and_image_scenes_build_a_pipeline(name, vattrs, images):
+    """The pipeline packs uv rows with images and the vertex-attribute
+    rows the scene has, and puts the atlas on the device; a frame and a
+    G-buffer come out of the plain versions on CPU tensors."""
+    scene = tscenes.SCENES[name][0]()
+    cfg = small_cfg(scene=name, camera_model=tscenes.camera_model_for(name),
+                    width=8, height=4, max_depth=2, progressive_spp=1)
+    pipe = _CudaPipeline(scene, cfg, torch.device("cpu"))
+    assert pipe._flags["has_vattrs"] == vattrs
+    assert ("atlas" in pipe._flags) == images
+    rows = 7 + (2 if images else 0) + ((3 + (6 if images else 0))
+                                       if vattrs else 0)
+    assert pipe._tabs.P.shape[0] == rows
+    if images:
+        assert pipe._flags["atlas"].dtype == torch.uint8
+        assert pipe._flags["tex_hw"].dtype == torch.int32
+    if name == "terrain_big":
+        assert pipe._tabs.S.shape[1] >= 20000  # 20,000 triangles resident
+        return  # the brute-force plain search is slow at this size
+    cam = tscenes.SCENES[name][1]()
+    acc = pipe.accumulate(cam, 0, 2, torch.zeros((4, 8, 3)))
+    assert torch.isfinite(acc).all()
+    gb = pipe.gbuffer(cam)
+    assert gb.normal.shape == (4, 8, 3) and torch.isfinite(gb.albedo).all()
+
+
+@pytest.mark.parametrize("name,branch", [
+    ("marble", "noise textures"), ("smoke", "media"),
+    ("cornell_smoke", "media"), ("bounce", "moving spheres")])
+def test_unported_branches_raise(name, branch):
+    with pytest.raises(NotImplementedError, match=branch):
+        RenderLayer(small_cfg(scene=name))._sync_scene()
+
+
+def test_cli_render_obj_cpu_writes_png(tmp_path):
+    """render --obj: an OBJ written by save_obj is loaded, normalized onto
+    the checkered ground, smooth-shaded and rendered."""
+    v, f = tmesh.icosphere(1)
+    obj = tmp_path / "ball.obj"
+    tmesh.save_obj(str(obj), v, f)
+    out = tmp_path / "ball.png"
+    proc = run_cli(["render", "--device", "cpu", "--obj", str(obj),
+                    "--obj-smooth", "--obj-mat", "metal", "--width", "64",
+                    "--height", "36", "--frames", "1", "-o", str(out)],
+                   tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    assert "obj:ball" in proc.stderr + proc.stdout
+    from PIL import Image
+
+    with Image.open(out) as im:
+        assert im.size == (64, 36)
+        img = np.asarray(im.convert("RGB")).astype(np.float32)
+    assert 5.0 < img.mean() < 250.0

@@ -41,6 +41,19 @@ def tables(scene, dev):
     return ttab.tables_to_torch(ttab.pack_scene_tables(scene), dev)
 
 
+def frame_setup(scene, dev):
+    """The pipeline's tables and kernel flags: uv rows and the atlas with
+    image textures, vertex-attribute rows detected by the packer."""
+    images = ttab.has_images(scene)
+    tb = ttab.tables_to_torch(ttab.pack_scene_tables(scene, with_uv=images),
+                              dev)
+    flags = dict(zip(("has_rects", "has_tris"), ttab.prim_flags(scene)),
+                 has_vattrs=tb.vattrs)
+    if images:
+        flags.update(zip(("atlas", "tex_hw"), ttab.atlas_to_torch(scene, dev)))
+    return tb, flags
+
+
 @pytest.mark.parametrize("name", ["rtow_final", "cornell_mesh_light",
                                   "default"])
 def test_closest_hit_kernel_matches_plain(cuda, name):
@@ -72,13 +85,14 @@ def test_closest_hit_kernel_matches_plain(cuda, name):
 
 
 @pytest.mark.parametrize("model", ["look_at", "two_plane", "default",
-                                   "cornell_mesh_light"])
+                                   "cornell_mesh_light", "mesh_smooth",
+                                   "terrain", "rtow_image", "mirror_room"])
 def test_megakernel_matches_plain(cuda, model):
     if model == "look_at":
         scene, cam = tscenes.rtow_final_scene(), tscenes.rtow_final_camera()
-    elif model in tscenes.SCENES:  # the rect and triangle branches
+    elif model in tscenes.SCENES:  # rects, triangles, vattrs, images
         scene, cam = tscenes.SCENES[model][0](), tscenes.SCENES[model][1]()
-        model = "two_plane"
+        model = tscenes.camera_model_for(model)
     else:
         scene = tscene.Scene(capacity=8)
         scene.add_sphere((0, -1000.5, 0), 1000.0, tex_type=tscene.CHECKER,
@@ -89,13 +103,12 @@ def test_megakernel_matches_plain(cuda, model):
         scene.add_sphere((-1.5, 2.0, 0), 0.5, mat_type=tscene.DIFFUSE_LIGHT)
         cam = make_camera_params(origin=(0, 1, 6))
     w, h, spp = 96, 54, 2
-    tb = tables(scene, cuda)
+    tb, flags = frame_setup(scene, cuda)
     cv = torch.from_numpy(ttab.pack_camera_np(
         cam, scene.background_start, scene.background_end, w, h,
         1e-3)).to(cuda)
     kw = dict(width=w, height=h, camera_model=model, spp=spp, rr_start=2,
-              with_stats=True, **dict(zip(("has_rects", "has_tris"),
-                                          ttab.prim_flags(scene))))
+              with_stats=True, **flags)
     p0 = render_kernel.render_sample_plain.launches
     img_k, n_k = render_kernel.render_sample(
         tb.S, tb.P, tb.clusters, tb.supers, tb.n_super, cv, 11, 8, **kw)
@@ -110,17 +123,17 @@ def test_megakernel_matches_plain(cuda, model):
 
 
 @pytest.mark.parametrize("name", ["rtow_final", "default",
-                                  "cornell_mesh_light"])
+                                  "cornell_mesh_light", "mesh_smooth",
+                                  "terrain", "rtow_image", "mirror_room"])
 def test_gbuffer_kernel_matches_plain(cuda, name):
     scene, cam = tscenes.SCENES[name][0](), tscenes.SCENES[name][1]()
     model = tscenes.camera_model_for(name)
     w, h = 200, 75  # partial blocks in both directions
-    tb = tables(scene, cuda)
+    tb, flags = frame_setup(scene, cuda)
     cv = torch.from_numpy(ttab.pack_camera_np(
         cam, scene.background_start, scene.background_end, w, h,
         1e-3)).to(cuda)
-    kw = dict(width=w, height=h, camera_model=model,
-              **dict(zip(("has_rects", "has_tris"), ttab.prim_flags(scene))))
+    kw = dict(width=w, height=h, camera_model=model, **flags)
     p0 = gbuffer_kernel.gbuffer_plain.launches
     gk = gbuffer_kernel.gbuffer(tb.S, tb.P, tb.clusters, tb.supers,
                                 tb.n_super, cv, **kw)
