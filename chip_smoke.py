@@ -3,9 +3,15 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``cudaraytracer_tpu_torch/csrc/`` (one
-nvcc per source, run together), checks each against its plain PyTorch
-version on the card, drives the CLI paths (``python -m
-cudaraytracer_tpu_torch render`` at 1280x720 with ``--denoise --aov``:
+nvcc per source, run together), shows each instantiation's registers and
+spill stores (beside the numbers PERF.md recorded for those without a
+feature bit), checks each kernel against its plain PyTorch version on
+the card, drives
+the CLI paths (``python -m cudaraytracer_tpu_torch render`` at 1280x720
+with ``--denoise --aov``: ``--scene book2_final``, the main path, every
+feature of the scene model in one render (4,800 triangles, a rect light,
+an image and a marble sphere, a subsurface medium ball, a whole-scene
+fog sphere around the camera, a moving sphere, ~1000 small spheres);
 ``--scene terrain_big``, the largest scene, 20,000 smooth image-textured
 triangles; ``--obj`` on an OBJ model written to a temporary directory,
 with ``--obj-smooth``; ``--scene rtow_final``; and no ``--scene``, the
@@ -16,16 +22,20 @@ non-zero.  The last lines are the card's name and power limit
 (nvidia-smi), the per-kernel summary, and the result object.
 
 Every scene is set up as the render loop sets it up
-(``viewer/app.py::_CudaPipeline``): uv rows and the image atlas where a
-primitive has an image texture, vertex-attribute rows where a mesh has
-vertex normals or uvs.
+(``ops/cuda/tables.py::kernel_inputs``, what ``viewer/app.py::
+_CudaPipeline`` calls): uv rows and the image atlas where a primitive has
+an image texture, vertex-attribute rows where a mesh has vertex normals
+or uvs, velocity rows with moving spheres, and the noise, media and
+motion flags.
 
 Each kernel's ``bound_ms`` is the least time the card could take for the
 work of the timed call: the larger of its bytes (tables and inputs read
 once, outputs written once) over 3.35 TB/s and its float operations over
 67 TFLOP/s (f32, no tensor cores).  The operations are counted from this
 run's data: the plain versions replay the kernels' culled search and
-count the box and primitive tests each ray really runs
+count the box tests each ray runs and the primitive tests it needs in
+the clusters it enters, one per primitive, not per padding column; a
+medium's test per medium, the moving centre per moving sphere
 (``hit_kernel.search_work``), plus the shading per ray (lower bounds,
 ``render_kernel.SHADE_OPS``, ``gbuffer_kernel.GBUFFER_OPS``, with the
 smooth normals and image lookups this run's rays made).  The bytes count
@@ -65,13 +75,21 @@ Tolerances, and why:
   terrain, mesh_smooth, rtow_image, mirror_room and terrain_big (the
   main path's scene) at 1280x720: the smooth normal and the texel lookup
   are exact float and integer work, and the plain version's atan2/acos
-  run on the card, in CUDA's own atan2f/acosf.
+  run on the card, in CUDA's own atan2f/acosf.  They hold unchanged for
+  the noise, media and motion branches, on marble, smoke, cornell_smoke,
+  bounce and book2_final (this slice's main path) at 1280x720: the
+  marble texture's sinf and PyTorch's sin on a CUDA tensor are the same
+  CUDA function, the medium test's logf likewise, and the time and
+  medium draws are the same integer hashes; five planted faults in these
+  branches moved 2,427 to 463,316 pixels (PERF.md).
 * G-buffer: the kernel and its plain version do the same float
   operations on the same pixel-centre rays, so the hit masks must be
   equal and each buffer (normal, albedo, depth) must agree to 1e-6
   absolute on every pixel (GBUF_ATOL), on rtow_final (look_at) and on the
   default scene (two_plane) at 1280x720, and on terrain, rtow_image and
-  terrain_big (vertex attributes, image textures).  The sound kernel read
+  terrain_big (vertex attributes, image textures), and on marble, smoke,
+  cornell_smoke, bounce and book2_final (noise albedo, media skipped,
+  moving spheres at time 0).  The sound kernel read
   equal masks and a max abs error of 0 on every buffer of rtow_final and
   default on an H100 (PERF.md); the limit leaves one float32 rounding
   step of room on the unit-scale normal and albedo and nothing on a depth
@@ -93,6 +111,22 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 W_MAIN, H_MAIN, DEPTH, RR, SPP_MAIN = 1280, 720, 12, 2, 4
+# registers / spill-store bytes of the instantiations without a feature
+# bit (and the closest hit's) as PERF.md records them (build log, NVIDIA
+# H100 80GB HBM3): the template flags are (rects, tris[, vattrs, images,
+# features])
+BASE_PTXAS = {
+    "closest_hit_kernel<0,0>": (40, 0), "closest_hit_kernel<1,0>": (36, 0),
+    "closest_hit_kernel<1,1>": (79, 0),
+    "render_kernel<0,0,0,0,0>": (56, 20), "render_kernel<0,0,0,1,0>": (56, 20),
+    "render_kernel<1,0,0,0,0>": (72, 86), "render_kernel<1,0,0,1,0>": (72, 102),
+    "render_kernel<1,1,0,0,0>": (80, 150), "render_kernel<1,1,0,1,0>": (116, 0),
+    "render_kernel<1,1,1,0,0>": (113, 0), "render_kernel<1,1,1,1,0>": (116, 0),
+    "gbuffer_kernel<0,0,0,0,0>": (34, 0), "gbuffer_kernel<0,0,0,1,0>": (38, 0),
+    "gbuffer_kernel<1,0,0,0,0>": (36, 0), "gbuffer_kernel<1,0,0,1,0>": (38, 0),
+    "gbuffer_kernel<1,1,0,0,0>": (72, 0), "gbuffer_kernel<1,1,0,1,0>": (72, 0),
+    "gbuffer_kernel<1,1,1,0,0>": (72, 0), "gbuffer_kernel<1,1,1,1,0>": (72, 0),
+}
 # megakernel against its plain version (see the module docstring)
 MEGA_DIFF_SHARE, MEGA_MEAN_RTOL, MEGA_RAYS_RTOL = 1e-4, 1e-4, 1e-4
 GBUF_ATOL = 1e-6
@@ -123,12 +157,11 @@ def main():
     from cudaraytracer_tpu_torch.ops.cuda.gbuffer_kernel import (
         GBUFFER_OPS, gbuffer, gbuffer_plain)
     from cudaraytracer_tpu_torch.ops.cuda.hit_kernel import (
-        closest_hit, closest_hit_plain, search_ops, search_work)
+        OPS, closest_hit, closest_hit_plain, search_ops, search_work)
     from cudaraytracer_tpu_torch.ops.cuda.render_kernel import (
         SHADE_OPS, render_sample, render_sample_plain)
     from cudaraytracer_tpu_torch.ops.cuda.tables import (
-        BIG, atlas_to_torch, has_images, pack_camera_np, pack_scene_tables,
-        prim_flags, tables_to_torch)
+        BIG, kernel_inputs, pack_camera_np)
     from cudaraytracer_tpu_torch.ops.denoise import atrous_denoise
 
     # ---- 1. device ----
@@ -151,10 +184,10 @@ def main():
     ptxas, entry, spill = {}, None, 0
     for ln in info["log"].splitlines():  # nvcc -Xptxas=-v, per instantiation
         m = re.search(r"(render_kernel|closest_hit_kernel|gbuffer_kernel)"
-                      r"I((?:Lb[01]E)+)E", ln)
+                      r"I((?:L[bi]\d+E)+)E", ln)
         if "Compiling entry function" in ln and m:
-            # template flags: rects, tris[, vattrs, images]
-            flags = ",".join(re.findall(r"Lb([01])E", m.group(2)))
+            # template flags: rects, tris[, vattrs, images, feature bits]
+            flags = ",".join(re.findall(r"L[bi](\d+)E", m.group(2)))
             entry = f"{m.group(1)}<{flags}>"
         elif entry and (m := re.search(r"(\d+) bytes spill stores", ln)):
             spill = int(m.group(1))
@@ -162,9 +195,18 @@ def main():
             ptxas[entry] = {"registers": int(m.group(1)),
                             "spill_store_bytes": spill}
             entry, spill = None, 0
+    # the feature-free instantiations against PERF.md (shown, not enforced: a
+    # toolchain other than the recorded one may allocate otherwise)
+    recorded = {k: {"recorded": list(v),
+                    "now": [ptxas.get(k, {}).get("registers"),
+                            ptxas.get(k, {}).get("spill_store_bytes")]}
+                for k, v in BASE_PTXAS.items()}
     emit({"phase": "build", "seconds": round(info["seconds"], 3),
           "reused": info["seconds"] == 0.0, "library": str(info["path"]),
-          "flags": " ".join(build.NVCC_FLAGS), "ptxas": ptxas})
+          "flags": " ".join(build.NVCC_FLAGS), "ptxas": ptxas,
+          "base_as_recorded": all(v["recorded"] == v["now"]
+                                   for v in recorded.values()),
+          "base_ptxas": recorded})
 
     class Setup:
         """A registered scene's tables, flags and camera on the card, set
@@ -175,20 +217,19 @@ def main():
             self.scene = scenes.SCENES[name][0]()
             self.cam = scenes.SCENES[name][1]()
             self.model = scenes.camera_model_for(name)
-            images = has_images(self.scene)
-            self.tb = tables_to_torch(
-                pack_scene_tables(self.scene, with_uv=images), dev)
+            self.tb, self.flags = kernel_inputs(self.scene, dev)
             # has_rects/has_tris for the search alone (closest hit)
-            self.search_flags = dict(zip(("has_rects", "has_tris"),
-                                         prim_flags(self.scene)))
-            self.flags = dict(self.search_flags, has_vattrs=self.tb.vattrs)
+            self.search_flags = {k: self.flags[k]
+                                 for k in ("has_rects", "has_tris")}
             # the texels an image lookup can read: the used atlas slots
             self.atlas_bytes = 0
-            if images:
-                self.flags.update(zip(("atlas", "tex_hw"),
-                                      atlas_to_torch(self.scene, dev)))
+            if "atlas" in self.flags:
                 hw = self.scene.tex_hw
                 self.atlas_bytes = 3 * int((hw[:, 0] * hw[:, 1]).sum())
+            # the static flags as the checks report them
+            self.tags = {k: v for k, v in self.flags.items()
+                         if k.startswith("has_")}
+            self.tags["has_images"] = self.atlas_bytes > 0
             tb = self.tb
             self.tabs = (tb.S, tb.clusters, tb.supers, tb.n_super)
             self.table_bytes = 4 * (tb.S.numel() + tb.P.numel()
@@ -217,6 +258,17 @@ def main():
     smooth = Setup("mesh_smooth")
     rimage = Setup("rtow_image")
     mirror = Setup("mirror_room")
+    marble = Setup("marble")
+    smoke = Setup("smoke")
+    csmoke = Setup("cornell_smoke")
+    bounce = Setup("bounce")
+    book2 = Setup("book2_final")
+
+    def work_ops(work, shade):
+        """Float operations of a plain run's work tally: the search's
+        tests (hit_kernel.OPS) and the shading (``shade``)."""
+        return (search_ops({k: v for k, v in work.items() if k in OPS})
+                + sum(shade[k] * work.get(k, 0) for k in shade))
 
     def cuda_ms(fn, reps):
         """Median ms of ``reps`` timed calls after one warm-up call."""
@@ -322,16 +374,12 @@ def main():
         if with_bound:
             work = {}
             render_sample_plain(*args, **kw, work=work)
-            ops = search_ops({k: work[k] for k in ("box", "sphere", "rect",
-                                                   "tri")})
-            ops += sum(SHADE_OPS[k] * work[k] for k in SHADE_OPS)
             # tables once, the texels read, the f32[h, w, 3] sum and the
             # ray count written
             res.update(bound(su.table_bytes + su.texel_bytes(work)
-                             + 12 * w * h + 8, ops), work=work)
-        emit({"phase": "megakernel_check", "scene": su.name,
-              **su.search_flags, "has_vattrs": su.tb.vattrs,
-              "has_images": su.atlas_bytes > 0,
+                             + 12 * w * h + 8, work_ops(work, SHADE_OPS)),
+                       work=work)
+        emit({"phase": "megakernel_check", "scene": su.name, **su.tags,
               "size": [w, h], "spp": SPP_MAIN, "depth": DEPTH,
               "rr_start": RR, "seed": seed,
               "share_within_1e-3": 1.0 - differing / (w * h),
@@ -371,13 +419,9 @@ def main():
         _, plain_ms = host_ms(lambda: gbuffer_plain(*args, **kw))  # warm
         work = {}
         gbuffer_plain(*args, **kw, work=work)
-        ops = search_ops({k: work[k] for k in ("box", "sphere", "rect",
-                                               "tri")})
-        ops += sum(GBUFFER_OPS[k] * work[k] for k in GBUFFER_OPS)
-        bd = bound(su.table_bytes + su.texel_bytes(work) + 28 * w * h, ops)
-        emit({"phase": "gbuffer_check", "scene": su.name,
-              **su.search_flags, "has_vattrs": su.tb.vattrs,
-              "has_images": su.atlas_bytes > 0,
+        bd = bound(su.table_bytes + su.texel_bytes(work) + 28 * w * h,
+                   work_ops(work, GBUFFER_OPS))
+        emit({"phase": "gbuffer_check", "scene": su.name, **su.tags,
               "camera_model": su.model, "size": [w, h],
               "hit_share": float(hit_k.float().mean()),
               "hit_masks_differ": int((hit_k != hit_p).sum()),
@@ -394,7 +438,8 @@ def main():
     _, gb_rtow = gbuf_check(rtow)
     gb_default_buf, gb_default = gbuf_check(default)
     gb_new = {su.name: gbuf_check(su)[1]
-              for su in (terrain, rimage, terrain_big)}
+              for su in (terrain, rimage, terrain_big, marble, smoke, csmoke,
+                         bounce, book2)}
 
     # ---- 6. the two CLI paths, counts set to 0 before, read after ----
     counted = (render_sample, render_sample_plain, gbuffer, gbuffer_plain,
@@ -445,6 +490,9 @@ def main():
 
     with tempfile.TemporaryDirectory() as tmp:
         by_path = {}
+        # the main path: every feature of the scene model in one render
+        by_path["book2_final"], _ = cli_path(
+            "book2_final", ["--scene", "book2_final"], tmp)
         by_path["terrain_big"], _ = cli_path(
             "terrain_big", ["--scene", "terrain_big"], tmp)
         # the model viewer: an OBJ (a torus without normals or uvs, so
@@ -479,7 +527,12 @@ def main():
                            (terrain_big, (SPP_MAIN,), (W_MAIN, H_MAIN)),
                            (smooth, (SPP_MAIN,), (W_MAIN, H_MAIN)),
                            (rimage, (SPP_MAIN,), (W_MAIN, H_MAIN)),
-                           (mirror, (SPP_MAIN,), (W_MAIN, H_MAIN))):
+                           (mirror, (SPP_MAIN,), (W_MAIN, H_MAIN)),
+                           (marble, (SPP_MAIN,), (W_MAIN, H_MAIN)),
+                           (smoke, (SPP_MAIN,), (W_MAIN, H_MAIN)),
+                           (csmoke, (SPP_MAIN,), (W_MAIN, H_MAIN)),
+                           (bounce, (SPP_MAIN,), (W_MAIN, H_MAIN)),
+                           (book2, (SPP_MAIN,), (W_MAIN, H_MAIN))):
         for s in spps:
             args = (*su.frame_args(*size), 7, DEPTH)
             kw = dict(width=size[0], height=size[1], camera_model=su.model,
@@ -494,7 +547,8 @@ def main():
                 "plain_ms": None, "bound_ms": None, "bound_by": None}
     checks = {su.name: mega_check(su, W_MAIN, H_MAIN, 7, with_bound=True)
               for su in (rtow, default, cml, terrain, smooth, rimage,
-                         mirror, terrain_big)}
+                         mirror, terrain_big, marble, smoke, csmoke, bounce,
+                         book2)}
     mega_err = max(mega_err, *(c["max_abs_err"] for c in checks.values()))
     for name, c in checks.items():
         timing[f"{name}/{SPP_MAIN}spp"].update(
@@ -516,9 +570,9 @@ def main():
     emit({"phase": "denoise_timing", "shape": [W_MAIN, H_MAIN],
           "iterations": 4, "ms": den_ms, "nvidia_smi": smi})
 
-    # the main path: render --scene terrain_big --denoise --aov
-    launches = by_path["terrain_big"]
-    mk = timing[f"terrain_big/{SPP_MAIN}spp"]
+    # the main path: render --scene book2_final --denoise --aov
+    launches = by_path["book2_final"]
+    mk = timing[f"book2_final/{SPP_MAIN}spp"]
     print(smi, flush=True)
     emit({"kernels": [
         {"name": "render_sample", "route": "cuda",
@@ -528,11 +582,12 @@ def main():
          "tolerance": "<=0.01% of pixels off by >1e-3; mean and rays rtol "
                       "1e-4; rtow_final at 320x180 and 1280x720; default, "
                       "cornell_mesh_light, terrain, mesh_smooth, rtow_image, "
-                      "mirror_room and terrain_big at 1280x720",
+                      "mirror_room, terrain_big, marble, smoke, "
+                      "cornell_smoke, bounce and book2_final at 1280x720",
          "ms": mk["ms"], "plain_ms": mk["plain_ms"],
          "bound_ms": mk["bound_ms"], "bound_by": mk["bound_by"],
          "library_ms": None,
-         "timed": f"terrain_big {W_MAIN}x{H_MAIN} {SPP_MAIN} spp",
+         "timed": f"book2_final {W_MAIN}x{H_MAIN} {SPP_MAIN} spp",
          "launches_by_path": {k: v["render_sample"]
                               for k, v in by_path.items()},
          "by_scene": {k: v for k, v in timing.items()}},
@@ -553,13 +608,14 @@ def main():
          "max_abs_err": max(gb_rtow["max_abs_err"], gb_default["max_abs_err"],
                             *(v["max_abs_err"] for v in gb_new.values())),
          "tolerance": f"hit masks equal; every buffer within {GBUF_ATOL}; "
-                      "rtow_final, default, terrain, rtow_image and "
-                      "terrain_big at 1280x720",
-         "ms": gb_new["terrain_big"]["ms"],
-         "plain_ms": gb_new["terrain_big"]["plain_ms"],
-         "bound_ms": gb_new["terrain_big"]["bound_ms"],
-         "bound_by": gb_new["terrain_big"]["bound_by"], "library_ms": None,
-         "timed": f"terrain_big {W_MAIN}x{H_MAIN}",
+                      "rtow_final, default, terrain, rtow_image, "
+                      "terrain_big, marble, smoke, cornell_smoke, bounce "
+                      "and book2_final at 1280x720",
+         "ms": gb_new["book2_final"]["ms"],
+         "plain_ms": gb_new["book2_final"]["plain_ms"],
+         "bound_ms": gb_new["book2_final"]["bound_ms"],
+         "bound_by": gb_new["book2_final"]["bound_by"], "library_ms": None,
+         "timed": f"book2_final {W_MAIN}x{H_MAIN}",
          "launches_by_path": {k: v["gbuffer"] for k, v in by_path.items()},
          "by_scene": {"rtow_final": gb_rtow, "default": gb_default,
                       **gb_new}},

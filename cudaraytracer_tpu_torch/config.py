@@ -47,10 +47,9 @@ def add_arguments(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--seed", type=int, default=d.seed)
     parser.add_argument("--t-min", dest="t_min", type=float, default=d.t_min)
     parser.add_argument("--scene", choices=list(SCENES), default=d.scene,
-                        help="scenes with noise textures, media or motion "
-                             "(marble, smoke, cornell_smoke, bounce) raise "
-                             "NotImplementedError until their kernel "
-                             "branches are ported")
+                        help="a registered scene (book2_final has every "
+                             "feature: meshes, an image, marble noise, "
+                             "media and motion blur)")
     # default None = resolve from the scene registry in from_args
     parser.add_argument("--camera-model", dest="camera_model",
                         choices=["two_plane", "look_at"], default=None)

@@ -1,8 +1,12 @@
 // G-buffer kernel: one deterministic primary-visibility pass.
 //
 // Replaces cudaraytracer_tpu/ops/pallas/gbuffer_kernel.py::_gbuffer_kernel
-// (:62, launched by pallas_gbuffer :418) for the resident tables without
-// noise, media or motion.  Per pixel: a pixel-CENTRE pinhole ray
+// (:62, launched by pallas_gbuffer :418) for the resident tables, with
+// the noise albedo (:341-349) and media skipped (F_MEDIA: kind-4 clusters
+// are not searched, :200-202, so fog never poisons the edge stopping);
+// moving spheres sit at shutter-open, time 0 (:91-92), which needs no
+// code: the velocity rows follow every row this kernel reads.  Per
+// pixel: a pixel-CENTRE pinhole ray
 // (:109-141, jitter 0.5 and no lens offset, unit direction so t is the
 // world distance), the closest hit (search.cuh, with the winner's
 // barycentrics for vertex attributes and triangle uvs), the winner's
@@ -26,6 +30,7 @@
 
 #include "search.cuh"
 #include "surface.cuh"
+#include "variants.cuh"
 
 namespace {
 
@@ -40,11 +45,14 @@ struct Params {
   float inv_w, inv_h;  // 1/width, 1/height rounded from double
 };
 
-template <bool kRects, bool kTris, bool kVattrs, bool kImages>
+template <bool kRects, bool kTris, bool kVattrs, bool kImages, int kFeat>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 gbuffer_kernel(Params p, float* __restrict__ normal, float* __restrict__ albedo,
                float* __restrict__ depth, crt::Atlas atlas) {
   constexpr int vn_base = crt::vn_base_for(kImages);
+  // media: the search skips kind-4 clusters
+  constexpr int kSearch =
+      (kFeat & crt::F_MEDIA) != 0 ? crt::F_SKIP_MEDIA : 0;
   const int x = blockIdx.x * kBlockX + threadIdx.x;
   const int y = blockIdx.y * kBlockY + threadIdx.y;
   if (x >= p.width || y >= p.height) return;
@@ -56,8 +64,9 @@ gbuffer_kernel(Params p, float* __restrict__ normal, float* __restrict__ albedo,
   const crt::Ray ray = crt::make_ray(ox, oy, oz, dx, dy, dz);
   float best_t = crt::kBig;
   crt::Bary bc{0.0f, 0.0f};
-  const int j = crt::closest_hit<kRects, kTris, kVattrs || (kTris && kImages)>(
-      p.tb, ray, __ldg(cam + 28), best_t, bc);
+  const int j =
+      crt::closest_hit<kRects, kTris, kVattrs || (kTris && kImages), kSearch>(
+          p.tb, ray, __ldg(cam + 28), best_t, bc);
 
   const size_t pix = static_cast<size_t>(y) * p.width + x;
   float* __restrict__ n_out = normal + 3 * pix;
@@ -83,34 +92,44 @@ gbuffer_kernel(Params p, float* __restrict__ normal, float* __restrict__ albedo,
   n_out[0] = nx * face;
   n_out[1] = ny * face;
   n_out[2] = nz * face;
-  crt::surface_rgb<kRects, kTris, kVattrs, kImages>(
+  crt::surface_rgb<kRects, kTris, kVattrs, kImages, kFeat>(
       P, np, j, packc, static_cast<int>(__ldg(P + crt::P_PACKA * np + j)),
       static_cast<int>(__ldg(P + crt::P_PACKB * np + j)), px, py, pz, nx, ny,
       nz, atlas, vn_base, bc.u, bc.v, a_out[0], a_out[1], a_out[2]);
   depth[pix] = best_t;
 }
 
-template <bool kRects, bool kTris, bool kVattrs, bool kImages>
-void launch(const Params& p, const crt::Atlas& at, float* normal,
-            float* albedo, float* depth, cudaStream_t st) {
+// Launch instantiation <R, T, V, I, F> if it is the one asked for.
+template <bool R, bool T, bool V, bool I, int F>
+bool launch_if(const int (&want)[5], const Params& p, const crt::Atlas& at,
+               float* normal, float* albedo, float* depth, cudaStream_t st) {
+  if (want[0] != R || want[1] != T || want[2] != V || want[3] != I ||
+      want[4] != F) {
+    return false;
+  }
   const dim3 block(kBlockX, kBlockY);
   const dim3 grid((p.width + kBlockX - 1) / kBlockX,
                   (p.height + kBlockY - 1) / kBlockY);
-  gbuffer_kernel<kRects, kTris, kVattrs, kImages>
+  gbuffer_kernel<R, T, V, I, F>
       <<<grid, block, 0, st>>>(p, normal, albedo, depth, at);
+  return true;
 }
 
 }  // namespace
 
-// Plain C entry for ctypes (the flags and the atlas as in
-// crt_render_sample).  Returns cudaGetLastError() after the launch.
+// Plain C entry for ctypes (the flags name one instantiation of
+// variants.cuh exactly, as in crt_render_sample: ops/cuda/
+// gbuffer_kernel.py::gbuffer_variant; only the noise and media bits of
+// ``features`` change this kernel).  Returns
+// cudaErrorNotSupported without a matching instantiation, else
+// cudaGetLastError() after the launch.
 extern "C" int crt_gbuffer(const float* S, const float* P,
                            const float* clusters, const float* supers,
                            int np, int nc, int nsc, int n_super, int cluster,
                            int super_, const float* cam, int width,
                            int height, int two_plane, float inv_w,
                            float inv_h, int has_rects, int has_tris,
-                           int has_vattrs, int has_images,
+                           int has_vattrs, int has_images, int features,
                            const unsigned char* atlas, const int* tex_hw,
                            int slots, int ah, int aw, float* normal,
                            float* albedo, float* depth, void* stream) {
@@ -128,30 +147,14 @@ extern "C" int crt_gbuffer(const float* S, const float* P,
   // the atlas rides after Params, as in render_kernel.cu
   const crt::Atlas at{atlas, tex_hw, slots, ah, aw};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (has_vattrs) {
-    if (has_images) {
-      launch<true, true, true, true>(p, at, normal, albedo, depth, st);
-    } else {
-      launch<true, true, true, false>(p, at, normal, albedo, depth, st);
-    }
-  } else if (has_tris) {
-    if (has_images) {
-      launch<true, true, false, true>(p, at, normal, albedo, depth, st);
-    } else {
-      launch<true, true, false, false>(p, at, normal, albedo, depth, st);
-    }
-  } else if (has_rects) {
-    if (has_images) {
-      launch<true, false, false, true>(p, at, normal, albedo, depth, st);
-    } else {
-      launch<true, false, false, false>(p, at, normal, albedo, depth, st);
-    }
-  } else {
-    if (has_images) {
-      launch<false, false, false, true>(p, at, normal, albedo, depth, st);
-    } else {
-      launch<false, false, false, false>(p, at, normal, albedo, depth, st);
-    }
-  }
+  const int want[5] = {has_rects != 0, has_tris != 0, has_vattrs != 0,
+                       has_images != 0, features};
+  // one launch_if per instantiation of variants.cuh, in its order
+#define CRT_LAUNCH(R, T, V, I, F)                                     \
+  || launch_if<R != 0, T != 0, V != 0, I != 0, F>(want, p, at, normal, \
+                                                  albedo, depth, st)
+  const bool launched = false CRT_GBUFFER_VARIANTS(CRT_LAUNCH);
+#undef CRT_LAUNCH
+  if (!launched) return static_cast<int>(cudaErrorNotSupported);
   return static_cast<int>(cudaGetLastError());
 }

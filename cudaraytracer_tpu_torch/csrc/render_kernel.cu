@@ -1,9 +1,13 @@
 // Path-tracing megakernel, resident tables: spheres, rects and
-// triangles, with or without vertex attributes, and image textures.
+// triangles, with or without vertex attributes, image and marble noise
+// textures, constant-density media (spheres, boxes, yaw-rotated boxes)
+// and moving spheres.
 //
 // Replaces cudaraytracer_tpu/ops/pallas/render_kernel.py::_render_kernel
 // (:1406, launched by pallas_render_sample :2517) for the flags
-// has_rects/has_tris/has_vattrs/has_images and no other feature flag:
+// has_rects/has_tris/has_vattrs/has_images and, in kFeat (search.cuh F_*),
+// has_noise/has_media/has_boxm/has_rotm/has_motion (not NEE, QMC, tile
+// masks, bands or cull statistics):
 // raygen (look_at thin lens and two_plane, :1491-1539), in-kernel path
 // regeneration until spp samples are done (:1594-1639), the closest-hit
 // search (search.cuh; it carries the winner's barycentrics when
@@ -12,10 +16,15 @@
 // masked selects, :1782-1808), the 8:8:8 / PACKC unpack (:1811-1835), the
 // normal (:1838-1911: spheres with the neg_r sign, rects and triangles
 // with the SetFaceNormal flip, smooth vertex normals), sky on a miss
-// (:1914-1921), constant/checker/image texture (:1942-2053),
+// (:1914-1921), constant/checker/noise/image texture (:1942-2053),
 // lambertian/metal/dielectric scatter and emission (:2055-2161), the
-// termination rule (:2410) and Russian roulette from rr_start
-// (:2411-2429).  The loop bound is spp * max_depth iterations (:2462).
+// isotropic scatter of a medium hit (:2147-2156), the termination rule
+// (:2410) and Russian roulette from rr_start (:2411-2429).  With motion
+// each path draws its shutter time once, at regeneration (:1624-1625),
+// and keeps it in a register for all its bounces; with media each
+// iteration draws one medium uniform (:1647-1650) that the search
+// decorrelates per medium by its centre.  The loop bound is
+// spp * max_depth iterations (:2462).
 // Image textures follow the XLA renderer, not the TPU kernel: the texel
 // is read at every image hit (surface.cuh::image_rgb) where the TPU
 // kernel deferred two records per lane to an XLA epilogue and shaded
@@ -36,9 +45,13 @@
 // so the dielectric's 1/ior and its infinities never touch other lanes.
 // The static flags are template parameters, so the sphere-only
 // instantiation carries no rect or triangle code, and the others no
-// vertex-attribute or image code they do not use.  Random numbers come
-// from rng.cuh with a fixed slot per draw.  The ray count is summed per
-// block and added with one 64-bit atomic per block.
+// vertex-attribute, image, noise, media or motion code they do not use;
+// the instantiations without a feature bit (kFeat = 0) compile to the
+// code they had before the feature branches existed.
+// The instantiations built are the flag combinations of the registered
+// scenes, listed once in variants.cuh (crt_render_sample expands it).
+// Random numbers come from rng.cuh with a fixed slot per draw.  The ray
+// count is summed per block and added with one 64-bit atomic per block.
 //
 // Build with -fmad=false and without --use_fast_math: every float
 // operation is then rounded on its own, in the order written here, which
@@ -50,6 +63,7 @@
 #include "rng.cuh"
 #include "search.cuh"
 #include "surface.cuh"
+#include "variants.cuh"
 
 namespace {
 
@@ -73,13 +87,16 @@ struct Params {
 using crt::rsqrt_;
 
 // Trace all spp samples of pixel (x, y); returns the rays traced.
-template <bool kRects, bool kTris, bool kVattrs, bool kImages>
+template <bool kRects, bool kTris, bool kVattrs, bool kImages, int kFeat>
 __device__ unsigned long long trace_pixel(const Params& p,
                                           const crt::Atlas& atlas, int x,
                                           int y, float* __restrict__ out) {
   // the winner's barycentrics feed the smooth normal and a triangle's uv
   constexpr bool kUV = kVattrs || (kTris && kImages);
   constexpr int vn_base = crt::vn_base_for(kImages);
+  constexpr bool kMedia = (kFeat & crt::F_MEDIA) != 0;
+  constexpr bool kMotion = (kFeat & crt::F_MOTION) != 0;
+  constexpr int vel_base = crt::vel_base_for(kImages, kVattrs);
   const float* __restrict__ cam = p.cam;
   const uint32_t pk =
       crt::pixel_key(p.key, static_cast<uint32_t>(y) *
@@ -93,6 +110,7 @@ __device__ unsigned long long trace_pixel(const Params& p,
   float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 1.f;
   float tpx = 1.f, tpy = 1.f, tpz = 1.f;
   float rx = 0.f, ry = 0.f, rz = 0.f;
+  float time = 0.f;  // the path's shutter time (kMotion)
   bool alive = false;
   int done = 0, depth = 0;
   unsigned long long nrays = 0;
@@ -116,14 +134,17 @@ __device__ unsigned long long trace_pixel(const Params& p,
       tpx = tpy = tpz = 1.f;
       depth = 0;
       alive = true;
+      if constexpr (kMotion) time = crt::u01(pk, uit, crt::SLOT_TIME);
     }
     ++nrays;
 
     const crt::Ray ray = crt::make_ray(ox, oy, oz, dx, dy, dz);
     float best_t = crt::kBig;
     crt::Bary bc{0.0f, 0.0f};
-    const int j = crt::closest_hit<kRects, kTris, kUV>(p.tb, ray, t_min,
-                                                        best_t, bc);
+    float u_med = 0.0f;
+    if constexpr (kMedia) u_med = crt::u01(pk, uit, crt::SLOT_MED);
+    const int j = crt::closest_hit<kRects, kTris, kUV, kFeat>(
+        p.tb, ray, t_min, best_t, bc, u_med, time);
 
     bool cont = false;
     if (j < 0) {
@@ -145,12 +166,17 @@ __device__ unsigned long long trace_pixel(const Params& p,
       const float px = ox + best_t * dx;
       const float py = oy + best_t * dy;
       const float pz = oz + best_t * dz;
-      float nx, ny, nz;
-      crt::hit_normal<kRects || kTris, kVattrs>(P, np, j, packc, px, py, pz,
-                                                dx, dy, dz, nx, ny, nz,
-                                                vn_base, bc.u, bc.v);
+      // a medium (ptype 5, packed as mat 0) has no normal: its scatter
+      // is isotropic
+      const bool iso = kMedia && ((packc >> 4) & 7) == 5;
+      float nx = 1.0f, ny = 0.0f, nz = 0.0f;
+      if (!iso) {
+        crt::hit_normal<kRects || kTris, kVattrs, kMotion>(
+            P, np, j, packc, px, py, pz, dx, dy, dz, nx, ny, nz, vn_base,
+            bc.u, bc.v, vel_base, time);
+      }
       float texr, texg, texb;
-      crt::surface_rgb<kRects, kTris, kVattrs, kImages>(
+      crt::surface_rgb<kRects, kTris, kVattrs, kImages, kFeat>(
           P, np, j, packc, pa, pb, px, py, pz, nx, ny, nz, atlas, vn_base,
           bc.u, bc.v, texr, texg, texb);
 
@@ -173,7 +199,11 @@ __device__ unsigned long long trace_pixel(const Params& p,
         float ndx, ndy, ndz;
         float ar = texr, ag = texg, ab = texb;
         bool scat_ok = true;
-        if (mat == 0) {  // lambertian: n + s
+        if (iso) {  // isotropic: along s, before the lambertian mat 0
+          ndx = sx;
+          ndy = sy;
+          ndz = sz;
+        } else if (mat == 0) {  // lambertian: n + s
           ndx = nx + sx;
           ndy = ny + sy;
           ndz = nz + sz;
@@ -258,7 +288,7 @@ __device__ unsigned long long trace_pixel(const Params& p,
   return nrays;
 }
 
-template <bool kRects, bool kTris, bool kVattrs, bool kImages>
+template <bool kRects, bool kTris, bool kVattrs, bool kImages, int kFeat>
 __global__ void __launch_bounds__(kThreads)
 render_kernel(Params p, float* __restrict__ out,
               unsigned long long* __restrict__ nrays_out, crt::Atlas atlas) {
@@ -266,7 +296,7 @@ render_kernel(Params p, float* __restrict__ out,
   const int y = blockIdx.y * kBlockY + threadIdx.y;
   unsigned long long rays = 0;
   if (x < p.width && y < p.height) {
-    rays = trace_pixel<kRects, kTris, kVattrs, kImages>(
+    rays = trace_pixel<kRects, kTris, kVattrs, kImages, kFeat>(
         p, atlas, x, y, out + 3 * (static_cast<size_t>(y) * p.width + x));
   }
   // block sum of the ray counts, one 64-bit atomic per block
@@ -284,21 +314,30 @@ render_kernel(Params p, float* __restrict__ out,
   }
 }
 
-template <bool kRects, bool kTris, bool kVattrs, bool kImages>
-void launch(const Params& p, const crt::Atlas& atlas, float* out,
-            unsigned long long* nrays, cudaStream_t st) {
+// Launch instantiation <R, T, V, I, F> if it is the one asked for.
+template <bool R, bool T, bool V, bool I, int F>
+bool launch_if(const int (&want)[5], const Params& p, const crt::Atlas& atlas,
+               float* out, unsigned long long* nrays, cudaStream_t st) {
+  if (want[0] != R || want[1] != T || want[2] != V || want[3] != I ||
+      want[4] != F) {
+    return false;
+  }
   const dim3 block(kBlockX, kBlockY);
   const dim3 grid((p.width + kBlockX - 1) / kBlockX,
                   (p.height + kBlockY - 1) / kBlockY);
-  render_kernel<kRects, kTris, kVattrs, kImages>
-      <<<grid, block, 0, st>>>(p, out, nrays, atlas);
+  render_kernel<R, T, V, I, F><<<grid, block, 0, st>>>(p, out, nrays, atlas);
+  return true;
 }
 
 }  // namespace
 
 // Plain C entry for ctypes.  ``nrays`` must be zeroed by the caller.
-// ``atlas``/``tex_hw`` (uint8[slots, ah, aw, 3], i32[slots, 2]) are read
-// only with has_images; has_vattrs needs has_tris.  Returns
+// (has_rects, has_tris, has_vattrs, has_images, features) name one
+// instantiation of variants.cuh exactly (ops/cuda/render_kernel.py::
+// render_variant picks it for a scene from the same list); any other
+// combination returns cudaErrorNotSupported
+// and launches nothing.  ``atlas``/``tex_hw`` (uint8[slots, ah, aw, 3],
+// i32[slots, 2]) are read only with has_images.  Returns
 // cudaGetLastError() after the launch.
 extern "C" int crt_render_sample(const float* S, const float* P,
                                  const float* clusters, const float* supers,
@@ -308,7 +347,8 @@ extern "C" int crt_render_sample(const float* S, const float* P,
                                  int height, int spp, int rr_start,
                                  int two_plane, float inv_w, float inv_h,
                                  int has_rects, int has_tris, int has_vattrs,
-                                 int has_images, const unsigned char* atlas,
+                                 int has_images, int features,
+                                 const unsigned char* atlas,
                                  const int* tex_hw, int slots, int ah,
                                  int aw, float* out,
                                  unsigned long long* nrays, void* stream) {
@@ -332,20 +372,13 @@ extern "C" int crt_render_sample(const float* S, const float* P,
   // that never read it
   const crt::Atlas at{atlas, tex_hw, slots, ah, aw};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // the instantiations scenes use: (rects, tris) of spheres only, +rects,
-  // +rects+tris, each with and without images; vertex attributes with tris
-  if (has_vattrs) {
-    if (has_images) launch<true, true, true, true>(p, at, out, nrays, st);
-    else launch<true, true, true, false>(p, at, out, nrays, st);
-  } else if (has_tris) {
-    if (has_images) launch<true, true, false, true>(p, at, out, nrays, st);
-    else launch<true, true, false, false>(p, at, out, nrays, st);
-  } else if (has_rects) {
-    if (has_images) launch<true, false, false, true>(p, at, out, nrays, st);
-    else launch<true, false, false, false>(p, at, out, nrays, st);
-  } else {
-    if (has_images) launch<false, false, false, true>(p, at, out, nrays, st);
-    else launch<false, false, false, false>(p, at, out, nrays, st);
-  }
+  const int want[5] = {has_rects != 0, has_tris != 0, has_vattrs != 0,
+                       has_images != 0, features};
+  // one launch_if per instantiation of variants.cuh, in its order
+#define CRT_LAUNCH(R, T, V, I, F) \
+  || launch_if<R != 0, T != 0, V != 0, I != 0, F>(want, p, at, out, nrays, st)
+  const bool launched = false CRT_RENDER_VARIANTS(CRT_LAUNCH);
+#undef CRT_LAUNCH
+  if (!launched) return static_cast<int>(cudaErrorNotSupported);
   return static_cast<int>(cudaGetLastError());
 }

@@ -34,6 +34,8 @@ constexpr uint32_t SLOT_SPH_Z = 5;
 constexpr uint32_t SLOT_SPH_PHI = 6;
 constexpr uint32_t SLOT_SPH_R = 7;
 constexpr uint32_t SLOT_RR = 8;
+constexpr uint32_t SLOT_MED = 9;
+constexpr uint32_t SLOT_TIME = 10;
 
 __device__ __forceinline__ uint32_t hash32(uint32_t x) {
   x ^= x >> 16;

@@ -2,26 +2,33 @@
 //
 // Replaces the search of the JAX megakernel,
 // cudaraytracer_tpu/ops/pallas/render_kernel.py::hierarchical_search
-// (:1084) with the per-primitive tests of _make_search_parts (:808), for
-// the branches without media or motion.  It computes
-// the same thing: superclusters gate clusters gate a 28-primitive loop,
-// with the same slab test as _box_any (:838-856, inverse direction
-// 1 / (d == 0 ? 1e-30 : d)), the same sphere test (:858-885: the o-c
-// quadratic with a == 1, sqrt(disc) as dpos * rsqrt(dpos), root choice
-// t0 > t_min ? t0 : nb + sq, and best_t as the upper window), the rect
-// test (:887-906) and the Havel-Herout triangle test (:908-928).  It
-// returns the packed column of the winner, or -1.  With kUV it also keeps
-// the winner's barycentrics (u, v) beside best_t, as the TPU search's
+// (:1084) with the per-primitive tests of _make_search_parts (:808).  It
+// computes the same thing: superclusters gate clusters gate a
+// 28-primitive loop, with the same slab test as _box_any (:838-856,
+// inverse direction 1 / (d == 0 ? 1e-30 : d)), the same sphere test
+// (:858-885: the o-c quadratic with a == 1, sqrt(disc) as
+// dpos * rsqrt(dpos), root choice t0 > t_min ? t0 : nb + sq, and best_t as
+// the upper window; with motion the centre at the path's time,
+// c + time * v), the rect test (:887-906), the Havel-Herout triangle test
+// (:908-928) and the constant-medium test (:930-1006).  It returns the
+// packed column of the winner, or -1.  With kUV it also keeps the
+// winner's barycentrics (u, v) beside best_t, as the TPU search's
 // carry_uv does (:1569) for vertex attributes and image textures on
 // triangles.
 //
-// closest_hit<kRects, kTris> mirrors the static flags has_rects/has_tris.
-// Without either, every cluster runs the sphere loop, as the sphere-only
-// branch always did.  With one, the cluster's kind row picks the loop as at
-// :1139-1168: 0 spheres, 1 rects, 2 mixed (the per-column S_PTYPE
-// dispatch of _dual_test :1008-1031), 3 triangles.  Triangle columns
-// overlay the rect rows of S (ops/cuda/tables.py S_NX = S_KAX, ...), so a
-// mixed column picks its test from S_PTYPE before it reads them.
+// closest_hit<kRects, kTris, kUV, kFeat> mirrors the static flags
+// has_rects/has_tris and, in kFeat (F_* below), has_media/has_boxm/
+// has_rotm/has_motion.  Without rects, triangles or media, every cluster
+// runs the sphere loop, as the sphere-only branch always did (a medium
+// sphere keeps S_R2 = r^2, so that loop would hit fog as a solid ball:
+// media scenes never take it).  Otherwise the cluster's kind row picks
+// the loop as at :1139-1168: 0 spheres, 1 rects, 2 mixed (the per-column
+// S_PTYPE dispatch of _dual_test :1008-1031), 3 triangles, 4 media (the
+// medium test with F_MEDIA; skipped with F_SKIP_MEDIA, the G-buffer's
+// pass, as the TPU kernel skips them without a medium uniform).  Without
+// a media flag a kind-4 cluster cannot occur.  Triangle columns overlay
+// the rect rows of S (ops/cuda/tables.py S_NX = S_KAX, ...), so a mixed
+// column picks its test from S_PTYPE before it reads them.
 //
 // What bounds it on the card: instruction issue.  Per ray it reads a few
 // kilobytes of table data that every thread of a warp reads at the same
@@ -44,11 +51,21 @@
 namespace crt {
 
 constexpr float kBig = 3.0e38f;
+// Feature bits of the static flags beyond (rects, tris, vattrs, images):
+// the kFeat template argument of the search and the image kernels
+// (ops/cuda/render_kernel.py FEATURES).  F_SKIP_MEDIA is the search's
+// own: kind-4 clusters are skipped, not tested.
+constexpr int F_NOISE = 1, F_MEDIA = 2, F_BOXM = 4, F_ROTM = 8,
+              F_MOTION = 16, F_SKIP_MEDIA = 32;
 // Rows of S (ops/cuda/tables.py S_*).  Triangles reuse the rect rows:
 // N = (KAX, AAX, BAX), n1 = (CX, CY, CZ), m2 = (CK, CA, CB).
 constexpr int S_CX = 0, S_CY = 1, S_CZ = 2, S_R2 = 3, S_PTYPE = 4, S_KAX = 5,
               S_CK = 6, S_CA = 7, S_CB = 8, S_HA = 9, S_HB = 10, S_AAX = 11,
               S_BAX = 12, S_DN = 13, S_D1 = 14, S_D2 = 15;
+// Medium columns (ptype 5): the density rides S_CK, a box's half-extents
+// S_HA/S_HB/S_CA (S_HA > 0 marks a box), a yawed box's cos/sin S_DN/S_D1.
+// Moving spheres: the velocity rides S_CK/S_CA/S_CB (zero when static).
+constexpr int S_DENS = S_CK, S_VX = S_CK, S_VY = S_CA, S_VZ = S_CB;
 
 struct SearchTables {
   const float* S;         // f32[16, np]
@@ -96,13 +113,22 @@ __device__ __forceinline__ bool box_hit(const float* __restrict__ box,
   return tfar > tnear;
 }
 
+// kMotion: the centre at the path's shutter time, c + time * v.
+template <bool kMotion>
 __device__ __forceinline__ void sphere_test(const float* __restrict__ S,
                                             int np, int j, const Ray& r,
-                                            float t_min, float& best_t,
-                                            int& best_j) {
-  const float ocx = r.ox - __ldg(S + S_CX * np + j);
-  const float ocy = r.oy - __ldg(S + S_CY * np + j);
-  const float ocz = r.oz - __ldg(S + S_CZ * np + j);
+                                            float t_min, float time,
+                                            float& best_t, int& best_j) {
+  float ocx, ocy, ocz;
+  if constexpr (kMotion) {
+    ocx = r.ox - (__ldg(S + S_CX * np + j) + time * __ldg(S + S_VX * np + j));
+    ocy = r.oy - (__ldg(S + S_CY * np + j) + time * __ldg(S + S_VY * np + j));
+    ocz = r.oz - (__ldg(S + S_CZ * np + j) + time * __ldg(S + S_VZ * np + j));
+  } else {
+    ocx = r.ox - __ldg(S + S_CX * np + j);
+    ocy = r.oy - __ldg(S + S_CY * np + j);
+    ocz = r.oz - __ldg(S + S_CZ * np + j);
+  }
   const float bq = ocx * r.dx + ocy * r.dy + ocz * r.dz;
   const float cq = ocx * ocx + ocy * ocy + ocz * ocz - __ldg(S + S_R2 * np + j);
   const float disc = bq * bq - cq;
@@ -181,16 +207,101 @@ __device__ __forceinline__ void tri_test(const float* __restrict__ S, int np,
   }
 }
 
+// Constant-density medium (RTOW ConstantMedium::Hit, closed form; JAX
+// _med_test :930-1006): the boundary chord (entry, exit) of the sphere
+// quadratic or, with kBox, of the box slabs about the centre (S_HA > 0
+// marks a box column), taken in the box's yaw frame with kRot (the ray
+// rotated into object space; rotation keeps lengths, so the t values
+// hold for the world ray).  The entry is max(t_near, t_min), so an origin
+// inside the medium scatters from t_min.  The scatter distance is
+// -log(max(u, 1e-12)) / density, with the column's uniform u =
+// frac(u_med + c . (0.7548777, 0.5698403, 0.3287281)) (a hash of the
+// centre, not of the column); it is a hit when it lies before the exit
+// and before best_t.
+template <bool kBox, bool kRot>
+__device__ __forceinline__ void medium_test(const float* __restrict__ S,
+                                            int np, int j, const Ray& r,
+                                            float t_min, float u_med,
+                                            float& best_t, int& best_j) {
+  constexpr float kHx = static_cast<float>(0.7548777);
+  constexpr float kHy = static_cast<float>(0.5698403);
+  constexpr float kHz = static_cast<float>(0.3287281);
+  const float cx = __ldg(S + S_CX * np + j);
+  const float cy = __ldg(S + S_CY * np + j);
+  const float cz = __ldg(S + S_CZ * np + j);
+  const float ocx = r.ox - cx;
+  const float ocy = r.oy - cy;
+  const float ocz = r.oz - cz;
+  const float bq = ocx * r.dx + ocy * r.dy + ocz * r.dz;
+  const float cq = ocx * ocx + ocy * ocy + ocz * ocz - __ldg(S + S_R2 * np + j);
+  const float disc = bq * bq - cq;
+  const float dpos = fmaxf(disc, 1e-30f);
+  const float sq = dpos * (1.0f / sqrtf(dpos));
+  const float t0 = -bq - sq;
+  const float t1 = -bq + sq;
+  float te, tex;
+  bool valid;
+  if constexpr (kBox) {
+    const float ha = __ldg(S + S_HA * np + j);
+    const float hb = __ldg(S + S_HB * np + j);
+    const float hc = __ldg(S + S_CA * np + j);
+    float bx0, bx1, by0, by1, bz0, bz1;
+    if constexpr (kRot) {
+      const float cyr = __ldg(S + S_DN * np + j);
+      const float syr = __ldg(S + S_D1 * np + j);
+      const float rox = cyr * ocx - syr * ocz;
+      const float roy = ocy;
+      const float roz = syr * ocx + cyr * ocz;
+      const float rdx = cyr * r.dx - syr * r.dz;
+      const float rdz = syr * r.dx + cyr * r.dz;
+      const float ivx = 1.0f / (rdx == 0.0f ? 1e-30f : rdx);
+      const float ivz = 1.0f / (rdz == 0.0f ? 1e-30f : rdz);
+      bx0 = (-ha - rox) * ivx;
+      bx1 = (ha - rox) * ivx;
+      by0 = (-hb - roy) * r.ivy;
+      by1 = (hb - roy) * r.ivy;
+      bz0 = (-hc - roz) * ivz;
+      bz1 = (hc - roz) * ivz;
+    } else {
+      bx0 = (cx - ha - r.ox) * r.ivx;
+      bx1 = (cx + ha - r.ox) * r.ivx;
+      by0 = (cy - hb - r.oy) * r.ivy;
+      by1 = (cy + hb - r.oy) * r.ivy;
+      bz0 = (cz - hc - r.oz) * r.ivz;
+      bz1 = (cz + hc - r.oz) * r.ivz;
+    }
+    const float tn = fmaxf(fmaxf(fminf(bx0, bx1), fminf(by0, by1)),
+                           fminf(bz0, bz1));
+    const float tf = fminf(fminf(fmaxf(bx0, bx1), fmaxf(by0, by1)),
+                           fmaxf(bz0, bz1));
+    const bool is_box = ha > 0.0f;
+    te = fmaxf(is_box ? tn : t0, t_min);
+    tex = is_box ? tf : t1;
+    valid = is_box ? (tf > te) : (disc > 0.0f && t1 > te);
+  } else {
+    te = fmaxf(t0, t_min);
+    tex = t1;
+    valid = disc > 0.0f && t1 > te;
+  }
+  float uj = u_med + (cx * kHx + cy * kHy + cz * kHz);
+  uj = uj - floorf(uj);
+  const float t_c = te + -logf(fmaxf(uj, 1e-12f)) / __ldg(S + S_DENS * np + j);
+  if (valid && t_c < tex && t_c < best_t) {
+    best_t = t_c;
+    best_j = j;
+  }
+}
+
 // A column of a mixed cluster: its S_PTYPE picks the test.  Rects are
 // ptypes 1-3 only, so a ptype-5 medium never fakes a rect hit.
-template <bool kTris, bool kUV>
+template <bool kTris, bool kUV, bool kMotion>
 __device__ __forceinline__ void dual_test(const float* __restrict__ S, int np,
                                           int j, const Ray& r, float t_min,
-                                          float& best_t, int& best_j,
-                                          Bary& bc) {
+                                          float time, float& best_t,
+                                          int& best_j, Bary& bc) {
   const float ptype = __ldg(S + S_PTYPE * np + j);
   if (ptype < 0.5f) {
-    sphere_test(S, np, j, r, t_min, best_t, best_j);
+    sphere_test<kMotion>(S, np, j, r, t_min, time, best_t, best_j);
   } else if (ptype < 3.5f) {
     rect_test(S, np, j, r, t_min, best_t, best_j);
   } else if (kTris) {
@@ -199,11 +310,20 @@ __device__ __forceinline__ void dual_test(const float* __restrict__ S, int np,
 }
 
 // Closest hit in (t_min, best_t); updates best_t (and with kUV the
-// winner's barycentrics bc), returns the column or -1.
-template <bool kRects, bool kTris, bool kUV>
+// winner's barycentrics bc), returns the column or -1.  u_med is the
+// iteration's medium uniform (F_MEDIA), time the path's shutter time
+// (F_MOTION); neither is read without its flag.
+template <bool kRects, bool kTris, bool kUV, int kFeat = 0>
 __device__ __forceinline__ int closest_hit(const SearchTables& tb,
                                            const Ray& r, float t_min,
-                                           float& best_t, Bary& bc) {
+                                           float& best_t, Bary& bc,
+                                           float u_med = 0.0f,
+                                           float time = 0.0f) {
+  constexpr bool kMotion = (kFeat & F_MOTION) != 0;
+  constexpr bool kMedTest = (kFeat & F_MEDIA) != 0;
+  constexpr bool kMedia = kMedTest || (kFeat & F_SKIP_MEDIA) != 0;
+  constexpr bool kBox = (kFeat & F_BOXM) != 0;
+  constexpr bool kRot = (kFeat & F_ROTM) != 0;
   int best_j = -1;
   for (int si = 0; si < tb.n_super; ++si) {
     if (!box_hit(tb.supers, tb.nsc, si, r, t_min, best_t)) continue;
@@ -212,25 +332,34 @@ __device__ __forceinline__ int closest_hit(const SearchTables& tb,
       if (!box_hit(tb.clusters, tb.nc, ci, r, t_min, best_t)) continue;
       const int j0 = ci * tb.cluster;
       const int j_end = j0 + tb.cluster;
-      if (!(kRects || kTris)) {
+      if constexpr (!(kRects || kTris || kMedia)) {
         for (int j = j0; j < j_end; ++j) {
-          sphere_test(tb.S, tb.np, j, r, t_min, best_t, best_j);
+          sphere_test<kMotion>(tb.S, tb.np, j, r, t_min, time, best_t,
+                               best_j);
         }
         continue;
       }
       const float kind = __ldg(tb.clusters + 6 * tb.nc + ci);
       if (kind < 0.5f) {
         for (int j = j0; j < j_end; ++j) {
-          sphere_test(tb.S, tb.np, j, r, t_min, best_t, best_j);
+          sphere_test<kMotion>(tb.S, tb.np, j, r, t_min, time, best_t,
+                               best_j);
         }
       } else if (kind < 1.5f) {
         for (int j = j0; j < j_end; ++j) {
           rect_test(tb.S, tb.np, j, r, t_min, best_t, best_j);
         }
+      } else if (kMedia && kind > 3.5f) {
+        if constexpr (kMedTest) {
+          for (int j = j0; j < j_end; ++j) {
+            medium_test<kBox, kRot>(tb.S, tb.np, j, r, t_min, u_med, best_t,
+                                    best_j);
+          }
+        }
       } else if (!kTris || kind < 2.5f) {
         for (int j = j0; j < j_end; ++j) {
-          dual_test<kTris, kUV>(tb.S, tb.np, j, r, t_min, best_t, best_j,
-                                bc);
+          dual_test<kTris, kUV, kMotion>(tb.S, tb.np, j, r, t_min, time,
+                                         best_t, best_j, bc);
         }
       } else {
         for (int j = j0; j < j_end; ++j) {
@@ -242,7 +371,8 @@ __device__ __forceinline__ int closest_hit(const SearchTables& tb,
   return best_j;
 }
 
-// The search without the barycentrics.
+// The search without the barycentrics or a feature flag (the closest-hit
+// kernel).
 template <bool kRects, bool kTris>
 __device__ __forceinline__ int closest_hit(const SearchTables& tb,
                                            const Ray& r, float t_min,

@@ -1,22 +1,28 @@
 // What the megakernel and the G-buffer kernel share around the search:
 // the primary ray, the winner's normal and texture color, and the sky.
 //
-// Each function is the JAX megakernel's code for the branches without
-// noise, media or motion (cudaraytracer_tpu/ops/pallas/render_kernel.py):
-// raygen :1491-1539, the PACKC unpack :1811-1835, the normal :1838-1911
-// (with the smooth vertex-attribute normal :1880-1905), the sky
-// :1914-1921, the constant/checker texture :1942-1947 and the image
-// texture's uv :1983-2028.  The image texel itself is read here at every
-// hit, as the XLA renderer does (ops/textures.py:53-81), where the TPU
-// kernel deferred it into per-lane records and an XLA epilogue.  The plain
-// PyTorch versions (ops/cuda/render_kernel.py, ops/textures.py) repeat
-// them operation for operation; built with -fmad=false the two round
-// alike, except where atan2f/acosf and PyTorch's atan2/acos differ in a
-// last bit.
+// Each function is the JAX megakernel's code
+// (cudaraytracer_tpu/ops/pallas/render_kernel.py): raygen :1491-1539, the
+// PACKC unpack :1811-1835, the normal :1838-1911 (with the smooth
+// vertex-attribute normal :1880-1905 and the moving sphere's centre at
+// the path's time :1847-1853), the sky :1914-1921, the constant/checker
+// texture :1942-1947, the marble noise texture :1949-1961 (ops/noise.py)
+// and the image texture's uv :1983-2028.  The image texel itself is read
+// here at every hit, as the XLA renderer does (ops/textures.py:53-81),
+// where the TPU kernel deferred it into per-lane records and an XLA
+// epilogue; a medium hit reads it at uv (0, 0), the XLA renderer's
+// medium record (ops/intersect.py:717-728), where the TPU kernel shaded
+// it with the atlas mean.  The plain PyTorch versions
+// (ops/cuda/render_kernel.py, ops/textures.py, ops/noise.py) repeat them
+// operation for operation; built with -fmad=false the two round alike,
+// except where atan2f/acosf and PyTorch's atan2/acos differ in a last
+// bit.
 #pragma once
 
 #include <cstddef>
 #include <cstdint>
+
+#include "search.cuh"
 
 namespace crt {
 
@@ -30,6 +36,12 @@ constexpr int P_CX = 0, P_CY = 1, P_CZ = 2, P_MPARAM = 3, P_PACKA = 4,
 // First vertex-attribute row of P: image scenes are packed with_uv.
 __host__ __device__ constexpr int vn_base_for(bool images) {
   return images ? P_ROWS_UV : P_ROWS;
+}
+
+// First velocity row of P (motion scenes): after the vertex-attribute
+// rows, three of them, and six uv rows with images (tables.p_rows_for).
+__host__ __device__ constexpr int vel_base_for(bool images, bool vattrs) {
+  return vn_base_for(images) + (vattrs ? (images ? 9 : 3) : 0);
 }
 
 // Constants rounded from double exactly as Python rounds them to float32.
@@ -100,7 +112,9 @@ __device__ __forceinline__ void primary_ray(
 
 // Unit normal of column j at its hit point p, as the megakernel shades it.
 // Spheres: (p - c)/r with the SIGNED radius (Hittable.cuh:96, PACKC bit
-// 7).  kFlat (has_rects or has_tris): a rect's outward normal is the
+// 7), with kMotion the centre at the path's time, c + time * v (velocity
+// rows from vel_base; zero for static spheres).  kFlat (has_rects or
+// has_tris): a rect's outward normal is the
 // one-hot k axis of its PACKC ptype (bits 4-6: 1 XY -> z, 2 XZ -> y,
 // 3 YZ -> x), a triangle's (ptype 4) the unit normal in payload rows
 // CX..CZ; both get the SetFaceNormal flip against d.  kVattrs: a triangle
@@ -109,18 +123,30 @@ __device__ __forceinline__ void primary_ray(
 // barycentrics (bu, bv) and renormalized; the flip stays the one of the
 // face normal, so the smooth normal may point below the surface, as in
 // the JAX kernel.
-template <bool kFlat, bool kVattrs>
+template <bool kFlat, bool kVattrs, bool kMotion = false>
 __device__ __forceinline__ void hit_normal(const float* __restrict__ P,
                                            int np, int j, int packc,
                                            float px, float py, float pz,
                                            float dx, float dy, float dz,
                                            float& nx, float& ny, float& nz,
-                                           int vn_base, float bu, float bv) {
+                                           int vn_base, float bu, float bv,
+                                           int vel_base = 0,
+                                           float time = 0.0f) {
   const int ptype = (packc >> 4) & 7;
   if (!kFlat || ptype == 0) {
-    const float ncx = px - __ldg(P + P_CX * np + j);
-    const float ncy = py - __ldg(P + P_CY * np + j);
-    const float ncz = pz - __ldg(P + P_CZ * np + j);
+    float ncx, ncy, ncz;
+    if constexpr (kMotion) {
+      ncx = px - (__ldg(P + P_CX * np + j) +
+                  time * __ldg(P + vel_base * np + j));
+      ncy = py - (__ldg(P + P_CY * np + j) +
+                  time * __ldg(P + (vel_base + 1) * np + j));
+      ncz = pz - (__ldg(P + P_CZ * np + j) +
+                  time * __ldg(P + (vel_base + 2) * np + j));
+    } else {
+      ncx = px - __ldg(P + P_CX * np + j);
+      ncy = py - __ldg(P + P_CY * np + j);
+      ncz = pz - __ldg(P + P_CZ * np + j);
+    }
     float rinv = rsqrt_(fmaxf(ncx * ncx + ncy * ncy + ncz * ncz, 1e-20f));
     if ((packc >> 7) & 1) rinv = -rinv;
     nx = ncx * rinv;
@@ -177,14 +203,17 @@ __device__ __forceinline__ void texture_rgb(int packc, int pa, int pb,
 // within the extents along the a/b axes (XY: x, y; XZ: x, z; YZ: y, z),
 // from the half-extent rows P_HA/P_HB.  Triangles: uv0 + bu*duv1 +
 // bv*duv2 from the uv rows after the vertex normals (kVattrs), or the raw
-// barycentrics (bu, bv).
-template <bool kRects, bool kTris, bool kVattrs>
+// barycentrics (bu, bv).  Media (kMedia, ptype 5): (0, 0).
+template <bool kRects, bool kTris, bool kVattrs, bool kMedia = false>
 __device__ __forceinline__ void hit_uv(const float* __restrict__ P, int np,
                                        int j, int ptype, float px, float py,
                                        float pz, float snx, float sny,
                                        float snz, int vn_base, float bu,
                                        float bv, float& uu, float& vv) {
-  if (kTris && ptype == 4) {
+  if (kMedia && ptype == 5) {
+    uu = 0.0f;
+    vv = 0.0f;
+  } else if (kTris && ptype == 4) {
     if (kVattrs) {
       const float* __restrict__ uv = P + (vn_base + 3) * np + j;
       uu = __ldg(uv) + bu * __ldg(uv + 2 * np) + bv * __ldg(uv + 4 * np);
@@ -245,11 +274,74 @@ __device__ __forceinline__ void image_rgb(const Atlas& at, int tid, float uu,
   b = static_cast<float>(__ldg(t + 2)) * kInv255;
 }
 
-// The winner's texture color: texture_rgb, and with kImages the atlas
-// texel for an image-textured primitive (PACKC texture type 2; its
-// tex_id + 1 rides PACKC bits 8 and up).  sn is the sphere's outward
-// normal (the normal hit_normal gives a sphere).
-template <bool kRects, bool kTris, bool kVattrs, bool kImages>
+// Noise lattice constants (ops/noise.py), rounded from double exactly as
+// Python rounds them to float32.
+constexpr float kNoiseKx = static_cast<float>(127.1);
+constexpr float kNoiseKy = static_cast<float>(311.7);
+constexpr float kNoiseKz = static_cast<float>(74.7);
+constexpr float kNoiseAmp = static_cast<float>(43758.5453);
+constexpr int kTurbOctaves = 7;
+
+// x mod 61 by a TRUE division (x * fl(1/61) rounds just below k at
+// multiples of 61 and would break the tiling): exact for integer lattice
+// coordinates below 2^24.
+__device__ __forceinline__ float wrap61(float x) {
+  return x - floorf(x / 61.0f) * 61.0f;
+}
+
+// Value in [0, 1) of lattice cell (ix, iy, iz): fract(sin(dot) * amp).
+__device__ __forceinline__ float lattice_hash(float ix, float iy, float iz) {
+  const float s = sinf(wrap61(ix) * kNoiseKx + wrap61(iy) * kNoiseKy +
+                       wrap61(iz) * kNoiseKz) *
+                  kNoiseAmp;
+  return s - floorf(s);
+}
+
+// Trilinear value noise with the smoothstep fade (ops/noise.py, same
+// operation order).
+__device__ __forceinline__ float value_noise(float px, float py, float pz) {
+  const float ix = floorf(px), iy = floorf(py), iz = floorf(pz);
+  const float fx = px - ix, fy = py - iy, fz = pz - iz;
+  const float ux = fx * fx * (3.0f - 2.0f * fx);
+  const float uy = fy * fy * (3.0f - 2.0f * fy);
+  const float uz = fz * fz * (3.0f - 2.0f * fz);
+  const float ix1 = ix + 1.0f, iy1 = iy + 1.0f, iz1 = iz + 1.0f;
+  const float h000 = lattice_hash(ix, iy, iz);
+  const float h010 = lattice_hash(ix, iy1, iz);
+  const float h001 = lattice_hash(ix, iy, iz1);
+  const float h011 = lattice_hash(ix, iy1, iz1);
+  const float c00 = h000 + ux * (lattice_hash(ix1, iy, iz) - h000);
+  const float c10 = h010 + ux * (lattice_hash(ix1, iy1, iz) - h010);
+  const float c01 = h001 + ux * (lattice_hash(ix1, iy, iz1) - h001);
+  const float c11 = h011 + ux * (lattice_hash(ix1, iy1, iz1) - h011);
+  const float c0 = c00 + uy * (c10 - c00);
+  const float c1 = c01 + uy * (c11 - c01);
+  return c0 + uz * (c1 - c0);
+}
+
+// Marble factor 0.5 * (1 + sin(scale * z + 10 * turb(p))), turb the
+// |sum| of seven octaves (halved weight, doubled frequency).  The octave
+// loop is not unrolled: each octave is eight sinf calls.
+static __device__ __noinline__ float marble_factor(float px, float py,
+                                                   float pz, float scale) {
+  float acc = 0.0f, w = 1.0f, x = px, y = py, z = pz;
+#pragma unroll 1
+  for (int o = 0; o < kTurbOctaves; ++o) {
+    acc = acc + w * (2.0f * value_noise(x, y, z) - 1.0f);
+    w = w * 0.5f;
+    x = x * 2.0f;
+    y = y * 2.0f;
+    z = z * 2.0f;
+  }
+  return 0.5f * (1.0f + sinf(scale * pz + 10.0f * fabsf(acc)));
+}
+
+// The winner's texture color: texture_rgb; with kImages the atlas texel
+// for an image-textured primitive (PACKC texture type 2; its tex_id + 1
+// rides PACKC bits 8 and up); with F_NOISE the marble lerp(albedo2,
+// albedo, factor) for texture type 3, its scale max(tex_id, 1).  sn is
+// the sphere's outward normal (the normal hit_normal gives a sphere).
+template <bool kRects, bool kTris, bool kVattrs, bool kImages, int kFeat = 0>
 __device__ __forceinline__ void surface_rgb(
     const float* __restrict__ P, int np, int j, int packc, int pa, int pb,
     float px, float py, float pz, float snx, float sny, float snz,
@@ -258,9 +350,22 @@ __device__ __forceinline__ void surface_rgb(
   texture_rgb(packc, pa, pb, px, py, pz, r, g, b);
   if (kImages && ((packc >> 2) & 3) == 2) {
     float uu, vv;
-    hit_uv<kRects, kTris, kVattrs>(P, np, j, (packc >> 4) & 7, px, py, pz,
-                                   snx, sny, snz, vn_base, bu, bv, uu, vv);
+    hit_uv<kRects, kTris, kVattrs, (kFeat & F_MEDIA) != 0>(
+        P, np, j, (packc >> 4) & 7, px, py, pz, snx, sny, snz, vn_base, bu,
+        bv, uu, vv);
     image_rgb(at, (packc >> 8) - 1, uu, vv, r, g, b);
+  }
+  if constexpr ((kFeat & F_NOISE) != 0) {
+    if (((packc >> 2) & 3) == 3) {
+      const float fac = marble_factor(
+          px, py, pz, static_cast<float>(max((packc >> 8) - 1, 1)));
+      float ar, ag, ab, a2r, a2g, a2b;
+      unpack_rgb(pa, ar, ag, ab);
+      unpack_rgb(pb, a2r, a2g, a2b);
+      r = a2r + fac * (ar - a2r);
+      g = a2g + fac * (ag - a2g);
+      b = a2b + fac * (ab - a2b);
+    }
   }
 }
 

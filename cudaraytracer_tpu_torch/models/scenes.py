@@ -5,9 +5,11 @@ host code, so the builders are the same functions and produce the same
 arrays).  ``rtow_final`` is the main path: the "Ray Tracing in One
 Weekend" final scene (~488 spheres, checkered ground).  The mesh and
 image-texture scenes (``rtow_image``, ``mirror_room``, ``mesh_demo``,
-``mesh_smooth``, ``terrain``, ``terrain_big``) and OBJ import
-(``register_obj_scene``) are here; ``book2_final`` waits for the noise,
-media and motion branches.
+``mesh_smooth``, ``terrain``, ``terrain_big``), OBJ import
+(``register_obj_scene``), the noise, media and motion scenes (``marble``,
+``smoke``, ``cornell_smoke``, ``bounce``), ``book2_final`` (every feature
+of the scene model in one render) and the unregistered
+``all_feature_probe_scene`` are here.
 """
 
 from __future__ import annotations
@@ -620,6 +622,111 @@ def bounce_camera(**kw):
                               **kw)
 
 
+def book2_final_scene(seed: int = 1984, capacity: int = 8192,
+                      boxes_per_side: int = 20,
+                      cluster_spheres: int = 1000) -> Scene:
+    """The RTOW book-2 FINAL scene at 1/100 of the book's scale (the JAX
+    package's builder): a 20x20 ground of random-height boxes merged into
+    one 4,800-triangle mesh, the overhead xz rect light, a moving sphere,
+    a glass and a brushed-metal ball, a blue subsurface ball (a glass
+    boundary around a dense medium), a whole-scene thin fog sphere
+    (r = 50, around the camera), the procedural-globe image sphere, a
+    marble noise sphere and a box of ~1000 small white spheres (placed
+    axis-aligned).  Rects, triangles, images, noise, media and motion in
+    one render: 5,809 primitives."""
+    from ..utils import mesh
+
+    rnd = np.random.RandomState(seed).random_sample
+    scene = Scene(capacity=capacity, background_start=(0.0, 0.0, 0.0),
+                  background_end=(0.0, 0.0, 0.0))
+
+    # ground: boxes_per_side^2 random-height boxes, merged into one mesh
+    bv, bf = mesh.box((1.0, 1.0, 1.0))  # unit box centered at origin
+    verts, faces = [], []
+    for i in range(boxes_per_side):
+        for j in range(boxes_per_side):
+            x0 = -10.0 + i
+            z0 = -10.0 + j
+            y1 = 0.01 + rnd()
+            v = bv * np.array([1.0, y1, 1.0], np.float32) + np.array(
+                [x0 + 0.5, y1 * 0.5, z0 + 0.5], np.float32)
+            faces.append(bf + 8 * len(verts))
+            verts.append(v)
+    scene.add_mesh(np.concatenate(verts), np.concatenate(faces),
+                   mat_type=LAMBERTIAN, albedo=(0.48, 0.83, 0.53))
+
+    # the book's light: xz rect (123,554,147)-(423,554,412), /100
+    scene.add_xz_rect((2.73, 5.54, 2.795), 3.0, 2.65,
+                      mat_type=DIFFUSE_LIGHT, albedo=(1.0, 1.0, 1.0),
+                      light=7.0)
+
+    # moving sphere: center (400,400,200) + (30,0,0), r=50
+    scene.add_moving_sphere((4.0, 4.0, 2.0), (4.3, 4.0, 2.0), 0.5,
+                            mat_type=LAMBERTIAN, albedo=(0.7, 0.3, 0.1))
+    scene.add_sphere((2.6, 1.5, 0.45), 0.5, mat_type=DIELECTRIC, ior=1.5)
+    scene.add_sphere((0.0, 1.5, 1.45), 0.5, mat_type=METAL,
+                     albedo=(0.8, 0.8, 0.9), fuzz=1.0)
+
+    # blue subsurface ball: glass boundary + interior medium (book
+    # density 0.2 at scale 100 -> 20 after the 1/100 rescale)
+    scene.add_sphere((3.6, 1.5, 1.45), 0.7, mat_type=DIELECTRIC, ior=1.5)
+    scene.add_medium_sphere((3.6, 1.5, 1.45), 0.69, density=20.0,
+                            albedo=(0.2, 0.4, 0.9))
+    # whole-scene thin white fog (book r=5000 density 1e-4 -> r=50, 0.01)
+    scene.add_medium_sphere((0.0, 0.0, 0.0), 50.0, density=0.01,
+                            albedo=(1.0, 1.0, 1.0))
+
+    # the earth (image texture) and the marble (noise) spheres
+    slot = scene.load_image_texture(procedural_globe_image())
+    scene.add_sphere((4.0, 2.0, 4.0), 1.0, mat_type=LAMBERTIAN,
+                     tex_type=IMAGE, tex_id=slot)
+    scene.add_sphere((2.2, 2.8, 3.0), 0.8, mat_type=LAMBERTIAN,
+                     albedo=(0.95, 0.95, 0.95), albedo2=(0.08, 0.08, 0.1),
+                     tex_type=NOISE, tex_id=4)
+
+    # the box of ~1000 small white spheres (book: 165^3 at (-100,270,395))
+    for _ in range(cluster_spheres):
+        c = (np.array([-1.0, 2.7, 3.95])
+             + 1.65 * np.array([rnd(), rnd(), rnd()]))
+        scene.add_sphere(c, 0.1, mat_type=LAMBERTIAN,
+                         albedo=(0.73, 0.73, 0.73))
+    return scene
+
+
+def book2_final_camera(**kw):
+    """The book's camera: lookfrom (478,278,-600) at (278,278,0), vfov 40."""
+    lookfrom = np.array([4.78, 2.78, -6.0])
+    lookat = np.array([2.78, 2.78, 0.0])
+    forward = lookat - lookfrom
+    forward = forward / np.linalg.norm(forward)
+    return make_camera_params(origin=tuple(lookfrom), forward=tuple(forward),
+                              fov_deg=40.0, **kw)
+
+
+def all_feature_probe_scene(capacity: int = 64) -> Scene:
+    """One small scene whose tables need every static flag of the scene
+    model together (the JAX package's probe, whose NEE flag is a render
+    option): emissive rects, a marble sphere, a moving sphere, a medium
+    sphere and a yaw-rotated medium box over a floor.  Unregistered: a
+    probe, not a gallery scene; view it with cornell_like_camera() and
+    the two_plane model."""
+    sc = Scene(capacity=capacity, background_start=(0, 0, 0),
+               background_end=(0, 0, 0))
+    sc.add_xz_rect((0, 6, 0), 2.0, 2.0, mat_type=DIFFUSE_LIGHT, light=5.0)
+    sc.add_xy_rect((3.0, 2.5, -3.0), 1.0, 1.0, mat_type=DIFFUSE_LIGHT,
+                   light=3.0)
+    sc.add_xz_rect((0, 0, 0), 20.0, 20.0, albedo=(0.6, 0.6, 0.6))
+    sc.add_sphere((-1.5, 1.0, -2.0), 1.0, albedo=(0.7, 0.4, 0.3),
+                  tex_type=NOISE, tex_id=2)
+    sc.add_moving_sphere((1.5, 1.0, -2.0), (1.8, 1.0, -2.0), 0.8,
+                         albedo=(0.3, 0.5, 0.8))
+    sc.add_medium_sphere((0.0, 1.0, 0.5), 0.9, density=0.8,
+                         albedo=(0.9, 0.9, 0.9))
+    sc.add_medium_box((0.0, 1.0, -4.0), (2.0, 2.0, 2.0), density=1.0,
+                      yaw=0.3, albedo=(0.2, 0.2, 0.2))
+    return sc
+
+
 SCENES = {
     "default": (default_scene, default_scene_camera),
     "rtow_final": (rtow_final_scene, rtow_final_camera),
@@ -636,6 +743,7 @@ SCENES = {
     "smoke": (smoke_scene, smoke_camera),
     "cornell_smoke": (cornell_smoke_scene, cornell_smoke_camera),
     "bounce": (bounce_scene, bounce_camera),
+    "book2_final": (book2_final_scene, book2_final_camera),
 }
 
 # Each registered camera was authored for one projection model; rendering
@@ -657,6 +765,7 @@ CAMERA_MODELS = {
     "mesh_smooth": "look_at",
     "terrain": "look_at",
     "terrain_big": "look_at",
+    "book2_final": "look_at",
 }
 
 

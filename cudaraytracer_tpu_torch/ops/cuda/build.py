@@ -21,6 +21,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -28,8 +29,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "cudaraytracer_tpu_torch"
-SOURCES = ("rng.cuh", "search.cuh", "surface.cuh", "hit_kernel.cu",
-           "render_kernel.cu", "gbuffer_kernel.cu")
+SOURCES = ("rng.cuh", "search.cuh", "surface.cuh", "variants.cuh",
+           "hit_kernel.cu", "render_kernel.cu", "gbuffer_kernel.cu")
 CU_FILES = ("hit_kernel.cu", "render_kernel.cu", "gbuffer_kernel.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -47,15 +48,29 @@ SIGNATURES = {
                         _f, _i, _i, _p, _p, _p],
     "crt_render_sample": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p,
                           ctypes.c_uint32, _i, _i, _i, _i, _i, _i, _f, _f,
-                          _i, _i, _i, _i, _p, _p, _i, _i, _i, _p, _p, _p],
+                          _i, _i, _i, _i, _i, _p, _p, _i, _i, _i, _p, _p,
+                          _p],
     "crt_gbuffer": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p, _i, _i, _i,
-                    _f, _f, _i, _i, _i, _i, _p, _p, _i, _i, _i, _p, _p, _p,
-                    _p],
+                    _f, _f, _i, _i, _i, _i, _i, _p, _p, _i, _i, _i, _p, _p,
+                    _p, _p],
 }
 
 
 class BuildError(RuntimeError):
     """nvcc is missing or refused the kernel sources."""
+
+
+def variants(name: str) -> tuple:
+    """The (rects, tris, vattrs, images, feature bits) tuples of the
+    instantiation list ``name`` (``CRT_RENDER_VARIANTS``,
+    ``CRT_GBUFFER_VARIANTS``) in csrc/variants.cuh, in its order: the
+    combinations the .cu files expand into their launch chains."""
+    text = (CSRC / "variants.cuh").read_text()
+    m = re.search(rf"^#define {name}\(X\)((?:.*\\\n)*.*)$", text, re.M)
+    if m is None:
+        raise BuildError(f"{name} not found in {CSRC / 'variants.cuh'}")
+    return tuple(tuple(int(v) for v in x) for x in re.findall(
+        r"X\((\d+), (\d+), (\d+), (\d+), (\d+)\)", m.group(1)))
 
 
 def source_hash() -> str:

@@ -2,11 +2,17 @@
 
 Port of ``cudaraytracer_tpu/ops/pallas/gbuffer_kernel.py::pallas_gbuffer``
 for the resident tables with the flags ``has_rects``/``has_tris``/
-``has_vattrs`` and image textures (an ``atlas``), and no noise, media or
-motion branch.  ``gbuffer`` returns a ``GBuffer`` (normal f32[H,W,3],
-albedo f32[H,W,3], depth f32[H,W]) from pixel-centre pinhole rays, with
-the semantics of the JAX package's ``ops.gbuffer.primary_features``: an
-image hit's albedo is its texel.
+``has_vattrs``, image textures (an ``atlas``), ``has_noise`` (the marble
+albedo), ``has_media`` (medium clusters are skipped: fog has no feature
+surface) and ``has_motion`` (the velocity rows are accepted and moving
+spheres sit at shutter-open, time 0, as in the JAX G-buffer; box and
+rotated media change nothing here).  ``gbuffer`` returns a ``GBuffer``
+(normal f32[H,W,3], albedo f32[H,W,3], depth f32[H,W]) from
+pixel-centre pinhole rays, with the semantics of the JAX package's
+``ops.gbuffer.primary_features``: an image hit's albedo is its texel.
+The kernel is compiled for ``GBUFFER_VARIANTS``, resolved as the
+megakernel's (``render_kernel.resolve_variant``) on its noise and media
+bits.
 
 * CUDA tensors launch ``csrc/gbuffer_kernel.cu``, one thread per pixel.
 * CPU tensors run ``gbuffer_plain``: the same rays, the brute-force search
@@ -27,32 +33,51 @@ import torch
 from ..gbuffer import GBuffer
 from . import build
 from .hit_kernel import brute_closest, search_work
-from .render_kernel import (atlas_args, check_frame_args, hit_normal,
-                            primary_rays, sky_rgb, surface_rgb)
+from .render_kernel import (F_MEDIA, F_NOISE, atlas_args, check_frame_args,
+                            feature_bits, hit_normal, primary_rays,
+                            resolve_variant, sky_rgb, surface_rgb)
 from .tables import BIG, CLUSTER, P_PACKA, P_PACKB, P_PACKC, SUPER, vn_base_for
 
 # Float operations outside the search, counted from
 # csrc/gbuffer_kernel.cu: a pixel-centre ray, a hit (point, normal, the
 # front-facing flip, texture), a miss (sky), and as in the megakernel
-# (render_kernel.SHADE_OPS) a smooth normal and an image lookup.
+# (render_kernel.SHADE_OPS) a smooth normal, an image lookup and a marble
+# texture.
 GBUFFER_OPS = {"raygen": 45, "hit": 40, "miss": 14, "smooth": 50,
-               "image": 20}
+               "image": 20, "noise": 1680}
+# (rects, tris, vattrs, images, feature bits) of csrc/gbuffer_kernel.cu's
+# instantiations, as csrc/variants.cuh lists them; only the noise and
+# media bits change its code
+GBUFFER_VARIANTS = build.variants("CRT_GBUFFER_VARIANTS")
+
+
+def gbuffer_variant(has_rects=False, has_tris=False, has_vattrs=False,
+                    has_images=False, **feat) -> tuple:
+    """The G-buffer instantiation for these flags (``feat``: the
+    ``has_noise``/``has_media``/... keywords; only noise and media
+    count); ``NotImplementedError`` when none serves them."""
+    return resolve_variant(GBUFFER_VARIANTS, "G-buffer kernel", has_rects,
+                           has_tris, has_vattrs, has_images,
+                           feature_bits(**feat) & (F_NOISE | F_MEDIA))
 
 
 def gbuffer_plain(S, P, clusters, supers, n_super, cam_vec, *, width: int,
                   height: int, camera_model: str = "look_at",
                   has_rects: bool = False, has_tris: bool = False,
-                  has_vattrs: bool = False, atlas=None, tex_hw=None,
-                  cluster: int = CLUSTER, super_: int = SUPER,
-                  work: dict | None = None) -> GBuffer:
+                  has_vattrs: bool = False, has_noise: bool = False,
+                  has_media: bool = False, has_boxm: bool = False,
+                  has_rotm: bool = False, has_motion: bool = False,
+                  atlas=None, tex_hw=None, cluster: int = CLUSTER,
+                  super_: int = SUPER, work: dict | None = None) -> GBuffer:
     """Plain PyTorch version of the G-buffer kernel (module docstring).
     Same arguments and result as ``gbuffer``; runs on any device.
     ``work``: a dict to which the run adds its "raygen", "hit" and "miss"
-    lanes, "smooth" and "image" hits and the search's tests
+    lanes, "smooth", "image" and "noise" hits and the search's tests
     (``hit_kernel.search_work``)."""
+    del has_noise, has_boxm, has_rotm  # the texture and the skip need none
     check_frame_args(S, P, clusters, supers, n_super, cam_vec, width, height,
                      camera_model, cluster, super_, atlas, tex_hw,
-                     has_vattrs, has_tris)
+                     has_vattrs, has_tris, has_motion)
     gbuffer_plain.launches += 1
     dev, f32 = S.device, torch.float32
     cam = [float(v) for v in cam_vec.detach().cpu().tolist()]
@@ -66,9 +91,10 @@ def gbuffer_plain(S, P, clusters, supers, n_super, cam_vec, *, width: int,
     dirn = torch.stack([dx, dy, dz], 1)
     with_uv = has_vattrs or (has_tris and atlas is not None)
     vn_base = vn_base_for(atlas is not None) if has_vattrs else None
+    # media: medium columns never hit without a medium uniform
     best_t, col, *bary = brute_closest(
         S, org, dirn, cam[28], torch.full((n,), BIG, dtype=f32, device=dev),
-        has_rects, has_tris, with_uv)
+        has_rects, has_tris, with_uv, has_media=has_media)
     hit = col >= 0
     if work is not None:
         nh = int(hit.sum())
@@ -77,12 +103,14 @@ def gbuffer_plain(S, P, clusters, supers, n_super, cam_vec, *, width: int,
         n_smooth = int(((((pc >> 4) & 7) == 4)
                         & (P[vn_base][col[hit]] > 0.5)).sum()) \
             if has_vattrs else 0
+        n_noise = int((((pc >> 2) & 3) == 3).sum())
         for k, v in (("raygen", n), ("hit", nh), ("miss", n - nh),
                      ("smooth", n_smooth), ("image", n_img),
+                     ("noise", n_noise),
                      *search_work(S, clusters, supers, n_super, org, dirn,
                                   cam[28], has_rects=has_rects,
-                                  has_tris=has_tris, cluster=cluster,
-                                  super_=super_).items()):
+                                  has_tris=has_tris, has_media=has_media,
+                                  cluster=cluster, super_=super_).items()):
             work[k] = work.get(k, 0) + v
 
     normal = torch.zeros((n, 3), dtype=f32, device=dev)
@@ -98,7 +126,8 @@ def gbuffer_plain(S, P, clusters, supers, n_super, cam_vec, *, width: int,
         pz = oz[hit] + bt * hz
         bu, bv = (w[hit] for w in bary) if with_uv else (None, None)
         nx, ny, nz = hit_normal(P, j, packc, px, py, pz, hx, hy, hz,
-                                has_rects or has_tris, vn_base, bu, bv)
+                                has_rects or has_tris or has_media, vn_base,
+                                bu, bv)
         # front-facing feature normal: both faces are one region
         face = torch.where(hx * nx + hy * ny + hz * nz > 0.0, -1.0, 1.0)
         normal[hit] = torch.stack([nx * face, ny * face, nz * face], 1)
@@ -118,30 +147,37 @@ gbuffer_plain.launches = 0
 def gbuffer(S, P, clusters, supers, n_super, cam_vec, *, width: int,
             height: int, camera_model: str = "look_at",
             has_rects: bool = False, has_tris: bool = False,
-            has_vattrs: bool = False, atlas=None, tex_hw=None,
-            cluster: int = CLUSTER, super_: int = SUPER) -> GBuffer:
+            has_vattrs: bool = False, has_noise: bool = False,
+            has_media: bool = False, has_boxm: bool = False,
+            has_rotm: bool = False, has_motion: bool = False, atlas=None,
+            tex_hw=None, cluster: int = CLUSTER,
+            super_: int = SUPER) -> GBuffer:
     """One primary-visibility pass -> GBuffer(normal, albedo, depth).
 
     Arguments follow ``pallas_gbuffer``: the packed tables S, P, clusters,
     supers and ``n_super`` (tables.tables_to_torch), the f32[38] camera
-    vector (tables.pack_camera_np), the scene's static flags
-    (tables.prim_flags, ``has_vattrs``) and for image textures the atlas
-    and ``tex_hw`` (tables.atlas_to_torch), as ``render_sample`` takes
-    them.  CUDA tensors launch csrc/gbuffer_kernel.cu; CPU tensors run
-    ``gbuffer_plain``.
+    vector (tables.pack_camera_np), the scene's static flags and for image
+    textures the atlas and ``tex_hw``, as ``render_sample`` takes them
+    (``tables.kernel_inputs``).  CUDA tensors launch the
+    csrc/gbuffer_kernel.cu instantiation ``gbuffer_variant`` picks; CPU
+    tensors run ``gbuffer_plain``.
     """
+    feat = dict(has_noise=has_noise, has_media=has_media, has_boxm=has_boxm,
+                has_rotm=has_rotm, has_motion=has_motion)
     check_frame_args(S, P, clusters, supers, n_super, cam_vec, width, height,
                      camera_model, cluster, super_, atlas, tex_hw,
-                     has_vattrs, has_tris)
+                     has_vattrs, has_tris, has_motion)
     if S.device.type == "cpu":
         return gbuffer_plain(S, P, clusters, supers, n_super, cam_vec,
                              width=width, height=height,
                              camera_model=camera_model, has_rects=has_rects,
                              has_tris=has_tris, has_vattrs=has_vattrs,
                              atlas=atlas, tex_hw=tex_hw, cluster=cluster,
-                             super_=super_)
+                             super_=super_, **feat)
     if S.device.type != "cuda":
         raise ValueError(f"gbuffer runs on cuda or cpu, not {S.device}")
+    variant = gbuffer_variant(has_rects, has_tris, has_vattrs,
+                              atlas is not None, **feat)
     dev = S.device
     normal = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
     albedo = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
@@ -154,8 +190,7 @@ def gbuffer(S, P, clusters, supers, n_super, cam_vec, *, width: int,
             supers.shape[1], int(n_super), cluster, super_,
             cam_vec.data_ptr(), width, height,
             int(camera_model == "two_plane"), 1.0 / width, 1.0 / height,
-            int(has_rects), int(has_tris), int(has_vattrs),
-            *atlas_args(atlas, tex_hw), normal.data_ptr(),
+            *variant, *atlas_args(atlas, tex_hw), normal.data_ptr(),
             albedo.data_ptr(), depth.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     build.check(lib, "crt_gbuffer", rc)

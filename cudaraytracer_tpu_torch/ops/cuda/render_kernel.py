@@ -1,15 +1,27 @@
 """Path-tracing megakernel: wrapper and plain PyTorch version.
 
 Port of ``cudaraytracer_tpu/ops/pallas/render_kernel.py::
-pallas_render_sample`` for the resident tables with the flags
-``has_rects``/``has_tris``/``has_vattrs`` and image textures (an
-``atlas``), and no other feature flag.  ``render_sample`` keeps the JAX
-calling convention and returns the radiance SUM over ``spp`` samples,
-f32[height, width, 3] (plus the int64 ray count with ``with_stats``).
-Image textures follow the XLA renderer: the texel is sampled at every
-image hit, so every pixel gets exactly ``spp`` samples and there is no
-per-pixel count plane (the JAX kernel's ``(img, counts)`` return with an
-atlas).
+pallas_render_sample`` for the resident tables with the scene flags
+``has_rects``/``has_tris``/``has_vattrs``, image textures (an ``atlas``),
+``has_noise`` (marble textures), media (``has_media``, with box media
+``has_boxm`` and yaw-rotated ones ``has_rotm``) and ``has_motion``
+(moving spheres); NEE, QMC, tile masks, bands and cull statistics are
+not ported.  ``render_sample`` keeps the JAX calling convention and
+returns the radiance SUM over ``spp`` samples, f32[height, width, 3]
+(plus the int64 ray count with ``with_stats``).  Image textures follow
+the XLA renderer: the texel is sampled at every image hit, so every
+pixel gets exactly ``spp`` samples and there is no per-pixel count plane
+(the JAX kernel's ``(img, counts)`` return with an atlas); a medium hit
+samples an image at uv (0, 0), the XLA renderer's medium record.
+
+The kernel is compiled for the flag combinations in ``RENDER_VARIANTS``
+(read from ``csrc/variants.cuh``, the list the kernel's launch chain
+expands; ``resolve_variant``): those of the registered scenes and of
+``models/scenes.py::all_feature_probe_scene``.  A scene is served by the
+instantiation with the same tris/vattrs/images/rotm/motion flags (they
+change the table layout or its meaning) whose rects/noise/media/boxm
+flags include the scene's (their branches are inert on columns without
+the feature); any other combination raises ``NotImplementedError``.
 
 * CUDA tensors launch ``csrc/render_kernel.cu``, one thread per pixel.
 * CPU tensors run ``render_sample_plain``: the same per-lane state machine
@@ -42,6 +54,63 @@ from .tables import (BIG, CLUSTER, P_CX, P_CY, P_CZ, P_HA, P_HB, P_MPARAM,
                      P_PACKA, P_PACKB, P_PACKC, SUPER, p_rows_for,
                      vn_base_for)
 
+# Feature bits of the static flags beyond (rects, tris, vattrs, images):
+# the kernels' ``kFeat`` template argument (csrc/search.cuh F_*), with the
+# words an error names them by.
+FEATURES = (("has_noise", 1, "noise textures"), ("has_media", 2, "media"),
+            ("has_boxm", 4, "box media"),
+            ("has_rotm", 8, "yaw-rotated box media"),
+            ("has_motion", 16, "moving spheres"))
+F_NOISE, F_MEDIA, F_BOXM = (b for _, b, _ in FEATURES[:3])
+# branches that are inert on columns without their feature: a scene may
+# run an instantiation that has them and it does not
+_SUPERSET_BITS = F_NOISE | F_MEDIA | F_BOXM
+# (rects, tris, vattrs, images, feature bits) of csrc/render_kernel.cu's
+# instantiations, as csrc/variants.cuh lists them
+RENDER_VARIANTS = build.variants("CRT_RENDER_VARIANTS")
+
+
+def feature_bits(has_noise=False, has_media=False, has_boxm=False,
+                 has_rotm=False, has_motion=False) -> int:
+    """The feature bits of these static flags."""
+    flags = dict(has_noise=has_noise, has_media=has_media,
+                 has_boxm=has_boxm, has_rotm=has_rotm, has_motion=has_motion)
+    return sum(b for name, b, _ in FEATURES if flags[name])
+
+
+def render_variant(has_rects=False, has_tris=False, has_vattrs=False,
+                   has_images=False, **feat) -> tuple:
+    """The megakernel instantiation for these flags (``feat``: the
+    ``has_noise``/``has_media``/``has_boxm``/``has_rotm``/``has_motion``
+    keywords); ``NotImplementedError`` when none serves them."""
+    return resolve_variant(RENDER_VARIANTS, "megakernel", has_rects,
+                           has_tris, has_vattrs, has_images,
+                           feature_bits(**feat))
+
+
+def resolve_variant(variants, kernel: str, rects, tris, vattrs, images,
+                    feat: int) -> tuple:
+    """The first instantiation of ``variants`` that serves these flags
+    (module docstring: tris, vattrs, images and the non-superset feature
+    bits equal, rects and the superset bits included); raises
+    ``NotImplementedError`` naming the combination when none does."""
+    want = (bool(rects), bool(tris), bool(vattrs), bool(images))
+    for v in variants:
+        r, t, va, im, f = v
+        if (bool(t), bool(va), bool(im)) == want[1:] and r >= want[0] \
+                and f & ~_SUPERSET_BITS == feat & ~_SUPERSET_BITS \
+                and not feat & ~f:
+            return v
+    words = [w for w, on in (("rects", rects), ("triangles", tris),
+                             ("vertex attributes", vattrs),
+                             ("image textures", images)) if on]
+    words += [f"{w} ({name})" for name, b, w in FEATURES if feat & b]
+    raise NotImplementedError(
+        f"the CUDA {kernel} has no instantiation for a scene with "
+        f"{' + '.join(words) or 'spheres only'}; add one to its list "
+        "in csrc/variants.cuh to render it")
+
+
 CAMERA_MODELS = ("look_at", "two_plane")
 CAM_LEN = 38
 # float32 constants of csrc/surface.cuh, rounded from double as there
@@ -52,20 +121,21 @@ _INV_2PI = float(np.float32(1.0 / (2.0 * np.pi)))
 
 def check_frame_args(S, P, clusters, supers, n_super, cam_vec, width,
                      height, camera_model, cluster, super_, atlas=None,
-                     tex_hw=None, has_vattrs=False, has_tris=False):
+                     tex_hw=None, has_vattrs=False, has_tris=False,
+                     has_motion=False):
     """Raise unless the tables, the f32[38] camera, the camera model, the
     image size and the atlas are what the image kernels take.  P has
-    ``p_rows_for(has_images, has_vattrs)`` rows, where has_images means
-    an atlas is given: uint8[S, AH, AW, 3] with its i32[S, 2] ``tex_hw``;
-    ``has_vattrs`` needs ``has_tris``."""
+    ``p_rows_for(has_images, has_vattrs, has_motion)`` rows, where
+    has_images means an atlas is given: uint8[S, AH, AW, 3] with its
+    i32[S, 2] ``tex_hw``; ``has_vattrs`` needs ``has_tris``."""
     check_search_tables(S, clusters, supers, n_super, cluster, super_)
-    rows = p_rows_for(atlas is not None, has_vattrs)
+    rows = p_rows_for(atlas is not None, has_vattrs, has_motion)
     if not isinstance(P, torch.Tensor) or P.dtype != torch.float32 \
             or P.dim() != 2 or tuple(P.shape) != (rows, S.shape[1]):
         raise ValueError(
             f"P must be f32[{rows}, {S.shape[1]}] for has_images="
-            f"{atlas is not None}, has_vattrs={has_vattrs} (the kernel "
-            f"takes no motion rows yet), got "
+            f"{atlas is not None}, has_vattrs={has_vattrs}, has_motion="
+            f"{has_motion}, got "
             f"{getattr(P, 'dtype', type(P))}{list(getattr(P, 'shape', []))}")
     if has_vattrs and not has_tris:
         raise ValueError("has_vattrs needs has_tris")
@@ -99,10 +169,10 @@ def check_frame_args(S, P, clusters, supers, n_super, cam_vec, width,
 
 def _check(S, P, clusters, supers, n_super, cam_vec, max_depth, width,
            height, camera_model, spp, rr_start, cluster, super_, atlas,
-           tex_hw, has_vattrs, has_tris):
+           tex_hw, has_vattrs, has_tris, has_motion):
     check_frame_args(S, P, clusters, supers, n_super, cam_vec, width, height,
                      camera_model, cluster, super_, atlas, tex_hw,
-                     has_vattrs, has_tris)
+                     has_vattrs, has_tris, has_motion)
     if spp < 0 or max_depth < 0 or rr_start < 0:
         raise ValueError("spp, max_depth and rr_start must be >= 0")
     if spp * max_depth >= 1 << (32 - rng.SLOT_BITS):
@@ -159,17 +229,24 @@ def primary_rays(cam, xs, ys, jx, jy, lx, ly, width: int, height: int,
 
 
 def hit_normal(P, j, packc, px, py, pz, dx, dy, dz, flat: bool,
-               vn_base: int | None = None, bu=None, bv=None):
+               vn_base: int | None = None, bu=None, bv=None,
+               vel_base: int | None = None, time=None):
     """surface.cuh::hit_normal for winners ``j`` (i64) with PACKC values
-    ``packc`` (i32): spheres (p - c)/r with the signed radius; with
-    ``flat`` (has_rects or has_tris) rects the one-hot k axis of their
-    ptype and triangles their payload normal, flipped against d.  With
-    ``vn_base`` (has_vattrs), a triangle with vertex normals shades with
-    their interpolation at the barycentrics (bu, bv), renormalized and
-    given the face normal's flip."""
-    ncx = px - P[P_CX][j]
-    ncy = py - P[P_CY][j]
-    ncz = pz - P[P_CZ][j]
+    ``packc`` (i32): spheres (p - c)/r with the signed radius, the centre
+    moved to ``time`` by the velocity rows from ``vel_base`` (has_motion);
+    with ``flat`` (has_rects or has_tris) rects the one-hot k axis of
+    their ptype and triangles their payload normal, flipped against d.
+    With ``vn_base`` (has_vattrs), a triangle with vertex normals shades
+    with their interpolation at the barycentrics (bu, bv), renormalized
+    and given the face normal's flip.  A medium's normal is not used."""
+    cx, cy, cz = P[P_CX][j], P[P_CY][j], P[P_CZ][j]
+    if vel_base is not None:
+        cx = cx + time * P[vel_base][j]
+        cy = cy + time * P[vel_base + 1][j]
+        cz = cz + time * P[vel_base + 2][j]
+    ncx = px - cx
+    ncy = py - cy
+    ncz = pz - cz
     rinv = 1.0 / torch.sqrt(torch.clamp(
         ncx * ncx + ncy * ncy + ncz * ncz, min=1e-20))
     rinv = torch.where(((packc >> 7) & 1) != 0, -rinv, rinv)
@@ -209,7 +286,8 @@ def hit_uv(P, j, ptype, px, py, pz, snx, sny, snz, has_rects: bool,
     with prim types ``ptype``: spheres from the outward normal sn, rects
     from the offset within the extents (rows P_HA/P_HB), triangles from
     the interpolated vertex uvs (``vn_base``, has_vattrs) or the raw
-    barycentrics (bu, bv)."""
+    barycentrics (bu, bv), media (ptype 5) (0, 0) as the XLA renderer's
+    medium record has it."""
     uu = (torch.atan2(-snz, snx) + _PI) * _INV_2PI
     vv = torch.acos(torch.clamp(-sny, -1.0, 1.0)) * _INV_PI
     if has_rects:
@@ -231,7 +309,8 @@ def hit_uv(P, j, ptype, px, py, pz, snx, sny, snz, has_rects: bool,
             tv = P[ub + 1][j] + bu * P[ub + 3][j] + bv * P[ub + 5][j]
         uu = torch.where(ptype == 4, tu, uu)
         vv = torch.where(ptype == 4, tv, vv)
-    return uu, vv
+    is_med = ptype == 5
+    return torch.where(is_med, 0.0, uu), torch.where(is_med, 0.0, vv)
 
 
 def surface_rgb(P, j, packc, pa, pb, px, py, pz, snx, sny, snz, atlas=None,
@@ -261,12 +340,16 @@ def sky_rgb(cam, dy):
 
 # Float operations outside the search, counted as lower bounds from
 # csrc/render_kernel.cu (random-number hashing is integer work and is not
-# counted): a primary ray, a miss (sky), and a hit shaded as the cheapest
-# material (lambertian: hit point, normal, texture, in-sphere draw,
-# roulette, new direction), plus a smooth normal (three dequantized vertex
-# normals, their interpolation, renormalization) and an image lookup (uv,
-# clamps, indices, texel scale; atan2 and acos count one each).
-SHADE_OPS = {"raygen": 50, "miss": 20, "hit": 80, "smooth": 50, "image": 20}
+# counted): a primary ray, a miss (sky), and a surface hit shaded as the
+# cheapest material (lambertian: hit point, normal, texture, in-sphere
+# draw, roulette, new direction), plus a smooth normal (three dequantized
+# vertex normals, their interpolation, renormalization), an image lookup
+# (uv, clamps, indices, texel scale; atan2 and acos count one each), a
+# marble texture (seven octaves of eight lattice hashes: three wraps, a
+# dot product, sin, fract, and the trilinear fade; sin counts one) and a
+# medium hit (hit point, texture, in-sphere draw, roulette, direction).
+SHADE_OPS = {"raygen": 50, "miss": 20, "hit": 80, "smooth": 50, "image": 20,
+             "noise": 1680, "medium": 50}
 
 
 def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
@@ -275,20 +358,24 @@ def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
                         rr_start: int = 0, with_stats: bool = False,
                         stream: int = 0, has_rects: bool = False,
                         has_tris: bool = False, has_vattrs: bool = False,
-                        atlas=None, tex_hw=None, cluster: int = CLUSTER,
-                        super_: int = SUPER, work: dict | None = None):
+                        has_noise: bool = False, has_media: bool = False,
+                        has_boxm: bool = False, has_rotm: bool = False,
+                        has_motion: bool = False, atlas=None, tex_hw=None,
+                        cluster: int = CLUSTER, super_: int = SUPER,
+                        work: dict | None = None):
     """Plain PyTorch version of the megakernel (see the module docstring).
-    Same arguments and results as ``render_sample``; runs on any device.
+    Same arguments and results as ``render_sample``; runs on any device
+    and takes any combination of the flags.
 
     ``work``: a dict to which the run adds what the kernel's work is
-    counted from: "raygen", "miss" and "hit" lanes, "smooth" (triangle
-    hits with vertex normals) and "image" hits (one texel read each), and
-    the search's tests (``hit_kernel.search_work``, replayed per
-    iteration; slow)."""
+    counted from: "raygen", "miss", surface "hit" and "medium" hit lanes,
+    "smooth" (triangle hits with vertex normals), "image" hits (one texel
+    read each) and "noise" hits, and the search's tests
+    (``hit_kernel.search_work``, replayed per iteration; slow)."""
     spp, max_depth, rr_start = int(spp), int(max_depth), int(rr_start)
     _check(S, P, clusters, supers, n_super, cam_vec, max_depth, width,
            height, camera_model, spp, rr_start, cluster, super_, atlas,
-           tex_hw, has_vattrs, has_tris)
+           tex_hw, has_vattrs, has_tris, has_motion)
     render_sample_plain.launches += 1
     dev = S.device
     f32 = torch.float32
@@ -304,6 +391,10 @@ def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
     vn_base = vn_base_for(atlas is not None) if has_vattrs else None
     # the search carries the winner's barycentrics (search.cuh kUV)
     with_uv = has_vattrs or (has_tris and atlas is not None)
+    # the velocity rows follow the vertex-attribute rows
+    vel_base = p_rows_for(atlas is not None, has_vattrs) if has_motion \
+        else None
+    med_kw = dict(has_media=has_media, has_boxm=has_boxm, has_rotm=has_rotm)
 
     o = torch.zeros((3, n), dtype=f32, device=dev)
     d = torch.zeros((3, n), dtype=f32, device=dev)
@@ -313,6 +404,8 @@ def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
     alive = torch.zeros(n, dtype=torch.bool, device=dev)
     done = torch.zeros(n, dtype=torch.int32, device=dev)
     depth = torch.zeros(n, dtype=torch.int32, device=dev)
+    # the path's shutter time, drawn at regeneration (has_motion)
+    shutter = torch.zeros(n, dtype=f32, device=dev)
     nrays = 0
     p_mparam = P[P_MPARAM]
     p_packa = P[P_PACKA].to(torch.int32)
@@ -345,30 +438,41 @@ def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
             tp[:, ib] = 1.0
             depth[ib] = 0
             alive[ib] = True
+            if has_motion:
+                shutter[ib] = rng.uniform(pk, it, rng.SLOT_TIME)
 
         # ---- closest hit of every live lane ----
         ox, oy, oz = o[0, ia], o[1, ia], o[2, ia]
         dx, dy, dz = d[0, ia], d[1, ia], d[2, ia]
         org, dirn = torch.stack([ox, oy, oz], 1), torch.stack([dx, dy, dz], 1)
-        best_t, col, *bary = brute_closest(S, org, dirn, t_min,
-                                           torch.full_like(ox, BIG),
-                                           has_rects, has_tris, with_uv)
+        # one medium uniform per lane and iteration (has_media)
+        u_med = rng.uniform(pk_all[ia], it, rng.SLOT_MED) if has_media \
+            else None
+        time = shutter[ia] if has_motion else None
+        best_t, col, *bary = brute_closest(
+            S, org, dirn, t_min, torch.full_like(ox, BIG), has_rects,
+            has_tris, with_uv, u_med=u_med, time=time, **med_kw)
         hit = col >= 0
         cont_a = torch.zeros_like(hit)
         if work is not None:
-            nh = int(hit.sum())
             pc = p_packc[col[hit]]
+            n_med = int((((pc >> 4) & 7) == 5).sum())
+            n_surf = int(hit.sum()) - n_med
             n_img = int((((pc >> 2) & 3) == 2).sum()) if atlas is not None \
                 else 0
+            n_noise = int((((pc >> 2) & 3) == 3).sum())
             n_smooth = int(((((pc >> 4) & 7) == 4)
                             & (P[vn_base][col[hit]] > 0.5)).sum()) \
                 if has_vattrs else 0
-            for k, v in (("raygen", ib.numel()), ("hit", nh),
-                         ("miss", ia.numel() - nh), ("smooth", n_smooth),
-                         ("image", n_img), *search_work(
+            for k, v in (("raygen", ib.numel()), ("hit", n_surf),
+                         ("medium", n_med),
+                         ("miss", ia.numel() - n_surf - n_med),
+                         ("smooth", n_smooth), ("image", n_img),
+                         ("noise", n_noise), *search_work(
                              S, clusters, supers, n_super, org, dirn, t_min,
                              has_rects=has_rects, has_tris=has_tris,
-                             cluster=cluster, super_=super_).items()):
+                             u_med=u_med, time=time, cluster=cluster,
+                             super_=super_, **med_kw).items()):
                 work[k] = work.get(k, 0) + v
 
         # ---- sky on a miss ----
@@ -392,8 +496,10 @@ def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
             py = oy[hit] + bt * hy
             pz = oz[hit] + bt * hz
             bu, bv = (w[hit] for w in bary) if with_uv else (None, None)
-            nx, ny, nz = hit_normal(P, j, packc, px, py, pz, hx, hy, hz, flat,
-                                    vn_base, bu, bv)
+            nx, ny, nz = hit_normal(
+                P, j, packc, px, py, pz, hx, hy, hz, flat or has_media,
+                vn_base, bu, bv, vel_base,
+                None if time is None else time[hit])
             texr, texg, texb = surface_rgb(
                 P, j, packc, p_packa[j], p_packb[j], px, py, pz, nx, ny, nz,
                 atlas, tex_hw, has_rects, has_tris, vn_base, bu, bv)
@@ -452,6 +558,15 @@ def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
             ndy = torch.where(is_lamb, ny + sy, torch.where(is_metal, mdy, gdy))
             ndz = torch.where(is_lamb, nz + sz, torch.where(is_metal, mdz, gdz))
             scat_ok = is_lamb | is_diel | (is_metal & metal_ok)
+            if has_media:
+                # isotropic phase: a medium (ptype 5, packed as mat 0)
+                # scatters along the in-unit-sphere draw, attenuated by
+                # its texture color
+                is_iso = ((packc >> 4) & 7) == 5
+                ndx = torch.where(is_iso, sx, ndx)
+                ndy = torch.where(is_iso, sy, ndy)
+                ndz = torch.where(is_iso, sz, ndz)
+                scat_ok = scat_ok | is_iso
             one = torch.ones_like(texr)
             ar = torch.where(is_diel, one, texr)
             ag = torch.where(is_diel, one, texg)
@@ -497,11 +612,10 @@ render_sample_plain.launches = 0
 
 
 def atlas_args(atlas, tex_hw) -> tuple:
-    """The C entries' (has_images, atlas, tex_hw, slots, ah, aw)
-    arguments."""
+    """The C entries' (atlas, tex_hw, slots, ah, aw) arguments."""
     if atlas is None:
-        return (0, None, None, 0, 0, 0)
-    return (1, atlas.data_ptr(), tex_hw.data_ptr(), atlas.shape[0],
+        return (None, None, 0, 0, 0)
+    return (atlas.data_ptr(), tex_hw.data_ptr(), atlas.shape[0],
             atlas.shape[1], atlas.shape[2])
 
 
@@ -510,8 +624,10 @@ def render_sample(S, P, clusters, supers, n_super, cam_vec, seed, max_depth,
                   spp: int = 1, rr_start: int = 0, with_stats: bool = False,
                   stream: int = 0, has_rects: bool = False,
                   has_tris: bool = False, has_vattrs: bool = False,
-                  atlas=None, tex_hw=None, cluster: int = CLUSTER,
-                  super_: int = SUPER):
+                  has_noise: bool = False, has_media: bool = False,
+                  has_boxm: bool = False, has_rotm: bool = False,
+                  has_motion: bool = False, atlas=None, tex_hw=None,
+                  cluster: int = CLUSTER, super_: int = SUPER):
     """``spp`` samples per pixel of the megakernel -> f32[height, width, 3]
     radiance SUM (divide by spp to display), plus the int64 ray count (a
     0-d tensor on the device) with ``with_stats``.
@@ -521,25 +637,32 @@ def render_sample(S, P, clusters, supers, n_super, cam_vec, seed, max_depth,
     camera vector (tables.pack_camera_np), the launch ``seed`` and
     ``stream`` (the generator key, utils/rng.py), ``max_depth``, the
     Russian-roulette start bounce, the scene's static flags
-    ``has_rects``/``has_tris`` (tables.prim_flags) and ``has_vattrs``
-    (tables packed with vertex attributes, ``TorchTables.vattrs``), and
-    for image textures (has_images) the scene's ``atlas`` and ``tex_hw``
-    (tables.atlas_to_torch; P then packed with_uv).  CUDA tensors launch
-    the kernel; CPU tensors run ``render_sample_plain``.
+    (``tables.kernel_flags``; ``has_vattrs`` and ``has_motion`` as the
+    tables were packed, ``TorchTables.vattrs``/``.motion``), and for image
+    textures (has_images) the scene's ``atlas`` and ``tex_hw``
+    (tables.atlas_to_torch; P then packed with_uv).  ``tables.
+    kernel_inputs`` gives all of them.  CUDA tensors launch the kernel
+    instantiation ``render_variant`` picks (``NotImplementedError`` when
+    none serves the flags); CPU tensors run ``render_sample_plain``.
     """
     spp, max_depth, rr_start = int(spp), int(max_depth), int(rr_start)
     _check(S, P, clusters, supers, n_super, cam_vec, max_depth, width,
            height, camera_model, spp, rr_start, cluster, super_, atlas,
-           tex_hw, has_vattrs, has_tris)
+           tex_hw, has_vattrs, has_tris, has_motion)
+    feat = dict(has_noise=has_noise, has_media=has_media, has_boxm=has_boxm,
+                has_rotm=has_rotm, has_motion=has_motion)
     if S.device.type == "cpu":
         return render_sample_plain(
             S, P, clusters, supers, n_super, cam_vec, seed, max_depth,
             width=width, height=height, camera_model=camera_model, spp=spp,
             rr_start=rr_start, with_stats=with_stats, stream=stream,
             has_rects=has_rects, has_tris=has_tris, has_vattrs=has_vattrs,
-            atlas=atlas, tex_hw=tex_hw, cluster=cluster, super_=super_)
+            atlas=atlas, tex_hw=tex_hw, cluster=cluster, super_=super_,
+            **feat)
     if S.device.type != "cuda":
         raise ValueError(f"render_sample runs on cuda or cpu, not {S.device}")
+    variant = render_variant(has_rects, has_tris, has_vattrs,
+                             atlas is not None, **feat)
     out = torch.empty((height, width, 3), dtype=torch.float32,
                       device=S.device)
     nrays = torch.zeros(1, dtype=torch.int64, device=S.device)
@@ -552,8 +675,7 @@ def render_sample(S, P, clusters, supers, n_super, cam_vec, seed, max_depth,
             cam_vec.data_ptr(), rng.key_for(int(seed), int(stream)),
             max_depth, width, height, spp, rr_start,
             int(camera_model == "two_plane"), 1.0 / width, 1.0 / height,
-            int(has_rects), int(has_tris), int(has_vattrs),
-            *atlas_args(atlas, tex_hw), out.data_ptr(),
+            *variant, *atlas_args(atlas, tex_hw), out.data_ptr(),
             nrays.data_ptr(), torch.cuda.current_stream().cuda_stream)
     build.check(lib, "crt_render_sample", rc)
     render_sample.launches += 1

@@ -4,8 +4,11 @@ PyTorch-package copy of the host half of
 ``cudaraytracer_tpu/ops/pallas/render_kernel.py`` (NumPy, so the tables are
 bit-identical to the JAX package's ``pack_scene_tables(force_numpy=True)``):
 the ``S_*``/``P_*`` row layout, Morton-ordered clusters and superclusters
-with their AABBs, the f32[38] camera vector, and ``tables_to_torch`` to put
-the tables on a device.  The native C++ packer waits for a later port.
+with their AABBs, the f32[38] camera vector, ``tables_to_torch`` to put
+the tables on a device, and the scene's static kernel flags
+(``kernel_flags``, computed as the JAX pipeline computes them) with
+``kernel_inputs``, which sets up tables, flags and atlas for the kernels
+as the render loop does.  The native C++ packer waits for a later port.
 """
 
 from __future__ import annotations
@@ -511,7 +514,7 @@ class TorchTables(_t.NamedTuple):
     """SceneTables on a torch device (contiguous f32 tables)."""
 
     S: torch.Tensor  # f32[16, NP]
-    P: torch.Tensor  # f32[P_ROWS(_UV), NP]
+    P: torch.Tensor  # f32[p_rows_for(uv, vattrs, motion), NP]
     clusters: torch.Tensor  # f32[7, NC]
     supers: torch.Tensor  # f32[6, NSC]
     n_super: int
@@ -519,6 +522,7 @@ class TorchTables(_t.NamedTuple):
     cluster: int
     super_: int
     vattrs: bool = False  # P has the vertex-attribute rows (has_vattrs)
+    motion: bool = False  # P has the velocity rows (has_motion)
 
 
 def tables_to_torch(t: SceneTables, device) -> TorchTables:
@@ -529,7 +533,7 @@ def tables_to_torch(t: SceneTables, device) -> TorchTables:
 
     return TorchTables(put(t.S), put(t.P), put(t.clusters), put(t.supers),
                        int(t.n_super), put(t.prim_map), int(t.cluster),
-                       int(t.super_), bool(t.vattrs))
+                       int(t.super_), bool(t.vattrs), bool(t.motion))
 
 
 def has_images(scene) -> bool:
@@ -557,20 +561,33 @@ def prim_flags(scene) -> tuple[bool, bool]:
     return bool(((pt >= 1) & (pt <= 3)).any()), bool((pt == 4).any())
 
 
-def unsupported_features(scene) -> list[str]:
-    """Scene features of the active primitives that the CUDA kernels do
-    not render yet (empty for scenes of spheres, rects and triangles, with
-    or without vertex attributes, with lambertian, metal, dielectric or
-    light materials and constant, checker or image textures).  The
-    kernels' other branches are still to be ported (ROADMAP.md, Queue
-    2)."""
+def kernel_flags(scene) -> dict:
+    """The static flags of the scene's active primitives, each computed as
+    the JAX package's megakernel pipeline computes it: ``has_rects``,
+    ``has_tris``, ``has_noise`` (a noise texture), ``has_media`` (an
+    isotropic medium), ``has_motion`` (a nonzero velocity), ``has_boxm``
+    (a box medium) and ``has_rotm`` (a box with a nonzero yaw: only then
+    does the packer write the cos/sin rows)."""
     idx = scene.active_indices()
     pt = scene.prim_type[idx]
-    found = []
-    if (scene.mat_type[idx] == 4).any() or (pt == 5).any():
-        found.append("media (has_media)")
-    if (scene.tex_type[idx] == 3).any():
-        found.append("noise textures (has_noise)")
-    if (scene.velocity[idx] != 0).any():
-        found.append("moving spheres (has_motion)")
-    return found
+    has_rects, has_tris = prim_flags(scene)
+    return dict(
+        has_rects=has_rects, has_tris=has_tris,
+        has_noise=bool((scene.tex_type[idx] == 3).any()),
+        has_media=bool((scene.mat_type[idx] == 4).any()),
+        has_motion=bool((scene.velocity[idx] != 0).any()),
+        has_boxm=bool((pt == 5).any()),
+        has_rotm=bool((scene.edge2[idx][pt == 5, 0] != 0).any()))
+
+
+def kernel_inputs(scene, device) -> tuple[TorchTables, dict]:
+    """Tables and keyword flags of the scene for ``render_sample`` and
+    ``gbuffer``, as the render loop sets them up: uv rows and the atlas
+    (``atlas``/``tex_hw``) with image textures, the vertex-attribute and
+    velocity rows the packer finds, and ``kernel_flags``."""
+    images = has_images(scene)
+    t = tables_to_torch(pack_scene_tables(scene, with_uv=images), device)
+    flags = dict(kernel_flags(scene), has_vattrs=t.vattrs)
+    if images:
+        flags.update(zip(("atlas", "tex_hw"), atlas_to_torch(scene, device)))
+    return t, flags

@@ -7,7 +7,9 @@ fields).  Texture types:
     0 = constant   (albedo)
     1 = checker    (albedo = odd color, albedo2 = even color)
     2 = image      (tex_id selects an atlas slot)
-    3 = noise      (marble; its branch is not ported yet and raises)
+    3 = noise      (marble, ops/noise.py: lerp(albedo2, albedo,
+                    marble_factor); tex_id is the integer marble scale,
+                    max(tex_id, 1))
 
 ``sample_texture`` is the plain version of the kernels' texture color
 (``csrc/surface.cuh::surface_rgb``): the plain megakernel and G-buffer
@@ -18,6 +20,8 @@ is its nearest-texel lookup (``surface.cuh::image_rgb``).
 from __future__ import annotations
 
 import torch
+
+from .noise import marble_factor
 
 CONSTANT = 0
 CHECKER = 1
@@ -59,10 +63,9 @@ def sample_texture(tex_type, albedo, albedo2, tex_id, u, v, p, atlas,
     uint8[S,AH,AW,3] atlas and its i32[S,2] ``tex_hw``).  Without an
     atlas (``atlas=None``, a scene without images, whose kernels carry no
     image branch) image texture types keep ``albedo``, as the kernels'
-    constant color does."""
-    if bool((tex_type == NOISE).any()):
-        raise NotImplementedError(
-            "noise textures (has_noise) are not ported yet")
+    constant color does.  Noise rows read ``tex_id`` as the marble scale
+    (the JAX function's rule); the marble is evaluated on those rows
+    only."""
     # checker (Texture.cuh:58-67): the sign of sin(10x)sin(10y)sin(10z)
     sines = (torch.sin(10.0 * p[:, 0]) * torch.sin(10.0 * p[:, 1])
              * torch.sin(10.0 * p[:, 2]))
@@ -72,4 +75,13 @@ def sample_texture(tex_type, albedo, albedo2, tex_id, u, v, p, atlas,
         # image (Texture.cuh:81-105): nearest texel, cyan without data
         image = torch.stack(image_texel(atlas, tex_hw, tex_id, u, v), 1)
         out = torch.where((tex_type == IMAGE)[:, None], image, out)
+    inz = torch.nonzero(tex_type == NOISE).squeeze(1)
+    if inz.numel():
+        # noise/marble (ops/noise.py): tex_id is the scale, max(tex_id, 1)
+        scale = torch.clamp(tex_id[inz], min=1).to(p.dtype)
+        pn = p[inz]
+        fac = marble_factor(pn[:, 0], pn[:, 1], pn[:, 2], scale)
+        a2 = albedo2[inz]
+        out = out.clone()
+        out[inz] = a2 + fac[:, None] * (albedo[inz] - a2)
     return out

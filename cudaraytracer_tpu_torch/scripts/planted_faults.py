@@ -5,9 +5,10 @@
 For each fault below, copies this package into a temporary directory,
 edits one line of a CUDA source there, builds that copy and compares its
 kernels with the unchanged plain versions at 1280x720 on the fault's
-scenes, set up as the render loop sets them up (megakernel 4 spp, depth
-12, rr 2, seed 7, on every scene but rtow_final; G-buffer on every
-scene; closest hit on 2^20 seeded rays in the Cornell room).  "sound" is
+scenes, set up as the render loop sets them up (``tables.kernel_inputs``;
+megakernel 4 spp, depth 12, rr 2, seed 7, on every scene but rtow_final;
+G-buffer on every scene; closest hit on 2^20 seeded rays in the Cornell
+room).  "sound" is
 the unedited copy, checked on every scene.  Prints one JSON line per
 fault: pixels off by more than 1e-3, the relative change of the mean and
 of the ray count, G-buffer masks and pixels off by more than 1e-6,
@@ -32,10 +33,11 @@ PKG = Path(__file__).resolve().parents[1]
 
 FLAT = ("default", "cornell_mesh_light", "rtow_final")
 TEXTURED = ("mesh_smooth", "terrain", "rtow_image", "mirror_room")
+FEATURES = ("marble", "smoke", "cornell_smoke", "bounce", "book2_final")
 
 # name -> ([(file under the package, text, replacement)], scenes)
 FAULTS = {
-    "sound": ([], FLAT + TEXTURED),
+    "sound": ([], FLAT + TEXTURED + FEATURES),
     # a ray through the shared edge of two triangles misses both
     "tri_edge": ([("csrc/search.cuh", "u + v <= 1.0f", "u + v < 1.0f")],
                  FLAT),
@@ -66,6 +68,33 @@ FAULTS = {
         "const float cv = 1.0f - fminf(fmaxf(vv, 0.0f), 1.0f);",
         "const float cv = fminf(fmaxf(vv, 0.0f), 1.0f);")],
         ("terrain", "rtow_image", "mirror_room")),
+    # the medium uniform decorrelated by the column (as the XLA renderer
+    # does by primitive index) instead of by the medium's centre
+    "medium_u_by_column": ([(
+        "csrc/search.cuh",
+        "float uj = u_med + (cx * kHx + cy * kHy + cz * kHz);",
+        "float uj = u_med + static_cast<float>(j) * 0.618034f;")],
+        ("smoke", "cornell_smoke", "book2_final")),
+    # the shutter time drawn anew at every bounce, not once per path
+    "time_every_bounce": ([(
+        "csrc/render_kernel.cu", "    ++nrays;\n",
+        "    ++nrays;\n"
+        "    if constexpr (kMotion) time = crt::u01(pk, uit, crt::SLOT_TIME);\n")],
+        ("bounce", "book2_final")),
+    # a yawed box medium rotated the other way
+    "yaw_sine_flipped": ([(
+        "csrc/search.cuh", "const float syr = __ldg(S + S_D1 * np + j);",
+        "const float syr = -__ldg(S + S_D1 * np + j);")],
+        ("cornell_smoke",)),
+    # six turbulence octaves instead of seven
+    "six_octaves": ([("csrc/surface.cuh", "constexpr int kTurbOctaves = 7;",
+                      "constexpr int kTurbOctaves = 6;")],
+                    ("marble", "book2_final")),
+    # a medium hit (packed as mat 0) scatters as a lambertian surface
+    "isotropic_as_lambertian": ([(
+        "csrc/render_kernel.cu",
+        "const bool iso = kMedia && ((packc >> 4) & 7) == 5;",
+        "const bool iso = false;")], ("smoke", "cornell_smoke")),
 }
 
 CHECK = r'''
@@ -74,19 +103,13 @@ from cudaraytracer_tpu_torch.models import scenes
 from cudaraytracer_tpu_torch.ops.cuda.gbuffer_kernel import gbuffer, gbuffer_plain
 from cudaraytracer_tpu_torch.ops.cuda.hit_kernel import closest_hit, closest_hit_plain
 from cudaraytracer_tpu_torch.ops.cuda.render_kernel import render_sample, render_sample_plain
-from cudaraytracer_tpu_torch.ops.cuda.tables import (
-    atlas_to_torch, has_images, pack_camera_np, pack_scene_tables,
-    prim_flags, tables_to_torch)
+from cudaraytracer_tpu_torch.ops.cuda.tables import kernel_inputs, pack_camera_np
 dev, W, H, res = torch.device("cuda"), 1280, 720, {}
 for name in json.loads(sys.argv[1]):
     sc, cam = scenes.SCENES[name][0](), scenes.SCENES[name][1]()
     model = scenes.camera_model_for(name)
-    img = has_images(sc)
-    tb = tables_to_torch(pack_scene_tables(sc, with_uv=img), dev)
-    hit_fl = dict(zip(("has_rects", "has_tris"), prim_flags(sc)))
-    fl = dict(hit_fl, has_vattrs=tb.vattrs)
-    if img:
-        fl.update(zip(("atlas", "tex_hw"), atlas_to_torch(sc, dev)))
+    tb, fl = kernel_inputs(sc, dev)
+    hit_fl = {k: fl[k] for k in ("has_rects", "has_tris")}
     cv = torch.from_numpy(pack_camera_np(cam, sc.background_start,
                                          sc.background_end, W, H, 1e-3)).to(dev)
     a = (tb.S, tb.P, tb.clusters, tb.supers, tb.n_super, cv)

@@ -47,6 +47,8 @@ SLOT_SPH_Z = 5  # in-unit-sphere z
 SLOT_SPH_PHI = 6  # in-unit-sphere azimuth
 SLOT_SPH_R = 7  # in-unit-sphere radius
 SLOT_RR = 8  # Russian roulette
+SLOT_MED = 9  # medium scatter distance, once per iteration (has_media)
+SLOT_TIME = 10  # shutter time, once per path at regeneration (has_motion)
 
 TWO_PI = 2.0 * math.pi
 

@@ -32,11 +32,10 @@ import torch
 from ..config import RenderConfig
 from ..models import scenes as scene_lib
 from ..models.camera import FlyCamera
-from ..ops.cuda.gbuffer_kernel import gbuffer
-from ..ops.cuda.render_kernel import render_sample
-from ..ops.cuda.tables import (atlas_to_torch, has_images, pack_camera_np,
-                               pack_scene_tables, prim_flags,
-                               tables_to_torch, unsupported_features)
+from ..ops.cuda.gbuffer_kernel import gbuffer, gbuffer_variant
+from ..ops.cuda.render_kernel import (FEATURES, render_sample,
+                                      render_variant)
+from ..ops.cuda.tables import kernel_inputs, pack_camera_np
 from ..ops.denoise import atrous_denoise
 from ..ops.gbuffer import GBuffer
 from ..ops.pack import to_rgba8, tonemap
@@ -100,26 +99,21 @@ class LayerStack:
 
 class _CudaPipeline:
     """Megakernel dispatch path: packed tables (and the image atlas) on
-    the device, one ``render_sample`` launch per progressive frame and one
-    ``gbuffer`` launch per G-buffer (the JAX package's ``_PallasPipeline``
-    without adaptive or NEE support).  Built anew on every scene edit."""
+    the device with the scene's static flags (``tables.kernel_inputs``),
+    one ``render_sample`` launch per progressive frame and one ``gbuffer``
+    launch per G-buffer (the JAX package's ``_PallasPipeline`` without
+    adaptive or NEE).  Built anew on every scene edit; a flag combination
+    that no kernel instantiation serves raises ``NotImplementedError``
+    here, on either device."""
 
     def __init__(self, scene, cfg: RenderConfig, device: torch.device):
-        missing = unsupported_features(scene)
-        if missing:
-            raise NotImplementedError(
-                "the CUDA kernels do not render "
-                + ", ".join(missing) + " yet (the other branches are "
-                "ROADMAP.md, Queue 2)")
-        images = has_images(scene)
-        # uv rows with images, vertex-attribute rows detected by the packer
-        t = pack_scene_tables(scene, with_uv=images)
-        self._tabs = tables_to_torch(t, device)
-        self._flags = dict(zip(("has_rects", "has_tris"), prim_flags(scene)),
-                           has_vattrs=t.vattrs)
-        if images:
-            self._flags.update(zip(("atlas", "tex_hw"),
-                                   atlas_to_torch(scene, device)))
+        self._tabs, self._flags = kernel_inputs(scene, device)
+        fl = self._flags
+        base = (fl["has_rects"], fl["has_tris"], fl["has_vattrs"],
+                "atlas" in fl)
+        feat = {name: fl[name] for name, _, _ in FEATURES}
+        render_variant(*base, **feat)
+        gbuffer_variant(*base, **feat)
         self._cfg = cfg
         self._device = device
         self._bg = (np.asarray(scene.background_start, np.float32),

@@ -115,8 +115,13 @@ def test_two_plane_framebuffer_is_flipped():
 
 
 def test_unsupported_scene_raises():
+    """A flag combination no kernel instantiation serves (marble noise
+    with a moving sphere) raises on the pipeline's construction, naming
+    it, on the CPU too: the plain versions never stand in quietly."""
+    scene = tscenes.marble_scene()
+    scene.add_moving_sphere((0.0, 1.0, 3.0), (0.3, 1.0, 3.0), 0.3)
     with pytest.raises(NotImplementedError, match="noise textures"):
-        RenderLayer(small_cfg(scene="marble"))._sync_scene()
+        RenderLayer(small_cfg(scene="marble"), scene=scene)._sync_scene()
 
 
 def test_cuda_device_without_gpu_raises():
@@ -221,12 +226,60 @@ def test_mesh_and_image_scenes_build_a_pipeline(name, vattrs, images):
     assert gb.normal.shape == (4, 8, 3) and torch.isfinite(gb.albedo).all()
 
 
+# what each scene gets added so that no instantiation serves it any more
+UNSERVED = {"marble": "triangle", "smoke": "moving", "cornell_smoke":
+            "triangle", "bounce": "rect"}
+
+
 @pytest.mark.parametrize("name,branch", [
     ("marble", "noise textures"), ("smoke", "media"),
     ("cornell_smoke", "media"), ("bounce", "moving spheres")])
 def test_unported_branches_raise(name, branch):
+    """The noise, media and motion scenes render (a frame and a G-buffer
+    on the plain versions); with a primitive added that leaves their flag
+    combination without a kernel instantiation, the pipeline raises
+    naming the branch."""
+    cfg = small_cfg(scene=name, camera_model=tscenes.camera_model_for(name),
+                    width=8, height=4, max_depth=3, progressive_spp=1)
+    scene = tscenes.SCENES[name][0]()
+    pipe = _CudaPipeline(scene, cfg, torch.device("cpu"))
+    cam = tscenes.SCENES[name][1]()
+    acc = pipe.accumulate(cam, 0, 3, torch.zeros((4, 8, 3)))
+    assert torch.isfinite(acc).all() and float(acc.sum()) > 0
+    assert torch.isfinite(pipe.gbuffer(cam).albedo).all()
+    extra = UNSERVED[name]
+    if extra == "triangle":
+        scene.add_triangle((0, 0, 0), (1, 0, 0), (0, 1, 0))
+    elif extra == "moving":
+        scene.add_moving_sphere((0, 3, 0), (0.2, 3, 0), 0.2)
+    else:
+        scene.add_xz_rect((0, -0.5, 0), 1.0, 1.0)
     with pytest.raises(NotImplementedError, match=branch):
-        RenderLayer(small_cfg(scene=name))._sync_scene()
+        RenderLayer(cfg, scene=scene)._sync_scene()
+
+
+def test_cli_render_book2_final_cpu(tmp_path):
+    """render --scene book2_final --denoise --aov on the CPU (the plain
+    versions) at a tiny size: every feature of the scene model in one
+    render, with the G-buffer's AOVs."""
+    out, aov = tmp_path / "b2.png", tmp_path / "b2.npz"
+    proc = run_cli(["render", "--device", "cpu", "--scene", "book2_final",
+                    "--width", "24", "--height", "16", "--frames", "1",
+                    "--max-depth", "6", "--denoise", "--aov", str(aov),
+                    "-o", str(out)], tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    from PIL import Image
+
+    with Image.open(out) as im:
+        assert im.size == (24, 16)
+        img = np.asarray(im.convert("RGB")).astype(np.float32)
+    assert 5.0 < img.mean() < 250.0
+    with np.load(aov) as z:
+        assert z["depth"].shape == (16, 24)
+        # the fog around the camera is not a surface: the features see
+        # through it to the ground and the spheres
+        assert 0.05 < (z["depth"] > 0).mean() < 0.95
+        assert np.isfinite(z["albedo"]).all()
 
 
 def test_cli_render_obj_cpu_writes_png(tmp_path):

@@ -101,3 +101,33 @@ def test_build_runs_one_nvcc_per_source_then_links(isolated, monkeypatch):
     assert all(ln.count(".o") >= len(build.CU_FILES) for ln in links)
     assert sorted(p.name for p in out["path"].parent.iterdir()) == \
         [build.LIB_NAME, "nvcc.log"]
+
+
+def test_variant_lists_are_read_from_the_header():
+    """The wrappers' instantiation lists are csrc/variants.cuh's, which the
+    .cu launch chains expand, and the feature bits are search.cuh's F_*."""
+    import re
+
+    from cudaraytracer_tpu_torch.ops.cuda import gbuffer_kernel, render_kernel
+
+    assert render_kernel.RENDER_VARIANTS == build.variants(
+        "CRT_RENDER_VARIANTS")
+    assert gbuffer_kernel.GBUFFER_VARIANTS == build.variants(
+        "CRT_GBUFFER_VARIANTS")
+    for lst in (render_kernel.RENDER_VARIANTS,
+                gbuffer_kernel.GBUFFER_VARIANTS):
+        assert len(set(lst)) == len(lst) > 8
+        assert {v[:4] for v in lst if v[4] == 0} == {
+            (r, t, va, im) for r, t, va in ((0, 0, 0), (1, 0, 0), (1, 1, 0),
+                                            (1, 1, 1)) for im in (0, 1)}
+    for cu, name in (("render_kernel.cu", "CRT_RENDER_VARIANTS"),
+                     ("gbuffer_kernel.cu", "CRT_GBUFFER_VARIANTS")):
+        text = (build.CSRC / cu).read_text()
+        assert '#include "variants.cuh"' in text
+        assert f"{name}(CRT_LAUNCH)" in text
+    consts = dict(re.findall(r"(F_[A-Z]+) = (\d+)",
+                             (build.CSRC / "search.cuh").read_text()))
+    for flag, bit, _ in render_kernel.FEATURES:
+        assert int(consts["F_" + flag[4:].upper()]) == bit  # has_noise
+    with pytest.raises(build.BuildError, match="CRT_NO_SUCH_LIST"):
+        build.variants("CRT_NO_SUCH_LIST")

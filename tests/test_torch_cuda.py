@@ -10,7 +10,10 @@ need not have; this file imports no JAX.)
 
 ``chip_smoke.py`` runs the same comparisons at larger sizes: closest hit
 on 2^20 rays, the megakernel at 320x180 and at 1280x720 with 4 spp, the
-G-buffer at 1280x720.  The megakernel limits here are the ones it states
+G-buffer at 1280x720.  The noise, media and motion scenes (and the
+unregistered all-feature probe) are held to the same limits: the marble
+texture's sinf and PyTorch's sin on a CUDA tensor are the same CUDA
+function.  The megakernel limits here are the ones it states
 and why; at 96x54 they allow no differing pixel.  The G-buffer kernel and
 its plain version do the same float operations: equal hit masks, and
 the buffers equal to 1e-6.
@@ -42,16 +45,21 @@ def tables(scene, dev):
 
 
 def frame_setup(scene, dev):
-    """The pipeline's tables and kernel flags: uv rows and the atlas with
-    image textures, vertex-attribute rows detected by the packer."""
-    images = ttab.has_images(scene)
-    tb = ttab.tables_to_torch(ttab.pack_scene_tables(scene, with_uv=images),
-                              dev)
-    flags = dict(zip(("has_rects", "has_tris"), ttab.prim_flags(scene)),
-                 has_vattrs=tb.vattrs)
-    if images:
-        flags.update(zip(("atlas", "tex_hw"), ttab.atlas_to_torch(scene, dev)))
-    return tb, flags
+    """The pipeline's tables and kernel flags (tables.kernel_inputs)."""
+    return ttab.kernel_inputs(scene, dev)
+
+
+# the noise, media and motion scenes, and the all-flags probe
+FEATURE_SCENES = ["marble", "smoke", "cornell_smoke", "bounce",
+                  "book2_final", "probe"]
+
+
+def scene_and_camera(name):
+    if name == "probe":
+        return (tscenes.all_feature_probe_scene(),
+                tscenes.cornell_like_camera(), "two_plane")
+    return (tscenes.SCENES[name][0](), tscenes.SCENES[name][1](),
+            tscenes.camera_model_for(name))
 
 
 @pytest.mark.parametrize("name", ["rtow_final", "cornell_mesh_light",
@@ -86,13 +94,14 @@ def test_closest_hit_kernel_matches_plain(cuda, name):
 
 @pytest.mark.parametrize("model", ["look_at", "two_plane", "default",
                                    "cornell_mesh_light", "mesh_smooth",
-                                   "terrain", "rtow_image", "mirror_room"])
+                                   "terrain", "rtow_image", "mirror_room",
+                                   *FEATURE_SCENES])
 def test_megakernel_matches_plain(cuda, model):
     if model == "look_at":
         scene, cam = tscenes.rtow_final_scene(), tscenes.rtow_final_camera()
-    elif model in tscenes.SCENES:  # rects, triangles, vattrs, images
-        scene, cam = tscenes.SCENES[model][0](), tscenes.SCENES[model][1]()
-        model = tscenes.camera_model_for(model)
+    elif model in tscenes.SCENES or model == "probe":
+        # rects, triangles, vattrs, images, noise, media, motion
+        scene, cam, model = scene_and_camera(model)
     else:
         scene = tscene.Scene(capacity=8)
         scene.add_sphere((0, -1000.5, 0), 1000.0, tex_type=tscene.CHECKER,
@@ -124,10 +133,10 @@ def test_megakernel_matches_plain(cuda, model):
 
 @pytest.mark.parametrize("name", ["rtow_final", "default",
                                   "cornell_mesh_light", "mesh_smooth",
-                                  "terrain", "rtow_image", "mirror_room"])
+                                  "terrain", "rtow_image", "mirror_room",
+                                  *FEATURE_SCENES])
 def test_gbuffer_kernel_matches_plain(cuda, name):
-    scene, cam = tscenes.SCENES[name][0](), tscenes.SCENES[name][1]()
-    model = tscenes.camera_model_for(name)
+    scene, cam, model = scene_and_camera(name)
     w, h = 200, 75  # partial blocks in both directions
     tb, flags = frame_setup(scene, cuda)
     cv = torch.from_numpy(ttab.pack_camera_np(
@@ -144,3 +153,18 @@ def test_gbuffer_kernel_matches_plain(cuda, name):
     assert torch.equal(gk.depth > 0, gp.depth > 0)
     for a, b in zip(gk, gp):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+
+
+def test_unserved_flags_raise_before_launch(cuda):
+    """A flag combination without an instantiation raises
+    NotImplementedError naming it, and launches nothing."""
+    scene = tscenes.marble_scene()
+    scene.add_moving_sphere((0, 1, 3), (0.3, 1, 3), 0.3)
+    tb, flags = frame_setup(scene, cuda)
+    cv = torch.zeros(38, device=cuda)
+    n0 = render_kernel.render_sample.launches
+    with pytest.raises(NotImplementedError, match="moving spheres"):
+        render_kernel.render_sample(tb.S, tb.P, tb.clusters, tb.supers,
+                                    tb.n_super, cv, 1, 4, width=8, height=8,
+                                    **flags)
+    assert render_kernel.render_sample.launches == n0

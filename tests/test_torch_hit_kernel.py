@@ -176,8 +176,9 @@ def test_rect_tri_closest_hit_matches_pallas(name):
 
 def test_search_work_counts_the_culled_tests():
     """search_work replays the kernel's traversal: every ray tests every
-    supercluster box, primitive tests come in whole clusters, and a ray
-    that leaves the scene's bounds tests boxes and nothing else."""
+    supercluster box, a ray tests each primitive at most once and never
+    a padding column, and a ray that leaves the scene's bounds tests
+    boxes and nothing else."""
     scene = tscenes.cornell_mesh_light_scene()
     tt = ttab.tables_to_torch(ttab.pack_scene_tables(scene), "cpu")
     o, d = flat_scene_rays("cornell_mesh_light", 5, 256)
@@ -187,8 +188,12 @@ def test_search_work_counts_the_culled_tests():
     assert set(w) == {"box", "sphere", "rect", "tri"}
     assert w["box"] >= 256 * tt.n_super
     assert w["rect"] > 0 and w["tri"] > 0 and w["sphere"] >= 0
-    assert all(v % tt.cluster == 0 for k, v in w.items()
-               if k in ("rect", "tri"))
+    ptype = tt.S[ttab.S_PTYPE]
+    real = tt.prim_map >= 0
+    for key, cols in (("sphere", (ptype == 0) & real),
+                      ("rect", (ptype >= 1) & (ptype <= 3)),
+                      ("tri", ptype == 4)):
+        assert w[key] <= 256 * int(cols.sum()), key
     away = hit_kernel.search_work(
         tt.S, tt.clusters, tt.supers, tt.n_super,
         torch.tensor([[0.0, 50.0, 0.0]]), torch.tensor([[0.0, 1.0, 0.0]]),

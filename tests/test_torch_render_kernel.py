@@ -58,23 +58,17 @@ def block_errors(a, b, k=4):
 
 def port_render(scene, cam, w, h, spp, depth, seed=1, rr_start=2,
                 camera_model="look_at", with_stats=False):
-    """The pipeline's rule: uv rows and the atlas with image textures,
-    vertex-attribute rows detected by the packer."""
-    images = ttab.has_images(scene)
-    tb = ttab.tables_to_torch(ttab.pack_scene_tables(scene, with_uv=images),
-                              "cpu")
+    """The pipeline's tables and flags (tables.kernel_inputs): uv rows and
+    the atlas with image textures, vertex-attribute rows detected by the
+    packer."""
+    tb, flags = ttab.kernel_inputs(scene, "cpu")
     cv = torch.from_numpy(ttab.pack_camera_np(
         cam, scene.background_start, scene.background_end, w, h, 1e-3))
-    has_rects, has_tris = ttab.prim_flags(scene)
-    atlas, tex_hw = ttab.atlas_to_torch(scene, "cpu") if images \
-        else (None, None)
     return rk.render_sample(tb.S, tb.P, tb.clusters, tb.supers, tb.n_super,
                             cv, seed, depth, width=w, height=h, spp=spp,
                             rr_start=rr_start, camera_model=camera_model,
-                            with_stats=with_stats, has_rects=has_rects,
-                            has_tris=has_tris, has_vattrs=tb.vattrs,
-                            atlas=atlas, tex_hw=tex_hw, cluster=tb.cluster,
-                            super_=tb.super_)
+                            with_stats=with_stats, cluster=tb.cluster,
+                            super_=tb.super_, **flags)
 
 
 @pytest.fixture(scope="module")

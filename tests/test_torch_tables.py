@@ -20,7 +20,8 @@ from cudaraytracer_tpu_torch.ops.cuda import tables as ttab  # noqa: E402
                                   "cornell", "cornell_mesh_light",
                                   "cornell_smoke", "bounce", "marble",
                                   "mesh_demo", "mesh_smooth", "terrain",
-                                  "rtow_image", "mirror_room"])
+                                  "rtow_image", "mirror_room", "smoke",
+                                  "book2_final"])
 def test_tables_bit_identical(name):
     scene = tscenes.SCENES[name][0]()
     with_uv = ttab.has_images(scene)
@@ -54,8 +55,8 @@ def test_rtow_final_main_path_sizes():
     t = ttab.pack_scene_tables(tscenes.rtow_final_scene())
     assert t.S.shape == (16, 672) and t.P.shape == (7, 672)
     assert t.clusters.shape == (7, 24) and t.supers.shape == (6, 6)
-    assert ttab.unsupported_features(tscenes.rtow_final_scene()) == []
-    assert ttab.unsupported_features(tscenes.default_scene()) == []
+    flags = ttab.kernel_flags(tscenes.rtow_final_scene())
+    assert not any(flags.values())  # the sphere-only instantiation
 
 
 def test_tables_to_torch_round_trip():
@@ -67,28 +68,63 @@ def test_tables_to_torch_round_trip():
         np.testing.assert_array_equal(x.numpy(), getattr(t, f))
     assert (tt.n_super, tt.cluster, tt.super_) == (t.n_super, t.cluster,
                                                    t.super_)
+    assert not tt.motion
+    moving = ttab.tables_to_torch(
+        ttab.pack_scene_tables(tscenes.bounce_scene()), "cpu")
+    assert moving.motion and moving.P.shape[0] == ttab.P_ROWS + 3
 
 
 def test_prim_flags_and_unsupported_features():
-    """(has_rects, has_tris) as the JAX pipeline computes them; triangles
-    with vertex attributes and image textures render, the unported
-    branches are named."""
+    """(has_rects, has_tris) as the JAX pipeline computes them; every
+    registered scene and the all-feature probe has a kernel instantiation
+    for its flags, and a combination without one raises naming it."""
+    from cudaraytracer_tpu_torch.ops.cuda.gbuffer_kernel import \
+        gbuffer_variant
+    from cudaraytracer_tpu_torch.ops.cuda.render_kernel import render_variant
+
     assert ttab.prim_flags(tscenes.rtow_final_scene()) == (False, False)
     assert ttab.prim_flags(tscenes.default_scene()) == (True, False)
     assert ttab.prim_flags(tscenes.cornell_mesh_light_scene()) == (True, True)
-    assert ttab.unsupported_features(tscenes.cornell_mesh_light_scene()) == []
-    assert ttab.unsupported_features(tscenes.marble_scene()) == \
-        ["noise textures (has_noise)"]
-    s = tscenes.cornell_mesh_light_scene()
-    s.add_triangle((0, 0, 0), (1, 0, 0), (0, 1, 0),
-                   normals=[(0, 0, 1), (0, 0, 1), (0, 0, 1)])
-    assert ttab.unsupported_features(s) == []
-    for name in ("rtow_image", "mirror_room", "mesh_smooth", "terrain"):
-        assert ttab.unsupported_features(tscenes.SCENES[name][0]()) == []
-    assert ttab.unsupported_features(tscenes.smoke_scene()) == \
-        ["media (has_media)"]
-    assert ttab.unsupported_features(tscenes.bounce_scene()) == \
-        ["moving spheres (has_motion)"]
+    for scene in [f() for f, _ in tscenes.SCENES.values()] + [
+            tscenes.all_feature_probe_scene()]:
+        tb, fl = ttab.kernel_inputs(scene, "cpu")
+        base = (fl["has_rects"], fl["has_tris"], fl["has_vattrs"],
+                "atlas" in fl)
+        feat = {k: fl[k] for k in ("has_noise", "has_media", "has_boxm",
+                                   "has_rotm", "has_motion")}
+        v = render_variant(*base, **feat)
+        assert v[1:4] == tuple(int(x) for x in base[1:])
+        gbuffer_variant(*base, **feat)
+    assert render_variant(**ttab.kernel_flags(tscenes.marble_scene())) == \
+        (0, 0, 0, 0, 1)
+    # smoke (sphere media, no box) runs the box-media instantiation: the
+    # box chord is inert on sphere media; a rotation is not (zero-yaw
+    # boxes carry no cos/sin rows), so it must match exactly
+    assert render_variant(**ttab.kernel_flags(tscenes.smoke_scene()))[4] \
+        == 7
+    s = tscenes.marble_scene()
+    s.add_moving_sphere((0, 1, 3), (0.3, 1, 3), 0.3)
+    with pytest.raises(NotImplementedError,
+                       match=r"noise textures \(has_noise\) \+ moving"):
+        render_variant(**ttab.kernel_flags(s))
+
+
+@pytest.mark.parametrize("name", sorted(tscenes.SCENES))
+def test_kernel_flags_match_the_jax_pipeline(name):
+    """kernel_flags computes each static flag as the JAX package's
+    _PallasPipeline does (viewer/app.py:897-917) from the JAX scene."""
+    sc = jscenes.SCENES[name][0]()
+    idx = sc.active_indices()
+    pt = sc.prim_type[idx]
+    want = dict(
+        has_rects=bool(((pt >= 1) & (pt <= 3)).any()),
+        has_tris=bool((pt == 4).any()),
+        has_noise=bool((sc.tex_type[idx] == 3).any()),
+        has_media=bool((sc.mat_type[idx] == 4).any()),
+        has_motion=bool((sc.velocity[idx] != 0).any()),
+        has_boxm=bool((pt == 5).any()),
+        has_rotm=bool((sc.edge2[idx][pt == 5, 0] != 0).any()))
+    assert ttab.kernel_flags(tscenes.SCENES[name][0]()) == want
 
 
 def test_vattrs_detected_and_atlas_uploaded():

@@ -1,7 +1,10 @@
 """The port's plain texture function (ops/textures.py) against the JAX
 package's ``sample_texture``: constant, checker and image textures on the
 same seeded inputs must give exactly the same colors, including u and v
-outside [0, 1], an empty atlas slot and tex_id = -1 (cyan)."""
+outside [0, 1], an empty atlas slot and tex_id = -1 (cyan).  Noise
+(marble) rows agree statistically, as the marble factor does
+(tests/test_torch_noise.py: JAX's own numpy-vs-XLA spread with 25% of
+room), and exactly when both sides get the same factor."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -64,8 +67,58 @@ def test_image_texel_flips_v_and_truncates():
     assert float(g.abs().max()) == 0.0 and float(b.abs().max()) == 0.0
 
 
-def test_noise_texture_raises():
-    kw = {k: torch.from_numpy(v) for k, v in inputs(2, 8).items()}
-    kw["tex_type"][3] = ttex.NOISE
-    with pytest.raises(NotImplementedError, match="noise"):
-        ttex.sample_texture(**kw)
+def noise_inputs(seed, n=4096):
+    kw = inputs(seed, n)
+    kw["tex_type"] = np.random.RandomState(seed + 50).randint(
+        0, 4, n).astype(np.int32)  # a quarter of the rows are noise
+    kw["tex_id"] = np.random.RandomState(seed + 60).randint(
+        -1, 6, n).astype(np.int32)  # scale max(tex_id, 1)
+    return kw
+
+
+def test_noise_rows_match_jax_sample_texture():
+    """The noise branch, lerp(albedo2, albedo, marble_factor(p,
+    max(tex_id, 1))), against the JAX sampler; every other row equal."""
+    import jax.numpy as jnp
+
+    from cudaraytracer_tpu.ops import noise as jnoise
+
+    kw = noise_inputs(3)
+    ref = np.asarray(jtex.sample_texture(
+        **{k: jnp.asarray(v) for k, v in kw.items()}))
+    ours = ttex.sample_texture(
+        **{k: torch.from_numpy(v) for k, v in kw.items()}).numpy()
+    nz = kw["tex_type"] == ttex.NOISE
+    assert 0.2 < nz.mean() < 0.3
+    np.testing.assert_array_equal(ours[~nz], ref[~nz])
+    # the JAX package's own numpy-vs-XLA spread on the same rows
+    p, sc = kw["p"][nz], np.maximum(kw["tex_id"][nz], 1).astype(np.float32)
+    fac = jnoise.marble_factor(p[:, 0], p[:, 1], p[:, 2], sc, xp=np)
+    a, a2 = kw["albedo"][nz], kw["albedo2"][nz]
+    spread = np.abs(a2 + fac[:, None] * (a - a2) - ref[nz]).max(-1)
+    d = np.abs(ours[nz] - ref[nz]).max(-1)
+    assert np.median(d) < 1.25 * np.median(spread) + 1e-4
+    assert (d > 6e-3).mean() < 1.25 * (spread > 6e-3).mean() + 0.01
+    assert ours[nz].std() > 0.05
+
+
+def test_noise_rows_are_the_marble_lerp_exactly():
+    """Given the port's own marble factor, a noise row is exactly
+    albedo2 + f * (albedo - albedo2), f at the scale max(tex_id, 1): the
+    scale 1 for tex_id <= 1, and other scales give other colors."""
+    from cudaraytracer_tpu_torch.ops import noise as tnoise
+
+    kw = {k: torch.from_numpy(v) for k, v in noise_inputs(4, 512).items()}
+    kw["tex_type"][:] = ttex.NOISE
+    out = ttex.sample_texture(**kw)
+    p = kw["p"]
+    f = tnoise.marble_factor(p[:, 0], p[:, 1], p[:, 2],
+                             torch.clamp(kw["tex_id"], min=1).float())
+    a, a2 = kw["albedo"], kw["albedo2"]
+    assert torch.equal(out, a2 + f[:, None] * (a - a2))
+    kw["tex_id"][:] = -1
+    low = ttex.sample_texture(**kw)
+    kw["tex_id"][:] = 1
+    assert torch.equal(low, ttex.sample_texture(**kw))
+    kw["tex_id"][:] = 4
+    assert not torch.equal(low, ttex.sample_texture(**kw))
