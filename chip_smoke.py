@@ -4,19 +4,22 @@
 
 Builds the port's CUDA kernels from ``cudaraytracer_tpu_torch/csrc/`` (one
 nvcc per source, run together), shows each instantiation's registers and
-spill stores (beside the numbers PERF.md recorded for those without a
-feature bit), checks each kernel against its plain PyTorch version on
-the card, drives
-the CLI paths (``python -m cudaraytracer_tpu_torch render`` at 1280x720
-with ``--denoise --aov``: ``--scene book2_final``, the main path, every
-feature of the scene model in one render (4,800 triangles, a rect light,
-an image and a marble sphere, a subsurface medium ball, a whole-scene
-fog sphere around the camera, a moving sphere, ~1000 small spheres);
-``--scene terrain_big``, the largest scene, 20,000 smooth image-textured
+spill stores (beside the numbers PERF.md recorded for the earlier ones),
+checks each kernel against its plain PyTorch version on the card, with
+the render options too (NEE on the lit scenes, QMC, a random half of the
+tiles masked), drives the CLI paths (``python -m cudaraytracer_tpu_torch
+render`` at 1280x720 with ``--denoise --aov``: ``--scene book2_final
+--nee --qmc --adaptive``, the main path, every feature of the scene model
+in one render (4,800 triangles, a rect light, an image and a marble
+sphere, a subsurface medium ball, a whole-scene fog sphere around the
+camera, a moving sphere, ~1000 small spheres) with every render option;
+``--scene book2_final`` without options; ``--scene terrain_big``, the largest scene, 20,000 smooth image-textured
 triangles; ``--obj`` on an OBJ model written to a temporary directory,
 with ``--obj-smooth``; ``--scene rtow_final``; and no ``--scene``, the
 default scene) with the launch counts set to 0 before each and read after
-it, and times every kernel and the denoiser at the main-path shapes.
+it, and times every kernel and the denoiser at the main-path shapes, the
+megakernel on every scene without options, with QMC, with a random half
+of its tiles masked and, where an instantiation serves it, with NEE.
 Every phase prints one JSON line; any failure raises and the script exits
 non-zero.  The last lines are the card's name and power limit
 (nvidia-smi), the per-kernel summary, and the result object.
@@ -38,7 +41,8 @@ the clusters it enters, one per primitive, not per padding column; a
 medium's test per medium, the moving centre per moving sphere
 (``hit_kernel.search_work``), plus the shading per ray (lower bounds,
 ``render_kernel.SHADE_OPS``, ``gbuffer_kernel.GBUFFER_OPS``, with the
-smooth normals and image lookups this run's rays made).  The bytes count
+smooth normals, image lookups, NEE scatters with their light slots and
+QMC raygens this run's rays made).  The bytes count
 the tables, the outputs and, for image hits, three bytes per texel read
 (at most the atlas's used texels).  No single PyTorch call computes a
 closest hit, a path trace or a G-buffer, so ``library_ms`` is null for
@@ -82,6 +86,15 @@ Tolerances, and why:
   CUDA function, the medium test's logf likewise, and the time and
   medium draws are the same integer hashes; five planted faults in these
   branches moved 2,427 to 463,316 pixels (PERF.md).
+  The render options hold to the same limits: NEE on cornell,
+  cornell_mesh_light and smoke at 640x360 and with QMC on book2_final at
+  1280x720 (the light sample and the mixture pdf are f32 products,
+  sums, divisions, square roots and ``sinf``/``cosf``, which PyTorch's
+  CUDA operations call too), QMC alone on the default scene, and a random
+  half of book2_final's tiles masked; the masked launch must also equal
+  the unmasked one on its active pixels, be zero on the others, and with
+  the launch of the complementary mask add up to the unmasked launch's
+  image and ray count.
 * G-buffer: the kernel and its plain version do the same float
   operations on the same pixel-centre rays, so the hit masks must be
   equal and each buffer (normal, albedo, depth) must agree to 1e-6
@@ -111,10 +124,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 W_MAIN, H_MAIN, DEPTH, RR, SPP_MAIN = 1280, 720, 12, 2, 4
-# registers / spill-store bytes of the instantiations without a feature
-# bit (and the closest hit's) as PERF.md records them (build log, NVIDIA
-# H100 80GB HBM3): the template flags are (rects, tris[, vattrs, images,
-# features])
+# registers / spill-store bytes of the instantiations before the NEE ones
+# as PERF.md records them (build log, NVIDIA H100 80GB HBM3): the template flags are
+# (rects, tris[, vattrs, images, features])
 BASE_PTXAS = {
     "closest_hit_kernel<0,0>": (40, 0), "closest_hit_kernel<1,0>": (36, 0),
     "closest_hit_kernel<1,1>": (79, 0),
@@ -126,6 +138,11 @@ BASE_PTXAS = {
     "gbuffer_kernel<1,0,0,0,0>": (36, 0), "gbuffer_kernel<1,0,0,1,0>": (38, 0),
     "gbuffer_kernel<1,1,0,0,0>": (72, 0), "gbuffer_kernel<1,1,0,1,0>": (72, 0),
     "gbuffer_kernel<1,1,1,0,0>": (72, 0), "gbuffer_kernel<1,1,1,1,0>": (72, 0),
+    "render_kernel<0,0,0,0,1>": (72, 48), "render_kernel<0,0,0,0,16>": (64, 20),
+    "render_kernel<1,0,0,0,7>": (96, 16), "render_kernel<1,0,0,0,15>": (96, 58),
+    "render_kernel<1,0,0,0,31>": (96, 52), "render_kernel<1,1,0,1,23>": (120, 0),
+    "gbuffer_kernel<0,0,0,0,1>": (40, 12), "gbuffer_kernel<1,0,0,0,3>": (40, 12),
+    "gbuffer_kernel<1,1,0,1,3>": (68, 0),
 }
 # megakernel against its plain version (see the module docstring)
 MEGA_DIFF_SHARE, MEGA_MEAN_RTOL, MEGA_RAYS_RTOL = 1e-4, 1e-4, 1e-4
@@ -159,10 +176,12 @@ def main():
     from cudaraytracer_tpu_torch.ops.cuda.hit_kernel import (
         OPS, closest_hit, closest_hit_plain, search_ops, search_work)
     from cudaraytracer_tpu_torch.ops.cuda.render_kernel import (
-        SHADE_OPS, render_sample, render_sample_plain)
+        FEATURES, SHADE_OPS, mask_grid, render_sample, render_sample_plain,
+        render_variant)
     from cudaraytracer_tpu_torch.ops.cuda.tables import (
-        BIG, kernel_inputs, pack_camera_np)
+        BIG, kernel_inputs, mask_tile, nee_inputs, pack_camera_np)
     from cudaraytracer_tpu_torch.ops.denoise import atrous_denoise
+    from cudaraytracer_tpu_torch.viewer.app import tile_activity_plane
 
     # ---- 1. device ----
     if not torch.cuda.is_available():
@@ -195,8 +214,9 @@ def main():
             ptxas[entry] = {"registers": int(m.group(1)),
                             "spill_store_bytes": spill}
             entry, spill = None, 0
-    # the feature-free instantiations against PERF.md (shown, not enforced: a
-    # toolchain other than the recorded one may allocate otherwise)
+    # the recorded instantiations against PERF.md (shown, not enforced: a
+    # toolchain other than the recorded one may allocate otherwise), and
+    # the ones added since
     recorded = {k: {"recorded": list(v),
                     "now": [ptxas.get(k, {}).get("registers"),
                             ptxas.get(k, {}).get("spill_store_bytes")]}
@@ -206,7 +226,11 @@ def main():
           "flags": " ".join(build.NVCC_FLAGS), "ptxas": ptxas,
           "base_as_recorded": all(v["recorded"] == v["now"]
                                    for v in recorded.values()),
-          "base_ptxas": recorded})
+          "base_changed": sorted(k for k, v in recorded.items()
+                                 if v["recorded"] != v["now"]),
+          "base_ptxas": recorded,
+          "new_ptxas": {k: [v["registers"], v["spill_store_bytes"]]
+                        for k, v in ptxas.items() if k not in BASE_PTXAS}})
 
     class Setup:
         """A registered scene's tables, flags and camera on the card, set
@@ -235,6 +259,38 @@ def main():
             self.table_bytes = 4 * (tb.S.numel() + tb.P.numel()
                                     + tb.clusters.numel()
                                     + tb.supers.numel() + 38)
+            # the NEE light table and the adaptive mask's tiles, as the
+            # render loop sets them up, and whether an instantiation
+            # serves the scene with NEE
+            self.nee = nee_inputs(self.scene, dev)
+            self.tile = mask_tile(self.scene, tb)
+            fl = self.flags
+            try:
+                render_variant(fl["has_rects"], fl["has_tris"],
+                               fl["has_vattrs"], "atlas" in fl,
+                               **{name: fl[name] for name, _, _ in FEATURES
+                                  if name != "has_nee"}, has_nee=True)
+                self.serves_nee = True
+            except NotImplementedError:
+                self.serves_nee = False
+
+        def half_mask(self, w, h):
+            """A random half of the scene's tiles over w x h (i32, on
+            the card)."""
+            gi, gj = mask_grid(w, h, self.tile)
+            m = np.random.RandomState(5).permutation(gi * gj) < gi * gj // 2
+            return torch.from_numpy(m.astype(np.int32)).to(dev)
+
+        def options(self, nee=False, qmc=False, sample_base=0, mask=None):
+            """render_sample's keywords for these render options."""
+            kw = {}
+            if nee:
+                kw.update(self.nee)
+            if qmc:
+                kw.update(has_qmc=True, sample_base=sample_base)
+            if mask is not None:
+                kw.update(tile_mask=mask, tile=self.tile)
+            return kw
 
         def texel_bytes(self, work):
             """Three bytes per texel read, at most the used atlas."""
@@ -354,11 +410,13 @@ def main():
     hit_cml = hit_check(cml, (-2.4, 0.1, -2.4), (2.4, 4.9, 4.0), 20260102)
 
     # ---- 4. megakernel, kernel against plain ----
-    def mega_check(su, w, h, seed, with_bound=False):
-        """Kernel against plain at w x h, SPP_MAIN spp; raise on a miss."""
+    def mega_check(su, w, h, seed, with_bound=False, **opts):
+        """Kernel against plain at w x h, SPP_MAIN spp, with the render
+        options ``opts`` (Setup.options); raise on a miss."""
         args = (*su.frame_args(w, h), seed, DEPTH)
         kw = dict(width=w, height=h, camera_model=su.model, spp=SPP_MAIN,
-                  rr_start=RR, with_stats=True, **su.flags)
+                  rr_start=RR, with_stats=True, **su.flags,
+                  **su.options(**opts))
         img_k, rays_k = render_sample(*args, **kw)
         (img_p, rays_p), plain_ms = host_ms(
             lambda: render_sample_plain(*args, **kw))
@@ -374,12 +432,18 @@ def main():
         if with_bound:
             work = {}
             render_sample_plain(*args, **kw, work=work)
-            # tables once, the texels read, the f32[h, w, 3] sum and the
-            # ray count written
-            res.update(bound(su.table_bytes + su.texel_bytes(work)
+            # tables once (with the light table and the mask), the texels
+            # read, the f32[h, w, 3] sum and the ray count written
+            extra = sum(4 * kw[k].numel() for k in ("lights", "tile_mask")
+                        if k in kw)
+            res.update(bound(su.table_bytes + extra + su.texel_bytes(work)
                              + 12 * w * h + 8, work_ops(work, SHADE_OPS)),
                        work=work)
+        shown = {k: v for k, v in opts.items() if k != "mask"}
+        if opts.get("mask") is not None:
+            shown["masked_tiles"] = int((opts["mask"] == 0).sum())
         emit({"phase": "megakernel_check", "scene": su.name, **su.tags,
+              "options": shown,
               "size": [w, h], "spp": SPP_MAIN, "depth": DEPTH,
               "rr_start": RR, "seed": seed,
               "share_within_1e-3": 1.0 - differing / (w * h),
@@ -393,10 +457,53 @@ def main():
                 or rays_rel > MEGA_RAYS_RTOL):
             raise AssertionError(
                 f"megakernel disagrees with its plain version on {su.name} "
-                f"at {w}x{h}")
+                f"at {w}x{h} with {shown}")
         return res
 
     mega_err = mega_check(rtow, 320, 180, 4242)["max_abs_err"]
+    # NEE on the light shapes: rects (cornell), triangles
+    # (cornell_mesh_light), a sphere through fog (smoke)
+    cornell = Setup("cornell")
+    for su in (cornell, cml, smoke):
+        mega_err = max(mega_err, mega_check(su, 640, 360, 31,
+                                            nee=True)["max_abs_err"])
+    # QMC alone, at a sample base past the split of the R2 index
+    mega_err = max(mega_err, mega_check(default, W_MAIN, H_MAIN, 32, qmc=True,
+                                        sample_base=4096 + 17)["max_abs_err"])
+
+    # ---- 4b. the tile mask on book2_final with the main path's options ----
+    def mask_check(su):
+        """A random half of su's tiles masked: the active pixels equal to
+        the unmasked launch's, the others zero, and the launches of the
+        mask and its complement adding up to the unmasked launch; returns
+        the mask (the timing phase checks it against the plain version)."""
+        gi, gj = mask_grid(W_MAIN, H_MAIN, su.tile)
+        mask = su.half_mask(W_MAIN, H_MAIN)
+        opts = dict(nee=True, qmc=True, sample_base=8)
+        args = (*su.frame_args(W_MAIN, H_MAIN), 7, DEPTH)
+        kw = dict(width=W_MAIN, height=H_MAIN, camera_model=su.model,
+                  spp=SPP_MAIN, rr_start=RR, with_stats=True, **su.flags)
+        full, n_full = render_sample(*args, **kw, **su.options(**opts))
+        part, n_part = render_sample(*args, **kw,
+                                     **su.options(**opts, mask=mask))
+        rest, n_rest = render_sample(*args, **kw,
+                                     **su.options(**opts, mask=1 - mask))
+        act = tile_activity_plane(mask, (gi, gj),
+                                  *su.tile)[:H_MAIN, :W_MAIN] > 0.5
+        same = bool(torch.equal(part[act], full[act]))
+        zero = bool((part[~act] == 0).all())
+        adds = bool(torch.equal(torch.where(act[..., None], part, rest),
+                                full))
+        rays = (int(n_part), int(n_rest), int(n_full))
+        emit({"phase": "mask_check", "scene": su.name, "tile": su.tile,
+              "grid": [gi, gj], "masked_tiles": int((mask == 0).sum()),
+              "active_equal_unmasked": same, "masked_zero": zero,
+              "complement_adds_up": adds, "rays_mask_rest_full": rays})
+        if not (same and zero and adds and rays[0] + rays[1] == rays[2]):
+            raise AssertionError(f"the tile mask misbehaves on {su.name}")
+        return mask
+
+    book2_mask = mask_check(book2)
 
     # ---- 5. G-buffer, kernel against plain ----
     def gbuf_check(su):
@@ -441,23 +548,27 @@ def main():
               for su in (terrain, rimage, terrain_big, marble, smoke, csmoke,
                          bounce, book2)}
 
-    # ---- 6. the two CLI paths, counts set to 0 before, read after ----
+    # ---- 6. the CLI paths, counts set to 0 before, read after ----
     counted = (render_sample, render_sample_plain, gbuffer, gbuffer_plain,
                closest_hit, closest_hit_plain)
     frames = 8
 
-    def cli_path(tag, scene_args, tmp):
+    def cli_path(tag, scene_args, tmp, n_frames=frames):
+        """One CLI render with --denoise --aov; under --adaptive it may
+        stop before n_frames: the megakernel must launch once per frame
+        run."""
         for fn in counted:
             fn.launches = 0
         png = os.path.join(tmp, f"{tag}.png")
         npz = os.path.join(tmp, f"{tag}_aov.npz")
         t0 = time.perf_counter()
-        cli.main(["render", *scene_args, "--width", str(W_MAIN),
-                  "--height", str(H_MAIN), "--frames", str(frames),
-                  "--denoise", "--aov", npz, "-o", png])
+        rl = cli.main(["render", *scene_args, "--width", str(W_MAIN),
+                       "--height", str(H_MAIN), "--frames", str(n_frames),
+                       "--denoise", "--aov", npz, "-o", png])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = {fn.__name__: fn.launches for fn in counted}
+        run = rl._frame_index
         from PIL import Image
 
         with Image.open(png) as im:
@@ -465,13 +576,19 @@ def main():
         with np.load(npz) as z:
             aov = {k: z[k] for k in z.files}
         emit({"phase": "main_path", "path": tag, "args": scene_args,
-              "size": list(size), "frames": frames, "denoise": True,
+              "size": list(size), "frames": n_frames, "frames_run": run,
+              "active_fraction": rl._pipeline.active_fraction(),
+              "spp_done": rl._spp_done, "denoise": True,
               "seconds": round(seconds, 3), "launches": launches,
               "png_mean": float(arr.mean()),
               "png_share_saturated": float((arr == 255).all(axis=2).mean()),
               "aov": {k: list(v.shape) for k, v in aov.items()},
               "aov_hit_share": float((aov["depth"] > 0).mean())})
-        if (launches["render_sample"] != frames or launches["gbuffer"] != 1
+        # only --adaptive may stop before n_frames
+        least = 1 if "--adaptive" in scene_args else n_frames
+        if (launches["render_sample"] != run
+                or not least <= run <= n_frames
+                or launches["gbuffer"] != 1
                 or launches["render_sample_plain"]
                 or launches["gbuffer_plain"]):
             raise AssertionError(f"{tag} did not run on the kernels: "
@@ -490,7 +607,16 @@ def main():
 
     with tempfile.TemporaryDirectory() as tmp:
         by_path = {}
-        # the main path: every feature of the scene model in one render
+        # the main path: every feature of the scene model and every render
+        # option in one render; up to 64 frames, so that tiles can
+        # converge (each waits 8 launches, and the fog's pixels need ~50
+        # at tau 0.016)
+        main_tag = "book2_final_nee_qmc_adaptive"
+        by_path[main_tag], _ = cli_path(
+            main_tag, ["--scene", "book2_final", "--nee", "--qmc",
+                       "--adaptive"],
+            tmp, n_frames=64)
+        # the same scene without render options
         by_path["book2_final"], _ = cli_path(
             "book2_final", ["--scene", "book2_final"], tmp)
         by_path["terrain_big"], _ = cli_path(
@@ -545,15 +671,42 @@ def main():
                 # the plain time and the bound come from the checks below
                 # (SPP_MAIN only)
                 "plain_ms": None, "bound_ms": None, "bound_by": None}
-    checks = {su.name: mega_check(su, W_MAIN, H_MAIN, 7, with_bound=True)
-              for su in (rtow, default, cml, terrain, smooth, rimage,
-                         mirror, terrain_big, marble, smoke, csmoke, bounce,
-                         book2)}
+    # each render option alone on every scene (NEE where an instantiation
+    # serves it), and the main path's options on book2_final: NEE and
+    # QMC, and with half of its tiles masked (mask_check's mask)
+    main_opts = dict(nee=True, qmc=True, sample_base=8)
+    runs = []
+    for su in (rtow, default, cml, terrain, terrain_big, smooth, rimage,
+               mirror, marble, smoke, csmoke, bounce, book2):
+        runs += [(su, "qmc", dict(qmc=True, sample_base=8)),
+                 (su, "half_mask", dict(mask=su.half_mask(W_MAIN, H_MAIN)))]
+        if su.serves_nee:
+            runs.append((su, "nee", dict(nee=True)))
+    runs += [(book2, "nee_qmc", main_opts),
+             (book2, "nee_qmc_half_mask", dict(main_opts, mask=book2_mask))]
+    for su, tag, opts in runs:
+        args = (*su.frame_args(W_MAIN, H_MAIN), 7, DEPTH)
+        kw = dict(width=W_MAIN, height=H_MAIN, camera_model=su.model,
+                  spp=SPP_MAIN, rr_start=RR, **su.flags, **su.options(**opts))
+        _, nr = render_sample(*args, **kw, with_stats=True)
+        ms = cuda_ms(lambda: render_sample(*args, **kw), 10)
+        timing[f"{su.name}/{tag}/{SPP_MAIN}spp"] = {
+            "ms": ms, "rays": int(nr),
+            "mrays_per_s": int(nr) / (ms * 1e-3) / 1e6,
+            "plain_ms": None, "bound_ms": None, "bound_by": None}
+    checks = {f"{su.name}/{SPP_MAIN}spp": mega_check(
+        su, W_MAIN, H_MAIN, 7, with_bound=True)
+        for su in (rtow, default, cml, terrain, smooth, rimage, mirror,
+                   terrain_big, marble, smoke, csmoke, bounce, book2)}
+    checks[f"book2_final/nee_qmc/{SPP_MAIN}spp"] = mega_check(
+        book2, W_MAIN, H_MAIN, 7, with_bound=True, **main_opts)
+    checks[f"book2_final/nee_qmc_half_mask/{SPP_MAIN}spp"] = mega_check(
+        book2, W_MAIN, H_MAIN, 7, with_bound=True, **main_opts,
+        mask=book2_mask)
     mega_err = max(mega_err, *(c["max_abs_err"] for c in checks.values()))
-    for name, c in checks.items():
-        timing[f"{name}/{SPP_MAIN}spp"].update(
-            plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
-            bound_by=c["bound_by"])
+    for key, c in checks.items():
+        timing[key].update(plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
+                           bound_by=c["bound_by"])
     emit({"phase": "timing", "shape": [W_MAIN, H_MAIN], "depth": DEPTH,
           "rr_start": RR, "megakernel": timing, "nvidia_smi": smi})
 
@@ -570,9 +723,10 @@ def main():
     emit({"phase": "denoise_timing", "shape": [W_MAIN, H_MAIN],
           "iterations": 4, "ms": den_ms, "nvidia_smi": smi})
 
-    # the main path: render --scene book2_final --denoise --aov
-    launches = by_path["book2_final"]
-    mk = timing[f"book2_final/{SPP_MAIN}spp"]
+    # the main path: render --scene book2_final --nee --qmc --adaptive
+    # --denoise --aov
+    launches = by_path[main_tag]
+    mk = timing[f"book2_final/nee_qmc/{SPP_MAIN}spp"]
     print(smi, flush=True)
     emit({"kernels": [
         {"name": "render_sample", "route": "cuda",
@@ -583,11 +737,16 @@ def main():
                       "1e-4; rtow_final at 320x180 and 1280x720; default, "
                       "cornell_mesh_light, terrain, mesh_smooth, rtow_image, "
                       "mirror_room, terrain_big, marble, smoke, "
-                      "cornell_smoke, bounce and book2_final at 1280x720",
+                      "cornell_smoke, bounce and book2_final at 1280x720; "
+                      "NEE on cornell, cornell_mesh_light and smoke at "
+                      "640x360; QMC on default and NEE+QMC on book2_final, "
+                      "unmasked and with half its tiles masked, at "
+                      "1280x720",
          "ms": mk["ms"], "plain_ms": mk["plain_ms"],
          "bound_ms": mk["bound_ms"], "bound_by": mk["bound_by"],
          "library_ms": None,
-         "timed": f"book2_final {W_MAIN}x{H_MAIN} {SPP_MAIN} spp",
+         "timed": f"book2_final --nee --qmc {W_MAIN}x{H_MAIN} "
+                  f"{SPP_MAIN} spp",
          "launches_by_path": {k: v["render_sample"]
                               for k, v in by_path.items()},
          "by_scene": {k: v for k, v in timing.items()}},

@@ -4,13 +4,20 @@
   python -m cudaraytracer_tpu_torch render --denoise --aov aov.npz -o out.png
   python -m cudaraytracer_tpu_torch render --scene terrain_big -o out.png
   python -m cudaraytracer_tpu_torch render --obj model.obj --obj-smooth
+  python -m cudaraytracer_tpu_torch render --scene book2_final --nee --qmc \
+      --adaptive --denoise --aov aov.npz
   python -m cudaraytracer_tpu_torch render --device cpu --width 64 --height 36 ...
 
 With no ``--scene`` it renders the default scene.  ``--obj PATH`` loads a
 Wavefront OBJ model, normalizes it onto the checkered ground and renders
 it (``--obj-mat``, ``--obj-albedo``, ``--obj-fuzz``, ``--obj-ior``,
-``--obj-smooth``).  ``--denoise`` filters the displayed image with the
-à-trous denoiser over the G-buffer; ``--aov PATH`` writes the G-buffer
+``--obj-smooth``).  ``--nee`` samples the scene's lights at lambertian
+hits (``--nee-p`` the mixture weight), ``--qmc`` takes the pixel jitter
+from the R2 sequence, ``--adaptive`` stops tracing converged tiles and
+ends the render early once every tile has converged (``--adaptive-tau``,
+``--adaptive-min``, ``--adaptive-q``).  ``--denoise`` filters the
+displayed image with the à-trous denoiser over the G-buffer (and the
+variance plane under ``--adaptive``); ``--aov PATH`` writes the G-buffer
 (``.npz``: raw arrays; any other path: a prefix for three PNGs).
 ``--device`` defaults to ``cuda``; with no GPU the command fails with a
 clear error instead of falling back.  ``--device cpu`` runs the kernels'
@@ -28,6 +35,10 @@ from .utils import logging as rtlog
 
 
 def cmd_render(cfg, args):
+    """Render ``args.frames`` progressive frames (under ``--adaptive``
+    until every tile has converged, at most that many) and write the
+    outputs; returns the render layer (its state: ``_frame_index``
+    frames run, the pipeline's ``active_fraction``)."""
     from .utils.image import save_png
     from .viewer.app import Application
 
@@ -36,7 +47,25 @@ def cmd_render(cfg, args):
     rtlog.rt_info("Rendering %d frame(s) of %d spp on %s ...",
                   args.frames, cfg.progressive_spp, rl.device)
     t0 = time.perf_counter()
-    app.run(max_frames=args.frames)
+    if cfg.adaptive:
+        # frames until every tile has converged or the frame budget is
+        # spent, the tiles' activity read once per chunk of 8 frames
+        done, frac = 0, 1.0
+        while done < args.frames:
+            chunk = min(8, args.frames - done)
+            app.run(max_frames=chunk)
+            done += chunk
+            frac = rl._pipeline.active_fraction()
+            if frac == 0.0:
+                break
+        dt = time.perf_counter() - t0
+        rtlog.rt_info(
+            "Adaptive: %d/%d frames, %.0f%% tiles still active at stop "
+            "(tau=%.3g, %.1f ms/frame)", done, args.frames, frac * 100,
+            cfg.adaptive_tau, dt / max(done, 1) * 1000)
+        args.frames = done
+    else:
+        app.run(max_frames=args.frames)
     dt = time.perf_counter() - t0
     rtlog.rt_info("Done: %.1f ms/frame (host clock), accumulated %d spp",
                   dt / max(args.frames, 1) * 1000, rl._spp_done)
@@ -57,6 +86,7 @@ def cmd_render(cfg, args):
     if args.aov:
         _write_aov(rl, args.aov)
     app.close()
+    return rl
 
 
 def _write_aov(rl, path: str):

@@ -1,10 +1,11 @@
 """Configuration / flag layer.
 
 Counterpart of ``cudaraytracer_tpu/config.py`` for the options the port
-implements, with the same defaults (the reference's constants: depth 12,
-seed 1984, a 1280x720 window), plus ``device`` (default ``cuda``).  The
-JAX package's accel, adaptive, NEE, QMC and fence options wait for the
-port of the code they configure.
+implements, with the same defaults and flag names (the reference's
+constants: depth 12, seed 1984, a 1280x720 window; next-event
+estimation, QMC jitter and adaptive sampling off), plus ``device``
+(default ``cuda``).  The JAX package's accel, progressive, fence and
+debug options wait for the port of the code they configure.
 """
 
 from __future__ import annotations
@@ -33,6 +34,18 @@ class RenderConfig:
     #                        display/export time only, never to the
     #                        accumulator
     denoise_iters: int = 4  # à-trous iterations (filter radius 2^i px)
+    adaptive: bool = False  # adaptive sampling: tiles whose pixels have
+    #                         converged stop tracing (tile mask)
+    adaptive_tau: float = 0.016  # convergence bar: a pixel's DISPLAY-value
+    #                              stderr (display = lum^(1/2.2); one
+    #                              8-bit level ~ 0.004)
+    adaptive_min: int = 8  # launches before a tile may converge
+    adaptive_q: float = 0.95  # share of a tile's pixels below tau
+    nee: bool = False  # next-event estimation at lambertian hits (the
+    #                    light/cosine mixture, ops/sampling.py): another
+    #                    estimator than the reference's, so opt-in
+    nee_p: float = 0.5  # the mixture's weight toward the lights
+    qmc: bool = False  # R2 low-discrepancy pixel jitter (ops/qmc.py)
     device: str = "cuda"  # torch device; "cpu" runs the plain versions
 
 
@@ -61,6 +74,18 @@ def add_arguments(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--denoise", action="store_true", default=d.denoise)
     parser.add_argument("--denoise-iters", dest="denoise_iters", type=int,
                         default=d.denoise_iters)
+    parser.add_argument("--adaptive", action="store_true", default=d.adaptive)
+    parser.add_argument("--adaptive-tau", dest="adaptive_tau", type=float,
+                        default=d.adaptive_tau)
+    parser.add_argument("--adaptive-min", dest="adaptive_min", type=int,
+                        default=d.adaptive_min)
+    parser.add_argument("--adaptive-q", dest="adaptive_q", type=float,
+                        default=d.adaptive_q)
+    parser.add_argument("--nee", action="store_true", default=d.nee,
+                        help="next-event estimation at lambertian hits "
+                             "(scenes with lights)")
+    parser.add_argument("--nee-p", dest="nee_p", type=float, default=d.nee_p)
+    parser.add_argument("--qmc", action="store_true", default=d.qmc)
     parser.add_argument("--device", default=d.device,
                         help="torch device: cuda (the kernels) or cpu (the "
                              "plain PyTorch versions)")

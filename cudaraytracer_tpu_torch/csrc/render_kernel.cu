@@ -6,8 +6,8 @@
 // Replaces cudaraytracer_tpu/ops/pallas/render_kernel.py::_render_kernel
 // (:1406, launched by pallas_render_sample :2517) for the flags
 // has_rects/has_tris/has_vattrs/has_images and, in kFeat (search.cuh F_*),
-// has_noise/has_media/has_boxm/has_rotm/has_motion (not NEE, QMC, tile
-// masks, bands or cull statistics):
+// has_noise/has_media/has_boxm/has_rotm/has_motion/has_nee, with has_qmc
+// and the tile mask (not bands or cull statistics):
 // raygen (look_at thin lens and two_plane, :1491-1539), in-kernel path
 // regeneration until spp samples are done (:1594-1639), the closest-hit
 // search (search.cuh; it carries the winner's barycentrics when
@@ -19,7 +19,14 @@
 // (:1914-1921), constant/checker/noise/image texture (:1942-2053),
 // lambertian/metal/dielectric scatter and emission (:2055-2161), the
 // isotropic scatter of a medium hit (:2147-2156), the termination rule
-// (:2410) and Russian roulette from rr_start (:2411-2429).  With motion
+// (:2410) and Russian roulette from rr_start (:2411-2429).  With F_NEE a
+// lambertian hit scatters by the light/cosine mixture of nee.cuh
+// (:2163-2405) and keeps its direction unrenormalized, as the TPU kernel
+// does; with qmc the jitter of a regenerated path is the R2 point of
+// qmc.cuh for the global index sample_base + samples done (:1485-1489,
+// :1597-1607; the lens draws stay random); a pixel of a tile whose mask
+// entry is 0 traces nothing and writes zero radiance and no rays
+// (:1551-1560).  With motion
 // each path draws its shutter time once, at regeneration (:1624-1625),
 // and keeps it in a register for all its bounces; with media each
 // iteration draws one medium uniform (:1647-1650) that the search
@@ -60,6 +67,8 @@
 
 #include <cstdint>
 
+#include "nee.cuh"
+#include "qmc.cuh"
 #include "rng.cuh"
 #include "search.cuh"
 #include "surface.cuh"
@@ -84,18 +93,34 @@ struct Params {
   float inv_w, inv_h;  // 1/width, 1/height rounded from double
 };
 
+// Render options beyond the scene's flags, a kernel argument of their own
+// after crt::Atlas (as the atlas is: a larger Params changes the code of
+// the instantiations that never read it).
+struct Opts {
+  const float* lights;  // f32[114] NEE light table (read with F_NEE)
+  const int* mask;      // i32[tiles_y * tiles_x] tile mask, or null
+  int tile_h, tile_w, tiles_x;
+  int qmc;          // R2 pixel jitter at regeneration
+  int sample_base;  // global sample index of the launch's first sample
+  float nee_p;      // the mixture's weight toward the lights
+};
+
 using crt::rsqrt_;
 
 // Trace all spp samples of pixel (x, y); returns the rays traced.
 template <bool kRects, bool kTris, bool kVattrs, bool kImages, int kFeat>
 __device__ unsigned long long trace_pixel(const Params& p,
-                                          const crt::Atlas& atlas, int x,
-                                          int y, float* __restrict__ out) {
+                                          const crt::Atlas& atlas,
+                                          const Opts& o, int x, int y,
+                                          float* __restrict__ out) {
   // the winner's barycentrics feed the smooth normal and a triangle's uv
   constexpr bool kUV = kVattrs || (kTris && kImages);
   constexpr int vn_base = crt::vn_base_for(kImages);
   constexpr bool kMedia = (kFeat & crt::F_MEDIA) != 0;
   constexpr bool kMotion = (kFeat & crt::F_MOTION) != 0;
+  constexpr bool kNee = (kFeat & crt::F_NEE) != 0;
+  // the search and the surface do not read the NEE bit
+  constexpr int kSurf = kFeat & ~crt::F_NEE;
   constexpr int vel_base = crt::vel_base_for(kImages, kVattrs);
   const float* __restrict__ cam = p.cam;
   const uint32_t pk =
@@ -115,13 +140,23 @@ __device__ unsigned long long trace_pixel(const Params& p,
   int done = 0, depth = 0;
   unsigned long long nrays = 0;
   const int n_iter = p.spp * p.max_depth;
+  // the pixel's QMC rotation, once per pixel
+  float qrx = 0.f, qry = 0.f;
+  if (o.qmc) crt::pixel_rotation(xs, ys, qrx, qry);
 
   for (int it = 0; it < n_iter && (alive || done < p.spp); ++it) {
     const uint32_t uit = static_cast<uint32_t>(it);
     if (!alive) {
       // path regeneration: a fresh primary ray for this pixel's next sample
-      const float jx = crt::u01(pk, uit, crt::SLOT_JX);
-      const float jy = crt::u01(pk, uit, crt::SLOT_JY);
+      float jx, jy;
+      if (o.qmc) {
+        crt::r2_frac(o.sample_base + done, jx, jy);
+        jx = crt::frac_(qrx + jx);
+        jy = crt::frac_(qry + jy);
+      } else {
+        jx = crt::u01(pk, uit, crt::SLOT_JX);
+        jy = crt::u01(pk, uit, crt::SLOT_JY);
+      }
       float lx = 0.f, ly = 0.f;
       if (!p.two_plane) {
         const float rr = __ldg(cam + 18) * sqrtf(crt::u01(pk, uit, crt::SLOT_LENS_R));
@@ -143,7 +178,7 @@ __device__ unsigned long long trace_pixel(const Params& p,
     crt::Bary bc{0.0f, 0.0f};
     float u_med = 0.0f;
     if constexpr (kMedia) u_med = crt::u01(pk, uit, crt::SLOT_MED);
-    const int j = crt::closest_hit<kRects, kTris, kUV, kFeat>(
+    const int j = crt::closest_hit<kRects, kTris, kUV, kSurf>(
         p.tb, ray, t_min, best_t, bc, u_med, time);
 
     bool cont = false;
@@ -176,7 +211,7 @@ __device__ unsigned long long trace_pixel(const Params& p,
             bc.u, bc.v, vel_base, time);
       }
       float texr, texg, texb;
-      crt::surface_rgb<kRects, kTris, kVattrs, kImages, kFeat>(
+      crt::surface_rgb<kRects, kTris, kVattrs, kImages, kSurf>(
           P, np, j, packc, pa, pb, px, py, pz, nx, ny, nz, atlas, vn_base,
           bc.u, bc.v, texr, texg, texb);
 
@@ -192,21 +227,41 @@ __device__ unsigned long long trace_pixel(const Params& p,
         const float phs = kTwoPi * crt::u01(pk, uit, crt::SLOT_SPH_PHI);
         const float scale = expf(
             logf(fmaxf(crt::u01(pk, uit, crt::SLOT_SPH_R), 1e-30f)) * kThird);
-        const float sx = rs * cosf(phs) * scale;
-        const float sy = rs * sinf(phs) * scale;
+        // the draw's unit vector (uc, zs), scaled by the cube root
+        const float ucx = rs * cosf(phs);
+        const float ucy = rs * sinf(phs);
+        const float sx = ucx * scale;
+        const float sy = ucy * scale;
         const float sz = zs * scale;
 
         float ndx, ndy, ndz;
         float ar = texr, ag = texg, ab = texb;
         bool scat_ok = true;
+        bool unit = false;  // nd is unit already (the NEE mixture's)
         if (iso) {  // isotropic: along s, before the lambertian mat 0
           ndx = sx;
           ndy = sy;
           ndz = sz;
-        } else if (mat == 0) {  // lambertian: n + s
-          ndx = nx + sx;
-          ndy = ny + sy;
-          ndz = nz + sz;
+        } else if (mat == 0) {
+          if constexpr (kNee) {
+            // the light/cosine mixture, weighted scattering / mixture pdf
+            float wgt;
+            scat_ok = crt::nee_scatter(
+                o.lights, o.nee_p, px, py, pz, nx, ny, nz, ucx, ucy, zs,
+                crt::u01(pk, uit, crt::SLOT_NEE_MIX),
+                crt::u01(pk, uit, crt::SLOT_NEE_PICK),
+                crt::u01(pk, uit, crt::SLOT_NEE_A),
+                crt::u01(pk, uit, crt::SLOT_NEE_B), t_min, ndx, ndy, ndz,
+                wgt);
+            ar = texr * wgt;
+            ag = texg * wgt;
+            ab = texb * wgt;
+            unit = true;
+          } else {  // lambertian: n + s
+            ndx = nx + sx;
+            ndy = ny + sy;
+            ndz = nz + sz;
+          }
         } else if (mat == 1) {  // metal: reflect(d, n) + fuzz * s
           const float ddn = dx * nx + dy * ny + dz * nz;
           ndx = dx - 2.0f * ddn * nx + mparam * sx;
@@ -261,14 +316,20 @@ __device__ unsigned long long trace_pixel(const Params& p,
           }
         }
         if (cont) {
-          const float ninv =
-              rsqrt_(fmaxf(ndx * ndx + ndy * ndy + ndz * ndz, 1e-20f));
           ox = px;
           oy = py;
           oz = pz;
-          dx = ndx * ninv;
-          dy = ndy * ninv;
-          dz = ndz * ninv;
+          if (kNee && unit) {
+            dx = ndx;
+            dy = ndy;
+            dz = ndz;
+          } else {
+            const float ninv =
+                rsqrt_(fmaxf(ndx * ndx + ndy * ndy + ndz * ndz, 1e-20f));
+            dx = ndx * ninv;
+            dy = ndy * ninv;
+            dz = ndz * ninv;
+          }
           tpx = tpx * ar;
           tpy = tpy * ag;
           tpz = tpz * ab;
@@ -291,13 +352,22 @@ __device__ unsigned long long trace_pixel(const Params& p,
 template <bool kRects, bool kTris, bool kVattrs, bool kImages, int kFeat>
 __global__ void __launch_bounds__(kThreads)
 render_kernel(Params p, float* __restrict__ out,
-              unsigned long long* __restrict__ nrays_out, crt::Atlas atlas) {
+              unsigned long long* __restrict__ nrays_out, crt::Atlas atlas,
+              Opts o) {
   const int x = blockIdx.x * kBlockX + threadIdx.x;
   const int y = blockIdx.y * kBlockY + threadIdx.y;
   unsigned long long rays = 0;
   if (x < p.width && y < p.height) {
-    rays = trace_pixel<kRects, kTris, kVattrs, kImages, kFeat>(
-        p, atlas, x, y, out + 3 * (static_cast<size_t>(y) * p.width + x));
+    float* px_out = out + 3 * (static_cast<size_t>(y) * p.width + x);
+    if (o.mask == nullptr ||
+        __ldg(o.mask + (y / o.tile_h) * o.tiles_x + x / o.tile_w) != 0) {
+      rays = trace_pixel<kRects, kTris, kVattrs, kImages, kFeat>(
+          p, atlas, o, x, y, px_out);
+    } else {  // a converged tile: nothing traced
+      px_out[0] = 0.0f;
+      px_out[1] = 0.0f;
+      px_out[2] = 0.0f;
+    }
   }
   // block sum of the ray counts, one 64-bit atomic per block
   for (int off = 16; off > 0; off >>= 1) {
@@ -317,7 +387,8 @@ render_kernel(Params p, float* __restrict__ out,
 // Launch instantiation <R, T, V, I, F> if it is the one asked for.
 template <bool R, bool T, bool V, bool I, int F>
 bool launch_if(const int (&want)[5], const Params& p, const crt::Atlas& atlas,
-               float* out, unsigned long long* nrays, cudaStream_t st) {
+               const Opts& o, float* out, unsigned long long* nrays,
+               cudaStream_t st) {
   if (want[0] != R || want[1] != T || want[2] != V || want[3] != I ||
       want[4] != F) {
     return false;
@@ -325,7 +396,8 @@ bool launch_if(const int (&want)[5], const Params& p, const crt::Atlas& atlas,
   const dim3 block(kBlockX, kBlockY);
   const dim3 grid((p.width + kBlockX - 1) / kBlockX,
                   (p.height + kBlockY - 1) / kBlockY);
-  render_kernel<R, T, V, I, F><<<grid, block, 0, st>>>(p, out, nrays, atlas);
+  render_kernel<R, T, V, I, F><<<grid, block, 0, st>>>(p, out, nrays, atlas,
+                                                      o);
   return true;
 }
 
@@ -337,8 +409,11 @@ bool launch_if(const int (&want)[5], const Params& p, const crt::Atlas& atlas,
 // render_variant picks it for a scene from the same list); any other
 // combination returns cudaErrorNotSupported
 // and launches nothing.  ``atlas``/``tex_hw`` (uint8[slots, ah, aw, 3],
-// i32[slots, 2]) are read only with has_images.  Returns
-// cudaGetLastError() after the launch.
+// i32[slots, 2]) are read only with has_images, ``lights`` (f32[114]) and
+// ``nee_p`` only with the NEE feature bit, ``sample_base`` only with
+// ``qmc``; ``mask`` (i32[tiles_y * tiles_x], tiles of tile_h x tile_w
+// pixels, row-major) may be null.  Returns cudaGetLastError() after the
+// launch.
 extern "C" int crt_render_sample(const float* S, const float* P,
                                  const float* clusters, const float* supers,
                                  int np, int nc, int nsc, int n_super,
@@ -350,7 +425,10 @@ extern "C" int crt_render_sample(const float* S, const float* P,
                                  int has_images, int features,
                                  const unsigned char* atlas,
                                  const int* tex_hw, int slots, int ah,
-                                 int aw, float* out,
+                                 int aw, const float* lights, float nee_p,
+                                 int qmc, int sample_base, const int* mask,
+                                 int tile_h, int tile_w, int tiles_x,
+                                 float* out,
                                  unsigned long long* nrays, void* stream) {
   if (width <= 0 || height <= 0) return 0;
   Params p;
@@ -371,12 +449,14 @@ extern "C" int crt_render_sample(const float* S, const float* P,
   // Params changes the code (registers, spills) of the instantiations
   // that never read it
   const crt::Atlas at{atlas, tex_hw, slots, ah, aw};
+  const Opts o{lights, mask, tile_h, tile_w, tiles_x, qmc, sample_base, nee_p};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int want[5] = {has_rects != 0, has_tris != 0, has_vattrs != 0,
                        has_images != 0, features};
   // one launch_if per instantiation of variants.cuh, in its order
 #define CRT_LAUNCH(R, T, V, I, F) \
-  || launch_if<R != 0, T != 0, V != 0, I != 0, F>(want, p, at, out, nrays, st)
+  || launch_if<R != 0, T != 0, V != 0, I != 0, F>(want, p, at, o, out, nrays, \
+                                                  st)
   const bool launched = false CRT_RENDER_VARIANTS(CRT_LAUNCH);
 #undef CRT_LAUNCH
   if (!launched) return static_cast<int>(cudaErrorNotSupported);

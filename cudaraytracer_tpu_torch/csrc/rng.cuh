@@ -36,6 +36,11 @@ constexpr uint32_t SLOT_SPH_R = 7;
 constexpr uint32_t SLOT_RR = 8;
 constexpr uint32_t SLOT_MED = 9;
 constexpr uint32_t SLOT_TIME = 10;
+constexpr uint32_t SLOT_NEE_MIX = 11;
+constexpr uint32_t SLOT_NEE_PICK = 12;
+constexpr uint32_t SLOT_NEE_A = 13;
+constexpr uint32_t SLOT_NEE_B = 14;
+// kSlotBits = 4 leaves one slot (15) free.
 
 __device__ __forceinline__ uint32_t hash32(uint32_t x) {
   x ^= x >> 16;

@@ -53,10 +53,11 @@ namespace crt {
 constexpr float kBig = 3.0e38f;
 // Feature bits of the static flags beyond (rects, tris, vattrs, images):
 // the kFeat template argument of the search and the image kernels
-// (ops/cuda/render_kernel.py FEATURES).  F_SKIP_MEDIA is the search's
-// own: kind-4 clusters are skipped, not tested.
+// (ops/cuda/render_kernel.py FEATURES).  F_NEE is the megakernel's alone
+// (the search and the surface never see it).  F_SKIP_MEDIA is the
+// search's own: kind-4 clusters are skipped, not tested.
 constexpr int F_NOISE = 1, F_MEDIA = 2, F_BOXM = 4, F_ROTM = 8,
-              F_MOTION = 16, F_SKIP_MEDIA = 32;
+              F_MOTION = 16, F_NEE = 32, F_SKIP_MEDIA = 64;
 // Rows of S (ops/cuda/tables.py S_*).  Triangles reuse the rect rows:
 // N = (KAX, AAX, BAX), n1 = (CX, CY, CZ), m2 = (CK, CA, CB).
 constexpr int S_CX = 0, S_CY = 1, S_CZ = 2, S_R2 = 3, S_PTYPE = 4, S_KAX = 5,

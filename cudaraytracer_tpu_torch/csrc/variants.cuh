@@ -1,7 +1,7 @@
 // The instantiations the image kernels are compiled for: one
 // X(rects, tris, vattrs, images, features) per flag combination, where
 // features are the F_* bits of search.cuh (noise 1, media 2, box media 4,
-// yaw-rotated box media 8, motion 16).  The .cu files expand these lists
+// yaw-rotated box media 8, motion 16, NEE 32).  The .cu files expand these lists
 // into their launch chains and ops/cuda/build.py::variants reads them for
 // the Python wrappers, which pick one of these for a scene
 // (ops/cuda/render_kernel.py::resolve_variant) or raise: the two sides
@@ -11,7 +11,10 @@
 // The megakernel: the eight without a feature bit (spheres only, +rects,
 // +rects+tris, +vattrs, each with and without images), then marble (N),
 // bounce (V), smoke (NMB), cornell_smoke (NMBR), the all-feature probe
-// (NMBRV) and book2_final (NMBV, with triangles and images).
+// (NMBRV) and book2_final (NMBV, with triangles and images); then with
+// NEE (E) the scenes that have lights: default and cornell (rects),
+// mirror_room (rects, images), cornell_mesh_light (triangles), smoke,
+// cornell_smoke, the probe and book2_final.
 #define CRT_RENDER_VARIANTS(X) \
   X(0, 0, 0, 0, 0)             \
   X(0, 0, 0, 1, 0)             \
@@ -26,7 +29,14 @@
   X(1, 0, 0, 0, 7)             \
   X(1, 0, 0, 0, 15)            \
   X(1, 0, 0, 0, 31)            \
-  X(1, 1, 0, 1, 23)
+  X(1, 1, 0, 1, 23)            \
+  X(1, 0, 0, 0, 32)            \
+  X(1, 0, 0, 1, 32)            \
+  X(1, 1, 0, 0, 32)            \
+  X(1, 0, 0, 0, 39)            \
+  X(1, 0, 0, 0, 47)            \
+  X(1, 0, 0, 0, 63)            \
+  X(1, 1, 0, 1, 55)
 
 // The G-buffer: the same eight, then marble (N), the rect scenes with
 // media (smoke, cornell_smoke, the probe: NM) and book2_final (NM).  Only

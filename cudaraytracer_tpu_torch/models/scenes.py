@@ -727,6 +727,12 @@ def all_feature_probe_scene(capacity: int = 64) -> Scene:
     return sc
 
 
+# The probe's static flags with NEE, a render option of the scene's
+# lights: every feature bit of the megakernel together.
+ALL_FEATURE_FLAGS = dict(has_noise=True, has_media=True, has_motion=True,
+                         has_boxm=True, has_rotm=True, has_nee=True)
+
+
 SCENES = {
     "default": (default_scene, default_scene_camera),
     "rtow_final": (rtow_final_scene, rtow_final_camera),

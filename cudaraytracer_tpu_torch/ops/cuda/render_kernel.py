@@ -4,9 +4,14 @@ Port of ``cudaraytracer_tpu/ops/pallas/render_kernel.py::
 pallas_render_sample`` for the resident tables with the scene flags
 ``has_rects``/``has_tris``/``has_vattrs``, image textures (an ``atlas``),
 ``has_noise`` (marble textures), media (``has_media``, with box media
-``has_boxm`` and yaw-rotated ones ``has_rotm``) and ``has_motion``
-(moving spheres); NEE, QMC, tile masks, bands and cull statistics are
-not ported.  ``render_sample`` keeps the JAX calling convention and
+``has_boxm`` and yaw-rotated ones ``has_rotm``), ``has_motion`` (moving
+spheres) and the render options ``has_nee`` (next-event estimation at
+lambertian hits over the light table ``lights``, ``ops/sampling.py``),
+``has_qmc`` (R2 pixel jitter from the global sample index
+``sample_base`` + samples done, ``ops/qmc.py``) and ``tile_mask``
+(adaptive sampling: a pixel of a tile whose entry is 0 traces nothing);
+bands and cull statistics are not ported.  ``render_sample`` keeps the
+JAX calling convention and
 returns the radiance SUM over ``spp`` samples, f32[height, width, 3]
 (plus the int64 ray count with ``with_stats``).  Image textures follow
 the XLA renderer: the texel is sampled at every image hit, so every
@@ -47,6 +52,7 @@ import numpy as np
 import torch
 
 from ...utils import rng
+from .. import qmc, sampling
 from ..textures import sample_texture
 from . import build
 from .hit_kernel import brute_closest, check_search_tables, search_work
@@ -60,10 +66,12 @@ from .tables import (BIG, CLUSTER, P_CX, P_CY, P_CZ, P_HA, P_HB, P_MPARAM,
 FEATURES = (("has_noise", 1, "noise textures"), ("has_media", 2, "media"),
             ("has_boxm", 4, "box media"),
             ("has_rotm", 8, "yaw-rotated box media"),
-            ("has_motion", 16, "moving spheres"))
+            ("has_motion", 16, "moving spheres"),
+            ("has_nee", 32, "next-event estimation"))
 F_NOISE, F_MEDIA, F_BOXM = (b for _, b, _ in FEATURES[:3])
 # branches that are inert on columns without their feature: a scene may
-# run an instantiation that has them and it does not
+# run an instantiation that has them and it does not.  NEE is not one of
+# them: without lights it still changes the lambertian estimator
 _SUPERSET_BITS = F_NOISE | F_MEDIA | F_BOXM
 # (rects, tris, vattrs, images, feature bits) of csrc/render_kernel.cu's
 # instantiations, as csrc/variants.cuh lists them
@@ -71,18 +79,20 @@ RENDER_VARIANTS = build.variants("CRT_RENDER_VARIANTS")
 
 
 def feature_bits(has_noise=False, has_media=False, has_boxm=False,
-                 has_rotm=False, has_motion=False) -> int:
+                 has_rotm=False, has_motion=False, has_nee=False) -> int:
     """The feature bits of these static flags."""
     flags = dict(has_noise=has_noise, has_media=has_media,
-                 has_boxm=has_boxm, has_rotm=has_rotm, has_motion=has_motion)
+                 has_boxm=has_boxm, has_rotm=has_rotm, has_motion=has_motion,
+                 has_nee=has_nee)
     return sum(b for name, b, _ in FEATURES if flags[name])
 
 
 def render_variant(has_rects=False, has_tris=False, has_vattrs=False,
                    has_images=False, **feat) -> tuple:
     """The megakernel instantiation for these flags (``feat``: the
-    ``has_noise``/``has_media``/``has_boxm``/``has_rotm``/``has_motion``
-    keywords); ``NotImplementedError`` when none serves them."""
+    ``has_noise``/``has_media``/``has_boxm``/``has_rotm``/``has_motion``/
+    ``has_nee`` keywords); ``NotImplementedError`` when none serves
+    them."""
     return resolve_variant(RENDER_VARIANTS, "megakernel", has_rects,
                            has_tris, has_vattrs, has_images,
                            feature_bits(**feat))
@@ -122,12 +132,14 @@ _INV_2PI = float(np.float32(1.0 / (2.0 * np.pi)))
 def check_frame_args(S, P, clusters, supers, n_super, cam_vec, width,
                      height, camera_model, cluster, super_, atlas=None,
                      tex_hw=None, has_vattrs=False, has_tris=False,
-                     has_motion=False):
+                     has_motion=False, has_nee=False, lights=None):
     """Raise unless the tables, the f32[38] camera, the camera model, the
-    image size and the atlas are what the image kernels take.  P has
-    ``p_rows_for(has_images, has_vattrs, has_motion)`` rows, where
-    has_images means an atlas is given: uint8[S, AH, AW, 3] with its
-    i32[S, 2] ``tex_hw``; ``has_vattrs`` needs ``has_tris``."""
+    image size, the atlas and the light table are what the image kernels
+    take.  P has ``p_rows_for(has_images, has_vattrs, has_motion)`` rows,
+    where has_images means an atlas is given: uint8[S, AH, AW, 3] with its
+    i32[S, 2] ``tex_hw``; ``has_vattrs`` needs ``has_tris``; ``has_nee``
+    needs ``lights``, the f32[114] table of ``sampling.pack_lights_np``,
+    and ``lights`` needs ``has_nee``."""
     check_search_tables(S, clusters, supers, n_super, cluster, super_)
     rows = p_rows_for(atlas is not None, has_vattrs, has_motion)
     if not isinstance(P, torch.Tensor) or P.dtype != torch.float32 \
@@ -143,8 +155,18 @@ def check_frame_args(S, P, clusters, supers, n_super, cam_vec, width,
             or cam_vec.dtype != torch.float32 \
             or tuple(cam_vec.shape) != (CAM_LEN,):
         raise ValueError(f"cam_vec must be f32[{CAM_LEN}] "
-                         "(tables.pack_camera_np; no NEE light table)")
+                         "(tables.pack_camera_np; the NEE light table is "
+                         "the lights argument)")
     named = [("P", P), ("cam_vec", cam_vec)]
+    if has_nee != (lights is not None):
+        raise ValueError("has_nee and the lights table go together")
+    if lights is not None:
+        if not isinstance(lights, torch.Tensor) \
+                or lights.dtype != torch.float32 \
+                or tuple(lights.shape) != (sampling.LIGHT_BLOCK_LEN,):
+            raise ValueError(f"lights must be f32[{sampling.LIGHT_BLOCK_LEN}]"
+                             " (sampling.pack_lights_np)")
+        named.append(("lights", lights))
     if (atlas is None) != (tex_hw is None):
         raise ValueError("atlas and tex_hw go together")
     if atlas is not None:
@@ -167,16 +189,44 @@ def check_frame_args(S, P, clusters, supers, n_super, cam_vec, width,
         raise ValueError(f"bad image size {width}x{height}")
 
 
+def mask_grid(width: int, height: int, tile) -> tuple:
+    """(tile rows, tile columns) of the adaptive mask over the image, the
+    image padded up to whole tiles of ``tile`` = (rows, columns) pixels."""
+    th, tw = (int(v) for v in tile)
+    return -(-height // th), -(-width // tw)
+
+
 def _check(S, P, clusters, supers, n_super, cam_vec, max_depth, width,
            height, camera_model, spp, rr_start, cluster, super_, atlas,
-           tex_hw, has_vattrs, has_tris, has_motion):
+           tex_hw, has_vattrs, has_tris, has_motion, has_nee, lights,
+           sample_base, tile_mask, tile):
     check_frame_args(S, P, clusters, supers, n_super, cam_vec, width, height,
                      camera_model, cluster, super_, atlas, tex_hw,
-                     has_vattrs, has_tris, has_motion)
+                     has_vattrs, has_tris, has_motion, has_nee, lights)
     if spp < 0 or max_depth < 0 or rr_start < 0:
         raise ValueError("spp, max_depth and rr_start must be >= 0")
     if spp * max_depth >= 1 << (32 - rng.SLOT_BITS):
         raise ValueError("spp * max_depth exceeds the generator's counter")
+    if not 0 <= sample_base <= (1 << 31) - 1 - spp:
+        raise ValueError(f"sample_base {sample_base} is not a valid int32 "
+                         "sample index for this launch")
+    if tile_mask is not None:
+        if tile is None:
+            raise ValueError("tile_mask needs its tile shape "
+                             "(tables.mask_tile)")
+        th, tw = (int(v) for v in tile)
+        if th <= 0 or tw <= 0:
+            raise ValueError(f"bad mask tile {tile}")
+        gi, gj = mask_grid(width, height, tile)
+        if not isinstance(tile_mask, torch.Tensor) \
+                or tile_mask.dtype != torch.int32 \
+                or tuple(tile_mask.shape) != (gi * gj,) \
+                or not tile_mask.is_contiguous() \
+                or tile_mask.device != S.device:
+            raise ValueError(
+                f"tile_mask must be a contiguous i32[{gi * gj}] on "
+                f"{S.device}: the ({gi}, {gj}) grid of {th}x{tw} tiles "
+                f"over {width}x{height}")
 
 
 def _unpack_rgb(v: torch.Tensor):
@@ -346,10 +396,15 @@ def sky_rgb(cam, dy):
 # vertex normals, their interpolation, renormalization), an image lookup
 # (uv, clamps, indices, texel scale; atan2 and acos count one each), a
 # marble texture (seven octaves of eight lattice hashes: three wraps, a
-# dot product, sin, fract, and the trilinear fade; sin counts one) and a
-# medium hit (hit point, texture, in-sphere draw, roulette, direction).
+# dot product, sin, fract, and the trilinear fade; sin counts one), a
+# medium hit (hit point, texture, in-sphere draw, roulette, direction), a
+# NEE scatter beyond the lambertian one (the cosine direction, the slot
+# pick, the cheapest light sample, a rect's, and the mixture weight) plus
+# per valid light slot its pdf (the cheapest, a rect's plane test), and a
+# QMC raygen's R2 point and rotation.
 SHADE_OPS = {"raygen": 50, "miss": 20, "hit": 80, "smooth": 50, "image": 20,
-             "noise": 1680, "medium": 50}
+             "noise": 1680, "medium": 50, "nee": 55, "nee_slot": 20,
+             "qmc": 16}
 
 
 def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
@@ -361,8 +416,11 @@ def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
                         has_noise: bool = False, has_media: bool = False,
                         has_boxm: bool = False, has_rotm: bool = False,
                         has_motion: bool = False, atlas=None, tex_hw=None,
-                        cluster: int = CLUSTER, super_: int = SUPER,
-                        work: dict | None = None):
+                        has_nee: bool = False, lights=None,
+                        nee_p: float = 0.5, has_qmc: bool = False,
+                        sample_base: int = 0, tile_mask=None,
+                        tile=None, cluster: int = CLUSTER,
+                        super_: int = SUPER, work: dict | None = None):
     """Plain PyTorch version of the megakernel (see the module docstring).
     Same arguments and results as ``render_sample``; runs on any device
     and takes any combination of the flags.
@@ -370,12 +428,15 @@ def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
     ``work``: a dict to which the run adds what the kernel's work is
     counted from: "raygen", "miss", surface "hit" and "medium" hit lanes,
     "smooth" (triangle hits with vertex normals), "image" hits (one texel
-    read each) and "noise" hits, and the search's tests
+    read each), "noise" hits, "nee" scatters with "nee_slot" = their
+    valid light slots, "qmc" raygens, and the search's tests
     (``hit_kernel.search_work``, replayed per iteration; slow)."""
     spp, max_depth, rr_start = int(spp), int(max_depth), int(rr_start)
+    sample_base = int(sample_base)
     _check(S, P, clusters, supers, n_super, cam_vec, max_depth, width,
            height, camera_model, spp, rr_start, cluster, super_, atlas,
-           tex_hw, has_vattrs, has_tris, has_motion)
+           tex_hw, has_vattrs, has_tris, has_motion, has_nee, lights,
+           sample_base, tile_mask, tile)
     render_sample_plain.launches += 1
     dev = S.device
     f32 = torch.float32
@@ -403,6 +464,16 @@ def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
     rad = torch.zeros((3, n), dtype=f32, device=dev)
     alive = torch.zeros(n, dtype=torch.bool, device=dev)
     done = torch.zeros(n, dtype=torch.int32, device=dev)
+    if tile_mask is not None:
+        # a pixel of a masked tile starts with all its samples done
+        th, tw = (int(v) for v in tile)
+        gi, gj = mask_grid(width, height, tile)
+        act = tile_mask[(pix // width // th) * gj + (pix % width) // tw] != 0
+        done = torch.where(act, done, spp).to(torch.int32)
+    if has_qmc:
+        # the pixel's QMC rotation, once per pixel
+        qrx, qry = qmc.pixel_rotation(xs_all, ys_all)
+    n_lights = int(float(lights[0])) if has_nee else 0
     depth = torch.zeros(n, dtype=torch.int32, device=dev)
     # the path's shutter time, drawn at regeneration (has_motion)
     shutter = torch.zeros(n, dtype=f32, device=dev)
@@ -423,8 +494,14 @@ def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
         ib = ia[need[ia]]
         if ib.numel():
             pk = pk_all[ib]
-            jx = rng.uniform(pk, it, rng.SLOT_JX)
-            jy = rng.uniform(pk, it, rng.SLOT_JY)
+            if has_qmc:
+                # the R2 point of the pixel's global sample index
+                fx, fy = qmc.r2_frac(sample_base + done[ib])
+                jx = qmc.frac(qrx[ib] + fx)
+                jy = qmc.frac(qry[ib] + fy)
+            else:
+                jx = rng.uniform(pk, it, rng.SLOT_JX)
+                jy = rng.uniform(pk, it, rng.SLOT_JY)
             lx = ly = None
             if camera_model == "look_at":
                 lx, ly = rng.unit_disk(rng.uniform(pk, it, rng.SLOT_LENS_R),
@@ -458,6 +535,9 @@ def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
             pc = p_packc[col[hit]]
             n_med = int((((pc >> 4) & 7) == 5).sum())
             n_surf = int(hit.sum()) - n_med
+            # lambertian surface hits (mat 0, not a medium) scatter by NEE
+            n_nee = int((((pc & 3) == 0) & (((pc >> 4) & 7) != 5)).sum()) \
+                if has_nee else 0
             n_img = int((((pc >> 2) & 3) == 2).sum()) if atlas is not None \
                 else 0
             n_noise = int((((pc >> 2) & 3) == 3).sum())
@@ -468,7 +548,9 @@ def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
                          ("medium", n_med),
                          ("miss", ia.numel() - n_surf - n_med),
                          ("smooth", n_smooth), ("image", n_img),
-                         ("noise", n_noise), *search_work(
+                         ("noise", n_noise), ("nee", n_nee),
+                         ("nee_slot", n_nee * n_lights),
+                         ("qmc", ib.numel() if has_qmc else 0), *search_work(
                              S, clusters, supers, n_super, org, dirn, t_min,
                              has_rects=has_rects, has_tris=has_tris,
                              u_med=u_med, time=time, cluster=cluster,
@@ -517,10 +599,10 @@ def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
                     rad[c, il] = rad[c, il] + tp[c, il] * li * tc[is_light]
 
             # in-unit-sphere draw
+            u_z = rng.uniform(pk, it, rng.SLOT_SPH_Z)
+            u_phi = rng.uniform(pk, it, rng.SLOT_SPH_PHI)
             sx, sy, sz = rng.in_unit_sphere(
-                rng.uniform(pk, it, rng.SLOT_SPH_Z),
-                rng.uniform(pk, it, rng.SLOT_SPH_PHI),
-                rng.uniform(pk, it, rng.SLOT_SPH_R))
+                u_z, u_phi, rng.uniform(pk, it, rng.SLOT_SPH_R))
             # metal: reflect(d, n) + fuzz * s
             ddn = hx * nx + hy * ny + hz * nz
             mdx = hx - 2.0 * ddn * nx + mparam * sx
@@ -571,6 +653,32 @@ def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
             ar = torch.where(is_diel, one, texr)
             ag = torch.where(is_diel, one, texg)
             ab = torch.where(is_diel, one, texb)
+            # lanes whose new direction is unit already (NEE's)
+            unit = torch.zeros_like(hit[hit])
+            if has_nee:
+                # lambertian surface hits: the light/cosine mixture
+                # (ops/sampling.py), weighted scattering / mixture pdf
+                unit = is_lamb & (((packc >> 4) & 7) != 5)
+                if unit.any():
+                    ucx, ucy, ucz = rng.unit_vector(u_z[unit], u_phi[unit])
+                    cd = (nx[unit] + ucx, ny[unit] + ucy, nz[unit] + ucz)
+                    cninv = 1.0 / torch.sqrt(torch.clamp(
+                        cd[0] * cd[0] + cd[1] * cd[1] + cd[2] * cd[2],
+                        min=1e-20))
+                    pku = pk[unit]
+                    dirn, att, ok = sampling.nee_lambertian(
+                        torch.stack([px[unit], py[unit], pz[unit]], 1),
+                        torch.stack([nx[unit], ny[unit], nz[unit]], 1),
+                        torch.stack([texr[unit], texg[unit], texb[unit]], 1),
+                        lights, torch.stack([c * cninv for c in cd], 1),
+                        *(rng.uniform(pku, it, slot) for slot in (
+                            rng.SLOT_NEE_MIX, rng.SLOT_NEE_PICK,
+                            rng.SLOT_NEE_A, rng.SLOT_NEE_B)),
+                        nee_p, t_min)
+                    # (fresh tensors of this iteration: written in place)
+                    ndx[unit], ndy[unit], ndz[unit] = dirn.unbind(1)
+                    ar[unit], ag[unit], ab[unit] = att.unbind(1)
+                    scat_ok[unit] = ok
 
             dep = depth[ih]
             cont = scat_ok & (dep + 1 < max_depth)
@@ -588,6 +696,7 @@ def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
                 cont = cont & survive
             ninv = 1.0 / torch.sqrt(torch.clamp(
                 ndx * ndx + ndy * ndy + ndz * ndz, min=1e-20))
+            ninv = torch.where(unit, 1.0, ninv)
             ic = ih[cont]
             o[0, ic], o[1, ic], o[2, ic] = px[cont], py[cont], pz[cont]
             d[0, ic] = (ndx * ninv)[cont]
@@ -627,7 +736,10 @@ def render_sample(S, P, clusters, supers, n_super, cam_vec, seed, max_depth,
                   has_noise: bool = False, has_media: bool = False,
                   has_boxm: bool = False, has_rotm: bool = False,
                   has_motion: bool = False, atlas=None, tex_hw=None,
-                  cluster: int = CLUSTER, super_: int = SUPER):
+                  has_nee: bool = False, lights=None, nee_p: float = 0.5,
+                  has_qmc: bool = False, sample_base: int = 0,
+                  tile_mask=None, tile=None, cluster: int = CLUSTER,
+                  super_: int = SUPER):
     """``spp`` samples per pixel of the megakernel -> f32[height, width, 3]
     radiance SUM (divide by spp to display), plus the int64 ray count (a
     0-d tensor on the device) with ``with_stats``.
@@ -641,28 +753,47 @@ def render_sample(S, P, clusters, supers, n_super, cam_vec, seed, max_depth,
     tables were packed, ``TorchTables.vattrs``/``.motion``), and for image
     textures (has_images) the scene's ``atlas`` and ``tex_hw``
     (tables.atlas_to_torch; P then packed with_uv).  ``tables.
-    kernel_inputs`` gives all of them.  CUDA tensors launch the kernel
-    instantiation ``render_variant`` picks (``NotImplementedError`` when
-    none serves the flags); CPU tensors run ``render_sample_plain``.
+    kernel_inputs`` gives all of them.
+
+    Render options, as ``pallas_render_sample`` takes them: ``has_nee``
+    with ``lights`` (the f32[114] table of ``sampling.pack_lights_np`` on
+    the device, where the JAX package appends it to the camera vector;
+    ``tables.nee_inputs`` gives both) and the mixture weight ``nee_p``;
+    ``has_qmc`` with ``sample_base``, the global index of this launch's
+    first sample (read only with ``has_qmc``); ``tile_mask``, i32 per tile
+    of ``tile`` = (rows, columns) pixels (``tables.mask_tile``; required
+    with a mask) over the image padded to whole tiles, row-major
+    (``mask_grid``): a pixel of a tile whose entry is 0 traces nothing
+    and gets zero radiance, the others render exactly as unmasked.
+
+    CUDA tensors launch the kernel instantiation ``render_variant`` picks
+    (``NotImplementedError`` when none serves the flags); CPU tensors run
+    ``render_sample_plain``.
     """
     spp, max_depth, rr_start = int(spp), int(max_depth), int(rr_start)
+    sample_base = int(sample_base)
     _check(S, P, clusters, supers, n_super, cam_vec, max_depth, width,
            height, camera_model, spp, rr_start, cluster, super_, atlas,
-           tex_hw, has_vattrs, has_tris, has_motion)
+           tex_hw, has_vattrs, has_tris, has_motion, has_nee, lights,
+           sample_base, tile_mask, tile)
     feat = dict(has_noise=has_noise, has_media=has_media, has_boxm=has_boxm,
-                has_rotm=has_rotm, has_motion=has_motion)
+                has_rotm=has_rotm, has_motion=has_motion, has_nee=has_nee)
     if S.device.type == "cpu":
         return render_sample_plain(
             S, P, clusters, supers, n_super, cam_vec, seed, max_depth,
             width=width, height=height, camera_model=camera_model, spp=spp,
             rr_start=rr_start, with_stats=with_stats, stream=stream,
             has_rects=has_rects, has_tris=has_tris, has_vattrs=has_vattrs,
-            atlas=atlas, tex_hw=tex_hw, cluster=cluster, super_=super_,
-            **feat)
+            atlas=atlas, tex_hw=tex_hw, lights=lights, nee_p=nee_p,
+            has_qmc=has_qmc, sample_base=sample_base, tile_mask=tile_mask,
+            tile=tile, cluster=cluster, super_=super_, **feat)
     if S.device.type != "cuda":
         raise ValueError(f"render_sample runs on cuda or cpu, not {S.device}")
     variant = render_variant(has_rects, has_tris, has_vattrs,
                              atlas is not None, **feat)
+    # the mask's tile shape and tile columns (unread without a mask)
+    mask_geom = (0, 0, 0) if tile_mask is None else (
+        int(tile[0]), int(tile[1]), mask_grid(width, height, tile)[1])
     out = torch.empty((height, width, 3), dtype=torch.float32,
                       device=S.device)
     nrays = torch.zeros(1, dtype=torch.int64, device=S.device)
@@ -675,7 +806,11 @@ def render_sample(S, P, clusters, supers, n_super, cam_vec, seed, max_depth,
             cam_vec.data_ptr(), rng.key_for(int(seed), int(stream)),
             max_depth, width, height, spp, rr_start,
             int(camera_model == "two_plane"), 1.0 / width, 1.0 / height,
-            *variant, *atlas_args(atlas, tex_hw), out.data_ptr(),
+            *variant, *atlas_args(atlas, tex_hw),
+            None if lights is None else lights.data_ptr(), float(nee_p),
+            int(has_qmc), sample_base,
+            None if tile_mask is None else tile_mask.data_ptr(), *mask_geom,
+            out.data_ptr(),
             nrays.data_ptr(), torch.cuda.current_stream().cuda_stream)
     build.check(lib, "crt_render_sample", rc)
     render_sample.launches += 1

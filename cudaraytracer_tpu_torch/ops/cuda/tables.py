@@ -8,7 +8,10 @@ with their AABBs, the f32[38] camera vector, ``tables_to_torch`` to put
 the tables on a device, and the scene's static kernel flags
 (``kernel_flags``, computed as the JAX pipeline computes them) with
 ``kernel_inputs``, which sets up tables, flags and atlas for the kernels
-as the render loop does.  The native C++ packer waits for a later port.
+as the render loop does, ``nee_inputs``, the megakernel's NEE light
+table, and ``mask_tile``, the adaptive mask's tiles as the JAX pipeline
+picks them.  The native C++ packer waits
+for a later port.
 """
 
 from __future__ import annotations
@@ -591,3 +594,56 @@ def kernel_inputs(scene, device) -> tuple[TorchTables, dict]:
     if images:
         flags.update(zip(("atlas", "tex_hw"), atlas_to_torch(scene, device)))
     return t, flags
+
+
+def nee_inputs(scene, device) -> dict:
+    """``render_sample``'s NEE keywords for the scene: ``has_nee`` and the
+    light table ``lights`` (``sampling.pack_lights_np``, packed once per
+    scene edit, as the render loop does)."""
+    from ..sampling import pack_lights_np
+
+    return dict(has_nee=True,
+                lights=torch.from_numpy(pack_lights_np(scene)).to(device))
+
+
+# The adaptive mask's tiles follow the JAX pipeline (viewer/app.py
+# _PallasPipeline), which judges convergence per tile: (16, 256), or
+# (16, 128) where it streams the tables from HBM because they exceed the
+# TPU's scalar memory.  Its rule is copied here with its budget, a TPU
+# measurement (render_kernel.py fits_megakernel): the plain layout's
+# measured primitive ceiling, else the packed bytes against 96% of
+# 834,172 B.  The CUDA kernels read their tables from global memory and
+# have no such limit; only the tile shape follows from it.
+SMEM_PRIM_CEILING = {"plain": 10144, "vattr": 6064}
+SMEM_TABLE_BUDGET = 834_172
+
+
+def table_smem_bytes(t) -> int:
+    """Bytes of packed tables in the JAX megakernel's scalar memory: S, P,
+    the cluster and supercluster tables and one f32 + one i32 of visit
+    order per supercluster."""
+    s_rows, cols = t.S.shape
+    n_sup = t.supers.shape[1]
+    return 4 * ((s_rows + t.P.shape[0]) * cols
+                + int(np.prod(t.clusters.shape))
+                + int(np.prod(t.supers.shape)) + 2 * n_sup)
+
+
+def fits_megakernel(n_active: int, has_vattrs: bool, tables=None) -> bool:
+    """Would the JAX pipeline keep these tables resident (not stream
+    them)?  Its rule, with ``tables`` (packed, NumPy or torch) the byte
+    count, else the primitive count."""
+    if tables is not None:
+        if tables.P.shape[0] == P_ROWS and not has_vattrs:
+            return n_active <= int(SMEM_PRIM_CEILING["plain"] * 0.96)
+        return table_smem_bytes(tables) <= int(SMEM_TABLE_BUDGET * 0.96)
+    ceiling = SMEM_PRIM_CEILING["vattr" if has_vattrs else "plain"]
+    return n_active <= int(ceiling * 0.96)
+
+
+def mask_tile(scene, tables) -> tuple[int, int]:
+    """The adaptive mask's (rows, columns) tile for ``scene`` packed as
+    ``tables``, as the JAX pipeline picks it."""
+    if fits_megakernel(scene.num_active, bool(tables.vattrs), tables=tables):
+        return (16, 256)
+    return (16, 128)

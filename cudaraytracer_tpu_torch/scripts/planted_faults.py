@@ -1,15 +1,19 @@
 """Planted faults: do the kernel-against-plain limits catch real faults?
 
     python -m cudaraytracer_tpu_torch.scripts.planted_faults [--out F.json]
+        [--only NAME,NAME]
 
-For each fault below, copies this package into a temporary directory,
-edits one line of a CUDA source there, builds that copy and compares its
-kernels with the unchanged plain versions at 1280x720 on the fault's
-scenes, set up as the render loop sets them up (``tables.kernel_inputs``;
-megakernel 4 spp, depth 12, rr 2, seed 7, on every scene but rtow_final;
+For each fault below (or those ``--only`` names), copies this package
+into a temporary directory, edits one line of a CUDA source there,
+builds that copy and compares its kernels with the unchanged plain
+versions at 1280x720 on the fault's scenes, set up as the render loop
+sets them up (``tables.kernel_inputs``; megakernel 4 spp, depth 12, rr 2,
+seed 7, on every scene but rtow_final, with the fault's render options:
+NEE, QMC with a sample base, a random half of the 16 x 128 tiles masked;
 G-buffer on every scene; closest hit on 2^20 seeded rays in the Cornell
-room).  "sound" is
-the unedited copy, checked on every scene.  Prints one JSON line per
+room).  "sound" is the unedited copy, checked on every scene, and
+"sound_options" the same with every option on the NEE scenes.  Prints
+one JSON line per
 fault: pixels off by more than 1e-3, the relative change of the mean and
 of the ray count, G-buffer masks and pixels off by more than 1e-6,
 closest-hit masks and columns, and "caught": whether chip_smoke.py's
@@ -34,10 +38,17 @@ PKG = Path(__file__).resolve().parents[1]
 FLAT = ("default", "cornell_mesh_light", "rtow_final")
 TEXTURED = ("mesh_smooth", "terrain", "rtow_image", "mirror_room")
 FEATURES = ("marble", "smoke", "cornell_smoke", "bounce", "book2_final")
+# the registered scenes with an NEE instantiation and a light
+NEE = ("default", "cornell", "mirror_room", "cornell_mesh_light", "smoke",
+       "cornell_smoke", "book2_final")
+# render options of the megakernel check
+ALL = {"nee": True, "qmc": True, "sample_base": 4113, "half_mask": True}
 
-# name -> ([(file under the package, text, replacement)], scenes)
+# name -> ([(file under the package, text, replacement)], scenes[,
+#          render options])
 FAULTS = {
     "sound": ([], FLAT + TEXTURED + FEATURES),
+    "sound_options": ([], NEE, ALL),
     # a ray through the shared edge of two triangles misses both
     "tri_edge": ([("csrc/search.cuh", "u + v <= 1.0f", "u + v < 1.0f")],
                  FLAT),
@@ -95,6 +106,36 @@ FAULTS = {
         "csrc/render_kernel.cu",
         "const bool iso = kMedia && ((packc >> 4) & 7) == 5;",
         "const bool iso = false;")], ("smoke", "cornell_smoke")),
+    # the light pdf summed over the tabled lights, not averaged
+    "pdf_not_averaged": ([(
+        "csrc/nee.cuh", "const float lpdf = lsum / fmaxf(n_l, 1.0f);",
+        "const float lpdf = lsum;")], ("default", "cornell_mesh_light"),
+        {"nee": True}),
+    # the cosine density without its 1/pi
+    "cosine_pdf_without_inv_pi": ([(
+        "csrc/nee.cuh",
+        "fmaxf(dx * nx + dy * ny + dz * nz, 0.0f) * kInvPiNee;",
+        "fmaxf(dx * nx + dy * ny + dz * nz, 0.0f);")],
+        ("cornell", "book2_final"), {"nee": True}),
+    # the QMC rotation's x and y channels swapped
+    "qmc_rotation_swapped": ([(
+        "csrc/render_kernel.cu",
+        "if (o.qmc) crt::pixel_rotation(xs, ys, qrx, qry);",
+        "if (o.qmc) crt::pixel_rotation(xs, ys, qry, qrx);")],
+        ("default", "book2_final"), {"qmc": True}),
+    # the launch's sample base ignored
+    "sample_base_ignored": ([(
+        "csrc/render_kernel.cu", "crt::r2_frac(o.sample_base + done, jx, jy);",
+        "crt::r2_frac(done, jx, jy);")], ("default", "book2_final"),
+        {"qmc": True, "sample_base": 4113}),
+    # the tile mask indexed by (x, y) transposed (in bounds: the row
+    # count of the tile grid as the stride)
+    "mask_transposed": ([(
+        "csrc/render_kernel.cu",
+        "__ldg(o.mask + (y / o.tile_h) * o.tiles_x + x / o.tile_w) != 0",
+        "__ldg(o.mask + (x / o.tile_w) * ((p.height + o.tile_h - 1) / "
+        "o.tile_h) + y / o.tile_h) != 0")], ("book2_final",),
+        {"half_mask": True}),
 }
 
 CHECK = r'''
@@ -102,20 +143,30 @@ import json, sys, numpy as np, torch
 from cudaraytracer_tpu_torch.models import scenes
 from cudaraytracer_tpu_torch.ops.cuda.gbuffer_kernel import gbuffer, gbuffer_plain
 from cudaraytracer_tpu_torch.ops.cuda.hit_kernel import closest_hit, closest_hit_plain
-from cudaraytracer_tpu_torch.ops.cuda.render_kernel import render_sample, render_sample_plain
-from cudaraytracer_tpu_torch.ops.cuda.tables import kernel_inputs, pack_camera_np
+from cudaraytracer_tpu_torch.ops.cuda.render_kernel import mask_grid, render_sample, render_sample_plain
+from cudaraytracer_tpu_torch.ops.cuda.tables import kernel_inputs, nee_inputs, pack_camera_np
 dev, W, H, res = torch.device("cuda"), 1280, 720, {}
+opts = json.loads(sys.argv[2])
+mk = {}
+if opts.get("qmc"):
+    mk.update(has_qmc=True, sample_base=opts.get("sample_base", 0))
+if opts.get("half_mask"):
+    gi, gj = mask_grid(W, H, (16, 128))
+    m = np.random.RandomState(5).permutation(gi * gj) < gi * gj // 2
+    mk.update(tile_mask=torch.from_numpy(m.astype(np.int32)).to(dev),
+              tile=(16, 128))
 for name in json.loads(sys.argv[1]):
     sc, cam = scenes.SCENES[name][0](), scenes.SCENES[name][1]()
     model = scenes.camera_model_for(name)
     tb, fl = kernel_inputs(sc, dev)
+    nee = nee_inputs(sc, dev) if opts.get("nee") else {}
     hit_fl = {k: fl[k] for k in ("has_rects", "has_tris")}
     cv = torch.from_numpy(pack_camera_np(cam, sc.background_start,
                                          sc.background_end, W, H, 1e-3)).to(dev)
     a = (tb.S, tb.P, tb.clusters, tb.supers, tb.n_super, cv)
     if name != "rtow_final":
         kw = dict(width=W, height=H, camera_model=model, spp=4, rr_start=2,
-                  with_stats=True, **fl)
+                  with_stats=True, **fl, **nee, **mk)
         ik, nk = render_sample(*a, 7, 12, **kw)
         ip, np_ = render_sample_plain(*a, 7, 12, **kw)
         e = (ik - ip).abs().amax(2)
@@ -164,7 +215,8 @@ def caught(res: dict) -> bool:
     return False
 
 
-def run_fault(name: str, edits, scene_names, tmp: str) -> dict:
+def run_fault(name: str, edits, scene_names, tmp: str,
+              opts: dict | None = None) -> dict:
     root = os.path.join(tmp, name)
     shutil.copytree(PKG, os.path.join(root, PKG.name),
                     ignore=shutil.ignore_patterns("__pycache__"))
@@ -175,7 +227,8 @@ def run_fault(name: str, edits, scene_names, tmp: str) -> dict:
             raise RuntimeError(f"{name}: {old!r} not found once in {rel}")
         p.write_text(text.replace(old, new))
     proc = subprocess.run([sys.executable, "-c", CHECK,
-                           json.dumps(list(scene_names))], cwd=root,
+                           json.dumps(list(scene_names)),
+                           json.dumps(opts or {})], cwd=root,
                           env=dict(os.environ, PYTHONPATH=root),
                           capture_output=True, text=True, timeout=900)
     for line in proc.stdout.splitlines():
@@ -187,11 +240,18 @@ def run_fault(name: str, edits, scene_names, tmp: str) -> dict:
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None, help="also write all results here")
+    ap.add_argument("--only", default=None,
+                    help="comma-separated fault names (default: all)")
     args = ap.parse_args(argv)
+    only = set(args.only.split(",")) if args.only else set(FAULTS)
+    if only - set(FAULTS):
+        raise SystemExit(f"unknown faults: {sorted(only - set(FAULTS))}")
     results = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for name, (edits, scene_names) in FAULTS.items():
-            results[name] = run_fault(name, edits, scene_names, tmp)
+        for name, (edits, scene_names, *opts) in FAULTS.items():
+            if name not in only:
+                continue
+            results[name] = run_fault(name, edits, scene_names, tmp, *opts)
             print(json.dumps({"fault": name,
                               "caught": caught(results[name]),
                               **results[name]}), flush=True)

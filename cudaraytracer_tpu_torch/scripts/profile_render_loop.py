@@ -1,11 +1,14 @@
 """Where the time of the CLI render loop goes, on one NVIDIA GPU.
 
     python -m cudaraytracer_tpu_torch.scripts.profile_render_loop \
-        [--scene default] [--frames 20] [--width 1280 --height 720]
+        [--scene default] [--frames 20] [--width 1280 --height 720] \
+        [--nee] [--qmc] [--adaptive] [--warmup 3]
 
 Drives ``RenderLayer.on_update`` (one megakernel launch of
 ``progressive_spp`` samples per frame, as ``render`` does) with
-``--denoise`` on, and reports, as one JSON line:
+``--denoise`` on (and the render options asked for; ``--warmup``
+frames before the measured ones, so that under ``--adaptive`` tiles can
+have converged), and reports, as one JSON line:
 
 * ``frame_ms_synced``: host-clock ms per frame with a synchronize after
   each (median, quartiles); ``frame_ms_pipelined``: ms per frame of
@@ -15,7 +18,9 @@ Drives ``RenderLayer.on_update`` (one megakernel launch of
   (the union of kernel intervals over the span from the first to the last
   event);
 * ``display``: the denoised display step (``framebuffer_rgba8`` with the
-  G-buffer cached): host-clock ms synced, and its device time by kernel.
+  G-buffer cached): host-clock ms synced, and its device time by kernel;
+* ``active_fraction``: the share of tiles still rendering at the end
+  (1.0 without ``--adaptive``).
 
 The card's name and power limit (nvidia-smi) ride along.  Fails without
 a GPU.
@@ -73,6 +78,10 @@ def main(argv=None):
     ap.add_argument("--frames", type=int, default=20)
     ap.add_argument("--width", type=int, default=1280)
     ap.add_argument("--height", type=int, default=720)
+    ap.add_argument("--nee", action="store_true")
+    ap.add_argument("--qmc", action="store_true")
+    ap.add_argument("--adaptive", action="store_true")
+    ap.add_argument("--warmup", type=int, default=3)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_render_loop: no GPU")
@@ -82,10 +91,11 @@ def main(argv=None):
         check=True, timeout=60).stdout.strip().splitlines()[0]
     cfg = RenderConfig(scene=args.scene, width=args.width,
                        height=args.height, denoise=True, device="cuda",
-                       camera_model=camera_model_for(args.scene))
+                       camera_model=camera_model_for(args.scene),
+                       nee=args.nee, qmc=args.qmc, adaptive=args.adaptive)
     app = Application(cfg)
     rl = app.setup_default_layers()
-    app.run(max_frames=3)
+    app.run(max_frames=args.warmup)
     rl.framebuffer_rgba8()  # builds the G-buffer once (cached after)
     torch.cuda.synchronize()
 
@@ -119,12 +129,15 @@ def main(argv=None):
     q = statistics.quantiles(synced, n=4)
     print(json.dumps({
         "scene": args.scene, "size": [args.width, args.height],
+        "options": {"nee": args.nee, "qmc": args.qmc,
+                    "adaptive": args.adaptive, "warmup": args.warmup},
         "spp_per_frame": cfg.progressive_spp, "frames": args.frames,
         "frame_ms_synced": {"median": statistics.median(synced),
                             "q1": q[0], "q3": q[2], "max": max(synced)},
         "frame_ms_pipelined": pipelined, "profile": loop,
         "display": {"ms_synced_median": statistics.median(disp),
                     "profile": _device_breakdown(prof)},
+        "active_fraction": rl._pipeline.active_fraction(),
         "nvidia_smi": smi}), flush=True)
     app.close()
 

@@ -49,6 +49,13 @@ SLOT_SPH_R = 7  # in-unit-sphere radius
 SLOT_RR = 8  # Russian roulette
 SLOT_MED = 9  # medium scatter distance, once per iteration (has_media)
 SLOT_TIME = 10  # shutter time, once per path at regeneration (has_motion)
+# NEE at a lambertian hit (has_nee): the mixture choice, the light slot
+# pick and the two uniforms of the point on the light (the JAX kernel's
+# u_mix, u_pick, u_la, u_lb).  Slot 15 is the last one SLOT_BITS leaves.
+SLOT_NEE_MIX = 11
+SLOT_NEE_PICK = 12
+SLOT_NEE_A = 13
+SLOT_NEE_B = 14
 
 TWO_PI = 2.0 * math.pi
 
@@ -124,13 +131,18 @@ def unit_disk(u1: torch.Tensor, u2: torch.Tensor, radius: float = 1.0):
     return r * torch.cos(th), r * torch.sin(th)
 
 
-def in_unit_sphere(u1: torch.Tensor, u2: torch.Tensor, u3: torch.Tensor):
-    """Closed-form uniform point in the unit ball (Math.cuh:252-260
-    semantics without rejection): a uniform direction scaled by
-    cbrt(u3), the cube root taken as exp(log(u)/3) like the JAX kernel."""
+def unit_vector(u1: torch.Tensor, u2: torch.Tensor):
+    """Uniform unit vector: z = 1 - 2 u1, azimuth 2 pi u2."""
     zs = 1.0 - 2.0 * u1
     rs = torch.sqrt(torch.clamp(1.0 - zs * zs, min=0.0))
     phs = TWO_PI * u2
+    return rs * torch.cos(phs), rs * torch.sin(phs), zs
+
+
+def in_unit_sphere(u1: torch.Tensor, u2: torch.Tensor, u3: torch.Tensor):
+    """Closed-form uniform point in the unit ball (Math.cuh:252-260
+    semantics without rejection): ``unit_vector(u1, u2)`` scaled by
+    cbrt(u3), the cube root taken as exp(log(u)/3) like the JAX kernel."""
+    ux, uy, uz = unit_vector(u1, u2)
     scale = torch.exp(torch.log(torch.clamp(u3, min=1e-30)) * (1.0 / 3.0))
-    return (rs * torch.cos(phs) * scale, rs * torch.sin(phs) * scale,
-            zs * scale)
+    return ux * scale, uy * scale, uz * scale

@@ -7,18 +7,25 @@ render path of the megakernel:
     on_update lifecycle (reference Core/Layer.h:6-33, LayerStack.cpp).
   * ``RenderLayer`` owns the scene, the fly camera, the progressive
     accumulator and a ``_CudaPipeline``; one ``on_update`` adds
-    ``progressive_spp`` samples (one kernel launch) and any camera or scene
-    edit resets the accumulation.  With ``cfg.denoise`` the display and
-    the HDR export are the à-trous-denoised mean over a G-buffer computed
-    once per scene and camera version (one G-buffer kernel launch);
-    ``aov()`` exports that G-buffer.
+    ``progressive_spp`` samples (one kernel launch, its ``sample_base``
+    the samples accumulated so far, which extends the QMC sequence) and
+    any camera or scene edit resets the accumulation.  ``cfg.nee`` and
+    ``cfg.qmc`` are the kernel's NEE and QMC options (the light table is
+    packed once per scene edit).  With ``cfg.adaptive`` the pipeline
+    keeps per-pixel launch statistics and a tile mask
+    (``adaptive_update``): a tile whose pixels have converged stops
+    tracing, the layer keeps a per-pixel sample-count plane and displays
+    sum / count.  With ``cfg.denoise`` the display and the HDR export
+    are the à-trous-denoised mean over a G-buffer computed once per scene
+    and camera version (one G-buffer kernel launch), given the variance
+    plane under adaptive sampling; ``aov()`` exports that G-buffer.
   * ``Application.run`` drives the layers for N frames (headless) or
     forever.
 
 The device is explicit (``cfg.device``, default ``cuda``).  A CUDA device
 that is not there raises; nothing falls back to the CPU, and a failed
-frame raises out of ``run``.  The server, checkpoints, adaptive sampling
-and the XLA-path renderers wait for later ports.
+frame raises out of ``run``.  The server, checkpoints and the XLA-path
+renderers wait for later ports.
 """
 
 from __future__ import annotations
@@ -33,9 +40,10 @@ from ..config import RenderConfig
 from ..models import scenes as scene_lib
 from ..models.camera import FlyCamera
 from ..ops.cuda.gbuffer_kernel import gbuffer, gbuffer_variant
-from ..ops.cuda.render_kernel import (FEATURES, render_sample,
+from ..ops.cuda.render_kernel import (FEATURES, mask_grid, render_sample,
                                       render_variant)
-from ..ops.cuda.tables import kernel_inputs, pack_camera_np
+from ..ops.cuda.tables import (kernel_inputs, mask_tile, nee_inputs,
+                               pack_camera_np)
 from ..ops.denoise import atrous_denoise
 from ..ops.gbuffer import GBuffer
 from ..ops.pack import to_rgba8, tonemap
@@ -97,27 +105,120 @@ class LayerStack:
         return iter(self._layers)
 
 
+def tile_activity_plane(tile_mask: torch.Tensor, grid: tuple, tile_h: int,
+                        tile_w: int) -> torch.Tensor:
+    """Per-tile values (row-major over ``grid``) spread over their tiles'
+    pixels -> f32[grid[0] * tile_h, grid[1] * tile_w] (the padded image)."""
+    m2 = tile_mask.reshape(grid).to(torch.float32)
+    return m2.repeat_interleave(tile_h, 0).repeat_interleave(tile_w, 1)
+
+
+def _launch_moments(s1, s2, n_pix):
+    """(mean, Bessel-corrected variance, max(n, 1)) of the launch means'
+    luminance from their sums ``s1``/``s2`` over ``n_pix`` launches."""
+    n = torch.clamp(n_pix, min=1.0)
+    mean = s1 / n
+    var = torch.clamp(s2 / n - mean * mean, min=0.0)
+    return mean, var * (n / torch.clamp(n_pix - 1.0, min=1.0)), n
+
+
+def adaptive_update(rad, counts, s1, s2, nlaunch, mask, tau: float,
+                    nmin: float, q: float, grid: tuple, tile: tuple):
+    """One launch's adaptive-sampling update, the JAX pipeline's
+    ``_step_adaptive`` (viewer/app.py) after its accumulation.
+
+    ``rad`` f32[H,W,3] is the launch's radiance sum and ``counts`` f32[H,W]
+    its samples per pixel (spp on active tiles, 0 on masked ones); ``s1``/
+    ``s2`` f32[H,W] are the sums of the launch means' luminance and its
+    square over the launches a tile was active, ``nlaunch`` f32[n_tiles]
+    those launches, ``mask`` i32[n_tiles] the launch's tile mask, on the
+    (rows, columns) ``grid`` of ``tile`` = (rows, columns) pixels.  A tile
+    converges, and its mask entry clears, once it has ``nmin`` launches
+    and a share ``q`` of its pixels has a display-space standard error
+    below ``tau``: the luminance's Bessel-corrected standard error of the
+    mean times the gamma curve's slope (1/2.2) max(mean, 2e-3)^(1/2.2-1);
+    pad pixels count as below.  Returns (s1, s2, nlaunch, mask)."""
+    height, width = rad.shape[:2]
+    (gi, gj), (th, tw) = grid, tile
+    act = tile_activity_plane(mask, grid, th, tw)[:height, :width]
+    m = rad / torch.clamp(counts, min=1.0)[..., None]
+    lum = m[..., 0] * 0.2126 + m[..., 1] * 0.7152 + m[..., 2] * 0.0722
+    s1 = s1 + lum * act
+    s2 = s2 + lum * lum * act
+    nlaunch = nlaunch + mask.to(torch.float32)
+    mean, var, n_safe = _launch_moments(
+        s1, s2, tile_activity_plane(nlaunch, grid, th, tw)[:height, :width])
+    gain = (1.0 / 2.2) * torch.clamp(mean, min=2e-3) ** (1.0 / 2.2 - 1.0)
+    rel = torch.sqrt(var / n_safe) * gain
+    relp = torch.zeros((gi * th, gj * tw), dtype=torch.float32,
+                       device=rad.device)
+    relp[:height, :width] = rel  # pad pixels stay 0: below any tau > 0
+    below = (relp < tau).to(torch.float32)
+    tile_frac = below.reshape(gi, th, gj, tw).mean((1, 3)).reshape(-1)
+    conv = (nlaunch >= nmin) & (tile_frac >= q)
+    return s1, s2, nlaunch, torch.where(conv, 0, mask).to(torch.int32)
+
+
 class _CudaPipeline:
-    """Megakernel dispatch path: packed tables (and the image atlas) on
-    the device with the scene's static flags (``tables.kernel_inputs``),
-    one ``render_sample`` launch per progressive frame and one ``gbuffer``
-    launch per G-buffer (the JAX package's ``_PallasPipeline`` without
-    adaptive or NEE).  Built anew on every scene edit; a flag combination
-    that no kernel instantiation serves raises ``NotImplementedError``
-    here, on either device."""
+    """Megakernel dispatch path: packed tables (and the image atlas and,
+    with ``cfg.nee``, the light table) on the device with the scene's
+    static flags (``tables.kernel_inputs``), one ``render_sample`` launch
+    per progressive frame and one ``gbuffer`` launch per G-buffer (the JAX
+    package's ``_PallasPipeline``), and with ``cfg.adaptive`` the tile
+    mask and its statistics.  Built anew on every scene edit; a flag
+    combination that no kernel instantiation serves (``--nee`` on a scene
+    without an NEE instantiation) raises ``NotImplementedError`` here, on
+    either device."""
 
     def __init__(self, scene, cfg: RenderConfig, device: torch.device):
         self._tabs, self._flags = kernel_inputs(scene, device)
+        # the megakernel's NEE keywords (the G-buffer samples no light)
+        self._nee = nee_inputs(scene, device) if cfg.nee else {}
         fl = self._flags
         base = (fl["has_rects"], fl["has_tris"], fl["has_vattrs"],
                 "atlas" in fl)
-        feat = {name: fl[name] for name, _, _ in FEATURES}
-        render_variant(*base, **feat)
+        feat = {name: fl[name] for name, _, _ in FEATURES
+                if name != "has_nee"}
+        render_variant(*base, **feat, has_nee=bool(cfg.nee))
         gbuffer_variant(*base, **feat)
         self._cfg = cfg
         self._device = device
         self._bg = (np.asarray(scene.background_start, np.float32),
                     np.asarray(scene.background_end, np.float32))
+        self.adaptive = bool(cfg.adaptive)
+        # the mask's tiles and grid, as the JAX pipeline has them
+        self._tile = mask_tile(scene, self._tabs)
+        self._grid = mask_grid(cfg.width, cfg.height, self._tile)
+        if self.adaptive:
+            self.reset_adaptive()
+
+    def reset_adaptive(self):
+        """Restart the convergence statistics; every tile renders again."""
+        h, w = self._cfg.height, self._cfg.width
+        nt = self._grid[0] * self._grid[1]
+        dev = self._device
+        self._s1 = torch.zeros((h, w), dtype=torch.float32, device=dev)
+        self._s2 = torch.zeros((h, w), dtype=torch.float32, device=dev)
+        self._nlaunch = torch.zeros(nt, dtype=torch.float32, device=dev)
+        self._mask = torch.ones(nt, dtype=torch.int32, device=dev)
+
+    def active_fraction(self) -> float:
+        """Share of tiles still rendering (1.0 without adaptive sampling);
+        reads one small tensor from the device."""
+        if not self.adaptive:
+            return 1.0
+        return float(self._mask.to(torch.float32).mean())
+
+    def variance_plane(self) -> torch.Tensor | None:
+        """Per-pixel luminance variance of the displayed mean (the launch
+        means' Bessel-corrected variance over their count), the
+        denoiser's variance input; None without adaptive sampling."""
+        if not self.adaptive:
+            return None
+        cfg = self._cfg
+        _, var, n = _launch_moments(self._s1, self._s2, tile_activity_plane(
+            self._nlaunch, self._grid, *self._tile)[:cfg.height, :cfg.width])
+        return var / n
 
     def _cam_vec(self, cam) -> torch.Tensor:
         cfg = self._cfg
@@ -125,9 +226,14 @@ class _CudaPipeline:
             cam, *self._bg, cfg.width, cfg.height, cfg.t_min)).to(self._device)
 
     def accumulate(self, cam, frame_index: int, max_depth: int,
-                   accum: torch.Tensor, spp: int = 1) -> torch.Tensor:
+                   accum: torch.Tensor, counts: torch.Tensor | None = None,
+                   spp: int = 1, sample_base: int = 0) -> torch.Tensor:
         """Add ``spp`` samples to the radiance sum ``accum`` (in place: the
-        f32[H,W,3] sum is the largest buffer of the loop)."""
+        f32[H,W,3] sum is the largest buffer of the loop).  ``sample_base``
+        is the samples already in ``accum`` (the QMC index).  Under
+        adaptive sampling the launch skips the masked tiles, its samples
+        per pixel are added to ``counts`` f32[H,W] (in place) and the
+        statistics and the mask are updated."""
         cfg = self._cfg
         # the seed rule of the JAX pipeline: injective in frame_index
         seed = (cfg.seed * 2654435761 + frame_index) & 0x7FFFFFFF
@@ -136,8 +242,18 @@ class _CudaPipeline:
             tb.S, tb.P, tb.clusters, tb.supers, tb.n_super,
             self._cam_vec(cam), seed, max_depth, width=cfg.width,
             height=cfg.height, camera_model=cfg.camera_model, spp=spp,
-            rr_start=cfg.rr_start, cluster=tb.cluster, super_=tb.super_,
-            **self._flags)
+            rr_start=cfg.rr_start, nee_p=cfg.nee_p, has_qmc=cfg.qmc,
+            sample_base=sample_base,
+            tile_mask=self._mask if self.adaptive else None, tile=self._tile,
+            cluster=tb.cluster, super_=tb.super_, **self._flags, **self._nee)
+        if self.adaptive:
+            n = tile_activity_plane(self._mask, self._grid, *self._tile)[
+                :cfg.height, :cfg.width] * float(spp)
+            self._s1, self._s2, self._nlaunch, self._mask = adaptive_update(
+                out, n, self._s1, self._s2, self._nlaunch, self._mask,
+                cfg.adaptive_tau, cfg.adaptive_min, cfg.adaptive_q,
+                self._grid, self._tile)
+            counts.add_(n)
         return accum.add_(out)
 
     def gbuffer(self, cam) -> GBuffer:
@@ -176,6 +292,11 @@ class RenderLayer(Layer):
         self._gb_key = None
         self._gb: GBuffer | None = None
         self._accum = self._zeros_accum()
+        # samples per pixel under adaptive sampling (tiles stop at their
+        # own counts); None when every pixel has every sample
+        self._counts = (torch.zeros((cfg.height, cfg.width),
+                                    dtype=torch.float32, device=self.device)
+                        if cfg.adaptive else None)
 
     def _pose_fly_at(self, cam0):
         """Point the fly camera at a registered CameraParams pose."""
@@ -221,6 +342,10 @@ class RenderLayer(Layer):
         reference's full re-render after every UI drag."""
         self._accum.zero_()
         self._spp_done = 0
+        if self._counts is not None:
+            self._counts.zero_()
+            if self._pipeline is not None:
+                self._pipeline.reset_adaptive()
 
     # -------------------------------------------------------- frame
     def on_update(self):
@@ -230,11 +355,15 @@ class RenderLayer(Layer):
         cam = self.fly.params(aperture=cfg.aperture, focus_dist=cfg.focus_dist)
         batch = max(1, int(cfg.progressive_spp))
         self._accum = self._pipeline.accumulate(
-            cam, self._frame_index, cfg.max_depth, self._accum, spp=batch)
+            cam, self._frame_index, cfg.max_depth, self._accum, self._counts,
+            spp=batch, sample_base=self._spp_done)
         self._spp_done += batch
         self._frame_index += 1
         self.metrics.accumulated_spp = self._spp_done
-        self.metrics.frame_end(cfg.width * cfg.height * batch)
+        # primary rays: every pixel's, or (adaptive) one per pixel as the
+        # bound the JAX pipeline counts
+        per_pixel = 1 if self._counts is not None else batch
+        self.metrics.frame_end(cfg.width * cfg.height * per_pixel)
 
     # -------------------------------------------------------- output
     def _gbuffer(self) -> GBuffer:
@@ -256,6 +385,7 @@ class RenderLayer(Layer):
         accumulator is never touched, so toggling the denoiser is lossless."""
         return atrous_denoise(self._accum / self._display_divisor(),
                               self._gbuffer(),
+                              self._pipeline.variance_plane(),
                               iterations=int(self.cfg.denoise_iters))
 
     def _display_oriented(self, img: np.ndarray) -> np.ndarray:
@@ -287,8 +417,13 @@ class RenderLayer(Layer):
         return {k: self._display_oriented(v.cpu().numpy())
                 for k, v in self._gbuffer()._asdict().items()}
 
-    def _display_divisor(self) -> int:
-        """Accumulated samples per pixel (every pixel gets every sample)."""
+    def _display_divisor(self):
+        """Samples per pixel: the count plane f32[H,W,1] under adaptive
+        sampling (sum / count, consistent by Wald's identity: a tile's
+        stopping time depends on launches already taken), else the
+        accumulated spp."""
+        if self._counts is not None and self._spp_done > 0:
+            return torch.clamp(self._counts, min=1.0)[..., None]
         return max(self._spp_done, 1)
 
 

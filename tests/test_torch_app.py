@@ -301,3 +301,60 @@ def test_cli_render_obj_cpu_writes_png(tmp_path):
         assert im.size == (64, 36)
         img = np.asarray(im.convert("RGB")).astype(np.float32)
     assert 5.0 < img.mean() < 250.0
+
+
+def test_cli_render_nee_qmc_adaptive_cpu(tmp_path):
+    """render --nee --qmc --adaptive --denoise runs on the CPU: the
+    adaptive loop logs its frames and the PNG and AOVs are written."""
+    out, aov = tmp_path / "c.png", tmp_path / "aov.npz"
+    proc = run_cli(["render", "--device", "cpu", "--scene", "cornell",
+                    "--nee", "--qmc", "--adaptive", "--adaptive-min", "2",
+                    "--denoise", "--aov", str(aov), "--width", "40",
+                    "--height", "24", "--frames", "3", "-o", str(out)],
+                   tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    assert "Adaptive: 3/3 frames" in proc.stdout + proc.stderr
+    from PIL import Image
+
+    with Image.open(out) as im:
+        assert im.size == (40, 24)
+        assert np.asarray(im.convert("RGB")).mean() > 5.0
+    assert aov.exists()
+
+
+def test_adaptive_display_divisor_is_the_count_plane():
+    """Under adaptive sampling each pixel is divided by its own count:
+    tiles that converged stop counting while the others go on."""
+    cfg = small_cfg(scene="default", camera_model="two_plane", width=128,
+                    height=32, adaptive=True, adaptive_min=2,
+                    adaptive_tau=0.2, progressive_spp=1, nee=True, qmc=True)
+    app = Application(cfg)
+    rl = app.setup_default_layers()
+    pipe = rl._pipeline
+    assert pipe._tile == (16, 256) and pipe._grid == (2, 1)
+    app.run(max_frames=6)
+    counts = rl._counts
+    div = rl._display_divisor()
+    assert div.shape == (32, 128, 1)
+    torch.testing.assert_close(div[..., 0], torch.clamp(counts, min=1.0))
+    # counts: one sample per launch while a pixel's tile was active
+    nl = pipe._nlaunch
+    torch.testing.assert_close(
+        counts, nl.repeat_interleave(16)[:, None].expand(32, 128))
+    assert float(counts.max()) <= rl._spp_done
+    np.testing.assert_allclose(
+        rl.radiance_mean()[::-1], (rl._accum / div).numpy(), rtol=1e-6)
+    assert pipe.variance_plane().shape == (32, 128)
+    assert 0.0 <= pipe.active_fraction() <= 1.0
+    # a camera edit restarts the statistics and re-activates every tile
+    rl.fly.process_keys(["w"])
+    app.run(max_frames=1)
+    assert pipe.active_fraction() == 1.0 and float(rl._counts.max()) == 1.0
+    app.close()
+
+
+def test_nee_without_an_instantiation_raises_on_the_cpu():
+    """--nee on a flag combination without an NEE instantiation (bounce's
+    moving spheres) raises naming it, on the CPU as on the card."""
+    with pytest.raises(NotImplementedError, match="next-event estimation"):
+        RenderLayer(small_cfg(scene="bounce", nee=True))._sync_scene()

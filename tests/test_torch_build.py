@@ -131,3 +131,27 @@ def test_variant_lists_are_read_from_the_header():
         assert int(consts["F_" + flag[4:].upper()]) == bit  # has_noise
     with pytest.raises(build.BuildError, match="CRT_NO_SUCH_LIST"):
         build.variants("CRT_NO_SUCH_LIST")
+
+
+def test_nee_instantiations_and_the_probe_flags():
+    """NEE is not a superset bit: a scene asks for it or does not, and
+    gets an instantiation with it or without it; the probe's flags with
+    NEE (ALL_FEATURE_FLAGS, as in the JAX package) name the all-feature
+    instantiation."""
+    from cudaraytracer_tpu.models import scenes as jscenes
+    from cudaraytracer_tpu_torch.models import scenes
+    from cudaraytracer_tpu_torch.ops.cuda import render_kernel as rk
+
+    assert scenes.ALL_FEATURE_FLAGS == jscenes.ALL_FEATURE_FLAGS
+    assert rk.render_variant(True, **scenes.ALL_FEATURE_FLAGS) == (
+        1, 0, 0, 0, 63)
+    assert rk.render_variant(True) == (1, 0, 0, 0, 0)
+    assert rk.render_variant(True, has_nee=True) == (1, 0, 0, 0, 32)
+    # smoke's flags: the box-media superset, with and without NEE
+    smoke = dict(has_media=True)
+    assert rk.render_variant(True, **smoke) == (1, 0, 0, 0, 7)
+    assert rk.render_variant(True, **smoke, has_nee=True) == (1, 0, 0, 0, 39)
+    with pytest.raises(NotImplementedError,
+                       match=r"moving spheres \(has_motion\) \+ "
+                             r"next-event estimation \(has_nee\)"):
+        rk.render_variant(has_motion=True, has_nee=True)

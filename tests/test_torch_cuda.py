@@ -13,7 +13,10 @@ on 2^20 rays, the megakernel at 320x180 and at 1280x720 with 4 spp, the
 G-buffer at 1280x720.  The noise, media and motion scenes (and the
 unregistered all-feature probe) are held to the same limits: the marble
 texture's sinf and PyTorch's sin on a CUDA tensor are the same CUDA
-function.  The megakernel limits here are the ones it states
+function.  So are the render options: NEE on every instantiation that
+has it, QMC, and a random tile mask (the masked launch equal to the
+unmasked one on active tiles, zero elsewhere).  The megakernel limits
+here are the ones it states
 and why; at 96x54 they allow no differing pixel.  The G-buffer kernel and
 its plain version do the same float operations: equal hit masks, and
 the buffers equal to 1e-6.
@@ -153,6 +156,80 @@ def test_gbuffer_kernel_matches_plain(cuda, name):
     assert torch.equal(gk.depth > 0, gp.depth > 0)
     for a, b in zip(gk, gp):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+
+
+# the scenes with an NEE instantiation (csrc/variants.cuh)
+NEE_SCENES = ["default", "cornell", "mirror_room", "cornell_mesh_light",
+              "smoke", "cornell_smoke", "probe", "book2_final"]
+
+
+def option_check(cuda, name, w=96, h=54, spp=2, **opts):
+    """Kernel against plain with render options ``opts`` (the nee flag
+    sets the light table up as the render loop does) -> (kernel image,
+    kernel rays) after the limits of test_megakernel_matches_plain."""
+    scene, cam, model = scene_and_camera(name)
+    tb, flags = ttab.kernel_inputs(scene, cuda)
+    if opts.pop("nee", False):
+        flags.update(ttab.nee_inputs(scene, cuda))
+    cv = torch.from_numpy(ttab.pack_camera_np(
+        cam, scene.background_start, scene.background_end, w, h,
+        1e-3)).to(cuda)
+    kw = dict(width=w, height=h, camera_model=model, spp=spp, rr_start=2,
+              with_stats=True, **flags, **opts)
+    a = (tb.S, tb.P, tb.clusters, tb.supers, tb.n_super, cv, 11, 8)
+    p0 = render_kernel.render_sample_plain.launches
+    img_k, n_k = render_kernel.render_sample(*a, **kw)
+    torch.cuda.synchronize()
+    assert render_kernel.render_sample_plain.launches == p0  # no fallback
+    img_p, n_p = render_kernel.render_sample_plain(*a, **kw)
+    err = (img_k - img_p).abs().amax(dim=2)
+    assert int((err > 1e-3).sum()) <= 1e-4 * w * h
+    assert abs(float(img_k.mean()) / float(img_p.mean()) - 1) <= 1e-4
+    assert abs(int(n_k) / int(n_p) - 1) <= 1e-4
+    return img_k, n_k
+
+
+@pytest.mark.parametrize("name", NEE_SCENES)
+def test_megakernel_nee_qmc_matches_plain(cuda, name):
+    option_check(cuda, name, nee=True, has_qmc=True, sample_base=3)
+
+
+@pytest.mark.parametrize("name", ["default", "rtow_final", "book2_final"])
+def test_megakernel_qmc_matches_plain(cuda, name):
+    option_check(cuda, name, has_qmc=True, sample_base=1 << 20)
+
+
+def test_megakernel_random_half_mask(cuda):
+    """A random half of the (16, 128) tiles masked: the kernel agrees with
+    its plain version, masked pixels are zero and trace nothing, active
+    ones equal the unmasked launch's."""
+    w, h, tile = 300, 70, (16, 128)
+    gi, gj = render_kernel.mask_grid(w, h, tile)
+    rs = np.random.RandomState(5)
+    mask = torch.from_numpy(
+        (rs.permutation(gi * gj) < gi * gj // 2).astype(np.int32)).to(cuda)
+    full, n_full = option_check(cuda, "book2_final", w, h, nee=True,
+                                has_qmc=True)
+    part, n_part = option_check(cuda, "book2_final", w, h, nee=True,
+                                has_qmc=True, tile_mask=mask, tile=tile)
+    act = (mask.reshape(gi, gj).repeat_interleave(tile[0], 0)
+           .repeat_interleave(tile[1], 1)[:h, :w] != 0)
+    assert torch.equal(part[act], full[act])
+    assert int((part[~act] != 0).sum()) == 0
+    assert 0 < int(n_part) < int(n_full)
+
+
+def test_nee_without_an_instantiation_raises(cuda):
+    """bounce (moving spheres) has no NEE instantiation."""
+    scene = tscenes.bounce_scene()
+    tb, flags = ttab.kernel_inputs(scene, cuda)
+    cv = torch.zeros(38, device=cuda)
+    n0 = render_kernel.render_sample.launches
+    with pytest.raises(NotImplementedError, match="next-event estimation"):
+        render_kernel.render_sample(tb.S, tb.P, tb.clusters, tb.supers,
+                                    tb.n_super, cv, 1, 4, width=8, height=8,
+                                    **flags, **ttab.nee_inputs(scene, cuda))
+    assert render_kernel.render_sample.launches == n0
 
 
 def test_unserved_flags_raise_before_launch(cuda):

@@ -1,25 +1,30 @@
-"""Planted faults in the plain versions of the noise, media and motion
-branches: do the CPU checks against the JAX package and the oracle
-catch them?
+"""Planted faults in the plain versions of the noise, media, motion,
+NEE, QMC and tile-mask branches: do the CPU checks against the JAX
+package and the oracle catch them?
 
-The five faults ``cudaraytracer_tpu_torch/scripts/planted_faults.py``
-plants in the CUDA sources (where the card's kernel-against-plain check
-catches all five) are planted here in the plain PyTorch code, one line
-of a module edited in a copy of that module, and each must fail the
-check named beside it.  ``test_scene_matches_xla_path`` (the radiance
-against the XLA renderer, statistically) catches only the isotropic
-one; the other four move its statistics less than its limits, so each
-is held by a sharper check: the scatter distance and the box chord
+The faults ``cudaraytracer_tpu_torch/scripts/planted_faults.py`` plants
+in the CUDA sources (where the card's kernel-against-plain check catches
+them) are planted here in the plain PyTorch code, one line of a module
+edited in a copy of that module, and each must fail the check named
+beside it.  ``test_scene_matches_xla_path`` (the radiance against the
+XLA renderer, statistically) catches only the isotropic one of the
+first five; the other four move its statistics less than its limits, so
+each is held by a sharper check: the scatter distance and the box chord
 against tests/oracle.py, the marble factor against the JAX noise, and a
 moving ball whose middle keeps albedo x sky only if a path keeps its
-shutter time.
+shutter time.  The NEE faults (the light pdf not averaged over the
+lights, the cosine pdf without 1/pi) fail the mixture's integral of the
+cosine lobe; the QMC ones (the x and y rotations swapped, the sample base
+ignored) fail the sky render against the XLA renderer; the mask read
+transposed fails the masked launch's check.
 
     PYTHONPATH=.:tests python tests/test_torch_planted_faults.py
 
 prints the radiance check's readings (the largest channel-mean error,
 the mean and the largest 4x4 block-mean error, against its limits) on
-each fault's scenes, sound and with the fault planted, one JSON line
-each, and the moving ball's middle.
+each of the first five faults' scenes, sound and with the fault planted,
+one JSON line each, the moving ball's middle, and each later fault's own
+check's reading, sound and planted.
 """
 
 import contextlib
@@ -32,11 +37,15 @@ import torch
 
 torch.set_num_threads(2)
 
+import test_torch_adaptive as adaptive_tests  # noqa: E402
 import test_torch_media as media  # noqa: E402
 import test_torch_noise as noise_tests  # noqa: E402
+import test_torch_qmc as qmc_tests  # noqa: E402
 import test_torch_render_media as render_media  # noqa: E402
+import test_torch_sampling as sampling_tests  # noqa: E402
 
 from cudaraytracer_tpu_torch.ops import noise as tnoise  # noqa: E402
+from cudaraytracer_tpu_torch.ops import sampling as tsampling  # noqa: E402
 from cudaraytracer_tpu_torch.ops.cuda import hit_kernel as hk  # noqa: E402
 from cudaraytracer_tpu_torch.ops.cuda import render_kernel as rk  # noqa: E402
 
@@ -89,6 +98,54 @@ FAULTS = {
         "is_iso = torch.zeros_like(packc, dtype=torch.bool)",
         lambda: render_media.test_scene_matches_xla_path("cornell_smoke"),
         ("smoke", "cornell_smoke")),
+    # the light pdf summed over the tabled lights, not averaged
+    "pdf_not_averaged": (
+        tsampling, "lights_pdf",
+        "    return lsum / torch.clamp(tab[0], min=1.0)", "    return lsum",
+        lambda: sampling_tests.test_mixture_integrates_the_cosine_lobe_to_one(
+            "rects_sphere", 0.5), ()),
+    # the cosine density without its 1/pi
+    "cosine_pdf_without_inv_pi": (
+        tsampling, "nee_lambertian",
+        "scat = torch.clamp(cosd, min=0.0) * _INV_PI",
+        "scat = torch.clamp(cosd, min=0.0)",
+        lambda: sampling_tests.test_mixture_integrates_the_cosine_lobe_to_one(
+            "rects_sphere", 0.5), ()),
+    # the QMC rotation's x and y channels swapped
+    "qmc_rotation_swapped": (
+        rk, "render_sample_plain",
+        "qrx, qry = qmc.pixel_rotation(xs_all, ys_all)",
+        "qry, qrx = qmc.pixel_rotation(xs_all, ys_all)",
+        lambda: qmc_tests.test_sky_matches_xla_renderer(0), ()),
+    # the launch's sample base ignored: every launch restarts the sequence
+    "sample_base_ignored": (
+        rk, "render_sample_plain",
+        "fx, fy = qmc.r2_frac(sample_base + done[ib])",
+        "fx, fy = qmc.r2_frac(done[ib])",
+        lambda: qmc_tests.test_sky_matches_xla_renderer(5), ()),
+    # the tile mask indexed by (x, y) transposed
+    "mask_transposed": (
+        rk, "render_sample_plain",
+        "act = tile_mask[(pix // width // th) * gj + (pix % width) // tw] != 0",
+        "act = tile_mask[((pix % width) // tw) * gi + pix // width // th] != 0",
+        adaptive_tests.test_masked_launch_equals_unmasked_on_active_tiles,
+        ()),
+}
+
+# the later faults' checks as readings (name, function)
+READINGS = {
+    "pdf_not_averaged": ("cosine-lobe integral (1 +- 0.01)",
+                         lambda: sampling_tests.lobe_integral(
+                             "rects_sphere", 0.5)),
+    "cosine_pdf_without_inv_pi": ("cosine-lobe integral (1 +- 0.01)",
+                                  lambda: sampling_tests.lobe_integral(
+                                      "rects_sphere", 0.5)),
+    "qmc_rotation_swapped": ("sky max abs error (< 1e-4)",
+                             lambda: qmc_tests.sky_error(0)),
+    "sample_base_ignored": ("sky max abs error at base 5 (< 1e-4)",
+                            lambda: qmc_tests.sky_error(5)),
+    "mask_transposed": ("masked-launch pixels wrong (0)",
+                        adaptive_tests.masked_mismatch),
 }
 
 
@@ -130,6 +187,12 @@ if __name__ == "__main__":
                                  "block_mean": render_media.BLOCK_MEAN,
                                  "block_max": render_media.BLOCK_MAX}}))
     for name, (*_, scenes) in FAULTS.items():
+        if name in READINGS:
+            what, reading = READINGS[name]
+            row = {"fault": name, "check": what, "sound": reading()}
+            with planted(name):
+                row["planted"] = reading()
+            print(json.dumps(row), flush=True)
         for scene in scenes:
             row = {"fault": name, "scene": scene,
                    "sound": radiance_readings(
