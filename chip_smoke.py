@@ -15,14 +15,27 @@ sphere, a subsurface medium ball, a whole-scene fog sphere around the
 camera, a moving sphere, ~1000 small spheres) with every render option;
 ``--scene book2_final`` without options; ``--scene terrain_big``, the largest scene, 20,000 smooth image-textured
 triangles; ``--obj`` on an OBJ model written to a temporary directory,
-with ``--obj-smooth``; ``--scene rtow_final``; and no ``--scene``, the
-default scene) with the launch counts set to 0 before each and read after
-it, and times every kernel and the denoiser at the main-path shapes, the
-megakernel on every scene without options, with QMC, with a random half
-of its tiles masked and, where an instantiation serves it, with NEE.
-Every phase prints one JSON line; any failure raises and the script exits
-non-zero.  The last lines are the card's name and power limit
-(nvidia-smi), the per-kernel summary, and the result object.
+with ``--obj-smooth``; ``--scene rtow_final``; no ``--scene``, the
+default scene; and ``--nee`` on mesh_smooth, terrain, terrain_big,
+bounce and a smooth OBJ, which the last NEE instantiations serve) with
+the launch counts set to 0 before each and read after it, and times
+every kernel and the denoiser at the main-path shapes, the megakernel on
+every scene without options, with QMC, with a random half of its tiles
+masked and, where an instantiation serves it, with NEE.  Then this
+slice's paths: row bands and the multi-device tiling on the one card
+(book2_final ``--nee --qmc`` and rtow_final at 1280x720, 4 spp: bands of
+180 and 360 rows stitched against the whole-image launch bit for bit, a
+band against its plain version, ``parallel.render_sharded_sample`` over
+4 x 1 and 2 x 2 places on cuda:0 against its launches written out, and
+``parallel/dryrun.py``), the cull statistic on 16 scenes at 320x180
+(entries per ray, the kernel's count equal to the plain version's
+replay, the image unchanged) with its cost at 1280x720, and the staging
+probe (``scripts/stream_probe.py``: every variant's CTA sums, then its
+times, at the table sizes of terrain_big and book2_final, in tiles of
+1 x 512, 4 x 448 and 16 x 112 int32s).  Every phase prints one JSON
+line; any failure raises and the script exits non-zero.  The last lines
+are the card's name and power limit (nvidia-smi), the per-kernel
+summary, and the result object.
 
 Every scene is set up as the render loop sets it up
 (``ops/cuda/tables.py::kernel_inputs``, what ``viewer/app.py::
@@ -45,8 +58,10 @@ smooth normals, image lookups, NEE scatters with their light slots and
 QMC raygens this run's rays made).  The bytes count
 the tables, the outputs and, for image hits, three bytes per texel read
 (at most the atlas's used texels).  No single PyTorch call computes a
-closest hit, a path trace or a G-buffer, so ``library_ms`` is null for
-all three.
+closest hit, a path trace, a G-buffer or the probe's staged walk, so
+``library_ms`` is null for all of them.  The probe's bound is its
+table's bytes over 3.35 TB/s: its 32 int32 adds per tile are nothing
+beside them.
 
 Tolerances, and why:
 
@@ -107,6 +122,14 @@ Tolerances, and why:
   default on an H100 (PERF.md); the limit leaves one float32 rounding
   step of room on the unit-scale normal and albedo and nothing on a depth
   above 8.
+* bands, sharded frames, cull statistics and the probe: exact.  A band
+  and the whole-image launch with the same stream do the same arithmetic
+  on the same pixels, so their rows must be equal bit for bit, and so
+  must a sharded frame and its launches summed in the same order; a band
+  against its plain version holds to the megakernel's limits.  The cull
+  counts must be equal where no pixel differs (a path sent another way
+  changes its rays; then they hold to the ray limit, 1e-4).  The probe's
+  sums are int32 and must equal ``expected`` on every CTA.
 """
 
 from __future__ import annotations
@@ -124,25 +147,35 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 W_MAIN, H_MAIN, DEPTH, RR, SPP_MAIN = 1280, 720, 12, 2, 4
-# registers / spill-store bytes of the instantiations before the NEE ones
-# as PERF.md records them (build log, NVIDIA H100 80GB HBM3): the template flags are
-# (rects, tris[, vattrs, images, features])
+# registers / spill-store bytes of every instantiation before this slice's
+# kernel changes, as PERF.md records them (build log, NVIDIA H100 80GB
+# HBM3): the template flags are (rects, tris[, vattrs, images, features])
 BASE_PTXAS = {
     "closest_hit_kernel<0,0>": (40, 0), "closest_hit_kernel<1,0>": (36, 0),
-    "closest_hit_kernel<1,1>": (79, 0),
-    "render_kernel<0,0,0,0,0>": (56, 20), "render_kernel<0,0,0,1,0>": (56, 20),
-    "render_kernel<1,0,0,0,0>": (72, 86), "render_kernel<1,0,0,1,0>": (72, 102),
-    "render_kernel<1,1,0,0,0>": (80, 150), "render_kernel<1,1,0,1,0>": (116, 0),
-    "render_kernel<1,1,1,0,0>": (113, 0), "render_kernel<1,1,1,1,0>": (116, 0),
-    "gbuffer_kernel<0,0,0,0,0>": (34, 0), "gbuffer_kernel<0,0,0,1,0>": (38, 0),
-    "gbuffer_kernel<1,0,0,0,0>": (36, 0), "gbuffer_kernel<1,0,0,1,0>": (38, 0),
-    "gbuffer_kernel<1,1,0,0,0>": (72, 0), "gbuffer_kernel<1,1,0,1,0>": (72, 0),
+    "closest_hit_kernel<1,1>": (79, 0), "gbuffer_kernel<0,0,0,0,0>": (34, 0),
+    "gbuffer_kernel<0,0,0,0,1>": (40, 12),
+    "gbuffer_kernel<0,0,0,1,0>": (38, 0), "gbuffer_kernel<1,0,0,0,0>": (36, 0),
+    "gbuffer_kernel<1,0,0,0,3>": (40, 12),
+    "gbuffer_kernel<1,0,0,1,0>": (38, 0), "gbuffer_kernel<1,1,0,0,0>": (72, 0),
+    "gbuffer_kernel<1,1,0,1,0>": (72, 0), "gbuffer_kernel<1,1,0,1,3>": (68, 0),
     "gbuffer_kernel<1,1,1,0,0>": (72, 0), "gbuffer_kernel<1,1,1,1,0>": (72, 0),
-    "render_kernel<0,0,0,0,1>": (72, 48), "render_kernel<0,0,0,0,16>": (64, 20),
-    "render_kernel<1,0,0,0,7>": (96, 16), "render_kernel<1,0,0,0,15>": (96, 58),
-    "render_kernel<1,0,0,0,31>": (96, 52), "render_kernel<1,1,0,1,23>": (120, 0),
-    "gbuffer_kernel<0,0,0,0,1>": (40, 12), "gbuffer_kernel<1,0,0,0,3>": (40, 12),
-    "gbuffer_kernel<1,1,0,1,3>": (68, 0),
+    "render_kernel<0,0,0,0,0>": (56, 32), "render_kernel<0,0,0,0,1>": (72, 60),
+    "render_kernel<0,0,0,0,16>": (72, 4), "render_kernel<0,0,0,1,0>": (56, 32),
+    "render_kernel<1,0,0,0,0>": (72, 102),
+    "render_kernel<1,0,0,0,7>": (96, 24),
+    "render_kernel<1,0,0,0,15>": (96, 74),
+    "render_kernel<1,0,0,0,31>": (96, 58),
+    "render_kernel<1,0,0,0,32>": (96, 0),
+    "render_kernel<1,0,0,0,39>": (96, 16),
+    "render_kernel<1,0,0,0,47>": (96, 102),
+    "render_kernel<1,0,0,0,63>": (96, 74),
+    "render_kernel<1,0,0,1,0>": (72, 110),
+    "render_kernel<1,0,0,1,32>": (96, 0), "render_kernel<1,1,0,0,0>": (116, 0),
+    "render_kernel<1,1,0,0,32>": (112, 0),
+    "render_kernel<1,1,0,1,0>": (117, 0),
+    "render_kernel<1,1,0,1,23>": (120, 0),
+    "render_kernel<1,1,0,1,55>": (118, 0),
+    "render_kernel<1,1,1,0,0>": (115, 0), "render_kernel<1,1,1,1,0>": (118, 0),
 }
 # megakernel against its plain version (see the module docstring)
 MEGA_DIFF_SHARE, MEGA_MEAN_RTOL, MEGA_RAYS_RTOL = 1e-4, 1e-4, 1e-4
@@ -178,9 +211,12 @@ def main():
     from cudaraytracer_tpu_torch.ops.cuda.render_kernel import (
         FEATURES, SHADE_OPS, mask_grid, render_sample, render_sample_plain,
         render_variant)
+    from cudaraytracer_tpu_torch.ops.cuda import stream_probe as sp
     from cudaraytracer_tpu_torch.ops.cuda.tables import (
         BIG, kernel_inputs, mask_tile, nee_inputs, pack_camera_np)
     from cudaraytracer_tpu_torch.ops.denoise import atrous_denoise
+    from cudaraytracer_tpu_torch.parallel import dryrun, tiling
+    from cudaraytracer_tpu_torch.scripts import stream_probe as probe_script
     from cudaraytracer_tpu_torch.viewer.app import tile_activity_plane
 
     # ---- 1. device ----
@@ -202,10 +238,12 @@ def main():
     build.load_library()
     ptxas, entry, spill = {}, None, 0
     for ln in info["log"].splitlines():  # nvcc -Xptxas=-v, per instantiation
-        m = re.search(r"(render_kernel|closest_hit_kernel|gbuffer_kernel)"
-                      r"I((?:L[bi]\d+E)+)E", ln)
+        m = re.search(r"(render_kernel|closest_hit_kernel|gbuffer_kernel"
+                      r"|stream_probe_kernel)(?:_media)?I((?:L[bi]\d+E)+)E",
+                      ln)
         if "Compiling entry function" in ln and m:
-            # template flags: rects, tris[, vattrs, images, feature bits]
+            # template flags: rects, tris[, vattrs, images, feature bits];
+            # the probe's: its variant
             flags = ",".join(re.findall(r"L[bi](\d+)E", m.group(2)))
             entry = f"{m.group(1)}<{flags}>"
         elif entry and (m := re.search(r"(\d+) bytes spill stores", ln)):
@@ -319,6 +357,8 @@ def main():
     csmoke = Setup("cornell_smoke")
     bounce = Setup("bounce")
     book2 = Setup("book2_final")
+    rtow_big = Setup("rtow_big")
+    mesh_demo = Setup("mesh_demo")
 
     def work_ops(work, shade):
         """Float operations of a plain run's work tally: the search's
@@ -467,6 +507,20 @@ def main():
     for su in (cornell, cml, smoke):
         mega_err = max(mega_err, mega_check(su, 640, 360, 31,
                                             nee=True)["max_abs_err"])
+    # NEE on the vertex-attribute, image and motion instantiations (sky-lit
+    # scenes: an empty light table, every lambertian hit scatters by the
+    # true cosine): mesh_smooth and a smooth OBJ model, terrain and
+    # terrain_big, bounce
+    with tempfile.TemporaryDirectory() as tmp:
+        obj = os.path.join(tmp, "torus.obj")
+        mesh.save_obj(obj, *mesh.torus(1.0, 0.35, segments=48, sides=24))
+        obj_smooth = Setup(scenes.register_obj_scene(obj, smooth=True))
+    nee_new = {}
+    for su in (smooth, obj_smooth, terrain, terrain_big, bounce):
+        if not su.serves_nee:
+            raise AssertionError(f"{su.name}: no NEE instantiation")
+        nee_new[su.name] = mega_check(su, 640, 360, 31, nee=True)
+        mega_err = max(mega_err, nee_new[su.name]["max_abs_err"])
     # QMC alone, at a sample base past the split of the R2 index
     mega_err = max(mega_err, mega_check(default, W_MAIN, H_MAIN, 32, qmc=True,
                                         sample_base=4096 + 17)["max_abs_err"])
@@ -630,6 +684,14 @@ def main():
                     "--obj-fuzz", "0.05"], tmp)
         by_path["rtow_final"], _ = cli_path(
             "rtow_final", ["--scene", "rtow_final"], tmp)
+        # --nee on the scenes whose NEE instantiations this slice adds
+        # (they raised before), 2 frames each
+        for name in ("mesh_smooth", "terrain", "terrain_big", "bounce"):
+            by_path[f"{name}_nee"], _ = cli_path(
+                f"{name}_nee", ["--scene", name, "--nee"], tmp, n_frames=2)
+        by_path["obj_nee"], _ = cli_path(
+            "obj_nee", ["--obj", obj, "--obj-smooth", "--nee"], tmp,
+            n_frames=2)
         by_path["default"], den = cli_path("default", [], tmp)
         # the raw mean of the same frames: the denoiser must change it
         raw_png = os.path.join(tmp, "raw.png")
@@ -658,7 +720,9 @@ def main():
                            (smoke, (SPP_MAIN,), (W_MAIN, H_MAIN)),
                            (csmoke, (SPP_MAIN,), (W_MAIN, H_MAIN)),
                            (bounce, (SPP_MAIN,), (W_MAIN, H_MAIN)),
-                           (book2, (SPP_MAIN,), (W_MAIN, H_MAIN))):
+                           (book2, (SPP_MAIN,), (W_MAIN, H_MAIN)),
+                           (rtow_big, (SPP_MAIN,), (W_MAIN, H_MAIN)),
+                           (mesh_demo, (SPP_MAIN,), (W_MAIN, H_MAIN))):
         for s in spps:
             args = (*su.frame_args(*size), 7, DEPTH)
             kw = dict(width=size[0], height=size[1], camera_model=su.model,
@@ -677,7 +741,8 @@ def main():
     main_opts = dict(nee=True, qmc=True, sample_base=8)
     runs = []
     for su in (rtow, default, cml, terrain, terrain_big, smooth, rimage,
-               mirror, marble, smoke, csmoke, bounce, book2):
+               mirror, marble, smoke, csmoke, bounce, book2, rtow_big,
+               mesh_demo):
         runs += [(su, "qmc", dict(qmc=True, sample_base=8)),
                  (su, "half_mask", dict(mask=su.half_mask(W_MAIN, H_MAIN)))]
         if su.serves_nee:
@@ -697,7 +762,8 @@ def main():
     checks = {f"{su.name}/{SPP_MAIN}spp": mega_check(
         su, W_MAIN, H_MAIN, 7, with_bound=True)
         for su in (rtow, default, cml, terrain, smooth, rimage, mirror,
-                   terrain_big, marble, smoke, csmoke, bounce, book2)}
+                   terrain_big, marble, smoke, csmoke, bounce, book2,
+                   rtow_big, mesh_demo)}
     checks[f"book2_final/nee_qmc/{SPP_MAIN}spp"] = mega_check(
         book2, W_MAIN, H_MAIN, 7, with_bound=True, **main_opts)
     checks[f"book2_final/nee_qmc_half_mask/{SPP_MAIN}spp"] = mega_check(
@@ -723,6 +789,181 @@ def main():
     emit({"phase": "denoise_timing", "shape": [W_MAIN, H_MAIN],
           "iterations": 4, "ms": den_ms, "nvidia_smi": smi})
 
+    # ---- 9. row bands and the multi-device tiling on cuda:0 ----
+    def launches_of(fn_run, fns=counted):
+        """Run fn_run with the launch counts set to 0 just before it; the
+        result and the counts read just after."""
+        for fn in fns:
+            fn.launches = 0
+        out = fn_run()
+        torch.cuda.synchronize()
+        return out, {fn.__name__: fn.launches for fn in fns}
+
+    bands = {}
+    for su, opts in ((book2, main_opts), (rtow, {})):
+        args = (*su.frame_args(W_MAIN, H_MAIN), 7, DEPTH)
+        kw = dict(width=W_MAIN, height=H_MAIN, camera_model=su.model,
+                  spp=SPP_MAIN, rr_start=RR, **su.flags, **su.options(**opts))
+        base = kw.pop("sample_base", 0)
+        full = render_sample(*args, stream=5, sample_base=base, **kw)
+        seams = {}
+        for n in (4, 2):
+            bh = H_MAIN // n
+            parts = [render_sample(*args, stream=5, sample_base=base,
+                                   y0=i * bh, band_h=bh, **kw)
+                     for i in range(n)]
+            seams[f"{n}_bands"] = int((torch.cat(parts) != full).any(2).sum())
+        # the second of four bands against its plain version
+        band_kw = dict(stream=5, sample_base=base, y0=H_MAIN // 4,
+                       band_h=H_MAIN // 4, **kw)
+        bk = render_sample(*args, **band_kw)
+        bp, band_plain_ms = host_ms(lambda: render_sample_plain(*args,
+                                                                **band_kw))
+        band_off = int(((bk - bp).abs().amax(2) > 1e-3).sum())
+        sharded = {}
+        for nr, ns in ((4, 1), (2, 2)):
+            mesh_ = tiling.make_mesh(nr, ns, [dev] * (nr * ns))
+
+            def frame():
+                return tiling.render_sharded_sample(
+                    args[:4], args[4], args[5], 7, DEPTH, mesh=mesh_,
+                    sample_base=base, **kw)
+
+            out, launches = launches_of(frame)
+            # the places' launches written out: band ri, stream ri * ns +
+            # si, QMC base base + si * spp, summed in stream order
+            bh = H_MAIN // nr
+            want = []
+            for ri in range(nr):
+                acc = None
+                for si in range(ns):
+                    img = render_sample(*args, y0=ri * bh, band_h=bh,
+                                        stream=ri * ns + si,
+                                        sample_base=base + si * SPP_MAIN,
+                                        **kw)
+                    acc = img if acc is None else acc + img
+                want.append(acc)
+            off = int((out != torch.cat(want)).any(2).sum())
+            sharded[f"{nr}x{ns}"] = {
+                "launches": launches, "pixels_off_launch_sum": off,
+                "finite": bool(torch.isfinite(out).all()),
+                "shape": list(out.shape), "ms": cuda_ms(frame, 3)}
+            if (off or list(out.shape) != [H_MAIN, W_MAIN, 3]
+                    or not sharded[f"{nr}x{ns}"]["finite"]
+                    or launches["render_sample"] != nr * ns
+                    or launches["render_sample_plain"]):
+                raise AssertionError(f"{su.name}: the {nr}x{ns} sharded frame "
+                                     f"misbehaves: {sharded[f'{nr}x{ns}']}")
+        bands[su.name] = {"options": {k: v for k, v in opts.items()},
+                          "seam_pixels": seams, "band_plain_pixels": band_off,
+                          "band_plain_ms": band_plain_ms,
+                          "sharded": sharded}
+        emit({"phase": "bands", "scene": su.name, "size": [W_MAIN, H_MAIN],
+              "spp": SPP_MAIN, **bands[su.name]})
+        if any(seams.values()) or band_off > MEGA_DIFF_SHARE * W_MAIN * H_MAIN:
+            raise AssertionError(f"{su.name}: bands do not stitch: {seams}, "
+                                 f"band against plain {band_off}")
+    dry, dry_launches = launches_of(lambda: dryrun.dryrun_multichip(4, "cuda"))
+    emit({"phase": "dryrun_multichip", **dry, "launches": dry_launches})
+    # two paths of four places, each checked against its four launches
+    if dry_launches["render_sample"] != 16 or dry_launches["render_sample_plain"]:
+        raise AssertionError(f"dryrun launches: {dry_launches}")
+
+    # ---- 10. cull statistics: (ray, cluster) entries per ray ----
+    cull = {}
+    for su in (rtow, default, cornell, cml, terrain, terrain_big, smooth,
+               rimage, mirror, marble, smoke, csmoke, bounce, book2,
+               rtow_big, mesh_demo):
+        w, h = 320, 180
+        args = (*su.frame_args(w, h), 7, DEPTH)
+        kw = dict(width=w, height=h, camera_model=su.model, spp=1,
+                  rr_start=RR, with_stats=True, **su.flags)
+        img_k, rays_k, cull_k = render_sample(*args, with_cull_stats=True,
+                                              **kw)
+        img_n, _ = render_sample(*args, **kw)
+        img_p, rays_p, cull_p = render_sample_plain(
+            *args, with_cull_stats=True, **kw)
+        off = int(((img_k - img_p).abs().amax(2) > 1e-3).sum())
+        rays_k, cull_k, cull_p = int(rays_k), int(cull_k), int(cull_p)
+        cull[su.name] = {
+            "entries_per_ray": cull_k / rays_k,
+            "clusters": int(su.tb.n_super) * su.tb.super_,
+            "rays": rays_k, "entries_kernel": cull_k, "entries_plain": cull_p,
+            "pixels_differing": off, "image_unchanged": bool(
+                torch.equal(img_k, img_n))}
+        # the counts agree exactly where the pixels do
+        if (not cull[su.name]["image_unchanged"]
+                or off > MEGA_DIFF_SHARE * w * h
+                or (off == 0 and (cull_k != cull_p or rays_k != int(rays_p)))
+                or abs(cull_k / cull_p - 1) > MEGA_RAYS_RTOL):
+            raise AssertionError(f"cull statistics on {su.name}: "
+                                 f"{cull[su.name]}")
+    cull_ms = {}
+    for su in (book2, terrain_big):
+        args = (*su.frame_args(W_MAIN, H_MAIN), 7, DEPTH)
+        kw = dict(width=W_MAIN, height=H_MAIN, camera_model=su.model,
+                  spp=SPP_MAIN, rr_start=RR, **su.flags)
+        cull_ms[su.name] = {
+            "ms": cuda_ms(lambda: render_sample(*args, **kw), 10),
+            "ms_with_cull_stats": cuda_ms(lambda: render_sample(
+                *args, with_cull_stats=True, **kw), 10)}
+    emit({"phase": "cull_stats", "size": [320, 180], "spp": 1,
+          "depth": DEPTH, "by_scene": cull, "timing_1280x720_4spp": cull_ms})
+
+    # ---- 11. the staging probe (the port of tools/stream_probe.py) ----
+    probe = {}
+    probe_fns = (sp.stream_probe, sp.stream_probe_plain)
+    for rows, tile_len in ((1, 512), (4, 448), (16, 112)):
+        for table, nbytes in (("terrain_big", terrain_big.table_bytes),
+                              ("book2_final", book2.table_bytes)):
+            hi = max(16, round(nbytes / (4 * rows * tile_len)))
+            lo = max(2, hi // 8)
+            res, launches = launches_of(
+                lambda: probe_script.run(tile_len, lo, hi, rows, "cuda"),
+                probe_fns)
+            # every variant against its plain version on the hi table
+            tab = sp.probe_table(hi, tile_len, rows, dev)
+            for v in sp.variants_for(rows):
+                k = sp.stream_probe(tab, v)
+                p_, plain_ms = host_ms(
+                    lambda: sp.stream_probe_plain(tab, v, k.numel()))
+                res[v].update(plain_ms=plain_ms, max_abs_err=int(
+                    (k.long() - p_.long()).abs().max()))
+            key = f"{rows}x{tile_len}/{table}"
+            probe[key] = {"lo": lo, "hi": hi, "table_bytes": 4 * hi * rows *
+                          tile_len, "reads": 32 * hi, "launches": launches,
+                          **res, **bound(4 * hi * rows * tile_len, 0)}
+            emit({"phase": "stream_probe", "shape": key, **probe[key],
+                  "nvidia_smi": smi})
+            if launches["stream_probe_plain"] or not launches["stream_probe"] \
+                    or any(res[v]["max_abs_err"]
+                           for v in sp.variants_for(rows)):
+                raise AssertionError(f"stream probe {key}: {probe[key]}")
+
+    def probe_line(name, rows, variant, replaces):
+        """The probe's 1-D (rows 1) or 2-D kernels: launches over their
+        runs, timed (``variant`` at --hi) in tiles of ``rows`` rows at
+        the terrain_big table size."""
+        runs = {k: v for k, v in probe.items()
+                if (v["rows"] == 1) == (rows == 1)}
+        key = next(k for k in runs
+                   if k == f"{rows}x{runs[k]['tile_len']}/terrain_big")
+        t = runs[key]
+        return {"name": name, "route": "cuda",
+                "source": "cudaraytracer_tpu_torch/csrc/stream_probe.cu",
+                "replaces": replaces,
+                "launches": sum(v["launches"]["stream_probe"]
+                                for v in runs.values()),
+                "max_abs_err": max(v[x]["max_abs_err"] for v in runs.values()
+                                   for x in sp.variants_for(v["rows"])),
+                "tolerance": "every CTA's int32 sum equal to expected and to "
+                             "the plain version's",
+                "ms": t[variant]["ms_hi"], "plain_ms": t[variant]["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": None,
+                "timed": f"{variant} {key}: {t['hi']} tiles",
+                "by_shape": runs}
+
     # the main path: render --scene book2_final --nee --qmc --adaptive
     # --denoise --aov
     launches = by_path[main_tag]
@@ -741,15 +982,27 @@ def main():
                       "NEE on cornell, cornell_mesh_light and smoke at "
                       "640x360; QMC on default and NEE+QMC on book2_final, "
                       "unmasked and with half its tiles masked, at "
-                      "1280x720",
+                      "1280x720; rtow_big and mesh_demo at 1280x720; NEE "
+                      "on mesh_smooth, a smooth OBJ, terrain, terrain_big "
+                      "and bounce at 640x360; a band of 180 rows of "
+                      "book2_final --nee --qmc and rtow_final at 1280x720; "
+                      "cull statistics equal (with equal pixels) at "
+                      "320x180 on 16 scenes; bands and sharded frames "
+                      "bit-identical to their launches",
          "ms": mk["ms"], "plain_ms": mk["plain_ms"],
          "bound_ms": mk["bound_ms"], "bound_by": mk["bound_by"],
          "library_ms": None,
          "timed": f"book2_final --nee --qmc {W_MAIN}x{H_MAIN} "
                   f"{SPP_MAIN} spp",
-         "launches_by_path": {k: v["render_sample"]
-                              for k, v in by_path.items()},
-         "by_scene": {k: v for k, v in timing.items()}},
+         "launches_by_path": {
+             **{k: v["render_sample"] for k, v in by_path.items()},
+             **{f"sharded_{name}_{k}": v["launches"]["render_sample"]
+                for name, b in bands.items()
+                for k, v in b["sharded"].items()},
+             "dryrun_multichip": dry_launches["render_sample"]},
+         "by_scene": {k: v for k, v in timing.items()},
+         "cull_entries_per_ray": {k: v["entries_per_ray"]
+                                  for k, v in cull.items()}},
         {"name": "closest_hit", "route": "cuda",
          "source": "cudaraytracer_tpu_torch/csrc/hit_kernel.cu",
          "replaces": "cudaraytracer_tpu/ops/pallas/hit_kernel.py:37",
@@ -778,6 +1031,11 @@ def main():
          "launches_by_path": {k: v["gbuffer"] for k, v in by_path.items()},
          "by_scene": {"rtow_final": gb_rtow, "default": gb_default,
                       **gb_new}},
+        *(probe_line(name, rows_, variant, replaces)
+          for name, rows_, variant, replaces in (
+              ("stream_probe", 1, "stream", "tools/stream_probe.py:57"),
+              ("stream_probe_2d", 4, "stream2d",
+               "tools/stream_probe.py:119"))),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

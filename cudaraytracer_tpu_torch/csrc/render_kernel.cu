@@ -6,8 +6,8 @@
 // Replaces cudaraytracer_tpu/ops/pallas/render_kernel.py::_render_kernel
 // (:1406, launched by pallas_render_sample :2517) for the flags
 // has_rects/has_tris/has_vattrs/has_images and, in kFeat (search.cuh F_*),
-// has_noise/has_media/has_boxm/has_rotm/has_motion/has_nee, with has_qmc
-// and the tile mask (not bands or cull statistics):
+// has_noise/has_media/has_boxm/has_rotm/has_motion/has_nee, with has_qmc,
+// the tile mask, the y0/band_h row band and with_cull_stats:
 // raygen (look_at thin lens and two_plane, :1491-1539), in-kernel path
 // regeneration until spp samples are done (:1594-1639), the closest-hit
 // search (search.cuh; it carries the winner's barycentrics when
@@ -26,7 +26,15 @@
 // qmc.cuh for the global index sample_base + samples done (:1485-1489,
 // :1597-1607; the lens draws stay random); a pixel of a tile whose mask
 // entry is 0 traces nothing and writes zero radiance and no rays
-// (:1551-1560).  With motion
+// (:1551-1560).  A launch renders the image rows y0 .. y0 + band_h - 1
+// (:1465, :1478-1480): the pixel key, the camera ray and the QMC rotation
+// use the global row, so a band equals those rows of a whole-image launch
+// with the same key; the mask is indexed over the band's own tile grid,
+// as the TPU kernel's (:2646).  The cull statistic counts the (ray,
+// cluster) entries: clusters whose box test passed for a ray, so that
+// their primitive loop ran (the TPU kernel counted per tile wave,
+// :1173-1175); each thread keeps its count in a register and it is
+// summed and stored only when asked for (Opts.cull).  With motion
 // each path draws its shutter time once, at regeneration (:1624-1625),
 // and keeps it in a register for all its bounces; with media each
 // iteration draws one medium uniform (:1647-1650) that the search
@@ -37,8 +45,8 @@
 // kernel deferred two records per lane to an XLA epilogue and shaded
 // later hits with the atlas mean, so every lane completes exactly spp
 // samples and there is no per-pixel count plane.
-// Output: the radiance SUM over the spp samples, f32[height, width, 3],
-// and the number of rays traced.
+// Output: the radiance SUM over the spp samples, f32[band_h, width, 3],
+// the number of rays traced and, when asked for, the cluster entries.
 //
 // What bounds it on the card: instruction issue and divergence.  The
 // tables are a few tens of kilobytes, read at warp-uniform addresses and
@@ -58,7 +66,8 @@
 // The instantiations built are the flag combinations of the registered
 // scenes, listed once in variants.cuh (crt_render_sample expands it).
 // Random numbers come from rng.cuh with a fixed slot per draw.  The ray
-// count is summed per block and added with one 64-bit atomic per block.
+// count (and the cluster entries) are summed per block and added with one
+// 64-bit atomic per block.
 //
 // Build with -fmad=false and without --use_fast_math: every float
 // operation is then rounded on its own, in the order written here, which
@@ -98,21 +107,25 @@ struct Params {
 // the instantiations that never read it).
 struct Opts {
   const float* lights;  // f32[114] NEE light table (read with F_NEE)
-  const int* mask;      // i32[tiles_y * tiles_x] tile mask, or null
+  const int* mask;      // i32[tiles_y * tiles_x] band tile mask, or null
+  unsigned long long* cull;  // the cluster entries' sum, or null
   int tile_h, tile_w, tiles_x;
   int qmc;          // R2 pixel jitter at regeneration
   int sample_base;  // global sample index of the launch's first sample
   float nee_p;      // the mixture's weight toward the lights
+  int y0, band_h;   // the band: image rows y0 .. y0 + band_h - 1
 };
 
 using crt::rsqrt_;
 
-// Trace all spp samples of pixel (x, y); returns the rays traced.
+// Trace all spp samples of pixel (x, y); returns the rays traced and
+// stores the (ray, cluster) entries of its search in `entered`.
 template <bool kRects, bool kTris, bool kVattrs, bool kImages, int kFeat>
 __device__ unsigned long long trace_pixel(const Params& p,
                                           const crt::Atlas& atlas,
                                           const Opts& o, int x, int y,
-                                          float* __restrict__ out) {
+                                          float* __restrict__ out,
+                                          unsigned& entered) {
   // the winner's barycentrics feed the smooth normal and a triangle's uv
   constexpr bool kUV = kVattrs || (kTris && kImages);
   constexpr int vn_base = crt::vn_base_for(kImages);
@@ -139,6 +152,7 @@ __device__ unsigned long long trace_pixel(const Params& p,
   bool alive = false;
   int done = 0, depth = 0;
   unsigned long long nrays = 0;
+  unsigned n_entered = 0;  // (ray, cluster) entries, kept in a register
   const int n_iter = p.spp * p.max_depth;
   // the pixel's QMC rotation, once per pixel
   float qrx = 0.f, qry = 0.f;
@@ -179,7 +193,7 @@ __device__ unsigned long long trace_pixel(const Params& p,
     float u_med = 0.0f;
     if constexpr (kMedia) u_med = crt::u01(pk, uit, crt::SLOT_MED);
     const int j = crt::closest_hit<kRects, kTris, kUV, kSurf>(
-        p.tb, ray, t_min, best_t, bc, u_med, time);
+        p.tb, ray, t_min, best_t, bc, u_med, time, &n_entered);
 
     bool cont = false;
     if (j < 0) {
@@ -346,7 +360,53 @@ __device__ unsigned long long trace_pixel(const Params& p,
   out[0] = rx;
   out[1] = ry;
   out[2] = rz;
+  entered = n_entered;
   return nrays;
+}
+
+// Add the block's sum of v to *dst: one 64-bit atomic per block.  Every
+// thread of the block calls it.
+__device__ __forceinline__ void block_add(unsigned long long v,
+                                          unsigned long long* dst) {
+  for (int off = 16; off > 0; off >>= 1) {
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  }
+  __shared__ unsigned long long warp_sums[kThreads / 32];
+  const int tid = threadIdx.y * kBlockX + threadIdx.x;
+  if ((tid & 31) == 0) warp_sums[tid >> 5] = v;
+  __syncthreads();
+  if (tid == 0) {
+    unsigned long long total = 0;
+    for (int w = 0; w < kThreads / 32; ++w) total += warp_sums[w];
+    atomicAdd(dst, total);
+  }
+  __syncthreads();  // warp_sums is reused by the next call
+}
+
+// The launch's pixels: the body of both kernel entries below.
+template <bool kRects, bool kTris, bool kVattrs, bool kImages, int kFeat>
+__device__ __forceinline__ void render_pixels(
+    const Params& p, float* __restrict__ out,
+    unsigned long long* __restrict__ nrays_out, const crt::Atlas& atlas,
+    const Opts& o) {
+  const int x = blockIdx.x * kBlockX + threadIdx.x;
+  const int yb = blockIdx.y * kBlockY + threadIdx.y;  // row in the band
+  unsigned long long rays = 0;
+  unsigned entered = 0;
+  if (x < p.width && yb < o.band_h) {
+    float* px_out = out + 3 * (static_cast<size_t>(yb) * p.width + x);
+    if (o.mask == nullptr ||
+        __ldg(o.mask + (yb / o.tile_h) * o.tiles_x + x / o.tile_w) != 0) {
+      rays = trace_pixel<kRects, kTris, kVattrs, kImages, kFeat>(
+          p, atlas, o, x, o.y0 + yb, px_out, entered);
+    } else {  // a converged tile: nothing traced
+      px_out[0] = 0.0f;
+      px_out[1] = 0.0f;
+      px_out[2] = 0.0f;
+    }
+  }
+  block_add(rays, nrays_out);
+  if (o.cull != nullptr) block_add(entered, o.cull);
 }
 
 template <bool kRects, bool kTris, bool kVattrs, bool kImages, int kFeat>
@@ -354,34 +414,24 @@ __global__ void __launch_bounds__(kThreads)
 render_kernel(Params p, float* __restrict__ out,
               unsigned long long* __restrict__ nrays_out, crt::Atlas atlas,
               Opts o) {
-  const int x = blockIdx.x * kBlockX + threadIdx.x;
-  const int y = blockIdx.y * kBlockY + threadIdx.y;
-  unsigned long long rays = 0;
-  if (x < p.width && y < p.height) {
-    float* px_out = out + 3 * (static_cast<size_t>(y) * p.width + x);
-    if (o.mask == nullptr ||
-        __ldg(o.mask + (y / o.tile_h) * o.tiles_x + x / o.tile_w) != 0) {
-      rays = trace_pixel<kRects, kTris, kVattrs, kImages, kFeat>(
-          p, atlas, o, x, y, px_out);
-    } else {  // a converged tile: nothing traced
-      px_out[0] = 0.0f;
-      px_out[1] = 0.0f;
-      px_out[2] = 0.0f;
-    }
-  }
-  // block sum of the ray counts, one 64-bit atomic per block
-  for (int off = 16; off > 0; off >>= 1) {
-    rays += __shfl_down_sync(0xffffffffu, rays, off);
-  }
-  __shared__ unsigned long long warp_sums[kThreads / 32];
-  const int tid = threadIdx.y * kBlockX + threadIdx.x;
-  if ((tid & 31) == 0) warp_sums[tid >> 5] = rays;
-  __syncthreads();
-  if (tid == 0) {
-    unsigned long long total = 0;
-    for (int w = 0; w < kThreads / 32; ++w) total += warp_sums[w];
-    atomicAdd(nrays_out, total);
-  }
+  render_pixels<kRects, kTris, kVattrs, kImages, kFeat>(p, out, nrays_out,
+                                                        atlas, o);
+}
+
+// The media instantiations without triangles, with room left for five
+// blocks of kThreads per SM (96 registers).  Left free, the allocator
+// gave cornell_smoke's 112 registers and no spills, one block fewer per
+// SM, which ran 10.7% slower than 96 registers with 74 bytes of spills;
+// the same bound on the other instantiations raised marble's and
+// bounce's 72 registers to 86-90 and slowed them 11% (NVIDIA H100,
+// PERF.md).
+template <bool kRects, bool kTris, bool kVattrs, bool kImages, int kFeat>
+__global__ void __launch_bounds__(kThreads, 5)
+render_kernel_media(Params p, float* __restrict__ out,
+                    unsigned long long* __restrict__ nrays_out,
+                    crt::Atlas atlas, Opts o) {
+  render_pixels<kRects, kTris, kVattrs, kImages, kFeat>(p, out, nrays_out,
+                                                        atlas, o);
 }
 
 // Launch instantiation <R, T, V, I, F> if it is the one asked for.
@@ -395,15 +445,21 @@ bool launch_if(const int (&want)[5], const Params& p, const crt::Atlas& atlas,
   }
   const dim3 block(kBlockX, kBlockY);
   const dim3 grid((p.width + kBlockX - 1) / kBlockX,
-                  (p.height + kBlockY - 1) / kBlockY);
-  render_kernel<R, T, V, I, F><<<grid, block, 0, st>>>(p, out, nrays, atlas,
-                                                      o);
+                  (o.band_h + kBlockY - 1) / kBlockY);
+  if constexpr (!T && (F & crt::F_MEDIA) != 0) {
+    render_kernel_media<R, T, V, I, F><<<grid, block, 0, st>>>(
+        p, out, nrays, atlas, o);
+  } else {
+    render_kernel<R, T, V, I, F><<<grid, block, 0, st>>>(p, out, nrays,
+                                                        atlas, o);
+  }
   return true;
 }
 
 }  // namespace
 
-// Plain C entry for ctypes.  ``nrays`` must be zeroed by the caller.
+// Plain C entry for ctypes.  ``nrays`` (and ``cull``) must be zeroed by
+// the caller.
 // (has_rects, has_tris, has_vattrs, has_images, features) name one
 // instantiation of variants.cuh exactly (ops/cuda/render_kernel.py::
 // render_variant picks it for a scene from the same list); any other
@@ -412,8 +468,11 @@ bool launch_if(const int (&want)[5], const Params& p, const crt::Atlas& atlas,
 // i32[slots, 2]) are read only with has_images, ``lights`` (f32[114]) and
 // ``nee_p`` only with the NEE feature bit, ``sample_base`` only with
 // ``qmc``; ``mask`` (i32[tiles_y * tiles_x], tiles of tile_h x tile_w
-// pixels, row-major) may be null.  Returns cudaGetLastError() after the
-// launch.
+// pixels over the band's rows, row-major) may be null.  The launch renders
+// the rows y0 .. y0 + band_h - 1 of the height-row image into ``out``
+// (f32[band_h, width, 3]); ``cull`` (u64[1]), when not null, gets the
+// launch's (ray, cluster) entries added.  Returns cudaGetLastError()
+// after the launch.
 extern "C" int crt_render_sample(const float* S, const float* P,
                                  const float* clusters, const float* supers,
                                  int np, int nc, int nsc, int n_super,
@@ -428,9 +487,10 @@ extern "C" int crt_render_sample(const float* S, const float* P,
                                  int aw, const float* lights, float nee_p,
                                  int qmc, int sample_base, const int* mask,
                                  int tile_h, int tile_w, int tiles_x,
-                                 float* out,
+                                 int y0, int band_h,
+                                 unsigned long long* cull, float* out,
                                  unsigned long long* nrays, void* stream) {
-  if (width <= 0 || height <= 0) return 0;
+  if (width <= 0 || band_h <= 0) return 0;
   Params p;
   p.tb = crt::SearchTables{S, clusters, supers, np, nc, nsc,
                            n_super, cluster, super_};
@@ -449,7 +509,8 @@ extern "C" int crt_render_sample(const float* S, const float* P,
   // Params changes the code (registers, spills) of the instantiations
   // that never read it
   const crt::Atlas at{atlas, tex_hw, slots, ah, aw};
-  const Opts o{lights, mask, tile_h, tile_w, tiles_x, qmc, sample_base, nee_p};
+  const Opts o{lights, mask, cull, tile_h, tile_w, tiles_x, qmc,
+               sample_base, nee_p, y0, band_h};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int want[5] = {has_rects != 0, has_tris != 0, has_vattrs != 0,
                        has_images != 0, features};

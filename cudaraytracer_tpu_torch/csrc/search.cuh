@@ -313,13 +313,16 @@ __device__ __forceinline__ void dual_test(const float* __restrict__ S, int np,
 // Closest hit in (t_min, best_t); updates best_t (and with kUV the
 // winner's barycentrics bc), returns the column or -1.  u_med is the
 // iteration's medium uniform (F_MEDIA), time the path's shutter time
-// (F_MOTION); neither is read without its flag.
+// (F_MOTION); neither is read without its flag.  `entered`, when given,
+// gets one added per cluster whose box the ray enters (the megakernel's
+// cull statistic; a local of the inlined caller, so a register).
 template <bool kRects, bool kTris, bool kUV, int kFeat = 0>
 __device__ __forceinline__ int closest_hit(const SearchTables& tb,
                                            const Ray& r, float t_min,
                                            float& best_t, Bary& bc,
                                            float u_med = 0.0f,
-                                           float time = 0.0f) {
+                                           float time = 0.0f,
+                                           unsigned* entered = nullptr) {
   constexpr bool kMotion = (kFeat & F_MOTION) != 0;
   constexpr bool kMedTest = (kFeat & F_MEDIA) != 0;
   constexpr bool kMedia = kMedTest || (kFeat & F_SKIP_MEDIA) != 0;
@@ -331,6 +334,7 @@ __device__ __forceinline__ int closest_hit(const SearchTables& tb,
     const int c_end = (si + 1) * tb.super_;
     for (int ci = si * tb.super_; ci < c_end; ++ci) {
       if (!box_hit(tb.clusters, tb.nc, ci, r, t_min, best_t)) continue;
+      if (entered != nullptr) ++*entered;
       const int j0 = ci * tb.cluster;
       const int j_end = j0 + tb.cluster;
       if constexpr (!(kRects || kTris || kMedia)) {

@@ -12,9 +12,10 @@
 // +rects+tris, +vattrs, each with and without images), then marble (N),
 // bounce (V), smoke (NMB), cornell_smoke (NMBR), the all-feature probe
 // (NMBRV) and book2_final (NMBV, with triangles and images); then with
-// NEE (E) the scenes that have lights: default and cornell (rects),
-// mirror_room (rects, images), cornell_mesh_light (triangles), smoke,
-// cornell_smoke, the probe and book2_final.
+// NEE (E): default and cornell (rects), mirror_room (rects, images),
+// cornell_mesh_light (triangles), smoke, cornell_smoke, the probe,
+// book2_final, mesh_smooth and smooth OBJ models (vattrs), terrain and
+// terrain_big (vattrs, images) and bounce (V).
 #define CRT_RENDER_VARIANTS(X) \
   X(0, 0, 0, 0, 0)             \
   X(0, 0, 0, 1, 0)             \
@@ -36,7 +37,10 @@
   X(1, 0, 0, 0, 39)            \
   X(1, 0, 0, 0, 47)            \
   X(1, 0, 0, 0, 63)            \
-  X(1, 1, 0, 1, 55)
+  X(1, 1, 0, 1, 55)            \
+  X(1, 1, 1, 0, 32)            \
+  X(1, 1, 1, 1, 32)            \
+  X(0, 0, 0, 0, 48)
 
 // The G-buffer: the same eight, then marble (N), the rect scenes with
 // media (smoke, cornell_smoke, the probe: NM) and book2_final (NM).  Only

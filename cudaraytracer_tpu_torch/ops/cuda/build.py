@@ -31,8 +31,9 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "cudaraytracer_tpu_torch"
 SOURCES = ("rng.cuh", "search.cuh", "surface.cuh", "nee.cuh", "qmc.cuh",
            "variants.cuh", "hit_kernel.cu", "render_kernel.cu",
-           "gbuffer_kernel.cu")
-CU_FILES = ("hit_kernel.cu", "render_kernel.cu", "gbuffer_kernel.cu")
+           "gbuffer_kernel.cu", "stream_probe.cu")
+CU_FILES = ("hit_kernel.cu", "render_kernel.cu", "gbuffer_kernel.cu",
+            "stream_probe.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC",
@@ -50,10 +51,12 @@ SIGNATURES = {
     "crt_render_sample": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p,
                           ctypes.c_uint32, _i, _i, _i, _i, _i, _i, _f, _f,
                           _i, _i, _i, _i, _i, _p, _p, _i, _i, _i,
-                          _p, _f, _i, _i, _p, _i, _i, _i, _p, _p, _p],
+                          _p, _f, _i, _i, _p, _i, _i, _i, _i, _i, _p,
+                          _p, _p, _p],
     "crt_gbuffer": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p, _i, _i, _i,
                     _f, _f, _i, _i, _i, _i, _i, _p, _p, _i, _i, _i, _p, _p,
                     _p, _p],
+    "crt_stream_probe": [_p, _i, _i, _i, _i, _i, _p, _p],
 }
 
 

@@ -312,7 +312,9 @@ def search_work(S, clusters, supers, n_super, org, dirn, t_min: float = 1e-3,
                 has_boxm: bool = False, has_rotm: bool = False,
                 cluster: int = CLUSTER, super_: int = SUPER) -> dict:
     """Count the tests the kernel's culled search needs for rays (org,
-    dirn): {"box": supercluster and cluster box tests, "sphere"/"rect"/
+    dirn): {"entered": the (ray, cluster) entries, clusters whose box a
+    ray entered (the megakernel's cull statistic), "box": supercluster
+    and cluster box tests, "sphere"/"rect"/
     "tri"/"med": primitive tests, "med_box"/"med_rot": tests of box media
     (the box chord) and of yawed box media (the rotation), "motion":
     tests of moving spheres (the centre at the path's time)}.  It replays
@@ -342,7 +344,7 @@ def search_work(S, clusters, supers, n_super, org, dirn, t_min: float = 1e-3,
     n_sph, n_rect, n_tri, n_med, n_box, n_mov = (per_cluster(m) for m in (
         sph, (ptype > 0.5) & (ptype < 3.5), (ptype > 3.5) & (ptype < 4.5),
         med, med & (S[S_HA] > 0.0), moving))
-    work = {"box": 0, "sphere": 0, "rect": 0, "tri": 0}
+    work = {"entered": 0, "box": 0, "sphere": 0, "rect": 0, "tri": 0}
     if has_media and u_med is not None:
         work.update(med=0, med_box=0, med_rot=0)
     if time is not None:
@@ -362,6 +364,7 @@ def search_work(S, clusters, supers, n_super, org, dirn, t_min: float = 1e-3,
             m = r.numel()
             if m == 0:
                 continue
+            work["entered"] += m
             cols = slice(ci * cluster, (ci + 1) * cluster)
             kind = kinds[ci]
             if has_media and kind > 3.5:
@@ -393,7 +396,7 @@ def search_work(S, clusters, supers, n_super, org, dirn, t_min: float = 1e-3,
 
 def search_ops(work: dict) -> int:
     """Float operations of the tests counted by ``search_work``."""
-    return sum(OPS[k] * v for k, v in work.items())
+    return sum(OPS[k] * v for k, v in work.items() if k in OPS)
 
 
 def closest_hit_plain(S, clusters, supers, n_super, n_alive, org, dirn,

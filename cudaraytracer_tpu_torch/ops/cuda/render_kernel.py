@@ -8,12 +8,24 @@ pallas_render_sample`` for the resident tables with the scene flags
 spheres) and the render options ``has_nee`` (next-event estimation at
 lambertian hits over the light table ``lights``, ``ops/sampling.py``),
 ``has_qmc`` (R2 pixel jitter from the global sample index
-``sample_base`` + samples done, ``ops/qmc.py``) and ``tile_mask``
-(adaptive sampling: a pixel of a tile whose entry is 0 traces nothing);
-bands and cull statistics are not ported.  ``render_sample`` keeps the
-JAX calling convention and
-returns the radiance SUM over ``spp`` samples, f32[height, width, 3]
-(plus the int64 ray count with ``with_stats``).  Image textures follow
+``sample_base`` + samples done, ``ops/qmc.py``), ``tile_mask``
+(adaptive sampling: a pixel of a tile whose entry is 0 traces nothing),
+the row band ``y0``/``band_h`` and ``with_cull_stats``.
+``render_sample`` keeps the JAX calling convention and returns the
+radiance SUM over ``spp`` samples of the band's rows, f32[band_h, width,
+3] (plus the int64 ray count with ``with_stats``, then the cluster
+entries with ``with_cull_stats``).  A band's pixels use their image row
+in the pixel key, the camera ray and the QMC rotation, so a band equals
+those rows of a whole-image launch with the same seed and stream, bit
+for bit; its mask covers the band's own tile grid, as JAX's does.
+
+The cull statistic differs in definition from JAX's: the TPU kernel
+counts, per tile wave, the clusters whose primitive loop ran for any
+lane of the tile; the CUDA kernel culls per ray, so it counts the (ray,
+cluster) entries, the clusters whose box each traced ray entered, summed
+over the launch.  The plain version replays the culled search per
+iteration (``hit_kernel.search_work``'s "entered") and gives the same
+count wherever the rays are the same.  Image textures follow
 the XLA renderer: the texel is sampled at every image hit, so every
 pixel gets exactly ``spp`` samples and there is no per-pixel count plane
 (the JAX kernel's ``(img, counts)`` return with an atlas); a medium hit
@@ -199,10 +211,16 @@ def mask_grid(width: int, height: int, tile) -> tuple:
 def _check(S, P, clusters, supers, n_super, cam_vec, max_depth, width,
            height, camera_model, spp, rr_start, cluster, super_, atlas,
            tex_hw, has_vattrs, has_tris, has_motion, has_nee, lights,
-           sample_base, tile_mask, tile):
+           sample_base, tile_mask, tile, y0, band_h):
     check_frame_args(S, P, clusters, supers, n_super, cam_vec, width, height,
                      camera_model, cluster, super_, atlas, tex_hw,
                      has_vattrs, has_tris, has_motion, has_nee, lights)
+    # the band: band_h None means the rows from y0 to the image's end
+    y0 = int(y0)
+    band_h = height - y0 if band_h is None else int(band_h)
+    if y0 < 0 or band_h <= 0 or y0 + band_h > height:
+        raise ValueError(f"band of {band_h} rows at y0={y0} is not inside "
+                         f"the {height}-row image")
     if spp < 0 or max_depth < 0 or rr_start < 0:
         raise ValueError("spp, max_depth and rr_start must be >= 0")
     if spp * max_depth >= 1 << (32 - rng.SLOT_BITS):
@@ -217,7 +235,7 @@ def _check(S, P, clusters, supers, n_super, cam_vec, max_depth, width,
         th, tw = (int(v) for v in tile)
         if th <= 0 or tw <= 0:
             raise ValueError(f"bad mask tile {tile}")
-        gi, gj = mask_grid(width, height, tile)
+        gi, gj = mask_grid(width, band_h, tile)
         if not isinstance(tile_mask, torch.Tensor) \
                 or tile_mask.dtype != torch.int32 \
                 or tuple(tile_mask.shape) != (gi * gj,) \
@@ -226,7 +244,8 @@ def _check(S, P, clusters, supers, n_super, cam_vec, max_depth, width,
             raise ValueError(
                 f"tile_mask must be a contiguous i32[{gi * gj}] on "
                 f"{S.device}: the ({gi}, {gj}) grid of {th}x{tw} tiles "
-                f"over {width}x{height}")
+                f"over the {width}x{band_h} band")
+    return y0, band_h
 
 
 def _unpack_rgb(v: torch.Tensor):
@@ -419,35 +438,39 @@ def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
                         has_nee: bool = False, lights=None,
                         nee_p: float = 0.5, has_qmc: bool = False,
                         sample_base: int = 0, tile_mask=None,
-                        tile=None, cluster: int = CLUSTER,
+                        tile=None, y0: int = 0, band_h: int | None = None,
+                        with_cull_stats: bool = False, cluster: int = CLUSTER,
                         super_: int = SUPER, work: dict | None = None):
     """Plain PyTorch version of the megakernel (see the module docstring).
     Same arguments and results as ``render_sample``; runs on any device
-    and takes any combination of the flags.
+    and takes any combination of the flags.  ``with_cull_stats`` replays
+    the culled search per iteration (``hit_kernel.search_work``; slow).
 
     ``work``: a dict to which the run adds what the kernel's work is
     counted from: "raygen", "miss", surface "hit" and "medium" hit lanes,
     "smooth" (triangle hits with vertex normals), "image" hits (one texel
     read each), "noise" hits, "nee" scatters with "nee_slot" = their
-    valid light slots, "qmc" raygens, and the search's tests
-    (``hit_kernel.search_work``, replayed per iteration; slow)."""
+    valid light slots, "qmc" raygens, and the search's tests and cluster
+    entries (``hit_kernel.search_work``, replayed per iteration; slow)."""
     spp, max_depth, rr_start = int(spp), int(max_depth), int(rr_start)
     sample_base = int(sample_base)
-    _check(S, P, clusters, supers, n_super, cam_vec, max_depth, width,
-           height, camera_model, spp, rr_start, cluster, super_, atlas,
-           tex_hw, has_vattrs, has_tris, has_motion, has_nee, lights,
-           sample_base, tile_mask, tile)
+    y0, band_h = _check(S, P, clusters, supers, n_super, cam_vec, max_depth,
+                        width, height, camera_model, spp, rr_start, cluster,
+                        super_, atlas, tex_hw, has_vattrs, has_tris,
+                        has_motion, has_nee, lights, sample_base, tile_mask,
+                        tile, y0, band_h)
     render_sample_plain.launches += 1
     dev = S.device
     f32 = torch.float32
     cam = [float(v) for v in cam_vec.detach().cpu().tolist()]
     t_min = cam[28]
     key = rng.key_for(int(seed), int(stream))
-    n = width * height
+    # the band's pixels; keys, rays and QMC rotations from the image row
+    n = width * band_h
     pix = torch.arange(n, dtype=torch.int64, device=dev)
     xs_all = (pix % width).to(f32)
-    ys_all = (pix // width).to(f32)
-    pk_all = rng.pixel_keys(key, pix)
+    ys_all = (pix // width + y0).to(f32)
+    pk_all = rng.pixel_keys(key, pix + y0 * width)
     flat = has_rects or has_tris
     vn_base = vn_base_for(atlas is not None) if has_vattrs else None
     # the search carries the winner's barycentrics (search.cuh kUV)
@@ -467,7 +490,7 @@ def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
     if tile_mask is not None:
         # a pixel of a masked tile starts with all its samples done
         th, tw = (int(v) for v in tile)
-        gi, gj = mask_grid(width, height, tile)
+        gi, gj = mask_grid(width, band_h, tile)
         act = tile_mask[(pix // width // th) * gj + (pix % width) // tw] != 0
         done = torch.where(act, done, spp).to(torch.int32)
     if has_qmc:
@@ -477,7 +500,7 @@ def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
     depth = torch.zeros(n, dtype=torch.int32, device=dev)
     # the path's shutter time, drawn at regeneration (has_motion)
     shutter = torch.zeros(n, dtype=f32, device=dev)
-    nrays = 0
+    nrays = entered = 0
     p_mparam = P[P_MPARAM]
     p_packa = P[P_PACKA].to(torch.int32)
     p_packb = P[P_PACKB].to(torch.int32)
@@ -531,6 +554,12 @@ def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
             has_tris, with_uv, u_med=u_med, time=time, **med_kw)
         hit = col >= 0
         cont_a = torch.zeros_like(hit)
+        if work is not None or with_cull_stats:
+            sw = search_work(S, clusters, supers, n_super, org, dirn, t_min,
+                             has_rects=has_rects, has_tris=has_tris,
+                             u_med=u_med, time=time, cluster=cluster,
+                             super_=super_, **med_kw)
+            entered += sw["entered"]
         if work is not None:
             pc = p_packc[col[hit]]
             n_med = int((((pc >> 4) & 7) == 5).sum())
@@ -550,11 +579,8 @@ def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
                          ("smooth", n_smooth), ("image", n_img),
                          ("noise", n_noise), ("nee", n_nee),
                          ("nee_slot", n_nee * n_lights),
-                         ("qmc", ib.numel() if has_qmc else 0), *search_work(
-                             S, clusters, supers, n_super, org, dirn, t_min,
-                             has_rects=has_rects, has_tris=has_tris,
-                             u_med=u_med, time=time, cluster=cluster,
-                             super_=super_, **med_kw).items()):
+                         ("qmc", ib.numel() if has_qmc else 0),
+                         *sw.items()):
                 work[k] = work.get(k, 0) + v
 
         # ---- sky on a miss ----
@@ -711,10 +737,10 @@ def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
         done[ia] = done[ia] + (~cont_a).to(torch.int32)
         alive[ia] = cont_a
 
-    img = rad.t().reshape(height, width, 3).contiguous()
-    if with_stats:
-        return img, torch.tensor(nrays, dtype=torch.int64, device=dev)
-    return img
+    img = rad.t().reshape(band_h, width, 3).contiguous()
+    stats = [torch.tensor(v, dtype=torch.int64, device=dev) for v, on in (
+        (nrays, with_stats), (entered, with_cull_stats)) if on]
+    return (img, *stats) if stats else img
 
 
 render_sample_plain.launches = 0
@@ -738,11 +764,14 @@ def render_sample(S, P, clusters, supers, n_super, cam_vec, seed, max_depth,
                   has_motion: bool = False, atlas=None, tex_hw=None,
                   has_nee: bool = False, lights=None, nee_p: float = 0.5,
                   has_qmc: bool = False, sample_base: int = 0,
-                  tile_mask=None, tile=None, cluster: int = CLUSTER,
-                  super_: int = SUPER):
-    """``spp`` samples per pixel of the megakernel -> f32[height, width, 3]
-    radiance SUM (divide by spp to display), plus the int64 ray count (a
-    0-d tensor on the device) with ``with_stats``.
+                  tile_mask=None, tile=None, y0: int = 0,
+                  band_h: int | None = None, with_cull_stats: bool = False,
+                  cluster: int = CLUSTER, super_: int = SUPER):
+    """``spp`` samples per pixel of the megakernel -> f32[band_h, width, 3]
+    radiance SUM (divide by spp to display) of the image rows y0 .. y0 +
+    band_h - 1 (the whole image by default), plus the int64 ray count (a
+    0-d tensor on the device) with ``with_stats`` and then the int64
+    (ray, cluster) entries with ``with_cull_stats`` (module docstring).
 
     Arguments follow ``pallas_render_sample``: the packed tables S, P,
     clusters, supers and ``n_super`` (tables.tables_to_torch), the f32[38]
@@ -764,7 +793,10 @@ def render_sample(S, P, clusters, supers, n_super, cam_vec, seed, max_depth,
     of ``tile`` = (rows, columns) pixels (``tables.mask_tile``; required
     with a mask) over the image padded to whole tiles, row-major
     (``mask_grid``): a pixel of a tile whose entry is 0 traces nothing
-    and gets zero radiance, the others render exactly as unmasked.
+    and gets zero radiance, the others render exactly as unmasked.  The
+    band (``y0``, ``band_h``; multi-device row sharding,
+    ``parallel/tiling.py``) lies inside the ``height``-row image, whose
+    camera it is rendered with; a mask then covers the band's rows.
 
     CUDA tensors launch the kernel instantiation ``render_variant`` picks
     (``NotImplementedError`` when none serves the flags); CPU tensors run
@@ -772,10 +804,11 @@ def render_sample(S, P, clusters, supers, n_super, cam_vec, seed, max_depth,
     """
     spp, max_depth, rr_start = int(spp), int(max_depth), int(rr_start)
     sample_base = int(sample_base)
-    _check(S, P, clusters, supers, n_super, cam_vec, max_depth, width,
-           height, camera_model, spp, rr_start, cluster, super_, atlas,
-           tex_hw, has_vattrs, has_tris, has_motion, has_nee, lights,
-           sample_base, tile_mask, tile)
+    y0, band_h = _check(S, P, clusters, supers, n_super, cam_vec, max_depth,
+                        width, height, camera_model, spp, rr_start, cluster,
+                        super_, atlas, tex_hw, has_vattrs, has_tris,
+                        has_motion, has_nee, lights, sample_base, tile_mask,
+                        tile, y0, band_h)
     feat = dict(has_noise=has_noise, has_media=has_media, has_boxm=has_boxm,
                 has_rotm=has_rotm, has_motion=has_motion, has_nee=has_nee)
     if S.device.type == "cpu":
@@ -786,17 +819,19 @@ def render_sample(S, P, clusters, supers, n_super, cam_vec, seed, max_depth,
             has_rects=has_rects, has_tris=has_tris, has_vattrs=has_vattrs,
             atlas=atlas, tex_hw=tex_hw, lights=lights, nee_p=nee_p,
             has_qmc=has_qmc, sample_base=sample_base, tile_mask=tile_mask,
-            tile=tile, cluster=cluster, super_=super_, **feat)
+            tile=tile, y0=y0, band_h=band_h, with_cull_stats=with_cull_stats,
+            cluster=cluster, super_=super_, **feat)
     if S.device.type != "cuda":
         raise ValueError(f"render_sample runs on cuda or cpu, not {S.device}")
     variant = render_variant(has_rects, has_tris, has_vattrs,
                              atlas is not None, **feat)
     # the mask's tile shape and tile columns (unread without a mask)
     mask_geom = (0, 0, 0) if tile_mask is None else (
-        int(tile[0]), int(tile[1]), mask_grid(width, height, tile)[1])
-    out = torch.empty((height, width, 3), dtype=torch.float32,
+        int(tile[0]), int(tile[1]), mask_grid(width, band_h, tile)[1])
+    out = torch.empty((band_h, width, 3), dtype=torch.float32,
                       device=S.device)
-    nrays = torch.zeros(1, dtype=torch.int64, device=S.device)
+    # the ray count and the cluster entries
+    counts = torch.zeros(2, dtype=torch.int64, device=S.device)
     lib = build.load_library()
     with torch.cuda.device(S.device):
         rc = lib.crt_render_sample(
@@ -810,13 +845,13 @@ def render_sample(S, P, clusters, supers, n_super, cam_vec, seed, max_depth,
             None if lights is None else lights.data_ptr(), float(nee_p),
             int(has_qmc), sample_base,
             None if tile_mask is None else tile_mask.data_ptr(), *mask_geom,
-            out.data_ptr(),
-            nrays.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            y0, band_h, counts[1:].data_ptr() if with_cull_stats else None,
+            out.data_ptr(), counts.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     build.check(lib, "crt_render_sample", rc)
     render_sample.launches += 1
-    if with_stats:
-        return out, nrays[0]
-    return out
+    stats = [c for c, on in zip(counts, (with_stats, with_cull_stats)) if on]
+    return (out, *stats) if stats else out
 
 
 render_sample.launches = 0

@@ -1,0 +1,140 @@
+"""Multi-device rendering: image rows in bands, samples in streams.
+
+Port of the megakernel half of ``cudaraytracer_tpu/parallel/tiling.py``:
+``make_mesh`` (:52) and ``render_sharded_pallas`` (:122) as
+``render_sharded_sample``.  A ``Mesh`` is a rows x samples grid of torch
+devices.  Each place renders one band of image rows with one sample
+stream through ``ops/cuda/render_kernel.py::render_sample`` (the
+megakernel on a CUDA device, its plain version on the CPU); the streams
+of a band are summed on the band's first device (JAX's ``psum`` over the
+samples axis) and the bands are stitched on the caller's device.  The
+scene tables and the camera are small and copied to every device.  On
+one card the same device may fill every place: the launches then run one
+after the other on it, as the places of a mesh would run side by side.
+
+The XLA renderer's ``render_sharded``/``ShardedRenderer`` (:67, :235)
+wait for the port of ``models/renderer.py``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..ops.cuda.render_kernel import render_sample
+
+# render_sample's arguments that render_sharded_sample sets per place
+_PER_PLACE = ("y0", "band_h", "stream", "tile_mask", "tile", "with_stats",
+              "with_cull_stats")
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """A rows x samples grid of torch devices (``devices[row][sample]``);
+    the counterpart of JAX's ``Mesh(devices, ("rows", "samples"))``."""
+
+    devices: tuple
+
+    @property
+    def shape(self) -> dict:
+        return {"rows": len(self.devices), "samples": len(self.devices[0])}
+
+
+def make_mesh(n_rows: int | None = None, n_samples: int = 1,
+              devices=None) -> Mesh:
+    """Build a ("rows", "samples") mesh over ``devices`` (torch devices
+    or their names, row-major; default: every CUDA device).  The same
+    device may fill several places.  Raises ``ValueError`` when
+    n_rows x n_samples is not the number of devices."""
+    if devices is None:
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = [torch.device(d) for d in devices]
+    n = len(devices)
+    if n == 0:
+        raise ValueError("no devices for the mesh")
+    if n_rows is None:
+        n_rows = n // n_samples
+    if n_rows * n_samples != n:
+        raise ValueError(f"{n_rows}x{n_samples} mesh != {n} devices")
+    return Mesh(tuple(tuple(devices[r * n_samples:(r + 1) * n_samples])
+                      for r in range(n_rows)))
+
+
+def band_launches(mesh: Mesh, height: int, spp: int,
+                  sample_base: int = 0) -> list:
+    """The launch of each place, row-major: (row, sample, device,
+    render_sample keywords y0, band_h, stream, sample_base).  Under QMC
+    each sample stream draws its own slice of the R2 sequence (base +
+    si * spp); every (band, stream) place has its own generator stream
+    ri * n_samples + si (JAX tiling.py:218, :221)."""
+    n_rows, n_samp = mesh.shape["rows"], mesh.shape["samples"]
+    band_h = height // n_rows
+    return [(ri, si, mesh.devices[ri][si],
+             dict(y0=ri * band_h, band_h=band_h, stream=ri * n_samp + si,
+                  sample_base=sample_base + si * spp))
+            for ri in range(n_rows) for si in range(n_samp)]
+
+
+def render_sharded_sample(tables, n_super, cam_vec, seed, max_depth, *,
+                          width: int, height: int, mesh: Mesh,
+                          tile_h: int = 1, tile_w: int = 1, spp: int = 1,
+                          sample_base: int = 0, **kw) -> torch.Tensor:
+    """One multi-device megakernel frame -> f32[height, width, 3], the
+    radiance SUM over the mesh's sample streams of ``spp`` samples each
+    (divide by spp * n_samples to display), on the device of
+    ``tables[0]``.
+
+    ``tables`` is (S, P, clusters, supers) (``tables.tables_to_torch``);
+    ``kw`` are ``render_sample``'s other keywords (camera model, Russian
+    roulette, the scene's static flags, the atlas, NEE with its light
+    table, QMC, cluster sizes), the same at every place.  Band ``ri`` is
+    the image rows ri * band_h .. (ri + 1) * band_h - 1 with band_h =
+    height / n_rows; the places are ``band_launches``.
+
+    JAX's kernel tiles each band into tile_h x tile_w tiles and needs
+    whole ones, so it raises ``ValueError`` when height is not a multiple
+    of n_rows * tile_h or width of tile_w; so does this function, for
+    the tile it is given.  The CUDA kernel masks its ragged thread
+    blocks, so the default 1 x 1 tile only asks that the rows divide
+    into bands; pass JAX's tile to hold a frame to JAX's alignment.
+    Image textures are sampled in the kernel at every hit, so, unlike
+    JAX's, an image scene's frame is the radiance alone, with no
+    per-pixel sample counts.
+    """
+    bad = sorted(set(kw) & set(_PER_PLACE))
+    if bad:
+        raise TypeError(f"render_sharded_sample sets {bad} per place")
+    n_rows = mesh.shape["rows"]
+    if height % (n_rows * tile_h):
+        raise ValueError(f"height {height} not divisible by rows*tile_h")
+    if width % tile_w:
+        raise ValueError(f"width {width} not divisible by tile_w {tile_w}")
+    home = tables[0].device
+    copies = {}
+
+    def on(dev):
+        """The tables, camera and tensor keywords on ``dev``, once."""
+        if dev not in copies:
+            copies[dev] = (
+                [t.to(dev) for t in (*tables, cam_vec)],
+                {k: v.to(dev) if isinstance(v, torch.Tensor) else v
+                 for k, v in kw.items()})
+        return copies[dev]
+
+    # every launch first (devices run side by side), then the sums
+    outs = {}
+    for ri, si, dev, place in band_launches(mesh, height, spp, sample_base):
+        (S, P, clusters, supers, cam), dkw = on(dev)
+        outs[ri, si] = render_sample(
+            S, P, clusters, supers, n_super, cam, seed, max_depth,
+            width=width, height=height, spp=spp, **place, **dkw)
+    bands = []
+    for ri in range(n_rows):
+        # the samples axis' psum, on the band's first device
+        acc = outs[ri, 0]
+        for si in range(1, mesh.shape["samples"]):
+            acc = acc + outs[ri, si].to(acc.device)
+        bands.append(acc.to(home))
+    return torch.cat(bands, 0)

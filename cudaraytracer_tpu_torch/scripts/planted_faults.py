@@ -11,15 +11,22 @@ sets them up (``tables.kernel_inputs``; megakernel 4 spp, depth 12, rr 2,
 seed 7, on every scene but rtow_final, with the fault's render options:
 NEE, QMC with a sample base, a random half of the 16 x 128 tiles masked;
 G-buffer on every scene; closest hit on 2^20 seeded rays in the Cornell
-room).  "sound" is the unedited copy, checked on every scene, and
-"sound_options" the same with every option on the NEE scenes.  Prints
-one JSON line per
+room; and, for the faults that ask for them, the row bands (book2_final
+with NEE and QMC in 4 bands of 180 rows: stitched against the
+whole-image launch, and the second band against its plain version), the
+sharded frame (2 x 2 places on the card against the sum of its four
+launches with the streams and sample bases written out) and the staging
+probe (every variant's CTA sums against ``expected``).  "sound" is the
+unedited copy, checked on every scene, "sound_options" the same with
+every option on the NEE scenes, and "sound_slice" the bands, the sharded
+frame and the probe.  Prints one JSON line per
 fault: pixels off by more than 1e-3, the relative change of the mean and
 of the ray count, G-buffer masks and pixels off by more than 1e-6,
-closest-hit masks and columns, and "caught": whether chip_smoke.py's
-limits (more than 0.01% of pixels or 1e-4 on mean or rays; any G-buffer
-mask or pixel; any closest-hit mask or column) would fail the copy.
-Needs a GPU and nvcc; the checkout is never edited.
+closest-hit masks and columns, band and sharded pixels off, probe CTAs
+off, and "caught": whether chip_smoke.py's limits (more than 0.01% of
+pixels or 1e-4 on mean or rays; any G-buffer mask or pixel; any
+closest-hit mask or column; any band, sharded or probe mismatch) would
+fail the copy.  Needs a GPU and nvcc; the checkout is never edited.
 """
 
 from __future__ import annotations
@@ -43,12 +50,15 @@ NEE = ("default", "cornell", "mirror_room", "cornell_mesh_light", "smoke",
        "cornell_smoke", "book2_final")
 # render options of the megakernel check
 ALL = {"nee": True, "qmc": True, "sample_base": 4113, "half_mask": True}
+# the slice checks: bands, the sharded frame, the staging probe
+SLICE = {"bands": True, "shard": True, "probe": True}
 
 # name -> ([(file under the package, text, replacement)], scenes[,
 #          render options])
 FAULTS = {
     "sound": ([], FLAT + TEXTURED + FEATURES),
     "sound_options": ([], NEE, ALL),
+    "sound_slice": ([], ("book2_final",), SLICE),
     # a ray through the shared edge of two triangles misses both
     "tri_edge": ([("csrc/search.cuh", "u + v <= 1.0f", "u + v < 1.0f")],
                  FLAT),
@@ -132,10 +142,24 @@ FAULTS = {
     # count of the tile grid as the stride)
     "mask_transposed": ([(
         "csrc/render_kernel.cu",
-        "__ldg(o.mask + (y / o.tile_h) * o.tiles_x + x / o.tile_w) != 0",
-        "__ldg(o.mask + (x / o.tile_w) * ((p.height + o.tile_h - 1) / "
-        "o.tile_h) + y / o.tile_h) != 0")], ("book2_final",),
+        "__ldg(o.mask + (yb / o.tile_h) * o.tiles_x + x / o.tile_w) != 0",
+        "__ldg(o.mask + (x / o.tile_w) * ((o.band_h + o.tile_h - 1) / "
+        "o.tile_h) + yb / o.tile_h) != 0")], ("book2_final",),
         {"half_mask": True}),
+    # the pixel key from the band's row, not the image's
+    "band_key_without_y0": ([(
+        "csrc/render_kernel.cu",
+        "crt::pixel_key(p.key, static_cast<uint32_t>(y) *",
+        "crt::pixel_key(p.key, static_cast<uint32_t>(y - o.y0) *")],
+        ("book2_final",), {"bands": True}),
+    # two sample streams of a band drawing the same generator stream
+    "stream_shared": ([(
+        "parallel/tiling.py", "stream=ri * n_samp + si,",
+        "stream=ri * n_samp,")], ("book2_final",), {"shard": True}),
+    # streamrows' wait expecting the first row's bytes only
+    "streamrows_first_row_only": ([(
+        "csrc/stream_probe.cu", "mbar_expect_tx(&bar, rows * row_bytes);",
+        "mbar_expect_tx(&bar, row_bytes);")], (), {"probe": True}),
 }
 
 CHECK = r'''
@@ -155,6 +179,7 @@ if opts.get("half_mask"):
     m = np.random.RandomState(5).permutation(gi * gj) < gi * gj // 2
     mk.update(tile_mask=torch.from_numpy(m.astype(np.int32)).to(dev),
               tile=(16, 128))
+slice_only = any(opts.get(k) for k in ("bands", "shard", "probe"))
 for name in json.loads(sys.argv[1]):
     sc, cam = scenes.SCENES[name][0](), scenes.SCENES[name][1]()
     model = scenes.camera_model_for(name)
@@ -164,6 +189,31 @@ for name in json.loads(sys.argv[1]):
     cv = torch.from_numpy(pack_camera_np(cam, sc.background_start,
                                          sc.background_end, W, H, 1e-3)).to(dev)
     a = (tb.S, tb.P, tb.clusters, tb.supers, tb.n_super, cv)
+    if slice_only:
+        kw = dict(width=W, height=H, camera_model=model, spp=4, rr_start=2,
+                  **fl, **nee_inputs(sc, dev), has_qmc=True)
+        if opts.get("bands"):
+            full = render_sample(*a, 7, 12, stream=3, sample_base=8, **kw)
+            bands = [render_sample(*a, 7, 12, stream=3, sample_base=8,
+                                   y0=180 * i, band_h=180, **kw)
+                     for i in range(4)]
+            plain = render_sample_plain(*a, 7, 12, stream=3, sample_base=8,
+                                        y0=180, band_h=180, **kw)
+            res[name + "/bands"] = {
+                "seam_pixels": int((torch.cat(bands) != full).any(2).sum()),
+                "plain_pixels": int(((bands[1] - plain).abs().amax(2)
+                                     > 1e-3).sum())}
+        if opts.get("shard"):
+            from cudaraytracer_tpu_torch.parallel import tiling
+            out = tiling.render_sharded_sample(
+                a[:4], a[4], a[5], 7, 12, mesh=tiling.make_mesh(
+                    2, 2, [dev] * 4), sample_base=8, **kw)
+            want = torch.cat([sum(render_sample(
+                *a, 7, 12, y0=360 * ri, band_h=360, stream=2 * ri + si,
+                sample_base=8 + 4 * si, **kw) for si in range(2))
+                for ri in range(2)])
+            res[name + "/shard"] = {"pixels": int((out != want).any(2).sum())}
+        continue
     if name != "rtow_final":
         kw = dict(width=W, height=H, camera_model=model, spp=4, rr_start=2,
                   with_stats=True, **fl, **nee, **mk)
@@ -197,6 +247,17 @@ for name in json.loads(sys.argv[1]):
                                       tb.n_super, n, o, d, **hit_fl)
         res[name + "/closest_hit"] = {"masks": int((hk != hp).sum()),
                                       "columns": int((ck != cp).sum())}
+if opts.get("probe"):
+    from cudaraytracer_tpu_torch.ops.cuda import stream_probe as sp
+    for rows, tile_len in ((1, 512), (4, 64), (16, 112)):
+        for n in (16, 630):
+            tab = sp.probe_table(n, tile_len, rows, dev)
+            for v in sp.variants_for(rows):
+                sums = sp.stream_probe(tab, v)
+                res[f"probe/{v}/{rows}x{tile_len}/{n}"] = {
+                    "ctas": sums.numel(),
+                    "ctas_off": int((sums != sp.expected(
+                        n, tile_len, rows)).sum())}
 print("RESULT " + json.dumps(res))
 '''
 
@@ -211,6 +272,13 @@ def caught(res: dict) -> bool:
         if key.endswith("/gbuffer") and (r["masks"] or r["pixels"]):
             return True
         if key.endswith("/closest_hit") and (r["masks"] or r["columns"]):
+            return True
+        if key.endswith("/bands") and (r["seam_pixels"]
+                                       or r["plain_pixels"] > 1e-4 * 1280 * 180):
+            return True
+        if key.endswith("/shard") and r["pixels"]:
+            return True
+        if key.startswith("probe/") and r["ctas_off"]:
             return True
     return False
 

@@ -355,6 +355,10 @@ def test_adaptive_display_divisor_is_the_count_plane():
 
 def test_nee_without_an_instantiation_raises_on_the_cpu():
     """--nee on a flag combination without an NEE instantiation (bounce's
-    moving spheres) raises naming it, on the CPU as on the card."""
+    moving spheres with a triangle) raises naming it, on the CPU as on
+    the card."""
+    scene = tscenes.bounce_scene()
+    scene.add_triangle((0, 0, 0), (1, 0, 0), (0, 1, 0))
     with pytest.raises(NotImplementedError, match="next-event estimation"):
-        RenderLayer(small_cfg(scene="bounce", nee=True))._sync_scene()
+        RenderLayer(small_cfg(scene="bounce", nee=True),
+                    scene=scene)._sync_scene()

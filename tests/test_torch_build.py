@@ -151,7 +151,10 @@ def test_nee_instantiations_and_the_probe_flags():
     smoke = dict(has_media=True)
     assert rk.render_variant(True, **smoke) == (1, 0, 0, 0, 7)
     assert rk.render_variant(True, **smoke, has_nee=True) == (1, 0, 0, 0, 39)
+    # bounce's moving spheres with NEE
+    assert rk.render_variant(has_motion=True, has_nee=True) == (
+        0, 0, 0, 0, 48)
     with pytest.raises(NotImplementedError,
                        match=r"moving spheres \(has_motion\) \+ "
                              r"next-event estimation \(has_nee\)"):
-        rk.render_variant(has_motion=True, has_nee=True)
+        rk.render_variant(has_noise=True, has_motion=True, has_nee=True)

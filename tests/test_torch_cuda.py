@@ -15,12 +15,18 @@ unregistered all-feature probe) are held to the same limits: the marble
 texture's sinf and PyTorch's sin on a CUDA tensor are the same CUDA
 function.  So are the render options: NEE on every instantiation that
 has it, QMC, and a random tile mask (the masked launch equal to the
-unmasked one on active tiles, zero elsewhere).  The megakernel limits
-here are the ones it states
+unmasked one on active tiles, zero elsewhere).  Row bands must stitch
+bit for bit to the whole-image launch with the same stream, the sharded
+frame must equal the sum of its launches, the cluster entries must equal
+the plain version's replay, and every variant of the staging probe must
+sum to ``expected``.  The megakernel limits here are the ones it states
 and why; at 96x54 they allow no differing pixel.  The G-buffer kernel and
 its plain version do the same float operations: equal hit masks, and
 the buffers equal to 1e-6.
 """
+
+import os
+import tempfile
 
 import numpy as np
 import pytest
@@ -30,8 +36,10 @@ from cudaraytracer_tpu_torch.models import scene as tscene
 from cudaraytracer_tpu_torch.models import scenes as tscenes
 from cudaraytracer_tpu_torch.models.camera import make_camera_params
 from cudaraytracer_tpu_torch.ops.cuda import (gbuffer_kernel, hit_kernel,
-                                              render_kernel)
+                                              render_kernel, stream_probe)
 from cudaraytracer_tpu_torch.ops.cuda import tables as ttab
+from cudaraytracer_tpu_torch.parallel import dryrun, tiling
+from cudaraytracer_tpu_torch.utils import mesh as tmesh
 
 pytestmark = pytest.mark.cuda
 
@@ -57,10 +65,25 @@ FEATURE_SCENES = ["marble", "smoke", "cornell_smoke", "bounce",
                   "book2_final", "probe"]
 
 
+def smooth_obj_scene():
+    """A smooth OBJ model (an icosphere written without normals, shaded
+    with computed vertex normals) on the checkered ground, as ``render
+    --obj --obj-smooth`` sets it up; not left registered."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ball.obj")
+        tmesh.save_obj(path, *tmesh.icosphere(2))
+        name = tscenes.register_obj_scene(path, smooth=True)
+    make_scene, make_cam = tscenes.SCENES.pop(name)
+    tscenes.CAMERA_MODELS.pop(name)
+    return make_scene(), make_cam(), "look_at"
+
+
 def scene_and_camera(name):
     if name == "probe":
         return (tscenes.all_feature_probe_scene(),
                 tscenes.cornell_like_camera(), "two_plane")
+    if name == "obj_smooth":
+        return smooth_obj_scene()
     return (tscenes.SCENES[name][0](), tscenes.SCENES[name][1](),
             tscenes.camera_model_for(name))
 
@@ -160,7 +183,8 @@ def test_gbuffer_kernel_matches_plain(cuda, name):
 
 # the scenes with an NEE instantiation (csrc/variants.cuh)
 NEE_SCENES = ["default", "cornell", "mirror_room", "cornell_mesh_light",
-              "smoke", "cornell_smoke", "probe", "book2_final"]
+              "smoke", "cornell_smoke", "probe", "book2_final", "mesh_smooth",
+              "obj_smooth", "terrain", "terrain_big", "bounce"]
 
 
 def option_check(cuda, name, w=96, h=54, spp=2, **opts):
@@ -220,8 +244,10 @@ def test_megakernel_random_half_mask(cuda):
 
 
 def test_nee_without_an_instantiation_raises(cuda):
-    """bounce (moving spheres) has no NEE instantiation."""
+    """bounce with a triangle (moving spheres and triangles) has no NEE
+    instantiation."""
     scene = tscenes.bounce_scene()
+    scene.add_triangle((0, 0, 0), (1, 0, 0), (0, 1, 0))
     tb, flags = ttab.kernel_inputs(scene, cuda)
     cv = torch.zeros(38, device=cuda)
     n0 = render_kernel.render_sample.launches
@@ -245,3 +271,104 @@ def test_unserved_flags_raise_before_launch(cuda):
                                     tb.n_super, cv, 1, 4, width=8, height=8,
                                     **flags)
     assert render_kernel.render_sample.launches == n0
+
+
+def frame_args(name, dev, w, h):
+    """(tables and camera args, keywords) of a scene at w x h."""
+    scene, cam, model = scene_and_camera(name)
+    tb, flags = ttab.kernel_inputs(scene, dev)
+    flags.update(ttab.nee_inputs(scene, dev))
+    cv = torch.from_numpy(ttab.pack_camera_np(
+        cam, scene.background_start, scene.background_end, w, h,
+        1e-3)).to(dev)
+    return ((tb.S, tb.P, tb.clusters, tb.supers, tb.n_super, cv),
+            dict(width=w, height=h, camera_model=model, rr_start=2,
+                 has_qmc=True, sample_base=3, cluster=tb.cluster,
+                 super_=tb.super_, **flags))
+
+
+@pytest.mark.parametrize("bands", [2, 4])
+def test_bands_stitch_to_the_whole_launch(cuda, bands):
+    """book2_final with NEE and QMC in row bands: the kernel's bands equal
+    its whole-image launch with the same stream bit for bit, and each band
+    its plain version's (with a random half of the band's tiles masked)."""
+    w, h = 64, 32
+    a, kw = frame_args("book2_final", cuda, w, h)
+    full = render_kernel.render_sample(*a, 7, 6, spp=2, stream=3, **kw)
+    bh = h // bands
+    parts = [render_kernel.render_sample(*a, 7, 6, spp=2, stream=3,
+                                         y0=i * bh, band_h=bh, **kw)
+             for i in range(bands)]
+    assert torch.equal(torch.cat(parts), full)
+    tile = (4, 16)
+    gi, gj = render_kernel.mask_grid(w, bh, tile)
+    mask = torch.from_numpy((np.random.RandomState(bands).permutation(
+        gi * gj) < gi * gj // 2).astype(np.int32)).to(cuda)
+    band = dict(y0=bh, band_h=bh, tile_mask=mask, tile=tile)
+    k = render_kernel.render_sample(*a, 7, 6, spp=2, stream=3, **band, **kw)
+    p = render_kernel.render_sample_plain(*a, 7, 6, spp=2, stream=3, **band,
+                                          **kw)
+    assert int(((k - p).abs().amax(2) > 1e-3).sum()) == 0
+
+
+@pytest.mark.parametrize("name", ["rtow_final", "cornell_mesh_light",
+                                  "terrain", "book2_final", "probe"])
+def test_cull_stats_equal_the_plain_replay(cuda, name):
+    """The kernel's (ray, cluster) entries equal the plain version's
+    replay of the culled search, and counting them changes no pixel."""
+    a, kw = frame_args(name, cuda, 48, 27)
+    img, rays, cull = render_kernel.render_sample(
+        *a, 11, 8, spp=2, with_stats=True, with_cull_stats=True, **kw)
+    assert torch.equal(img, render_kernel.render_sample(*a, 11, 8, spp=2,
+                                                        **kw))
+    img_p, rays_p, cull_p = render_kernel.render_sample_plain(
+        *a, 11, 8, spp=2, with_stats=True, with_cull_stats=True, **kw)
+    assert int(((img - img_p).abs().amax(2) > 1e-3).sum()) == 0
+    assert int(rays) == int(rays_p)
+    assert 0 < int(cull) == int(cull_p)
+
+
+def test_sharded_frame_is_the_sum_of_its_launches(cuda):
+    """render_sharded_sample over a 2 x 2 grid on one card equals the sum
+    over the sample streams of its four launches, bit for bit."""
+    w, h, spp = 64, 32, 2
+    a, kw = frame_args("book2_final", cuda, w, h)
+    kw.pop("sample_base")
+    mesh = tiling.make_mesh(2, 2, [cuda] * 4)
+    out = tiling.render_sharded_sample(
+        a[:4], a[4], a[5], 7, 6, mesh=mesh, spp=spp, sample_base=9, **kw)
+    want = []
+    for ri in range(2):
+        s0, s1 = (render_kernel.render_sample(
+            *a, 7, 6, spp=spp, y0=ri * 16, band_h=16, stream=ri * 2 + si,
+            sample_base=9 + si * spp, **kw) for si in range(2))
+        want.append(s0 + s1)
+    assert torch.equal(out, torch.cat(want))
+
+
+def test_dryrun_on_the_card(cuda):
+    res = dryrun.dryrun_multichip(4, "cuda")
+    assert res["rows"] == 2 and res["samples"] == 2
+
+
+@pytest.mark.parametrize("rows, variant", [
+    (1, "resident"), (1, "stream"), (4, "resident"), (4, "stream2d"),
+    (4, "streamrows")])
+def test_stream_probe_sums(cuda, rows, variant):
+    """Every CTA of every variant sums to expected, as the plain version."""
+    for n_tiles in (4, 16, 300):
+        tab = stream_probe.probe_table(n_tiles, 64, rows, cuda)
+        sums = stream_probe.stream_probe(tab, variant)
+        want = stream_probe.expected(n_tiles, 64, rows)
+        assert sums.numel() == torch.cuda.get_device_properties(
+            cuda).multi_processor_count
+        assert (sums == want).all()
+        assert (stream_probe.stream_probe_plain(tab, variant) == want).all()
+
+
+def test_stream_probe_rejects_unaligned_tiles(cuda):
+    n0 = stream_probe.stream_probe.launches
+    with pytest.raises(ValueError, match="multiple of 4"):
+        stream_probe.stream_probe(stream_probe.probe_table(4, 66, 1, cuda),
+                                  "stream")
+    assert stream_probe.stream_probe.launches == n0

@@ -177,15 +177,17 @@ def test_rect_tri_closest_hit_matches_pallas(name):
 def test_search_work_counts_the_culled_tests():
     """search_work replays the kernel's traversal: every ray tests every
     supercluster box, a ray tests each primitive at most once and never
-    a padding column, and a ray that leaves the scene's bounds tests
-    boxes and nothing else."""
+    a padding column, a ray enters at most the clusters whose boxes it
+    tests, and a ray that leaves the scene's bounds tests boxes and
+    nothing else."""
     scene = tscenes.cornell_mesh_light_scene()
     tt = ttab.tables_to_torch(ttab.pack_scene_tables(scene), "cpu")
     o, d = flat_scene_rays("cornell_mesh_light", 5, 256)
     w = hit_kernel.search_work(tt.S, tt.clusters, tt.supers, tt.n_super,
                                torch.from_numpy(o), torch.from_numpy(d),
                                has_rects=True, has_tris=True)
-    assert set(w) == {"box", "sphere", "rect", "tri"}
+    assert set(w) == {"entered", "box", "sphere", "rect", "tri"}
+    assert 0 < w["entered"] <= w["box"] - 256 * tt.n_super
     assert w["box"] >= 256 * tt.n_super
     assert w["rect"] > 0 and w["tri"] > 0 and w["sphere"] >= 0
     ptype = tt.S[ttab.S_PTYPE]
@@ -198,5 +200,6 @@ def test_search_work_counts_the_culled_tests():
         tt.S, tt.clusters, tt.supers, tt.n_super,
         torch.tensor([[0.0, 50.0, 0.0]]), torch.tensor([[0.0, 1.0, 0.0]]),
         has_rects=True, has_tris=True)
-    assert away == {"box": tt.n_super, "sphere": 0, "rect": 0, "tri": 0}
+    assert away == {"entered": 0, "box": tt.n_super, "sphere": 0, "rect": 0,
+                    "tri": 0}
     assert hit_kernel.search_ops(away) == tt.n_super * hit_kernel.OPS["box"]

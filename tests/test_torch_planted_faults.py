@@ -16,7 +16,11 @@ shutter time.  The NEE faults (the light pdf not averaged over the
 lights, the cosine pdf without 1/pi) fail the mixture's integral of the
 cosine lobe; the QMC ones (the x and y rotations swapped, the sample base
 ignored) fail the sky render against the XLA renderer; the mask read
-transposed fails the masked launch's check.
+transposed fails the masked launch's check.  The pixel key taken from
+the band's row instead of the image's fails the band seams; two sample
+streams of a band sharing one generator stream fail the sharded frame
+against its launches; the probe's streamrows waiting on its first row
+only fails the sum against the JAX kernels'.
 
     PYTHONPATH=.:tests python tests/test_torch_planted_faults.py
 
@@ -29,6 +33,7 @@ check's reading, sound and planted.
 
 import contextlib
 import inspect
+import sys
 import types
 
 import numpy as np
@@ -40,14 +45,19 @@ torch.set_num_threads(2)
 import test_torch_adaptive as adaptive_tests  # noqa: E402
 import test_torch_media as media  # noqa: E402
 import test_torch_noise as noise_tests  # noqa: E402
+import test_torch_parallel as parallel_tests  # noqa: E402
 import test_torch_qmc as qmc_tests  # noqa: E402
 import test_torch_render_media as render_media  # noqa: E402
 import test_torch_sampling as sampling_tests  # noqa: E402
+import test_torch_stream_probe as probe_tests  # noqa: E402
 
 from cudaraytracer_tpu_torch.ops import noise as tnoise  # noqa: E402
 from cudaraytracer_tpu_torch.ops import sampling as tsampling  # noqa: E402
 from cudaraytracer_tpu_torch.ops.cuda import hit_kernel as hk  # noqa: E402
 from cudaraytracer_tpu_torch.ops.cuda import render_kernel as rk  # noqa: E402
+from cudaraytracer_tpu_torch.ops.cuda import stream_probe as sp  # noqa: E402
+from cudaraytracer_tpu_torch.parallel import tiling  # noqa: E402
+from cudaraytracer_tpu_torch.scripts import planted_faults as card_faults  # noqa: E402
 
 
 def edited(mod, old: str, new: str):
@@ -57,6 +67,7 @@ def edited(mod, old: str, new: str):
     assert src.count(old) == 1, old
     copy = types.ModuleType(mod.__name__ + "_planted")
     copy.__package__ = mod.__package__
+    sys.modules[copy.__name__] = copy  # dataclasses look their module up
     exec(compile(src.replace(old, new), mod.__file__, "exec"), copy.__dict__)
     return copy
 
@@ -130,6 +141,24 @@ FAULTS = {
         "act = tile_mask[((pix % width) // tw) * gi + pix // width // th] != 0",
         adaptive_tests.test_masked_launch_equals_unmasked_on_active_tiles,
         ()),
+    # the pixel key from the band's row, not the image's
+    "band_key_without_y0": (
+        rk, "render_sample_plain",
+        "pk_all = rng.pixel_keys(key, pix + y0 * width)",
+        "pk_all = rng.pixel_keys(key, pix)",
+        lambda: parallel_tests.test_bands_stitch_bit_for_bit(
+            parallel_tests.book2_frame(), 4), ()),
+    # two sample streams of a band drawing the same generator stream
+    "stream_shared": (
+        tiling, "band_launches", "stream=ri * n_samp + si,",
+        "stream=ri * n_samp,",
+        lambda: parallel_tests.test_sharded_frame_is_the_sum_of_its_launches(
+            parallel_tests.book2_frame()), ()),
+    # streamrows' wait covering the first row only
+    "streamrows_first_row_only": (
+        sp, "stream_probe_plain", "waited = rows", "waited = 1",
+        lambda: probe_tests.test_plain_probe_equals_the_jax_kernels(
+            4, "streamrows", 9), ()),
 }
 
 # the later faults' checks as readings (name, function)
@@ -146,6 +175,15 @@ READINGS = {
                             lambda: qmc_tests.sky_error(5)),
     "mask_transposed": ("masked-launch pixels wrong (0)",
                         adaptive_tests.masked_mismatch),
+    "band_key_without_y0": ("band seam pixels wrong (0)",
+                            parallel_tests.band_mismatch),
+    "stream_shared": ("sharded pixels off its launches' sum (0)",
+                      parallel_tests.shard_mismatch),
+    "streamrows_first_row_only": (
+        "streamrows sum at 9 tiles of 4 x 64 (expected)",
+        lambda: [int(sp.stream_probe(sp.probe_table(9, 64, 4),
+                                     "streamrows")[0]),
+                 sp.expected(9, 64, 4)]),
 }
 
 
@@ -159,6 +197,15 @@ def planted(name):
         yield
     finally:
         setattr(mod, fn, sound)
+
+
+@pytest.mark.parametrize("name", list(card_faults.FAULTS))
+def test_card_fault_edits_one_place(name):
+    """Each fault scripts/planted_faults.py plants in a copy of the
+    package replaces text found exactly once in its file, so the copy it
+    builds on the card holds that fault and no other edit."""
+    for rel, old, _ in card_faults.FAULTS[name][0]:
+        assert (card_faults.PKG / rel).read_text().count(old) == 1, rel
 
 
 @pytest.mark.parametrize("name", list(FAULTS))

@@ -13,7 +13,11 @@ looking down at the floor and walls, the panel out of view.  Measured
 (one JAX key, two port seeds): the small-light room at 96 spp channel
 0.0039 / blocks 0.0058 mean, 0.021 worst; cornell_mesh_light at 256 spp
 0.0077 / 0.012 / 0.078; smoke (its sphere light in view, rendered
-through fog) at 256 spp within the same limits.
+through fog) at 256 spp within the same limits.  The sky-lit scenes of
+the vertex-attribute, image and motion instantiations (mesh_smooth, a
+smooth OBJ model, terrain, bounce: an empty light table, so every
+lambertian hit scatters by the true cosine) at 64 spp, two port seeds:
+channel means within 0.0060, blocks 0.0104 mean, 0.050 worst.
 
 NEE must also reduce the port's own noise where cosine sampling rarely
 finds the light: on the small-light room at 16 spp against a 512-spp NEE
@@ -22,6 +26,9 @@ error without over six seeds (the median: a rare path that avoids the
 light gains the mixture's weight 2 at every bounce and can put one
 bright sample in one block, for either estimator).
 """
+
+import os
+import tempfile
 
 import numpy as np
 import pytest
@@ -33,6 +40,7 @@ from cudaraytracer_tpu.models import scene as jscene  # noqa: E402
 from cudaraytracer_tpu.models import scenes as jscenes  # noqa: E402
 from cudaraytracer_tpu.models.camera import make_camera_params as jcam  # noqa: E402
 from cudaraytracer_tpu.models.renderer import render_radiance  # noqa: E402
+from cudaraytracer_tpu.utils import mesh as jmesh  # noqa: E402
 from cudaraytracer_tpu.utils import rng as jrng  # noqa: E402
 
 from cudaraytracer_tpu_torch.models import scene as tscene  # noqa: E402
@@ -40,6 +48,7 @@ from cudaraytracer_tpu_torch.models import scenes as tscenes  # noqa: E402
 from cudaraytracer_tpu_torch.models.camera import make_camera_params as tcam  # noqa: E402
 from cudaraytracer_tpu_torch.ops.cuda import render_kernel as rk  # noqa: E402
 from cudaraytracer_tpu_torch.ops.cuda import tables as ttab  # noqa: E402
+from cudaraytracer_tpu_torch.utils import mesh as tmesh  # noqa: E402
 
 from test_torch_render_media import (BLOCK_MAX, BLOCK_MEAN, CHAN_ATOL,  # noqa: E402
                                      DEPTH, H, W, block_errors)
@@ -82,6 +91,27 @@ def port_render(scene, cam, spp, model, seed=1, nee=True):
                             **flags).numpy() / spp
 
 
+def smooth_obj(mod, scenes_mod):
+    """(scene, camera) of an icosphere OBJ written without normals and
+    loaded with smooth=True, as ``render --obj --obj-smooth`` does, in the
+    package of ``scenes_mod``; not left registered."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ball.obj")
+        mod.save_obj(path, *mod.icosphere(2))
+        name = scenes_mod.register_obj_scene(path, smooth=True)
+    make_scene, make_cam = scenes_mod.SCENES.pop(name)
+    scenes_mod.CAMERA_MODELS.pop(name)
+    return make_scene(), make_cam()
+
+
+def sky_lit(name):
+    """A registered sky-lit scene served by an NEE instantiation since
+    the vertex-attribute, image and motion ones were added."""
+    return lambda: (64, jscenes.SCENES[name][0](), tscenes.SCENES[name][0](),
+                    jscenes.SCENES[name][1](), tscenes.SCENES[name][1](),
+                    tscenes.camera_model_for(name))
+
+
 # name -> (spp, JAX scene, port scene, JAX camera, port camera, model)
 CASES = {
     "small_light_cornell": lambda: (
@@ -95,6 +125,13 @@ CASES = {
         256, jscenes.smoke_scene(), tscenes.smoke_scene(),
         jscenes.smoke_camera(), tscenes.smoke_camera(),
         tscenes.camera_model_for("smoke")),
+    "mesh_smooth": sky_lit("mesh_smooth"),
+    "terrain": sky_lit("terrain"),
+    "bounce": sky_lit("bounce"),
+    "obj_smooth": lambda: (
+        64, *(v for pair in zip(smooth_obj(jmesh, jscenes),
+                                smooth_obj(tmesh, tscenes)) for v in pair),
+        "look_at"),
 }
 
 
