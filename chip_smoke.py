@@ -32,8 +32,27 @@ band against its plain version, ``parallel.render_sharded_sample`` over
 replay, the image unchanged) with its cost at 1280x720, and the staging
 probe (``scripts/stream_probe.py``: every variant's CTA sums, then its
 times, at the table sizes of terrain_big and book2_final, in tiles of
-1 x 512, 4 x 448 and 16 x 112 int32s).  Every phase prints one JSON
-line; any failure raises and the script exits non-zero.  The last lines
+1 x 512, 4 x 448 and 16 x 112 int32s).  Then the streamed table layout
+(``stream_b``, the tables of ``pack_stream_tiles``): ``streamed_check``
+holds the streamed megakernel and G-buffer against their plain versions
+(the walk over the tiles) at 96x54 on rtow_final, terrain, the
+all-feature probe with NEE and book2_final, and against the resident
+kernels bit for bit (pixels, rays, cluster entries) at 1280x720 on
+rtow_final, terrain_big and book2_final ``--nee --qmc`` (unmasked, half
+masked, a band); ``streamed_path`` writes a 1,036,800-triangle
+heightfield OBJ (``scripts/stream_crossover.py``) whose tables are
+twice the card's L2 and renders it through ``render --obj ...
+--obj-smooth --denoise`` and ``render --obj ... --obj-smooth --nee`` at
+640x360: the streamed launch counts must be above 0 and the resident
+ones 0; then the kernels of that path on that mesh against their plain
+versions (the megakernel without and with NEE in a band of 4 of its
+rows, the G-buffer at 32x18) and the streamed G-buffer against the
+resident one at 640x360; ``streamed_timing`` times both layouts at
+1280x720 on terrain_big, book2_final and the mesh (the sweep over table
+sizes behind the route's budget, ``tables.STREAM_L2_SHARE``, is
+``scripts/stream_crossover.py``).  Every phase prints one JSON line,
+with the seconds since the start (``t_s``); any failure raises and the
+script exits non-zero.  The last lines
 are the card's name and power limit (nvidia-smi), the per-kernel
 summary, and the result object.
 
@@ -148,34 +167,47 @@ sys.path.insert(0, ROOT)
 
 W_MAIN, H_MAIN, DEPTH, RR, SPP_MAIN = 1280, 720, 12, 2, 4
 # registers / spill-store bytes of every instantiation before this slice's
-# kernel changes, as PERF.md records them (build log, NVIDIA H100 80GB
-# HBM3): the template flags are (rects, tris[, vattrs, images, features])
+# kernel changes, as PERF.md records them (the parent's build log, NVIDIA
+# H100 80GB HBM3): the template flags are (rects, tris[, vattrs, images,
+# features]); the probe's, its variant
 BASE_PTXAS = {
     "closest_hit_kernel<0,0>": (40, 0), "closest_hit_kernel<1,0>": (36, 0),
     "closest_hit_kernel<1,1>": (79, 0), "gbuffer_kernel<0,0,0,0,0>": (34, 0),
     "gbuffer_kernel<0,0,0,0,1>": (40, 12),
-    "gbuffer_kernel<0,0,0,1,0>": (38, 0), "gbuffer_kernel<1,0,0,0,0>": (36, 0),
+    "gbuffer_kernel<0,0,0,1,0>": (38, 0),
+    "gbuffer_kernel<1,0,0,0,0>": (36, 0),
     "gbuffer_kernel<1,0,0,0,3>": (40, 12),
-    "gbuffer_kernel<1,0,0,1,0>": (38, 0), "gbuffer_kernel<1,1,0,0,0>": (72, 0),
-    "gbuffer_kernel<1,1,0,1,0>": (72, 0), "gbuffer_kernel<1,1,0,1,3>": (68, 0),
-    "gbuffer_kernel<1,1,1,0,0>": (72, 0), "gbuffer_kernel<1,1,1,1,0>": (72, 0),
-    "render_kernel<0,0,0,0,0>": (56, 32), "render_kernel<0,0,0,0,1>": (72, 60),
-    "render_kernel<0,0,0,0,16>": (72, 4), "render_kernel<0,0,0,1,0>": (56, 32),
-    "render_kernel<1,0,0,0,0>": (72, 102),
-    "render_kernel<1,0,0,0,7>": (96, 24),
+    "gbuffer_kernel<1,0,0,1,0>": (38, 0),
+    "gbuffer_kernel<1,1,0,0,0>": (72, 0),
+    "gbuffer_kernel<1,1,0,1,0>": (72, 0),
+    "gbuffer_kernel<1,1,0,1,3>": (68, 0),
+    "gbuffer_kernel<1,1,1,0,0>": (72, 0),
+    "gbuffer_kernel<1,1,1,1,0>": (72, 0),
+    "render_kernel<0,0,0,0,0>": (56, 40),
+    "render_kernel<0,0,0,0,16>": (72, 8),
+    "render_kernel<0,0,0,0,1>": (72, 56),
+    "render_kernel<0,0,0,0,48>": (80, 24),
+    "render_kernel<0,0,0,1,0>": (56, 40),
+    "render_kernel<1,0,0,0,0>": (80, 36),
     "render_kernel<1,0,0,0,15>": (96, 74),
-    "render_kernel<1,0,0,0,31>": (96, 58),
+    "render_kernel<1,0,0,0,31>": (96, 106),
     "render_kernel<1,0,0,0,32>": (96, 0),
-    "render_kernel<1,0,0,0,39>": (96, 16),
-    "render_kernel<1,0,0,0,47>": (96, 102),
+    "render_kernel<1,0,0,0,39>": (96, 20),
+    "render_kernel<1,0,0,0,47>": (96, 52),
     "render_kernel<1,0,0,0,63>": (96, 74),
-    "render_kernel<1,0,0,1,0>": (72, 110),
-    "render_kernel<1,0,0,1,32>": (96, 0), "render_kernel<1,1,0,0,0>": (116, 0),
-    "render_kernel<1,1,0,0,32>": (112, 0),
-    "render_kernel<1,1,0,1,0>": (117, 0),
-    "render_kernel<1,1,0,1,23>": (120, 0),
-    "render_kernel<1,1,0,1,55>": (118, 0),
-    "render_kernel<1,1,1,0,0>": (115, 0), "render_kernel<1,1,1,1,0>": (118, 0),
+    "render_kernel<1,0,0,0,7>": (96, 36),
+    "render_kernel<1,0,0,1,0>": (72, 122),
+    "render_kernel<1,0,0,1,32>": (96, 4),
+    "render_kernel<1,1,0,0,0>": (113, 0),
+    "render_kernel<1,1,0,0,32>": (114, 0),
+    "render_kernel<1,1,0,1,0>": (119, 0),
+    "render_kernel<1,1,0,1,23>": (124, 0),
+    "render_kernel<1,1,0,1,55>": (119, 0),
+    "render_kernel<1,1,1,0,0>": (118, 0),
+    "render_kernel<1,1,1,0,32>": (115, 0),
+    "render_kernel<1,1,1,1,0>": (119, 0),
+    "render_kernel<1,1,1,1,32>": (118, 0), "stream_probe_kernel<0>": (42, 0),
+    "stream_probe_kernel<1>": (24, 0), "stream_probe_kernel<2>": (24, 0),
 }
 # megakernel against its plain version (see the module docstring)
 MEGA_DIFF_SHARE, MEGA_MEAN_RTOL, MEGA_RAYS_RTOL = 1e-4, 1e-4, 1e-4
@@ -184,7 +216,12 @@ GBUF_ATOL = 1e-6
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj):
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -213,10 +250,13 @@ def main():
         render_variant)
     from cudaraytracer_tpu_torch.ops.cuda import stream_probe as sp
     from cudaraytracer_tpu_torch.ops.cuda.tables import (
-        BIG, kernel_inputs, mask_tile, nee_inputs, pack_camera_np)
+        BIG, kernel_inputs, mask_tile, nee_inputs, pack_camera_np,
+        SceneTables, pack_stream_tiles, stream_budget, stream_tables_to_torch,
+        table_bytes)
     from cudaraytracer_tpu_torch.ops.denoise import atrous_denoise
     from cudaraytracer_tpu_torch.parallel import dryrun, tiling
     from cudaraytracer_tpu_torch.scripts import stream_probe as probe_script
+    from cudaraytracer_tpu_torch.scripts.stream_crossover import heightfield
     from cudaraytracer_tpu_torch.viewer.app import tile_activity_plane
 
     # ---- 1. device ----
@@ -239,13 +279,13 @@ def main():
     ptxas, entry, spill = {}, None, 0
     for ln in info["log"].splitlines():  # nvcc -Xptxas=-v, per instantiation
         m = re.search(r"(render_kernel|closest_hit_kernel|gbuffer_kernel"
-                      r"|stream_probe_kernel)(?:_media)?I((?:L[bi]\d+E)+)E",
-                      ln)
+                      r"|stream_probe_kernel)(?:_media)?(_streamed)?I"
+                      r"((?:L[bi]\d+E)+)E", ln)
         if "Compiling entry function" in ln and m:
             # template flags: rects, tris[, vattrs, images, feature bits];
             # the probe's: its variant
-            flags = ",".join(re.findall(r"L[bi](\d+)E", m.group(2)))
-            entry = f"{m.group(1)}<{flags}>"
+            flags = ",".join(re.findall(r"L[bi](\d+)E", m.group(3)))
+            entry = f"{m.group(1)}{m.group(2) or ''}<{flags}>"
         elif entry and (m := re.search(r"(\d+) bytes spill stores", ln)):
             spill = int(m.group(1))
         elif entry and (m := re.search(r"Used (\d+) registers", ln)):
@@ -268,17 +308,24 @@ def main():
                                  if v["recorded"] != v["now"]),
           "base_ptxas": recorded,
           "new_ptxas": {k: [v["registers"], v["spill_store_bytes"]]
-                        for k, v in ptxas.items() if k not in BASE_PTXAS}})
+                        for k, v in ptxas.items() if k not in BASE_PTXAS},
+          # each streamed instantiation beside its resident twin
+          "streamed_vs_resident": {
+              k: [[v["registers"], v["spill_store_bytes"]],
+                  [ptxas.get(k.replace("_streamed", ""), {}).get(x)
+                   for x in ("registers", "spill_store_bytes")]]
+              for k, v in ptxas.items() if "_streamed" in k}})
 
     class Setup:
         """A registered scene's tables, flags and camera on the card, set
-        up as the render loop sets them up (_CudaPipeline)."""
+        up as the render loop sets them up (_CudaPipeline); or ``scene``,
+        ``cam`` and ``model`` given."""
 
-        def __init__(self, name):
+        def __init__(self, name, scene=None, cam=None, model=None):
             self.name = name
-            self.scene = scenes.SCENES[name][0]()
-            self.cam = scenes.SCENES[name][1]()
-            self.model = scenes.camera_model_for(name)
+            self.scene = scene or scenes.SCENES[name][0]()
+            self.cam = cam or scenes.SCENES[name][1]()
+            self.model = model or scenes.camera_model_for(name)
             self.tb, self.flags = kernel_inputs(self.scene, dev)
             # has_rects/has_tris for the search alone (closest hit)
             self.search_flags = {k: self.flags[k]
@@ -343,6 +390,18 @@ def main():
             tb = self.tb
             return (tb.S, tb.P, tb.clusters, tb.supers, tb.n_super,
                     self.cam_vec(w, h))
+
+        def stream_args(self, w, h):
+            """The streamed layout's tables (pack_stream_tiles, made once)
+            and camera, and the stream_b keyword."""
+            if not hasattr(self, "st"):
+                # re-tiled from the resident tables (SceneTables' fields)
+                self.st = stream_tables_to_torch(pack_stream_tiles(
+                    SceneTables(*(x.cpu().numpy() if torch.is_tensor(x)
+                                  else x for x in self.tb))), dev)
+            st = self.st
+            return (st.tiles, st.block_boxes, st.clusters, st.supers,
+                    st.n_blocks, self.cam_vec(w, h)), {"stream_b": st.block_b}
 
     rtow = Setup("rtow_final")
     default = Setup("default")
@@ -613,6 +672,7 @@ def main():
         run."""
         for fn in counted:
             fn.launches = 0
+        render_sample.streamed_launches = gbuffer.streamed_launches = 0
         png = os.path.join(tmp, f"{tag}.png")
         npz = os.path.join(tmp, f"{tag}_aov.npz")
         t0 = time.perf_counter()
@@ -622,6 +682,9 @@ def main():
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = {fn.__name__: fn.launches for fn in counted}
+        # the route keeps every registered scene resident on the card
+        launches["streamed"] = (render_sample.streamed_launches
+                                + gbuffer.streamed_launches)
         run = rl._frame_index
         from PIL import Image
 
@@ -644,7 +707,7 @@ def main():
                 or not least <= run <= n_frames
                 or launches["gbuffer"] != 1
                 or launches["render_sample_plain"]
-                or launches["gbuffer_plain"]):
+                or launches["gbuffer_plain"] or launches["streamed"]):
             raise AssertionError(f"{tag} did not run on the kernels: "
                                  f"{launches}")
         if size != (W_MAIN, H_MAIN):
@@ -863,10 +926,14 @@ def main():
         if any(seams.values()) or band_off > MEGA_DIFF_SHARE * W_MAIN * H_MAIN:
             raise AssertionError(f"{su.name}: bands do not stitch: {seams}, "
                                  f"band against plain {band_off}")
+    render_sample.streamed_launches = 0
     dry, dry_launches = launches_of(lambda: dryrun.dryrun_multichip(4, "cuda"))
+    dry_launches["streamed"] = render_sample.streamed_launches
     emit({"phase": "dryrun_multichip", **dry, "launches": dry_launches})
-    # two paths of four places, each checked against its four launches
-    if dry_launches["render_sample"] != 16 or dry_launches["render_sample_plain"]:
+    # two paths of four places, each checked against its four launches,
+    # and the streamed shard's four places against the resident frame
+    if dry_launches["render_sample"] != 16 or dry_launches["render_sample_plain"] \
+            or dry_launches["streamed"] != 4:
         raise AssertionError(f"dryrun launches: {dry_launches}")
 
     # ---- 10. cull statistics: (ray, cluster) entries per ray ----
@@ -964,6 +1031,265 @@ def main():
                 "timed": f"{variant} {key}: {t['hi']} tiles",
                 "by_shape": runs}
 
+
+    # ---- 12. the streamed layout: kernels against plain and resident ----
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    budget = stream_budget(dev)
+    probe_su = Setup("all_feature_probe", scenes.all_feature_probe_scene(),
+                     scenes.cornell_like_camera(), "two_plane")
+
+    def stream_plain_check(su, nee=False, size=(96, 54), spp=2, depth=6,
+                           band=None, gsize=None, with_gbuffer=True):
+        """The streamed kernel against its plain version (the walk over
+        the tiles), by default at 96x54, 2 spp, depth 6, and unless
+        ``with_gbuffer`` is False the G-buffer at ``gsize`` (default
+        ``size``): the megakernel limits.  ``band``: (y0, rows) of
+        ``size`` that the megakernel renders."""
+        w, h = size
+        gw, gh = gsize or size
+        y0, bh = band or (0, h)
+        sargs, skw = su.stream_args(w, h)
+        kw = dict(width=w, height=h, camera_model=su.model, spp=spp,
+                  rr_start=RR, with_stats=True, with_cull_stats=True,
+                  **su.flags, **su.options(nee=nee), **skw)
+        if band:
+            kw.update(y0=y0, band_h=bh)
+        ik, nk, ck = render_sample(*sargs, 7, depth, **kw)
+        (ip, np_, cp), plain_ms = host_ms(
+            lambda: render_sample_plain(*sargs, 7, depth, **kw))
+        off = int(((ik - ip).abs().amax(2) > 1e-3).sum())
+        mean_rel = abs(float(ik.mean()) / float(ip.mean()) - 1.0)
+        rays_rel = abs(int(nk) / int(np_) - 1.0)
+        g_err = g_masks = 0
+        res = {"scene": su.name, "nee": nee, "size": [w, h],
+               "rows": [y0, y0 + bh], "spp": spp, "depth": depth,
+               "blocks": su.st.n_blocks, "pixels_differing": off,
+               "mean_rel_diff": mean_rel,
+               "rays": [int(nk), int(np_)], "cull": [int(ck), int(cp)],
+               "max_abs_err": float((ik - ip).abs().max()),
+               "plain_ms": plain_ms}
+        if with_gbuffer:
+            gargs = (*sargs[:5], su.cam_vec(gw, gh))
+            gkw = dict(width=gw, height=gh, camera_model=su.model,
+                       **su.flags, **skw)
+            gk_ = gbuffer(*gargs, **gkw)
+            gp_, gplain_ms = host_ms(lambda: gbuffer_plain(*gargs, **gkw))
+            g_err = max(float((a - b).abs().max())
+                        for a, b in zip(gk_, gp_))
+            g_masks = int(((gk_.depth > 0) != (gp_.depth > 0)).sum())
+            res.update(gbuffer_size=[gw, gh], gbuffer_masks_differ=g_masks,
+                       gbuffer_max_abs_err=g_err,
+                       gbuffer_plain_ms=gplain_ms)
+        emit({"phase": "streamed_check", "against": "plain", **res})
+        if (off > MEGA_DIFF_SHARE * w * bh or mean_rel > MEGA_MEAN_RTOL
+                or rays_rel > MEGA_RAYS_RTOL or g_masks or g_err > GBUF_ATOL
+                or (off == 0 and int(ck) != int(cp))):
+            raise AssertionError(f"streamed kernel against plain: {res}")
+        return res
+
+    stream_plain = [stream_plain_check(rtow), stream_plain_check(terrain),
+                    stream_plain_check(probe_su, nee=True),
+                    stream_plain_check(book2)]
+
+    def stream_resident_check(su, tag, opts, **band):
+        """The streamed launch against the resident launch at 1280x720,
+        SPP_MAIN spp, depth 12, with the cull counts: bit for bit."""
+        sargs, skw = su.stream_args(W_MAIN, H_MAIN)
+        kw = dict(width=W_MAIN, height=H_MAIN, camera_model=su.model,
+                  spp=SPP_MAIN, rr_start=RR, with_stats=True,
+                  with_cull_stats=True, **su.flags, **su.options(**opts),
+                  **band)
+        ir, nr, cr = render_sample(*su.frame_args(W_MAIN, H_MAIN), 7, DEPTH,
+                                   **kw)
+        is_, ns, cs = render_sample(*sargs, 7, DEPTH, **kw, **skw)
+        res = {"scene": su.name, "case": tag, "size": [W_MAIN, H_MAIN],
+               "spp": SPP_MAIN, "depth": DEPTH,
+               "pixels_differing": int((ir != is_).any(2).sum()),
+               "rays": [int(nr), int(ns)], "cull": [int(cr), int(cs)],
+               "finite": bool(torch.isfinite(is_).all())}
+        emit({"phase": "streamed_check", "against": "resident", **res})
+        if res["pixels_differing"] or int(nr) != int(ns) \
+                or int(cr) != int(cs) or not res["finite"]:
+            raise AssertionError(f"streamed != resident: {res}")
+        return res
+
+    stream_resident = [
+        stream_resident_check(rtow, "no options", {}),
+        stream_resident_check(terrain_big, "no options", {}),
+        stream_resident_check(book2, "nee qmc", main_opts),
+        stream_resident_check(book2, "nee qmc half mask",
+                              dict(main_opts, mask=book2_mask)),
+        stream_resident_check(book2, "nee qmc band 180..359", main_opts,
+                              y0=H_MAIN // 4, band_h=H_MAIN // 4, stream=5)]
+    stream_gbuf = {}
+    for su in (rtow, terrain_big, book2, default):
+        sargs, skw = su.stream_args(W_MAIN, H_MAIN)
+        kw = dict(width=W_MAIN, height=H_MAIN, camera_model=su.model,
+                  **su.flags)
+        gr = gbuffer(*su.frame_args(W_MAIN, H_MAIN), **kw)
+        gs = gbuffer(*sargs, **kw, **skw)
+        same = all(torch.equal(a, b) for a, b in zip(gr, gs))
+        stream_gbuf[su.name] = {
+            "equal": same,
+            "ms": cuda_ms(lambda: gbuffer(*sargs, **kw, **skw), 10),
+            "resident_ms": cuda_ms(lambda: gbuffer(
+                *su.frame_args(W_MAIN, H_MAIN), **kw), 10)}
+        if not same:
+            raise AssertionError(f"streamed G-buffer != resident on "
+                                 f"{su.name}")
+    emit({"phase": "streamed_check", "against": "resident",
+          "gbuffer": stream_gbuf, "nvidia_smi": smi})
+
+    # ---- 13. the streamed path: a mesh beyond the card's L2, via the CLI
+    # (smooth, without and with --nee: the flag sets of render --obj)
+    hf_n = 720  # 1,036,800 triangles
+    w_p, h_p = 640, 360
+    path = {"triangles": 2 * hf_n * hf_n, "size": [w_p, h_p], "depth": 4,
+            "spp_per_frame": 2, "budget_bytes": budget, "l2_bytes": l2}
+    with tempfile.TemporaryDirectory() as tmp:
+        obj = os.path.join(tmp, "heightfield.obj")
+        t0 = time.perf_counter()
+        mesh.save_obj(obj, *heightfield(hf_n))  # scripts/stream_crossover
+        path["obj_write_s"] = time.perf_counter() - t0
+        for tag, extra, frames_p in (("smooth", ["--denoise"], 2),
+                                     ("smooth_nee", ["--nee"], 1)):
+            for fn in counted:
+                fn.launches = 0
+            render_sample.streamed_launches = gbuffer.streamed_launches = 0
+            png = os.path.join(tmp, f"heightfield_{tag}.png")
+            npz = os.path.join(tmp, f"heightfield_{tag}_aov.npz")
+            t0 = time.perf_counter()
+            rl = cli.main(["render", "--obj", obj, "--obj-smooth", *extra,
+                           "--aov", npz, "--width", str(w_p), "--height",
+                           str(h_p), "--frames", str(frames_p),
+                           "--progressive-spp", "2", "--max-depth", "4",
+                           "-o", png])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+            launches = {fn.__name__: fn.launches for fn in counted}
+            launches.update(
+                render_sample_streamed=render_sample.streamed_launches,
+                gbuffer_streamed=gbuffer.streamed_launches)
+            from PIL import Image
+
+            with Image.open(png) as im:
+                size, arr = im.size, np.asarray(im.convert("RGB"))
+            with np.load(npz) as z:
+                aov_hit = float((z["depth"] > 0).mean())
+            pipe = rl._pipeline
+            run = {"args": ["--obj-smooth", *extra], "cli_s": cli_s,
+                   "frames": frames_p, "stream_b": pipe.stream_b,
+                   "table_bytes": pipe._tabs.table_bytes,
+                   "launches": launches, "png_mean": float(arr.mean()),
+                   "aov_hit_share": aov_hit}
+            path[tag] = run
+            emit({"phase": "streamed_path", "path": f"heightfield_{tag}",
+                  **{k: v for k, v in path.items() if k not in
+                     ("smooth", "smooth_nee")}, **run})
+            if (run["stream_b"] <= 0 or run["table_bytes"] < 2 * l2
+                    or launches["render_sample_streamed"] != frames_p
+                    or launches["gbuffer_streamed"] != 1
+                    or any(launches[fn.__name__] for fn in counted)
+                    or size != (w_p, h_p) or not 10.0 < arr.mean() < 245.0
+                    or aov_hit < 0.05):
+                raise AssertionError(f"the streamed path misbehaves: {run}")
+            if tag == "smooth":
+                # the mesh packed resident too, for the checks below
+                hf_su = Setup("heightfield", rl.scene,
+                              scenes.SCENES[rl.cfg.scene][1](), "look_at")
+            del rl, pipe
+    torch.cuda.empty_cache()
+
+    # the path's kernels on its own mesh against their plain versions: 4
+    # rows of 640x360 that lie on the mesh, 1 spp, depth 2, without and
+    # with NEE; the G-buffer (no NEE bit: one instantiation) at 32x18.
+    # The plain walk's time grows with the clusters its rays enter, so
+    # the shapes are small.  Then the streamed G-buffer against the
+    # resident one at 640x360
+    stream_plain += [stream_plain_check(hf_su, nee=nee, size=(w_p, h_p),
+                                        spp=1, depth=2, band=(296, 4),
+                                        gsize=(32, 18), with_gbuffer=not nee)
+                     for nee in (False, True)]
+    sargs, skw = hf_su.stream_args(w_p, h_p)
+    kw = dict(width=w_p, height=h_p, camera_model=hf_su.model,
+              **hf_su.flags)
+    gr = gbuffer(*hf_su.frame_args(w_p, h_p), **kw)
+    gs = gbuffer(*sargs, **kw, **skw)
+    stream_gbuf[hf_su.name] = {
+        "size": [w_p, h_p], "equal": all(torch.equal(a, b)
+                                         for a, b in zip(gr, gs)),
+        "ms": cuda_ms(lambda: gbuffer(*sargs, **kw, **skw), 10),
+        "resident_ms": cuda_ms(lambda: gbuffer(
+            *hf_su.frame_args(w_p, h_p), **kw), 10)}
+    emit({"phase": "streamed_check", "against": "resident",
+          "gbuffer": {hf_su.name: stream_gbuf[hf_su.name]},
+          "nvidia_smi": smi})
+    if not stream_gbuf[hf_su.name]["equal"]:
+        raise AssertionError("streamed G-buffer != resident on the mesh")
+
+    # ---- 14. resident against streamed, timed on the scenes the route
+    # weighs: terrain_big, book2_final --nee --qmc and the beyond-L2 mesh
+    stream_timing = {}
+    for su, opts in ((terrain_big, {}), (book2, main_opts), (hf_su, {})):
+        w, h, spp_t, depth_t = W_MAIN, H_MAIN, SPP_MAIN, DEPTH
+        sargs, skw = su.stream_args(w, h)
+        kw = dict(width=w, height=h, camera_model=su.model, spp=spp_t,
+                  rr_start=RR, **su.flags, **su.options(**opts))
+        rargs = (*su.frame_args(w, h), 7, depth_t)
+        ir, nr = render_sample(*rargs, with_stats=True, **kw)
+        is_, ns = render_sample(*sargs, 7, depth_t, with_stats=True, **kw,
+                                **skw)
+        # parent-child order: resident, streamed, streamed, resident
+        ms_r1 = cuda_ms(lambda: render_sample(*rargs, **kw), 5)
+        ms_s1 = cuda_ms(lambda: render_sample(*sargs, 7, depth_t, **kw,
+                                              **skw), 5)
+        ms_s2 = cuda_ms(lambda: render_sample(*sargs, 7, depth_t, **kw,
+                                              **skw), 5)
+        ms_r2 = cuda_ms(lambda: render_sample(*rargs, **kw), 5)
+        key = su.name + ("/nee_qmc" if opts else "")
+        stream_timing[key] = {
+            "size": [w, h], "spp": spp_t, "depth": depth_t,
+            "table_bytes": table_bytes(su.tb),
+            "l2_share": table_bytes(su.tb) / l2,
+            "streams_on_card": table_bytes(su.tb) > budget,
+            "blocks": su.st.n_blocks,
+            "resident_ms": [ms_r1, ms_r2], "streamed_ms": [ms_s1, ms_s2],
+            "streamed_over_resident": (ms_s1 + ms_s2) / (ms_r1 + ms_r2),
+            "rays": int(nr), "pixels_differing": int((ir != is_).any(2).sum())}
+        if stream_timing[key]["pixels_differing"] or int(nr) != int(ns):
+            raise AssertionError(f"streamed != resident on {key}")
+    emit({"phase": "streamed_timing", "by_scene": stream_timing,
+          "l2_bytes": l2, "budget_bytes": budget, "nvidia_smi": smi})
+    del hf_su
+
+    # the streamed kernels' lines: timed on the main path's scene and
+    # options (book2_final --nee --qmc, 1280x720, 4 spp), where the
+    # resident kernel's work tally gives the search's tests; the walk
+    # adds one block-box test per ray and block
+    b2 = checks[f"book2_final/nee_qmc/{SPP_MAIN}spp"]
+    b2_sargs, b2_skw = book2.stream_args(W_MAIN, H_MAIN)
+    b2_kw = dict(width=W_MAIN, height=H_MAIN, camera_model=book2.model,
+                 spp=SPP_MAIN, rr_start=RR, **book2.flags,
+                 **book2.options(**main_opts), **b2_skw)
+    b2_rays = b2["work"]["hit"] + b2["work"]["miss"] \
+        + b2["work"].get("medium", 0)
+    b2_bytes = 4 * sum(t.numel() for t in b2_sargs[:4]) + 4 * 38 \
+        + 4 * book2.nee["lights"].numel() + book2.texel_bytes(b2["work"]) \
+        + 12 * W_MAIN * H_MAIN + 8
+    b2_bound = bound(b2_bytes, b2["ops"] + OPS["box"] * b2_rays
+                     * book2.st.n_blocks)
+    _, b2_plain_ms = host_ms(lambda: render_sample_plain(
+        *b2_sargs, 7, DEPTH, **b2_kw))
+    b2_ms = stream_timing["book2_final/nee_qmc"]["streamed_ms"]
+    gb2_sargs, _ = book2.stream_args(W_MAIN, H_MAIN)
+    gb2_kw = dict(width=W_MAIN, height=H_MAIN, camera_model=book2.model,
+                  **book2.flags, **b2_skw)
+    _, gb2_plain_ms = host_ms(lambda: gbuffer_plain(*gb2_sargs, **gb2_kw))
+    g2 = gb_new["book2_final"]
+    gb2_bound = bound(4 * sum(t.numel() for t in gb2_sargs[:4]) + 4 * 38
+                      + 28 * W_MAIN * H_MAIN, g2["ops"] + OPS["box"]
+                      * W_MAIN * H_MAIN * book2.st.n_blocks)
+
     # the main path: render --scene book2_final --nee --qmc --adaptive
     # --denoise --aov
     launches = by_path[main_tag]
@@ -1031,6 +1357,52 @@ def main():
          "launches_by_path": {k: v["gbuffer"] for k, v in by_path.items()},
          "by_scene": {"rtow_final": gb_rtow, "default": gb_default,
                       **gb_new}},
+        {"name": "render_sample_streamed", "route": "cuda",
+         "source": "cudaraytracer_tpu_torch/csrc/render_stream.cu "
+                   "(render_kernel.cu's streamed entry, search.cuh "
+                   "closest_hit_streamed)",
+         "replaces": "cudaraytracer_tpu/ops/pallas/render_kernel.py:1193",
+         "launches": path["smooth"]["launches"]["render_sample_streamed"],
+         "max_abs_err": max(r["max_abs_err"] for r in stream_plain),
+         "tolerance": "against plain: <=0.01% of pixels off by >1e-3, mean "
+                      "and rays rtol 1e-4 at 96x54 (rtow_final, terrain, "
+                      "the all-feature probe with NEE, book2_final) and on "
+                      "the beyond-L2 mesh, without and with NEE, in 4 rows "
+                      "of 640x360; "
+                      "against the resident kernel: bit for bit, equal "
+                      "rays and cull counts at 1280x720 (rtow_final, "
+                      "terrain_big, book2_final --nee --qmc unmasked, half "
+                      "masked and a band; terrain_big, book2_final and the "
+                      "beyond-L2 mesh in the timing phase)",
+         "ms": statistics.median(b2_ms), "plain_ms": b2_plain_ms,
+         "bound_ms": b2_bound["bound_ms"], "bound_by": b2_bound["bound_by"],
+         "library_ms": None,
+         "timed": f"book2_final --nee --qmc {W_MAIN}x{H_MAIN} {SPP_MAIN} spp "
+                  "(launches: the beyond-L2 OBJ path)",
+         "launches_by_path": {
+             **{f"heightfield_obj_{k}": path[k]["launches"][
+                 "render_sample_streamed"] for k in ("smooth", "smooth_nee")},
+             "dryrun_multichip": dry_launches["streamed"]},
+         "by_scene": stream_timing},
+        {"name": "gbuffer_streamed", "route": "cuda",
+         "source": "cudaraytracer_tpu_torch/csrc/gbuffer_kernel.cu "
+                   "(gbuffer_kernel_streamed)",
+         "replaces": "cudaraytracer_tpu/ops/pallas/gbuffer_kernel.py:439",
+         "launches": path["smooth"]["launches"]["gbuffer_streamed"],
+         "launches_by_path": {f"heightfield_obj_{k}": path[k]["launches"][
+             "gbuffer_streamed"] for k in ("smooth", "smooth_nee")},
+         "max_abs_err": max(r.get("gbuffer_max_abs_err", 0.0)
+                            for r in stream_plain),
+         "tolerance": f"hit masks equal, buffers within {GBUF_ATOL} of "
+                      "plain at 96x54 and on the beyond-L2 mesh at 32x18; "
+                      "equal to the resident kernel at 1280x720 "
+                      "(rtow_final, terrain_big, book2_final, default) and "
+                      "on the mesh at 640x360",
+         "ms": stream_gbuf["book2_final"]["ms"], "plain_ms": gb2_plain_ms,
+         "bound_ms": gb2_bound["bound_ms"],
+         "bound_by": gb2_bound["bound_by"], "library_ms": None,
+         "timed": f"book2_final {W_MAIN}x{H_MAIN} (launches: the beyond-L2 "
+                  "OBJ path)", "by_scene": stream_gbuf},
         *(probe_line(name, rows_, variant, replaces)
           for name, rows_, variant, replaces in (
               ("stream_probe", 1, "stream", "tools/stream_probe.py:57"),

@@ -25,7 +25,11 @@
 // Design: one thread per pixel, per-ray culling.  The TPU kernel's devices
 // are left out: the camera-distance sort of superclusters (:148-181; the
 // closest hit does not depend on visit order) and the masked payload loop
-// (:223-251; the kernel reads the winner's P column).
+// (:223-251; the kernel reads the winner's P column).  The streamed layout
+// (:150, :192-198, :439-510; tables beyond the card's budget) is
+// gbuffer_kernel_streamed: the same pass with search.cuh::
+// closest_hit_streamed, every thread of the CTA joining the walk (one
+// outside the image with no ray), medium clusters skipped as here.
 #include <cuda_runtime.h>
 
 #include "search.cuh"
@@ -45,17 +49,24 @@ struct Params {
   float inv_w, inv_h;  // 1/width, 1/height rounded from double
 };
 
-template <bool kRects, bool kTris, bool kVattrs, bool kImages, int kFeat>
-__global__ void __launch_bounds__(kBlockX * kBlockY)
-gbuffer_kernel(Params p, float* __restrict__ normal, float* __restrict__ albedo,
-               float* __restrict__ depth, crt::Atlas atlas) {
+// One pixel's primary pass.  With kStream (gbuffer_kernel_streamed) the
+// search is the CTA's streamed walk (search.cuh): every thread of the CTA
+// calls this, one outside the image joining the walk with no ray.
+template <bool kRects, bool kTris, bool kVattrs, bool kImages, int kFeat,
+          bool kStream = false>
+__device__ __forceinline__ void gbuffer_pixel(
+    const Params& p, float* __restrict__ normal, float* __restrict__ albedo,
+    float* __restrict__ depth, const crt::Atlas& atlas,
+    const crt::StreamTables* st = nullptr, crt::Stage* sg = nullptr) {
   constexpr int vn_base = crt::vn_base_for(kImages);
   // media: the search skips kind-4 clusters
   constexpr int kSearch =
       (kFeat & crt::F_MEDIA) != 0 ? crt::F_SKIP_MEDIA : 0;
+  constexpr bool kUV = kVattrs || (kTris && kImages);
   const int x = blockIdx.x * kBlockX + threadIdx.x;
   const int y = blockIdx.y * kBlockY + threadIdx.y;
-  if (x >= p.width || y >= p.height) return;
+  const bool has_px = x < p.width && y < p.height;
+  if (!kStream && !has_px) return;
   const float* __restrict__ cam = p.cam;
   float ox, oy, oz, dx, dy, dz;
   crt::primary_ray(cam, p.two_plane, static_cast<float>(x),
@@ -64,9 +75,16 @@ gbuffer_kernel(Params p, float* __restrict__ normal, float* __restrict__ albedo,
   const crt::Ray ray = crt::make_ray(ox, oy, oz, dx, dy, dz);
   float best_t = crt::kBig;
   crt::Bary bc{0.0f, 0.0f};
-  const int j =
-      crt::closest_hit<kRects, kTris, kVattrs || (kTris && kImages), kSearch>(
-          p.tb, ray, __ldg(cam + 28), best_t, bc);
+  int j;
+  if constexpr (kStream) {
+    if (!has_px) best_t = -1.0f;  // no ray: it enters no box
+    j = crt::closest_hit_streamed<kRects, kTris, kUV, kSearch>(
+        p.tb, *st, *sg, ray, __ldg(cam + 28), best_t, bc);
+    if (!has_px) return;
+  } else {
+    j = crt::closest_hit<kRects, kTris, kUV, kSearch>(
+        p.tb, ray, __ldg(cam + 28), best_t, bc);
+  }
 
   const size_t pix = static_cast<size_t>(y) * p.width + x;
   float* __restrict__ n_out = normal + 3 * pix;
@@ -77,8 +95,10 @@ gbuffer_kernel(Params p, float* __restrict__ normal, float* __restrict__ albedo,
     depth[pix] = 0.0f;
     return;
   }
-  const int np = p.tb.np;
+  // P row k of the winner at P[k * np + j]; streamed, in its tile
+  int np = p.tb.np;
   const float* __restrict__ P = p.P;
+  if constexpr (kStream) P = crt::stream_payload(p.tb, *st, j, np);
   const int packc = static_cast<int>(__ldg(P + crt::P_PACKC * np + j));
   const float px = ox + best_t * dx;
   const float py = oy + best_t * dy;
@@ -99,6 +119,27 @@ gbuffer_kernel(Params p, float* __restrict__ normal, float* __restrict__ albedo,
   depth[pix] = best_t;
 }
 
+template <bool kRects, bool kTris, bool kVattrs, bool kImages, int kFeat>
+__global__ void __launch_bounds__(kBlockX * kBlockY)
+gbuffer_kernel(Params p, float* __restrict__ normal, float* __restrict__ albedo,
+               float* __restrict__ depth, crt::Atlas atlas) {
+  gbuffer_pixel<kRects, kTris, kVattrs, kImages, kFeat>(p, normal, albedo,
+                                                        depth, atlas);
+}
+
+// The streamed layout (the tables beyond the card's budget; dynamic shared
+// memory crt::stage_bytes(st.w)).
+template <bool kRects, bool kTris, bool kVattrs, bool kImages, int kFeat>
+__global__ void __launch_bounds__(kBlockX * kBlockY)
+gbuffer_kernel_streamed(Params p, float* __restrict__ normal,
+                        float* __restrict__ albedo, float* __restrict__ depth,
+                        crt::Atlas atlas, crt::StreamTables st) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  crt::Stage sg = crt::stage_init(smem, st.w);
+  gbuffer_pixel<kRects, kTris, kVattrs, kImages, kFeat, true>(
+      p, normal, albedo, depth, atlas, &st, &sg);
+}
+
 // Launch instantiation <R, T, V, I, F> if it is the one asked for.
 template <bool R, bool T, bool V, bool I, int F>
 bool launch_if(const int (&want)[5], const Params& p, const crt::Atlas& at,
@@ -112,6 +153,33 @@ bool launch_if(const int (&want)[5], const Params& p, const crt::Atlas& at,
                   (p.height + kBlockY - 1) / kBlockY);
   gbuffer_kernel<R, T, V, I, F>
       <<<grid, block, 0, st>>>(p, normal, albedo, depth, at);
+  return true;
+}
+
+// Launch streamed instantiation <R, T, V, I, F> if it is the one asked
+// for; *rc gets the error of the shared-memory attribute or the launch.
+template <bool R, bool T, bool V, bool I, int F>
+bool launch_streamed_if(const int (&want)[5], const Params& p,
+                        const crt::Atlas& at, const crt::StreamTables& tabs,
+                        float* normal, float* albedo, float* depth,
+                        cudaStream_t st, int* rc) {
+  if (want[0] != R || want[1] != T || want[2] != V || want[3] != I ||
+      want[4] != F) {
+    return false;
+  }
+  const size_t smem = crt::stage_bytes(tabs.w);
+  cudaError_t e = cudaFuncSetAttribute(
+      gbuffer_kernel_streamed<R, T, V, I, F>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e == cudaSuccess) {
+    const dim3 block(kBlockX, kBlockY);
+    const dim3 grid((p.width + kBlockX - 1) / kBlockX,
+                    (p.height + kBlockY - 1) / kBlockY);
+    gbuffer_kernel_streamed<R, T, V, I, F>
+        <<<grid, block, smem, st>>>(p, normal, albedo, depth, at, tabs);
+    e = cudaGetLastError();
+  }
+  *rc = static_cast<int>(e);
   return true;
 }
 
@@ -157,4 +225,47 @@ extern "C" int crt_gbuffer(const float* S, const float* P,
 #undef CRT_LAUNCH
   if (!launched) return static_cast<int>(cudaErrorNotSupported);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Plain C entry of the streamed layout (ops/cuda/gbuffer_kernel.py::
+// gbuffer with stream_b > 0): as crt_gbuffer, with the streamed tables
+// (``tiles``, the block ``boxes``, the padded ``clusters``/``supers`` and
+// ``n_blocks``, as crt_render_sample_streamed takes them) in place of S
+// and P; the instantiation is one of CRT_GBUFFER_STREAM_VARIANTS.
+extern "C" int crt_gbuffer_streamed(
+    const float* tiles, const float* boxes, const float* clusters,
+    const float* supers, int nbc, int nc, int nsc, int n_blocks, int r8,
+    int block_b, int cluster, int super_, const float* cam, int width,
+    int height, int two_plane, float inv_w, float inv_h, int has_rects,
+    int has_tris, int has_vattrs, int has_images, int features,
+    const unsigned char* atlas, const int* tex_hw, int slots, int ah, int aw,
+    float* normal, float* albedo, float* depth, void* stream) {
+  if (width <= 0 || height <= 0) return 0;
+  if (block_b <= 0 || crt::stage_bytes(block_b * 128) > 227 * 1024) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Params p;
+  p.tb = crt::SearchTables{nullptr, clusters, supers, 0, nc, nsc,
+                           n_blocks * block_b, cluster, super_};
+  p.P = nullptr;
+  p.cam = cam;
+  p.width = width;
+  p.height = height;
+  p.two_plane = two_plane;
+  p.inv_w = inv_w;
+  p.inv_h = inv_h;
+  const crt::Atlas at{atlas, tex_hw, slots, ah, aw};
+  const crt::StreamTables tabs{tiles, boxes, nbc, n_blocks, r8, block_b,
+                               block_b * 128};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int want[5] = {has_rects != 0, has_tris != 0, has_vattrs != 0,
+                       has_images != 0, features};
+  int rc = 0;
+#define CRT_LAUNCH(R, T, V, I, F)                                          \
+  || launch_streamed_if<R != 0, T != 0, V != 0, I != 0, F>(               \
+         want, p, at, tabs, normal, albedo, depth, st, &rc)
+  const bool launched = false CRT_GBUFFER_STREAM_VARIANTS(CRT_LAUNCH);
+#undef CRT_LAUNCH
+  if (!launched) return static_cast<int>(cudaErrorNotSupported);
+  return rc;
 }

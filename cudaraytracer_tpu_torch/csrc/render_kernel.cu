@@ -47,6 +47,12 @@
 // samples and there is no per-pixel count plane.
 // Output: the radiance SUM over the spp samples, f32[band_h, width, 3],
 // the number of rays traced and, when asked for, the cluster entries.
+// The streamed layout (stream_b, :1193 _streamed_search_payload, for
+// tables beyond the card's budget) is render_kernel_streamed below, compiled
+// in render_stream.cu: the same per-pixel state machine, but the CTA
+// iterates while any of its pixels has a path to trace and searches with
+// search.cuh::closest_hit_streamed, the winner's payload read from its
+// tile.
 //
 // What bounds it on the card: instruction issue and divergence.  The
 // tables are a few tens of kilobytes, read at warp-uniform addresses and
@@ -118,14 +124,27 @@ struct Opts {
 
 using crt::rsqrt_;
 
+// The streamed walk's tables and the CTA's stage (render_kernel_streamed).
+struct StreamCtx {
+  crt::StreamTables st;
+  crt::Stage sg;
+};
+
 // Trace all spp samples of pixel (x, y); returns the rays traced and
-// stores the (ray, cluster) entries of its search in `entered`.
-template <bool kRects, bool kTris, bool kVattrs, bool kImages, int kFeat>
+// stores the (ray, cluster) entries of its search in `entered`.  With
+// kStream the search is the CTA's streamed walk (search.cuh): every
+// thread of the CTA calls this and iterates while any of them has a path
+// to trace, a thread without one (has_px false: outside the image or
+// band, or its samples done) joining the walk with no ray.
+template <bool kRects, bool kTris, bool kVattrs, bool kImages, int kFeat,
+          bool kStream = false>
 __device__ unsigned long long trace_pixel(const Params& p,
                                           const crt::Atlas& atlas,
                                           const Opts& o, int x, int y,
                                           float* __restrict__ out,
-                                          unsigned& entered) {
+                                          unsigned& entered,
+                                          StreamCtx* sc = nullptr,
+                                          bool has_px = true) {
   // the winner's barycentrics feed the smooth normal and a triangle's uv
   constexpr bool kUV = kVattrs || (kTris && kImages);
   constexpr int vn_base = crt::vn_base_for(kImages);
@@ -151,6 +170,9 @@ __device__ unsigned long long trace_pixel(const Params& p,
   float time = 0.f;  // the path's shutter time (kMotion)
   bool alive = false;
   int done = 0, depth = 0;
+  if constexpr (kStream) {
+    if (!has_px) done = p.spp;
+  }
   unsigned long long nrays = 0;
   unsigned n_entered = 0;  // (ray, cluster) entries, kept in a register
   const int n_iter = p.spp * p.max_depth;
@@ -158,9 +180,14 @@ __device__ unsigned long long trace_pixel(const Params& p,
   float qrx = 0.f, qry = 0.f;
   if (o.qmc) crt::pixel_rotation(xs, ys, qrx, qry);
 
-  for (int it = 0; it < n_iter && (alive || done < p.spp); ++it) {
+  for (int it = 0; it < n_iter && (kStream || alive || done < p.spp); ++it) {
+    bool want = true;  // this thread has a path to trace
+    if constexpr (kStream) {
+      want = alive || done < p.spp;
+      if (!__syncthreads_or(want)) break;  // the CTA's paths are done
+    }
     const uint32_t uit = static_cast<uint32_t>(it);
-    if (!alive) {
+    if (want && !alive) {
       // path regeneration: a fresh primary ray for this pixel's next sample
       float jx, jy;
       if (o.qmc) {
@@ -185,15 +212,24 @@ __device__ unsigned long long trace_pixel(const Params& p,
       alive = true;
       if constexpr (kMotion) time = crt::u01(pk, uit, crt::SLOT_TIME);
     }
-    ++nrays;
+    if (want) ++nrays;
 
     const crt::Ray ray = crt::make_ray(ox, oy, oz, dx, dy, dz);
     float best_t = crt::kBig;
     crt::Bary bc{0.0f, 0.0f};
     float u_med = 0.0f;
     if constexpr (kMedia) u_med = crt::u01(pk, uit, crt::SLOT_MED);
-    const int j = crt::closest_hit<kRects, kTris, kUV, kSurf>(
-        p.tb, ray, t_min, best_t, bc, u_med, time, &n_entered);
+    int j;
+    if constexpr (kStream) {
+      if (!want) best_t = -1.0f;  // no ray: it enters no box
+      j = crt::closest_hit_streamed<kRects, kTris, kUV, kSurf>(
+          p.tb, sc->st, sc->sg, ray, t_min, best_t, bc, u_med, time,
+          &n_entered);
+      if (!want) continue;  // it only joined the CTA's walk
+    } else {
+      j = crt::closest_hit<kRects, kTris, kUV, kSurf>(
+          p.tb, ray, t_min, best_t, bc, u_med, time, &n_entered);
+    }
 
     bool cont = false;
     if (j < 0) {
@@ -205,12 +241,15 @@ __device__ unsigned long long trace_pixel(const Params& p,
       rz = rz + tpz * skb;
     } else {
       // ---- payload of the winner's column, exact-integer unpack ----
+      // (P row k of it at P[k * pn + pj]; streamed, in its tile)
       const float* __restrict__ P = p.P;
-      const int packc = static_cast<int>(__ldg(P + crt::P_PACKC * np + j));
+      int pn = np, pj = j;
+      if constexpr (kStream) P = crt::stream_payload(p.tb, sc->st, pj, pn);
+      const int packc = static_cast<int>(__ldg(P + crt::P_PACKC * pn + pj));
       const int mat = packc & 3;
-      const int pa = static_cast<int>(__ldg(P + crt::P_PACKA * np + j));
-      const int pb = static_cast<int>(__ldg(P + crt::P_PACKB * np + j));
-      const float mparam = __ldg(P + crt::P_MPARAM * np + j);
+      const int pa = static_cast<int>(__ldg(P + crt::P_PACKA * pn + pj));
+      const int pb = static_cast<int>(__ldg(P + crt::P_PACKB * pn + pj));
+      const float mparam = __ldg(P + crt::P_MPARAM * pn + pj);
 
       const float px = ox + best_t * dx;
       const float py = oy + best_t * dy;
@@ -221,12 +260,12 @@ __device__ unsigned long long trace_pixel(const Params& p,
       float nx = 1.0f, ny = 0.0f, nz = 0.0f;
       if (!iso) {
         crt::hit_normal<kRects || kTris, kVattrs, kMotion>(
-            P, np, j, packc, px, py, pz, dx, dy, dz, nx, ny, nz, vn_base,
+            P, pn, pj, packc, px, py, pz, dx, dy, dz, nx, ny, nz, vn_base,
             bc.u, bc.v, vel_base, time);
       }
       float texr, texg, texb;
       crt::surface_rgb<kRects, kTris, kVattrs, kImages, kSurf>(
-          P, np, j, packc, pa, pb, px, py, pz, nx, ny, nz, atlas, vn_base,
+          P, pn, pj, packc, pa, pb, px, py, pz, nx, ny, nz, atlas, vn_base,
           bc.u, bc.v, texr, texg, texb);
 
       if (mat == 3) {
@@ -383,7 +422,13 @@ __device__ __forceinline__ void block_add(unsigned long long v,
   __syncthreads();  // warp_sums is reused by the next call
 }
 
-// The launch's pixels: the body of both kernel entries below.
+// Is the mask tile of band pixel (x, yb) active?
+__device__ __forceinline__ bool tile_active(const Opts& o, int x, int yb) {
+  return o.mask == nullptr ||
+         __ldg(o.mask + (yb / o.tile_h) * o.tiles_x + x / o.tile_w) != 0;
+}
+
+// The launch's pixels: the body of both resident kernel entries below.
 template <bool kRects, bool kTris, bool kVattrs, bool kImages, int kFeat>
 __device__ __forceinline__ void render_pixels(
     const Params& p, float* __restrict__ out,
@@ -395,8 +440,7 @@ __device__ __forceinline__ void render_pixels(
   unsigned entered = 0;
   if (x < p.width && yb < o.band_h) {
     float* px_out = out + 3 * (static_cast<size_t>(yb) * p.width + x);
-    if (o.mask == nullptr ||
-        __ldg(o.mask + (yb / o.tile_h) * o.tiles_x + x / o.tile_w) != 0) {
+    if (tile_active(o, x, yb)) {
       rays = trace_pixel<kRects, kTris, kVattrs, kImages, kFeat>(
           p, atlas, o, x, o.y0 + yb, px_out, entered);
     } else {  // a converged tile: nothing traced
@@ -456,8 +500,78 @@ bool launch_if(const int (&want)[5], const Params& p, const crt::Atlas& atlas,
   return true;
 }
 
+#ifdef CRT_STREAMED
+// The streamed layout (search.cuh::closest_hit_streamed): the tables
+// beyond the card's budget.  A kernel entry of its own, compiled in a unit of
+// its own (-DCRT_STREAMED), so that the resident instantiations' code
+// does not change.  The CTA (16 x 8 pixels) lies inside one mask tile
+// (the wrapper checks the tile shape), so a masked CTA leaves whole; the
+// others trace together, a thread outside the image or band joining the
+// walk with no ray.  Dynamic shared memory: crt::stage_bytes(st.w).
+template <bool kRects, bool kTris, bool kVattrs, bool kImages, int kFeat>
+__global__ void __launch_bounds__(kThreads)
+render_kernel_streamed(Params p, float* __restrict__ out,
+                       unsigned long long* __restrict__ nrays_out,
+                       crt::Atlas atlas, Opts o, crt::StreamTables st) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int x = blockIdx.x * kBlockX + threadIdx.x;
+  const int yb = blockIdx.y * kBlockY + threadIdx.y;  // row in the band
+  const bool has_px = x < p.width && yb < o.band_h;
+  float* px_out = out + 3 * (static_cast<size_t>(yb) * p.width + x);
+  if (!tile_active(o, blockIdx.x * kBlockX, blockIdx.y * kBlockY)) {
+    if (has_px) {  // a converged tile: nothing traced
+      px_out[0] = 0.0f;
+      px_out[1] = 0.0f;
+      px_out[2] = 0.0f;
+    }
+    return;
+  }
+  StreamCtx sc{st, crt::stage_init(smem, st.w)};
+  float rgb[3];
+  unsigned entered = 0;
+  const unsigned long long rays =
+      trace_pixel<kRects, kTris, kVattrs, kImages, kFeat, true>(
+          p, atlas, o, x, o.y0 + yb, rgb, entered, &sc, has_px);
+  if (has_px) {
+    px_out[0] = rgb[0];
+    px_out[1] = rgb[1];
+    px_out[2] = rgb[2];
+  }
+  block_add(rays, nrays_out);
+  if (o.cull != nullptr) block_add(entered, o.cull);
+}
+
+// Launch streamed instantiation <R, T, V, I, F> if it is the one asked
+// for; *rc gets the error of the shared-memory attribute or the launch.
+template <bool R, bool T, bool V, bool I, int F>
+bool launch_streamed_if(const int (&want)[5], const Params& p,
+                        const crt::Atlas& atlas, const Opts& o,
+                        const crt::StreamTables& st, float* out,
+                        unsigned long long* nrays, cudaStream_t s, int* rc) {
+  if (want[0] != R || want[1] != T || want[2] != V || want[3] != I ||
+      want[4] != F) {
+    return false;
+  }
+  const size_t smem = crt::stage_bytes(st.w);
+  cudaError_t e = cudaFuncSetAttribute(
+      render_kernel_streamed<R, T, V, I, F>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e == cudaSuccess) {
+    const dim3 block(kBlockX, kBlockY);
+    const dim3 grid((p.width + kBlockX - 1) / kBlockX,
+                    (o.band_h + kBlockY - 1) / kBlockY);
+    render_kernel_streamed<R, T, V, I, F><<<grid, block, smem, s>>>(
+        p, out, nrays, atlas, o, st);
+    e = cudaGetLastError();
+  }
+  *rc = static_cast<int>(e);
+  return true;
+}
+#endif  // CRT_STREAMED
+
 }  // namespace
 
+#ifndef CRT_STREAMED
 // Plain C entry for ctypes.  ``nrays`` (and ``cull``) must be zeroed by
 // the caller.
 // (has_rects, has_tris, has_vattrs, has_images, features) name one
@@ -523,3 +637,63 @@ extern "C" int crt_render_sample(const float* S, const float* P,
   if (!launched) return static_cast<int>(cudaErrorNotSupported);
   return static_cast<int>(cudaGetLastError());
 }
+#else
+// Plain C entry of the streamed layout (ops/cuda/render_kernel.py::
+// render_sample with stream_b > 0): as crt_render_sample, with the
+// streamed tables in place of S and P: ``tiles`` (f32[nbc, r8,
+// block_b * 128], 16-byte aligned), ``boxes`` (f32[6, nbc] block AABBs),
+// the resident ``clusters``/``supers`` padded by pack_stream_tiles, and
+// ``n_blocks`` used blocks; the instantiation is one of
+// CRT_RENDER_STREAM_VARIANTS.  With a mask, tile_h must be a multiple of
+// 8 and tile_w of 16 (a CTA inside one tile); else, or for a block_b the
+// shared memory cannot stage, it returns cudaErrorInvalidValue.
+extern "C" int crt_render_sample_streamed(
+    const float* tiles, const float* boxes, const float* clusters,
+    const float* supers, int nbc, int nc, int nsc, int n_blocks, int r8,
+    int block_b, int cluster, int super_, const float* cam, uint32_t key,
+    int max_depth, int width, int height, int spp, int rr_start,
+    int two_plane, float inv_w, float inv_h, int has_rects, int has_tris,
+    int has_vattrs, int has_images, int features, const unsigned char* atlas,
+    const int* tex_hw, int slots, int ah, int aw, const float* lights,
+    float nee_p, int qmc, int sample_base, const int* mask, int tile_h,
+    int tile_w, int tiles_x, int y0, int band_h, unsigned long long* cull,
+    float* out, unsigned long long* nrays, void* stream) {
+  if (width <= 0 || band_h <= 0) return 0;
+  if ((mask != nullptr && (tile_h % kBlockY != 0 || tile_w % kBlockX != 0)) ||
+      block_b <= 0 || crt::stage_bytes(block_b * 128) > 227 * 1024) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Params p;
+  p.tb = crt::SearchTables{nullptr, clusters, supers, 0, nc, nsc,
+                           n_blocks * block_b, cluster, super_};
+  p.P = nullptr;
+  p.cam = cam;
+  p.key = key;
+  p.max_depth = max_depth;
+  p.width = width;
+  p.height = height;
+  p.spp = spp;
+  p.rr_start = rr_start;
+  p.two_plane = two_plane;
+  p.inv_w = inv_w;
+  p.inv_h = inv_h;
+  const crt::Atlas at{atlas, tex_hw, slots, ah, aw};
+  const Opts o{lights, mask, cull, tile_h, tile_w, tiles_x, qmc,
+               sample_base, nee_p, y0, band_h};
+  const crt::StreamTables st{tiles, boxes, nbc, n_blocks, r8, block_b,
+                             block_b * 128};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int want[5] = {has_rects != 0, has_tris != 0, has_vattrs != 0,
+                       has_images != 0, features};
+  int rc = 0;
+  // one launch_streamed_if per instantiation of variants.cuh, in its order
+#define CRT_LAUNCH(R, T, V, I, F)                                           \
+  || launch_streamed_if<R != 0, T != 0, V != 0, I != 0, F>(want, p, at, o, \
+                                                           st, out, nrays, \
+                                                           s, &rc)
+  const bool launched = false CRT_RENDER_STREAM_VARIANTS(CRT_LAUNCH);
+#undef CRT_LAUNCH
+  if (!launched) return static_cast<int>(cudaErrorNotSupported);
+  return rc;
+}
+#endif  // CRT_STREAMED

@@ -48,6 +48,11 @@
 // active test.
 #pragma once
 
+#include <cstddef>
+#include <cstdint>
+
+#include "stage.cuh"
+
 namespace crt {
 
 constexpr float kBig = 3.0e38f;
@@ -67,6 +72,17 @@ constexpr int S_CX = 0, S_CY = 1, S_CZ = 2, S_R2 = 3, S_PTYPE = 4, S_KAX = 5,
 // S_HA/S_HB/S_CA (S_HA > 0 marks a box), a yawed box's cos/sin S_DN/S_D1.
 // Moving spheres: the velocity rides S_CK/S_CA/S_CB (zero when static).
 constexpr int S_DENS = S_CK, S_VX = S_CK, S_VY = S_CA, S_VZ = S_CB;
+
+// Where the primitive tests read S: global memory through the read-only
+// path (Ldg), or a tile staged in shared memory (Lds, the streamed walk).
+struct Ldg {
+  static __device__ __forceinline__ float ld(const float* p) {
+    return __ldg(p);
+  }
+};
+struct Lds {
+  static __device__ __forceinline__ float ld(const float* p) { return *p; }
+};
 
 struct SearchTables {
   const float* S;         // f32[16, np]
@@ -115,23 +131,23 @@ __device__ __forceinline__ bool box_hit(const float* __restrict__ box,
 }
 
 // kMotion: the centre at the path's shutter time, c + time * v.
-template <bool kMotion>
+template <bool kMotion, class L = Ldg>
 __device__ __forceinline__ void sphere_test(const float* __restrict__ S,
                                             int np, int j, const Ray& r,
                                             float t_min, float time,
                                             float& best_t, int& best_j) {
   float ocx, ocy, ocz;
   if constexpr (kMotion) {
-    ocx = r.ox - (__ldg(S + S_CX * np + j) + time * __ldg(S + S_VX * np + j));
-    ocy = r.oy - (__ldg(S + S_CY * np + j) + time * __ldg(S + S_VY * np + j));
-    ocz = r.oz - (__ldg(S + S_CZ * np + j) + time * __ldg(S + S_VZ * np + j));
+    ocx = r.ox - (L::ld(S + S_CX * np + j) + time * L::ld(S + S_VX * np + j));
+    ocy = r.oy - (L::ld(S + S_CY * np + j) + time * L::ld(S + S_VY * np + j));
+    ocz = r.oz - (L::ld(S + S_CZ * np + j) + time * L::ld(S + S_VZ * np + j));
   } else {
-    ocx = r.ox - __ldg(S + S_CX * np + j);
-    ocy = r.oy - __ldg(S + S_CY * np + j);
-    ocz = r.oz - __ldg(S + S_CZ * np + j);
+    ocx = r.ox - L::ld(S + S_CX * np + j);
+    ocy = r.oy - L::ld(S + S_CY * np + j);
+    ocz = r.oz - L::ld(S + S_CZ * np + j);
   }
   const float bq = ocx * r.dx + ocy * r.dy + ocz * r.dz;
-  const float cq = ocx * ocx + ocy * ocy + ocz * ocz - __ldg(S + S_R2 * np + j);
+  const float cq = ocx * ocx + ocy * ocy + ocz * ocz - L::ld(S + S_R2 * np + j);
   const float disc = bq * bq - cq;
   const float dpos = fmaxf(disc, 1e-30f);
   const float sq = dpos * (1.0f / sqrtf(dpos));
@@ -152,23 +168,25 @@ __device__ __forceinline__ float pick_axis(float axis, float x, float y,
 
 // Axis-aligned rect (Hittable.cuh:128-294): the plane t by a true
 // division, extents tested as |p_a - c_a| <= h_a.
+template <class L = Ldg>
 __device__ __forceinline__ void rect_test(const float* __restrict__ S,
                                           int np, int j, const Ray& r,
                                           float t_min, float& best_t,
                                           int& best_j) {
-  const float kax = __ldg(S + S_KAX * np + j);
-  const float aax = __ldg(S + S_AAX * np + j);
-  const float bax = __ldg(S + S_BAX * np + j);
+  const float kax = L::ld(S + S_KAX * np + j);
+  const float aax = L::ld(S + S_AAX * np + j);
+  const float bax = L::ld(S + S_BAX * np + j);
   const float d_k = pick_axis(kax, r.dx, r.dy, r.dz);
-  const float t_r = (__ldg(S + S_CK * np + j) - pick_axis(kax, r.ox, r.oy, r.oz)) /
-                    (d_k == 0.0f ? 1e-30f : d_k);
+  const float t_r =
+      (L::ld(S + S_CK * np + j) - pick_axis(kax, r.ox, r.oy, r.oz)) /
+      (d_k == 0.0f ? 1e-30f : d_k);
   const float p_a = pick_axis(aax, r.ox, r.oy, r.oz) +
                     t_r * pick_axis(aax, r.dx, r.dy, r.dz);
   const float p_b = pick_axis(bax, r.ox, r.oy, r.oz) +
                     t_r * pick_axis(bax, r.dx, r.dy, r.dz);
   if (t_r > t_min && t_r < best_t &&
-      fabsf(p_a - __ldg(S + S_CA * np + j)) <= __ldg(S + S_HA * np + j) &&
-      fabsf(p_b - __ldg(S + S_CB * np + j)) <= __ldg(S + S_HB * np + j)) {
+      fabsf(p_a - L::ld(S + S_CA * np + j)) <= L::ld(S + S_HA * np + j) &&
+      fabsf(p_b - L::ld(S + S_CB * np + j)) <= L::ld(S + S_HB * np + j)) {
     best_t = t_r;
     best_j = j;
   }
@@ -177,26 +195,28 @@ __device__ __forceinline__ void rect_test(const float* __restrict__ S,
 // Havel-Herout triangle (ops/cuda/tables.py): t = (d_n - N.o) / (N.d),
 // then the barycentric planes u = p.n1 + d1, v = p.m2 + d2 (kept in bc
 // for a winner when kUV).
-template <bool kUV>
+template <bool kUV, class L = Ldg>
 __device__ __forceinline__ void tri_test(const float* __restrict__ S, int np,
                                          int j, const Ray& r, float t_min,
                                          float& best_t, int& best_j,
                                          Bary& bc) {
-  const float nx = __ldg(S + S_KAX * np + j);
-  const float ny = __ldg(S + S_AAX * np + j);
-  const float nz = __ldg(S + S_BAX * np + j);
+  const float nx = L::ld(S + S_KAX * np + j);
+  const float ny = L::ld(S + S_AAX * np + j);
+  const float nz = L::ld(S + S_BAX * np + j);
   const float denom = r.dx * nx + r.dy * ny + r.dz * nz;
   const bool ok = fabsf(denom) > 1e-9f;
   const float inv = 1.0f / (ok ? denom : 1.0f);
   const float t_t =
-      (__ldg(S + S_DN * np + j) - (r.ox * nx + r.oy * ny + r.oz * nz)) * inv;
+      (L::ld(S + S_DN * np + j) - (r.ox * nx + r.oy * ny + r.oz * nz)) * inv;
   const float px = r.ox + t_t * r.dx;
   const float py = r.oy + t_t * r.dy;
   const float pz = r.oz + t_t * r.dz;
-  const float u = px * __ldg(S + S_CX * np + j) + py * __ldg(S + S_CY * np + j) +
-                  pz * __ldg(S + S_CZ * np + j) + __ldg(S + S_D1 * np + j);
-  const float v = px * __ldg(S + S_CK * np + j) + py * __ldg(S + S_CA * np + j) +
-                  pz * __ldg(S + S_CB * np + j) + __ldg(S + S_D2 * np + j);
+  const float u = px * L::ld(S + S_CX * np + j) +
+                  py * L::ld(S + S_CY * np + j) +
+                  pz * L::ld(S + S_CZ * np + j) + L::ld(S + S_D1 * np + j);
+  const float v = px * L::ld(S + S_CK * np + j) +
+                  py * L::ld(S + S_CA * np + j) +
+                  pz * L::ld(S + S_CB * np + j) + L::ld(S + S_D2 * np + j);
   if (ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t_t > t_min &&
       t_t < best_t) {
     best_t = t_t;
@@ -219,7 +239,7 @@ __device__ __forceinline__ void tri_test(const float* __restrict__ S, int np,
 // frac(u_med + c . (0.7548777, 0.5698403, 0.3287281)) (a hash of the
 // centre, not of the column); it is a hit when it lies before the exit
 // and before best_t.
-template <bool kBox, bool kRot>
+template <bool kBox, bool kRot, class L = Ldg>
 __device__ __forceinline__ void medium_test(const float* __restrict__ S,
                                             int np, int j, const Ray& r,
                                             float t_min, float u_med,
@@ -227,14 +247,14 @@ __device__ __forceinline__ void medium_test(const float* __restrict__ S,
   constexpr float kHx = static_cast<float>(0.7548777);
   constexpr float kHy = static_cast<float>(0.5698403);
   constexpr float kHz = static_cast<float>(0.3287281);
-  const float cx = __ldg(S + S_CX * np + j);
-  const float cy = __ldg(S + S_CY * np + j);
-  const float cz = __ldg(S + S_CZ * np + j);
+  const float cx = L::ld(S + S_CX * np + j);
+  const float cy = L::ld(S + S_CY * np + j);
+  const float cz = L::ld(S + S_CZ * np + j);
   const float ocx = r.ox - cx;
   const float ocy = r.oy - cy;
   const float ocz = r.oz - cz;
   const float bq = ocx * r.dx + ocy * r.dy + ocz * r.dz;
-  const float cq = ocx * ocx + ocy * ocy + ocz * ocz - __ldg(S + S_R2 * np + j);
+  const float cq = ocx * ocx + ocy * ocy + ocz * ocz - L::ld(S + S_R2 * np + j);
   const float disc = bq * bq - cq;
   const float dpos = fmaxf(disc, 1e-30f);
   const float sq = dpos * (1.0f / sqrtf(dpos));
@@ -243,13 +263,13 @@ __device__ __forceinline__ void medium_test(const float* __restrict__ S,
   float te, tex;
   bool valid;
   if constexpr (kBox) {
-    const float ha = __ldg(S + S_HA * np + j);
-    const float hb = __ldg(S + S_HB * np + j);
-    const float hc = __ldg(S + S_CA * np + j);
+    const float ha = L::ld(S + S_HA * np + j);
+    const float hb = L::ld(S + S_HB * np + j);
+    const float hc = L::ld(S + S_CA * np + j);
     float bx0, bx1, by0, by1, bz0, bz1;
     if constexpr (kRot) {
-      const float cyr = __ldg(S + S_DN * np + j);
-      const float syr = __ldg(S + S_D1 * np + j);
+      const float cyr = L::ld(S + S_DN * np + j);
+      const float syr = L::ld(S + S_D1 * np + j);
       const float rox = cyr * ocx - syr * ocz;
       const float roy = ocy;
       const float roz = syr * ocx + cyr * ocz;
@@ -286,7 +306,7 @@ __device__ __forceinline__ void medium_test(const float* __restrict__ S,
   }
   float uj = u_med + (cx * kHx + cy * kHy + cz * kHz);
   uj = uj - floorf(uj);
-  const float t_c = te + -logf(fmaxf(uj, 1e-12f)) / __ldg(S + S_DENS * np + j);
+  const float t_c = te + -logf(fmaxf(uj, 1e-12f)) / L::ld(S + S_DENS * np + j);
   if (valid && t_c < tex && t_c < best_t) {
     best_t = t_c;
     best_j = j;
@@ -295,18 +315,68 @@ __device__ __forceinline__ void medium_test(const float* __restrict__ S,
 
 // A column of a mixed cluster: its S_PTYPE picks the test.  Rects are
 // ptypes 1-3 only, so a ptype-5 medium never fakes a rect hit.
-template <bool kTris, bool kUV, bool kMotion>
+template <bool kTris, bool kUV, bool kMotion, class L = Ldg>
 __device__ __forceinline__ void dual_test(const float* __restrict__ S, int np,
                                           int j, const Ray& r, float t_min,
                                           float time, float& best_t,
                                           int& best_j, Bary& bc) {
-  const float ptype = __ldg(S + S_PTYPE * np + j);
+  const float ptype = L::ld(S + S_PTYPE * np + j);
   if (ptype < 0.5f) {
-    sphere_test<kMotion>(S, np, j, r, t_min, time, best_t, best_j);
+    sphere_test<kMotion, L>(S, np, j, r, t_min, time, best_t, best_j);
   } else if (ptype < 3.5f) {
-    rect_test(S, np, j, r, t_min, best_t, best_j);
+    rect_test<L>(S, np, j, r, t_min, best_t, best_j);
   } else if (kTris) {
-    tri_test<kUV>(S, np, j, r, t_min, best_t, best_j, bc);
+    tri_test<kUV, L>(S, np, j, r, t_min, best_t, best_j, bc);
+  }
+}
+
+// The primitive tests of entered cluster ci, whose columns start at
+// column j0 of S (row stride np, read through L), dispatched on the
+// cluster's kind; updates best_t, best_j (to the column) and bc.
+template <bool kRects, bool kTris, bool kUV, int kFeat, class L = Ldg>
+__device__ __forceinline__ void cluster_tests(const SearchTables& tb, int ci,
+                                              const float* __restrict__ S,
+                                              int np, int j0, const Ray& r,
+                                              float t_min, float u_med,
+                                              float time, float& best_t,
+                                              int& best_j, Bary& bc) {
+  constexpr bool kMotion = (kFeat & F_MOTION) != 0;
+  constexpr bool kMedTest = (kFeat & F_MEDIA) != 0;
+  constexpr bool kMedia = kMedTest || (kFeat & F_SKIP_MEDIA) != 0;
+  constexpr bool kBox = (kFeat & F_BOXM) != 0;
+  constexpr bool kRot = (kFeat & F_ROTM) != 0;
+  const int j_end = j0 + tb.cluster;
+  if constexpr (!(kRects || kTris || kMedia)) {
+    for (int j = j0; j < j_end; ++j) {
+      sphere_test<kMotion, L>(S, np, j, r, t_min, time, best_t, best_j);
+    }
+    return;
+  }
+  const float kind = __ldg(tb.clusters + 6 * tb.nc + ci);
+  if (kind < 0.5f) {
+    for (int j = j0; j < j_end; ++j) {
+      sphere_test<kMotion, L>(S, np, j, r, t_min, time, best_t, best_j);
+    }
+  } else if (kind < 1.5f) {
+    for (int j = j0; j < j_end; ++j) {
+      rect_test<L>(S, np, j, r, t_min, best_t, best_j);
+    }
+  } else if (kMedia && kind > 3.5f) {
+    if constexpr (kMedTest) {
+      for (int j = j0; j < j_end; ++j) {
+        medium_test<kBox, kRot, L>(S, np, j, r, t_min, u_med, best_t,
+                                   best_j);
+      }
+    }
+  } else if (!kTris || kind < 2.5f) {
+    for (int j = j0; j < j_end; ++j) {
+      dual_test<kTris, kUV, kMotion, L>(S, np, j, r, t_min, time, best_t,
+                                        best_j, bc);
+    }
+  } else {
+    for (int j = j0; j < j_end; ++j) {
+      tri_test<kUV, L>(S, np, j, r, t_min, best_t, best_j, bc);
+    }
   }
 }
 
@@ -323,11 +393,6 @@ __device__ __forceinline__ int closest_hit(const SearchTables& tb,
                                            float u_med = 0.0f,
                                            float time = 0.0f,
                                            unsigned* entered = nullptr) {
-  constexpr bool kMotion = (kFeat & F_MOTION) != 0;
-  constexpr bool kMedTest = (kFeat & F_MEDIA) != 0;
-  constexpr bool kMedia = kMedTest || (kFeat & F_SKIP_MEDIA) != 0;
-  constexpr bool kBox = (kFeat & F_BOXM) != 0;
-  constexpr bool kRot = (kFeat & F_ROTM) != 0;
   int best_j = -1;
   for (int si = 0; si < tb.n_super; ++si) {
     if (!box_hit(tb.supers, tb.nsc, si, r, t_min, best_t)) continue;
@@ -335,45 +400,173 @@ __device__ __forceinline__ int closest_hit(const SearchTables& tb,
     for (int ci = si * tb.super_; ci < c_end; ++ci) {
       if (!box_hit(tb.clusters, tb.nc, ci, r, t_min, best_t)) continue;
       if (entered != nullptr) ++*entered;
-      const int j0 = ci * tb.cluster;
-      const int j_end = j0 + tb.cluster;
-      if constexpr (!(kRects || kTris || kMedia)) {
-        for (int j = j0; j < j_end; ++j) {
-          sphere_test<kMotion>(tb.S, tb.np, j, r, t_min, time, best_t,
-                               best_j);
-        }
-        continue;
-      }
-      const float kind = __ldg(tb.clusters + 6 * tb.nc + ci);
-      if (kind < 0.5f) {
-        for (int j = j0; j < j_end; ++j) {
-          sphere_test<kMotion>(tb.S, tb.np, j, r, t_min, time, best_t,
-                               best_j);
-        }
-      } else if (kind < 1.5f) {
-        for (int j = j0; j < j_end; ++j) {
-          rect_test(tb.S, tb.np, j, r, t_min, best_t, best_j);
-        }
-      } else if (kMedia && kind > 3.5f) {
-        if constexpr (kMedTest) {
-          for (int j = j0; j < j_end; ++j) {
-            medium_test<kBox, kRot>(tb.S, tb.np, j, r, t_min, u_med, best_t,
-                                    best_j);
-          }
-        }
-      } else if (!kTris || kind < 2.5f) {
-        for (int j = j0; j < j_end; ++j) {
-          dual_test<kTris, kUV, kMotion>(tb.S, tb.np, j, r, t_min, time,
-                                         best_t, best_j, bc);
-        }
-      } else {
-        for (int j = j0; j < j_end; ++j) {
-          tri_test<kUV>(tb.S, tb.np, j, r, t_min, best_t, best_j, bc);
-        }
-      }
+      cluster_tests<kRects, kTris, kUV, kFeat>(tb, ci, tb.S, tb.np,
+                                               ci * tb.cluster, r, t_min,
+                                               u_med, time, best_t, best_j,
+                                               bc);
     }
   }
   return best_j;
+}
+
+// ------------------------------------------------------ streamed layout
+// Replaces _streamed_search_payload (cudaraytracer_tpu/ops/pallas/
+// render_kernel.py:1193-1372) for tables beyond the card's budget
+// (ops/cuda/tables.py::streams_on_card).  The tables are JAX's tiles
+// (pack_stream_tiles): block bi holds the superclusters bi*block_b + s,
+// one per 128-column page of f32[r8, block_b*128], rows 0-15 S, rows
+// 16.. P; the cluster and supercluster tables stay resident, padded with
+// point boxes at +BIG; each block has its box, the union of its used
+// superclusters' boxes.
+//
+// The walk is the CTA's, not the ray's: every thread of the block calls
+// it, with its own ray or with none (best_t < 0 enters no box), and
+// reaches every barrier.  The blocks are visited in ascending order, the
+// resident search's supercluster order, so ties break alike and the two
+// layouts give the same closest hit (JAX's front-to-back sort served the
+// TPU's whole-tile gates and is not carried over).  A block that no ray
+// of the CTA enters closer than its best_t is skipped (__syncthreads_or
+// on the block's box).  An entered block's S rows (16 x block_b*128 f32,
+// contiguous, 32 KB at block_b 4) are staged by one bulk copy into one of
+// two shared buffers, the next entered block's copy in flight while the
+// current one is tested; that block is chosen under the current best_t,
+// which later tests only lower, so the set of blocks is never too small.
+// Inside a block the supercluster and cluster gates are the resident
+// search's, per ray, on the resident tables, and the primitive tests
+// read the staged S.  P stays in global memory: the caller reads the
+// winner's payload from its tile (stream_payload).
+
+struct StreamTables {
+  const float* tiles;  // f32[n_blocks_cap, r8, w]
+  const float* boxes;  // f32[6, nbc] block AABBs
+  int nbc, n_blocks, r8, block_b, w;  // w = block_b * 128
+};
+
+// The CTA's staging state: two shared buffers of 16 x w floats, their
+// barriers, and per thread the parity each buffer's next copy completes
+// and whether a wait has timed out (later waits are then skipped: the
+// result is wrong, and the checks against the resident kernel and the
+// plain version catch it).
+struct Stage {
+  float* buf;
+  uint64_t* bar;
+  unsigned phase;
+  bool lost;
+};
+
+__device__ __forceinline__ bool cta_leader() {
+  return threadIdx.x == 0 && threadIdx.y == 0;
+}
+
+// The shared memory of the stage: 2 buffers of 16 x w floats, 2 barriers.
+__host__ __device__ constexpr size_t stage_bytes(int w) {
+  return 2 * 16 * 4 * static_cast<size_t>(w) + 2 * sizeof(uint64_t);
+}
+
+// Lay the stage out in the dynamic shared memory `smem` and initialize
+// its barriers; every thread of the CTA calls it.
+__device__ __forceinline__ Stage stage_init(unsigned char* smem, int w) {
+  Stage sg;
+  sg.buf = reinterpret_cast<float*>(smem);
+  sg.bar = reinterpret_cast<uint64_t*>(smem + 2 * 16 * 4 *
+                                       static_cast<size_t>(w));
+  sg.phase = 0;
+  sg.lost = false;
+  if (cta_leader()) {
+    mbar_init(sg.bar, 1);
+    mbar_init(sg.bar + 1, 1);
+  }
+  __syncthreads();
+  return sg;
+}
+
+// The first block from b on whose box a ray of the CTA enters closer
+// than its best_t, or n_blocks.
+__device__ __forceinline__ int next_block(const StreamTables& st, int b,
+                                          const Ray& r, float t_min,
+                                          float best_t) {
+  for (; b < st.n_blocks; ++b) {
+    if (__syncthreads_or(box_hit(st.boxes, st.nbc, b, r, t_min, best_t))) {
+      return b;
+    }
+  }
+  return b;
+}
+
+// Start the copy of block b's S rows into buffer `slot` (the leader).
+__device__ __forceinline__ void stage_block(const Stage& sg, int slot,
+                                            const StreamTables& st, int b) {
+  if (cta_leader()) {
+    const unsigned bytes = 16u * 4u * static_cast<unsigned>(st.w);
+    fence_proxy_async();
+    mbar_expect_tx(sg.bar + slot, bytes);
+    bulk_copy(sg.buf + slot * 16 * st.w,
+              st.tiles + static_cast<size_t>(b) * st.r8 * st.w, bytes,
+              sg.bar + slot);
+  }
+}
+
+// Wait for buffer `slot`'s copy.
+__device__ __forceinline__ void wait_block(Stage& sg, int slot) {
+  if (!sg.lost && !mbar_wait(sg.bar + slot, (sg.phase >> slot) & 1u)) {
+    sg.lost = true;
+  }
+  sg.phase ^= 1u << slot;
+}
+
+// The streamed closest hit: as closest_hit (the same gates, tests, order
+// and cull count), over the staged tiles.  Returns the winner's column
+// in the resident layout (supercluster si's columns si*span ..), or -1.
+template <bool kRects, bool kTris, bool kUV, int kFeat = 0>
+__device__ __forceinline__ int closest_hit_streamed(
+    const SearchTables& tb, const StreamTables& st, Stage& sg, const Ray& r,
+    float t_min, float& best_t, Bary& bc, float u_med = 0.0f,
+    float time = 0.0f, unsigned* entered = nullptr) {
+  const int span = tb.cluster * tb.super_;
+  int best_j = -1;
+  int slot = 0;
+  int cur = next_block(st, 0, r, t_min, best_t);
+  if (cur < st.n_blocks) stage_block(sg, slot, st, cur);
+  while (cur < st.n_blocks) {
+    const int nxt = next_block(st, cur + 1, r, t_min, best_t);
+    if (nxt < st.n_blocks) stage_block(sg, slot ^ 1, st, nxt);
+    wait_block(sg, slot);
+    const float* S = sg.buf + slot * 16 * st.w;
+    for (int s = 0; s < st.block_b; ++s) {
+      const int si = cur * st.block_b + s;
+      if (!box_hit(tb.supers, tb.nsc, si, r, t_min, best_t)) continue;
+      for (int c = 0; c < tb.super_; ++c) {
+        const int ci = si * tb.super_ + c;
+        if (!box_hit(tb.clusters, tb.nc, ci, r, t_min, best_t)) continue;
+        if (entered != nullptr) ++*entered;
+        int jl = -1;  // a closer hit in this cluster: its page column
+        cluster_tests<kRects, kTris, kUV, kFeat, Lds>(
+            tb, ci, S, st.w, s * 128 + c * tb.cluster, r, t_min, u_med, time,
+            best_t, jl, bc);
+        if (jl >= 0) best_j = jl + (si * span - s * 128);
+      }
+    }
+    __syncthreads();  // buffer `slot` is free for the block after next
+    cur = nxt;
+    slot ^= 1;
+  }
+  return best_j;
+}
+
+// The winner's payload in the tiles: P row k of column j (resident
+// layout) is P[k * np + j] with the returned P and np, as the surface
+// functions read it (render_kernel.py:1281: the page column of j is
+// j - si*span + s*128).
+__device__ __forceinline__ const float* stream_payload(const SearchTables& tb,
+                                                       const StreamTables& st,
+                                                       int& j, int& np) {
+  const int span = tb.cluster * tb.super_;
+  const int si = j / span;
+  const int bi = si / st.block_b;
+  const int s = si - bi * st.block_b;
+  j = j - si * span + s * 128;
+  np = st.w;
+  return st.tiles + (static_cast<size_t>(bi) * st.r8 + 16) * st.w;
 }
 
 // The search without the barycentrics or a feature flag (the closest-hit

@@ -34,64 +34,18 @@
 
 #include <cstdint>
 
+#include "stage.cuh"
+
 namespace {
 
-constexpr long long kWaitCycles = 400000000LL;  // ~0.2 s at 1.98 GHz
+using crt::bulk_copy;
+using crt::mbar_expect_tx;
+using crt::mbar_init;
+using crt::mbar_wait;
 
 // resident; one copy of the whole tile (stream, stream2d); one per row
 // (streamrows)
 enum Variant { kResident = 0, kTile = 1, kRows = 2 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// One arrival that also expects `bytes` of copies on the barrier's phase.
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// Bulk async copy of `bytes` (a multiple of 16, both ends 16-byte
-// aligned) from global to shared memory, completing on `bar`.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          unsigned bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// Wait for the barrier's phase of parity `parity` to complete; false if
-// it has not after kWaitCycles.
-__device__ __forceinline__ bool mbar_wait(uint64_t* bar, unsigned parity) {
-  const long long t0 = clock64();
-  while (true) {
-    unsigned done;
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-    if (done) return true;
-    if (clock64() - t0 > kWaitCycles) return false;
-  }
-}
 
 // One warp per CTA: lane j makes read j of every tile.
 template <int kVariant>
@@ -143,9 +97,7 @@ stream_probe_kernel(const int* __restrict__ tab, int n_tiles, int rows,
       // every lane has read the tile before the next copy overwrites it;
       // the fence orders those reads before the copy engine's writes
       __syncwarp();
-      if (lane == 0) {
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      }
+      if (lane == 0) crt::fence_proxy_async();
     }
   }
   if (lane == 0) sums[blockIdx.x] = static_cast<int>(acc);

@@ -57,3 +57,35 @@
   X(0, 0, 0, 0, 1)              \
   X(1, 0, 0, 0, 3)              \
   X(1, 1, 0, 1, 3)
+
+// The streamed layout (search.cuh::closest_hit_streamed; the tables
+// beyond the card's budget): the megakernel's instantiations for the scene
+// classes that route there or that the checks force: spheres
+// (rtow_final), rects (default, the dry run's streamed shard), terrain
+// and terrain_big (vattrs, images) without and with NEE, book2_final
+// without and with NEE, the all-feature probe with NEE, and OBJ meshes on
+// the ground rect (every flag set that render --obj gives), flat and
+// smooth, without and with NEE.
+#define CRT_RENDER_STREAM_VARIANTS(X) \
+  X(0, 0, 0, 0, 0)                    \
+  X(1, 0, 0, 0, 0)                    \
+  X(1, 1, 1, 1, 0)                    \
+  X(1, 1, 1, 1, 32)                   \
+  X(1, 1, 0, 1, 23)                   \
+  X(1, 1, 0, 1, 55)                   \
+  X(1, 0, 0, 0, 63)                   \
+  X(1, 1, 0, 0, 0)                    \
+  X(1, 1, 1, 0, 0)                    \
+  X(1, 1, 0, 0, 32)                   \
+  X(1, 1, 1, 0, 32)
+
+// The G-buffer's streamed instantiations for the same scene classes
+// (only the noise and media bits change its code).
+#define CRT_GBUFFER_STREAM_VARIANTS(X) \
+  X(0, 0, 0, 0, 0)                     \
+  X(1, 0, 0, 0, 0)                     \
+  X(1, 1, 1, 1, 0)                     \
+  X(1, 1, 0, 1, 3)                     \
+  X(1, 0, 0, 0, 3)                     \
+  X(1, 1, 0, 0, 0)                     \
+  X(1, 1, 1, 0, 0)

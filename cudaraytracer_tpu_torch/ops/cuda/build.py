@@ -29,11 +29,13 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "cudaraytracer_tpu_torch"
-SOURCES = ("rng.cuh", "search.cuh", "surface.cuh", "nee.cuh", "qmc.cuh",
-           "variants.cuh", "hit_kernel.cu", "render_kernel.cu",
-           "gbuffer_kernel.cu", "stream_probe.cu")
-CU_FILES = ("hit_kernel.cu", "render_kernel.cu", "gbuffer_kernel.cu",
-            "stream_probe.cu")
+SOURCES = ("rng.cuh", "stage.cuh", "search.cuh", "surface.cuh", "nee.cuh",
+           "qmc.cuh", "variants.cuh", "hit_kernel.cu", "render_kernel.cu",
+           "render_stream.cu", "gbuffer_kernel.cu", "stream_probe.cu")
+# render_stream.cu is render_kernel.cu's streamed entry: a unit of its own
+# that compiles beside the resident one
+CU_FILES = ("hit_kernel.cu", "render_kernel.cu", "render_stream.cu",
+            "gbuffer_kernel.cu", "stream_probe.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC",
@@ -56,6 +58,17 @@ SIGNATURES = {
     "crt_gbuffer": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p, _i, _i, _i,
                     _f, _f, _i, _i, _i, _i, _i, _p, _p, _i, _i, _i, _p, _p,
                     _p, _p],
+    # the streamed entries: (tiles, boxes, clusters, supers, nbc, nc, nsc,
+    # n_blocks, r8, block_b, cluster, super_) in place of the resident
+    # tables and sizes, then as their resident twins
+    "crt_render_sample_streamed": [
+        _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _p,
+        ctypes.c_uint32, _i, _i, _i, _i, _i, _i, _f, _f, _i, _i, _i, _i, _i,
+        _p, _p, _i, _i, _i, _p, _f, _i, _i, _p, _i, _i, _i, _i, _i, _p, _p,
+        _p, _p],
+    "crt_gbuffer_streamed": [
+        _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _p, _i, _i, _i, _f,
+        _f, _i, _i, _i, _i, _i, _p, _p, _i, _i, _i, _p, _p, _p, _p],
     "crt_stream_probe": [_p, _i, _i, _i, _i, _i, _p, _p],
 }
 

@@ -32,11 +32,13 @@ import torch
 
 from ..gbuffer import GBuffer
 from . import build
-from .hit_kernel import brute_closest, search_work
+from .hit_kernel import brute_closest, search_work, streamed_closest
 from .render_kernel import (F_MEDIA, F_NOISE, atlas_args, check_frame_args,
                             feature_bits, hit_normal, primary_rays,
-                            resolve_variant, sky_rgb, surface_rgb)
-from .tables import BIG, CLUSTER, P_PACKA, P_PACKB, P_PACKC, SUPER, vn_base_for
+                            resolve_variant, search_tables, sky_rgb,
+                            surface_rgb, table_args)
+from .tables import (BIG, CLUSTER, P_PACKA, P_PACKB, P_PACKC, SUPER,
+                     p_rows_for, tile_columns, vn_base_for)
 
 # Float operations outside the search, counted from
 # csrc/gbuffer_kernel.cu: a pixel-centre ray, a hit (point, normal, the
@@ -49,16 +51,21 @@ GBUFFER_OPS = {"raygen": 45, "hit": 40, "miss": 14, "smooth": 50,
 # instantiations, as csrc/variants.cuh lists them; only the noise and
 # media bits change its code
 GBUFFER_VARIANTS = build.variants("CRT_GBUFFER_VARIANTS")
+# those of its streamed entry (stream_b > 0)
+GBUFFER_STREAM_VARIANTS = build.variants("CRT_GBUFFER_STREAM_VARIANTS")
 
 
 def gbuffer_variant(has_rects=False, has_tris=False, has_vattrs=False,
-                    has_images=False, **feat) -> tuple:
+                    has_images=False, streamed=False, **feat) -> tuple:
     """The G-buffer instantiation for these flags (``feat``: the
     ``has_noise``/``has_media``/... keywords; only noise and media
-    count); ``NotImplementedError`` when none serves them."""
-    return resolve_variant(GBUFFER_VARIANTS, "G-buffer kernel", has_rects,
-                           has_tris, has_vattrs, has_images,
-                           feature_bits(**feat) & (F_NOISE | F_MEDIA))
+    count), of the streamed entry with ``streamed``;
+    ``NotImplementedError`` when none serves them."""
+    return resolve_variant(
+        GBUFFER_STREAM_VARIANTS if streamed else GBUFFER_VARIANTS,
+        "streamed G-buffer kernel" if streamed else "G-buffer kernel",
+        has_rects, has_tris, has_vattrs, has_images,
+        feature_bits(**feat) & (F_NOISE | F_MEDIA))
 
 
 def gbuffer_plain(S, P, clusters, supers, n_super, cam_vec, *, width: int,
@@ -67,17 +74,21 @@ def gbuffer_plain(S, P, clusters, supers, n_super, cam_vec, *, width: int,
                   has_vattrs: bool = False, has_noise: bool = False,
                   has_media: bool = False, has_boxm: bool = False,
                   has_rotm: bool = False, has_motion: bool = False,
-                  atlas=None, tex_hw=None, cluster: int = CLUSTER,
-                  super_: int = SUPER, work: dict | None = None) -> GBuffer:
+                  atlas=None, tex_hw=None, stream_b: int = 0,
+                  cluster: int = CLUSTER, super_: int = SUPER,
+                  work: dict | None = None) -> GBuffer:
     """Plain PyTorch version of the G-buffer kernel (module docstring).
-    Same arguments and result as ``gbuffer``; runs on any device.
+    Same arguments and result as ``gbuffer``; runs on any device.  With
+    ``stream_b`` > 0 the search is the streamed walk over the tiles
+    (``hit_kernel.streamed_closest``) and the payload their columns, as
+    in ``render_kernel.render_sample_plain``.
     ``work``: a dict to which the run adds its "raygen", "hit" and "miss"
     lanes, "smooth", "image" and "noise" hits and the search's tests
     (``hit_kernel.search_work``)."""
     del has_noise, has_boxm, has_rotm  # the texture and the skip need none
     check_frame_args(S, P, clusters, supers, n_super, cam_vec, width, height,
                      camera_model, cluster, super_, atlas, tex_hw,
-                     has_vattrs, has_tris, has_motion)
+                     has_vattrs, has_tris, has_motion, stream_b=stream_b)
     gbuffer_plain.launches += 1
     dev, f32 = S.device, torch.float32
     cam = [float(v) for v in cam_vec.detach().cpu().tolist()]
@@ -92,9 +103,20 @@ def gbuffer_plain(S, P, clusters, supers, n_super, cam_vec, *, width: int,
     with_uv = has_vattrs or (has_tris and atlas is not None)
     vn_base = vn_base_for(atlas is not None) if has_vattrs else None
     # media: medium columns never hit without a medium uniform
-    best_t, col, *bary = brute_closest(
-        S, org, dirn, cam[28], torch.full((n,), BIG, dtype=f32, device=dev),
-        has_rects, has_tris, with_uv, has_media=has_media)
+    best_t0 = torch.full((n,), BIG, dtype=f32, device=dev)
+    if stream_b:
+        tiles, block_boxes = S, P
+        P = tile_columns(tiles, slice(16, 16 + p_rows_for(
+            atlas is not None, has_vattrs, has_motion)), stream_b, cluster,
+            super_)
+        best_t, col, *bary, _ = streamed_closest(
+            tiles, block_boxes, clusters, supers, n_super, stream_b, org,
+            dirn, cam[28], best_t0, has_rects, has_tris, with_uv,
+            has_media=has_media, cluster=cluster, super_=super_)
+    else:
+        best_t, col, *bary = brute_closest(
+            S, org, dirn, cam[28], best_t0, has_rects, has_tris, with_uv,
+            has_media=has_media)
     hit = col >= 0
     if work is not None:
         nh = int(hit.sum())
@@ -107,7 +129,9 @@ def gbuffer_plain(S, P, clusters, supers, n_super, cam_vec, *, width: int,
         for k, v in (("raygen", n), ("hit", nh), ("miss", n - nh),
                      ("smooth", n_smooth), ("image", n_img),
                      ("noise", n_noise),
-                     *search_work(S, clusters, supers, n_super, org, dirn,
+                     *search_work(*search_tables(S, clusters, supers,
+                                                 n_super, stream_b, cluster,
+                                                 super_), org, dirn,
                                   cam[28], has_rects=has_rects,
                                   has_tris=has_tris, has_media=has_media,
                                   cluster=cluster, super_=super_).items()):
@@ -150,7 +174,7 @@ def gbuffer(S, P, clusters, supers, n_super, cam_vec, *, width: int,
             has_vattrs: bool = False, has_noise: bool = False,
             has_media: bool = False, has_boxm: bool = False,
             has_rotm: bool = False, has_motion: bool = False, atlas=None,
-            tex_hw=None, cluster: int = CLUSTER,
+            tex_hw=None, stream_b: int = 0, cluster: int = CLUSTER,
             super_: int = SUPER) -> GBuffer:
     """One primary-visibility pass -> GBuffer(normal, albedo, depth).
 
@@ -158,44 +182,51 @@ def gbuffer(S, P, clusters, supers, n_super, cam_vec, *, width: int,
     supers and ``n_super`` (tables.tables_to_torch), the f32[38] camera
     vector (tables.pack_camera_np), the scene's static flags and for image
     textures the atlas and ``tex_hw``, as ``render_sample`` takes them
-    (``tables.kernel_inputs``).  CUDA tensors launch the
-    csrc/gbuffer_kernel.cu instantiation ``gbuffer_variant`` picks; CPU
-    tensors run ``gbuffer_plain``.
+    (``tables.kernel_inputs``).  ``stream_b`` > 0 takes the streamed
+    tables as ``render_sample`` does (its launches count in
+    ``gbuffer.streamed_launches``).  CUDA tensors launch the
+    csrc/gbuffer_kernel.cu instantiation ``gbuffer_variant`` picks (a
+    failed build or launch raises); CPU tensors run ``gbuffer_plain``.
     """
     feat = dict(has_noise=has_noise, has_media=has_media, has_boxm=has_boxm,
                 has_rotm=has_rotm, has_motion=has_motion)
     check_frame_args(S, P, clusters, supers, n_super, cam_vec, width, height,
                      camera_model, cluster, super_, atlas, tex_hw,
-                     has_vattrs, has_tris, has_motion)
+                     has_vattrs, has_tris, has_motion, stream_b=stream_b)
     if S.device.type == "cpu":
         return gbuffer_plain(S, P, clusters, supers, n_super, cam_vec,
                              width=width, height=height,
                              camera_model=camera_model, has_rects=has_rects,
                              has_tris=has_tris, has_vattrs=has_vattrs,
-                             atlas=atlas, tex_hw=tex_hw, cluster=cluster,
-                             super_=super_, **feat)
+                             atlas=atlas, tex_hw=tex_hw, stream_b=stream_b,
+                             cluster=cluster, super_=super_, **feat)
     if S.device.type != "cuda":
         raise ValueError(f"gbuffer runs on cuda or cpu, not {S.device}")
     variant = gbuffer_variant(has_rects, has_tris, has_vattrs,
-                              atlas is not None, **feat)
+                              atlas is not None, streamed=bool(stream_b),
+                              **feat)
     dev = S.device
     normal = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
     albedo = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
     lib = build.load_library()
+    suffix, tabs = table_args(S, P, clusters, supers, n_super, stream_b,
+                              cluster, super_)
+    entry = "crt_gbuffer" + suffix
     with torch.cuda.device(dev):
-        rc = lib.crt_gbuffer(
-            S.data_ptr(), P.data_ptr(), clusters.data_ptr(),
-            supers.data_ptr(), S.shape[1], clusters.shape[1],
-            supers.shape[1], int(n_super), cluster, super_,
-            cam_vec.data_ptr(), width, height,
+        rc = getattr(lib, entry)(
+            *tabs, cam_vec.data_ptr(), width, height,
             int(camera_model == "two_plane"), 1.0 / width, 1.0 / height,
             *variant, *atlas_args(atlas, tex_hw), normal.data_ptr(),
             albedo.data_ptr(), depth.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
-    build.check(lib, "crt_gbuffer", rc)
-    gbuffer.launches += 1
+    build.check(lib, entry, rc)
+    if stream_b:
+        gbuffer.streamed_launches += 1
+    else:
+        gbuffer.launches += 1
     return GBuffer(normal, albedo, depth)
 
 
 gbuffer.launches = 0
+gbuffer.streamed_launches = 0

@@ -394,6 +394,63 @@ def search_work(S, clusters, supers, n_super, org, dirn, t_min: float = 1e-3,
     return work
 
 
+def streamed_closest(tiles, block_boxes, clusters, supers, n_blocks,
+                     block_b, org, dirn, t_min, best_t0,
+                     has_rects=False, has_tris=False, with_uv=False,
+                     has_media=False, u_med=None, time=None,
+                     has_boxm=False, has_rotm=False, cluster=CLUSTER,
+                     super_=SUPER):
+    """csrc/search.cuh::closest_hit_streamed on tensors: the walk over the
+    streamed tables (tables.pack_stream_tiles) in ascending block order,
+    each ray through the blocks whose box it enters, then the
+    superclusters and clusters whose boxes it enters, all with its
+    running best_t, and the primitive tests of an entered cluster reading
+    S from its tile page (the per-primitive arithmetic of
+    ``brute_closest``).  Returns (best_t, col, [bu, bv,] entered): col is
+    the winner's column in the resident layout (-1 on a miss), entered
+    the (ray, cluster) entries.  The kernel gates a block once for its
+    CTA; a ray that does not enter a block enters none of its boxes, so
+    the result is the same."""
+    t_min = float(np.float32(t_min))
+    dev = org.device
+    n = org.shape[0]
+    d_inv = 1.0 / torch.where(dirn == 0.0, 1e-30, dirn)
+    best_t = best_t0.clone()
+    col = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    bu = torch.zeros((n,), dtype=torch.float32, device=dev)
+    bv = torch.zeros_like(bu)
+    span = cluster * super_
+    entered = 0
+    every = torch.arange(n, device=dev)
+    for bi in range(int(n_blocks)):
+        rb = every[_box_enter(block_boxes, bi, org, d_inv, t_min, best_t)]
+        for s in range(block_b if rb.numel() else 0):
+            si = bi * block_b + s
+            rays = rb[_box_enter(supers, si, org[rb], d_inv[rb], t_min,
+                                 best_t[rb])]
+            for c in range(super_ if rays.numel() else 0):
+                ci = si * super_ + c
+                r = rays[_box_enter(clusters, ci, org[rays], d_inv[rays],
+                                    t_min, best_t[rays])]
+                if r.numel() == 0:
+                    continue
+                entered += r.numel()
+                l0 = s * 128 + c * cluster
+                bt, jc, *uv = brute_closest(
+                    tiles[bi, 0:16, l0:l0 + cluster].contiguous(), org[r],
+                    dirn[r], t_min, best_t[r], has_rects, has_tris, with_uv,
+                    has_media, None if u_med is None else u_med[r],
+                    None if time is None else time[r], has_boxm, has_rotm)
+                won = jc >= 0
+                best_t[r] = bt
+                col[r[won]] = jc[won] + (si * span + c * cluster)
+                if with_uv:
+                    bu[r[won]] = uv[0][won]
+                    bv[r[won]] = uv[1][won]
+    return (best_t, col, bu, bv, entered) if with_uv else (best_t, col,
+                                                           entered)
+
+
 def search_ops(work: dict) -> int:
     """Float operations of the tests counted by ``search_work``."""
     return sum(OPS[k] * v for k, v in work.items() if k in OPS)

@@ -10,7 +10,9 @@ lambertian hits over the light table ``lights``, ``ops/sampling.py``),
 ``has_qmc`` (R2 pixel jitter from the global sample index
 ``sample_base`` + samples done, ``ops/qmc.py``), ``tile_mask``
 (adaptive sampling: a pixel of a tile whose entry is 0 traces nothing),
-the row band ``y0``/``band_h`` and ``with_cull_stats``.
+the row band ``y0``/``band_h``, ``with_cull_stats`` and the streamed
+table layout (``stream_b``: tables beyond the card's budget, in JAX's
+``pack_stream_tiles`` tiles; ``csrc/render_stream.cu``).
 ``render_sample`` keeps the JAX calling convention and returns the
 radiance SUM over ``spp`` samples of the band's rows, f32[band_h, width,
 3] (plus the int64 ray count with ``with_stats``, then the cluster
@@ -53,7 +55,9 @@ the feature); any other combination raises ``NotImplementedError``.
 ``sky_rgb`` are the plain versions of ``csrc/surface.cuh`` (the texture
 color is ``ops/textures.sample_texture``), shared with the G-buffer's
 plain version.  Both entry points count their
-launches (``render_sample.launches``, ``render_sample_plain.launches``).  Rows:
+launches (``render_sample.launches``, ``render_sample_plain.launches``;
+the streamed layout's kernel launches in
+``render_sample.streamed_launches``).  Rows:
 look_at writes row 0 = image top, two_plane row 0 = image bottom (the JAX
 package's conventions).
 """
@@ -67,10 +71,11 @@ from ...utils import rng
 from .. import qmc, sampling
 from ..textures import sample_texture
 from . import build
-from .hit_kernel import brute_closest, check_search_tables, search_work
+from .hit_kernel import (brute_closest, check_search_tables, search_work,
+                         streamed_closest)
 from .tables import (BIG, CLUSTER, P_CX, P_CY, P_CZ, P_HA, P_HB, P_MPARAM,
                      P_PACKA, P_PACKB, P_PACKC, SUPER, p_rows_for,
-                     vn_base_for)
+                     stream_rows, tile_columns, vn_base_for)
 
 # Feature bits of the static flags beyond (rects, tris, vattrs, images):
 # the kernels' ``kFeat`` template argument (csrc/search.cuh F_*), with the
@@ -88,6 +93,8 @@ _SUPERSET_BITS = F_NOISE | F_MEDIA | F_BOXM
 # (rects, tris, vattrs, images, feature bits) of csrc/render_kernel.cu's
 # instantiations, as csrc/variants.cuh lists them
 RENDER_VARIANTS = build.variants("CRT_RENDER_VARIANTS")
+# those of its streamed entry (stream_b > 0), CRT_RENDER_STREAM_VARIANTS
+RENDER_STREAM_VARIANTS = build.variants("CRT_RENDER_STREAM_VARIANTS")
 
 
 def feature_bits(has_noise=False, has_media=False, has_boxm=False,
@@ -100,11 +107,15 @@ def feature_bits(has_noise=False, has_media=False, has_boxm=False,
 
 
 def render_variant(has_rects=False, has_tris=False, has_vattrs=False,
-                   has_images=False, **feat) -> tuple:
+                   has_images=False, streamed=False, **feat) -> tuple:
     """The megakernel instantiation for these flags (``feat``: the
     ``has_noise``/``has_media``/``has_boxm``/``has_rotm``/``has_motion``/
-    ``has_nee`` keywords); ``NotImplementedError`` when none serves
-    them."""
+    ``has_nee`` keywords), of the streamed entry with ``streamed``;
+    ``NotImplementedError`` when none serves them."""
+    if streamed:
+        return resolve_variant(RENDER_STREAM_VARIANTS,
+                               "streamed megakernel", has_rects, has_tris,
+                               has_vattrs, has_images, feature_bits(**feat))
     return resolve_variant(RENDER_VARIANTS, "megakernel", has_rects,
                            has_tris, has_vattrs, has_images,
                            feature_bits(**feat))
@@ -141,26 +152,76 @@ _INV_PI = float(np.float32(1.0 / np.pi))
 _INV_2PI = float(np.float32(1.0 / (2.0 * np.pi)))
 
 
+def check_stream_tables(tiles, block_boxes, clusters, supers, n_blocks,
+                        stream_b, cluster, super_, p_rows):
+    """Raise unless (tiles, block_boxes, clusters, supers, n_blocks) are
+    contiguous f32 streamed tables on one device as
+    ``tables.pack_stream_tiles`` packs them for ``stream_b`` superclusters
+    per block and ``p_rows`` payload rows: tiles f32[NB, R8, stream_b *
+    128] with R8 = ``tables.stream_rows(p_rows)``, block_boxes f32[6, NB],
+    the cluster and supercluster tables covering NB blocks, and 0 <=
+    n_blocks <= NB."""
+    r8 = stream_rows(p_rows)
+    named = (("tiles", tiles, 3), ("block_boxes", block_boxes, 2),
+             ("clusters", clusters, 2), ("supers", supers, 2))
+    for name, t, dims in named:
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.float32 \
+                or t.dim() != dims:
+            raise ValueError(f"{name} must be a {dims}-D f32 tensor, got "
+                             f"{getattr(t, 'dtype', type(t))}"
+                             f"{list(getattr(t, 'shape', []))}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != tiles.device:
+            raise ValueError(f"{name} is on {t.device}, tiles on "
+                             f"{tiles.device}")
+    nb = tiles.shape[0]
+    if stream_b <= 0 or cluster * super_ > 128:
+        raise ValueError(f"stream_b={stream_b} with {cluster} x {super_} "
+                         "superclusters does not tile")
+    if tuple(tiles.shape[1:]) != (r8, stream_b * 128):
+        raise ValueError(
+            f"tiles must be f32[NB, {r8}, {stream_b * 128}] for stream_b="
+            f"{stream_b} and {p_rows} payload rows, got {list(tiles.shape)}")
+    if tuple(block_boxes.shape) != (6, nb):
+        raise ValueError(f"block_boxes must be f32[6, {nb}], got "
+                         f"{list(block_boxes.shape)}")
+    if clusters.shape[0] != 7 or supers.shape[0] != 6 \
+            or supers.shape[1] < nb * stream_b \
+            or clusters.shape[1] < nb * stream_b * super_:
+        raise ValueError(f"clusters/supers {list(clusters.shape)}/"
+                         f"{list(supers.shape)} do not cover {nb} blocks")
+    if not 0 <= int(n_blocks) <= nb:
+        raise ValueError(f"n_blocks={n_blocks} outside [0, {nb}]")
+
+
 def check_frame_args(S, P, clusters, supers, n_super, cam_vec, width,
                      height, camera_model, cluster, super_, atlas=None,
                      tex_hw=None, has_vattrs=False, has_tris=False,
-                     has_motion=False, has_nee=False, lights=None):
+                     has_motion=False, has_nee=False, lights=None,
+                     stream_b=0):
     """Raise unless the tables, the f32[38] camera, the camera model, the
     image size, the atlas and the light table are what the image kernels
     take.  P has ``p_rows_for(has_images, has_vattrs, has_motion)`` rows,
     where has_images means an atlas is given: uint8[S, AH, AW, 3] with its
     i32[S, 2] ``tex_hw``; ``has_vattrs`` needs ``has_tris``; ``has_nee``
     needs ``lights``, the f32[114] table of ``sampling.pack_lights_np``,
-    and ``lights`` needs ``has_nee``."""
-    check_search_tables(S, clusters, supers, n_super, cluster, super_)
+    and ``lights`` needs ``has_nee``.  With ``stream_b`` > 0 S and P are
+    the streamed tiles and block boxes (``check_stream_tables``) and
+    n_super the used blocks."""
     rows = p_rows_for(atlas is not None, has_vattrs, has_motion)
-    if not isinstance(P, torch.Tensor) or P.dtype != torch.float32 \
-            or P.dim() != 2 or tuple(P.shape) != (rows, S.shape[1]):
-        raise ValueError(
-            f"P must be f32[{rows}, {S.shape[1]}] for has_images="
-            f"{atlas is not None}, has_vattrs={has_vattrs}, has_motion="
-            f"{has_motion}, got "
-            f"{getattr(P, 'dtype', type(P))}{list(getattr(P, 'shape', []))}")
+    if stream_b:
+        check_stream_tables(S, P, clusters, supers, n_super, int(stream_b),
+                            cluster, super_, rows)
+    else:
+        check_search_tables(S, clusters, supers, n_super, cluster, super_)
+        if not isinstance(P, torch.Tensor) or P.dtype != torch.float32 \
+                or P.dim() != 2 or tuple(P.shape) != (rows, S.shape[1]):
+            raise ValueError(
+                f"P must be f32[{rows}, {S.shape[1]}] for has_images="
+                f"{atlas is not None}, has_vattrs={has_vattrs}, has_motion="
+                f"{has_motion}, got {getattr(P, 'dtype', type(P))}"
+                f"{list(getattr(P, 'shape', []))}")
     if has_vattrs and not has_tris:
         raise ValueError("has_vattrs needs has_tris")
     if not isinstance(cam_vec, torch.Tensor) \
@@ -211,10 +272,11 @@ def mask_grid(width: int, height: int, tile) -> tuple:
 def _check(S, P, clusters, supers, n_super, cam_vec, max_depth, width,
            height, camera_model, spp, rr_start, cluster, super_, atlas,
            tex_hw, has_vattrs, has_tris, has_motion, has_nee, lights,
-           sample_base, tile_mask, tile, y0, band_h):
+           sample_base, tile_mask, tile, y0, band_h, stream_b):
     check_frame_args(S, P, clusters, supers, n_super, cam_vec, width, height,
                      camera_model, cluster, super_, atlas, tex_hw,
-                     has_vattrs, has_tris, has_motion, has_nee, lights)
+                     has_vattrs, has_tris, has_motion, has_nee, lights,
+                     stream_b)
     # the band: band_h None means the rows from y0 to the image's end
     y0 = int(y0)
     band_h = height - y0 if band_h is None else int(band_h)
@@ -245,6 +307,10 @@ def _check(S, P, clusters, supers, n_super, cam_vec, max_depth, width,
                 f"tile_mask must be a contiguous i32[{gi * gj}] on "
                 f"{S.device}: the ({gi}, {gj}) grid of {th}x{tw} tiles "
                 f"over the {width}x{band_h} band")
+        if stream_b and (th % 8 or tw % 16):
+            # the streamed kernel masks whole 16 x 8 CTAs
+            raise ValueError(f"the streamed layout's mask tile {tile} must "
+                             "be a multiple of 8 rows and 16 columns")
     return y0, band_h
 
 
@@ -426,6 +492,17 @@ SHADE_OPS = {"raygen": 50, "miss": 20, "hit": 80, "smooth": 50, "image": 20,
              "qmc": 16}
 
 
+def search_tables(S, clusters, supers, n_super, stream_b, cluster, super_):
+    """(S, clusters, supers, n_super) in the resident layout for
+    ``hit_kernel.search_work``: as given, or with ``stream_b`` > 0 the S
+    rows of the tiles S (``tables.tile_columns``) and every supercluster
+    of the used blocks n_super (the padded ones enter no box)."""
+    if not stream_b:
+        return S, clusters, supers, n_super
+    return (tile_columns(S, slice(0, 16), stream_b, cluster, super_),
+            clusters, supers, int(n_super) * stream_b)
+
+
 def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
                         max_depth, *, width: int, height: int,
                         camera_model: str = "look_at", spp: int = 1,
@@ -439,12 +516,18 @@ def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
                         nee_p: float = 0.5, has_qmc: bool = False,
                         sample_base: int = 0, tile_mask=None,
                         tile=None, y0: int = 0, band_h: int | None = None,
-                        with_cull_stats: bool = False, cluster: int = CLUSTER,
-                        super_: int = SUPER, work: dict | None = None):
+                        with_cull_stats: bool = False, stream_b: int = 0,
+                        cluster: int = CLUSTER, super_: int = SUPER,
+                        work: dict | None = None):
     """Plain PyTorch version of the megakernel (see the module docstring).
     Same arguments and results as ``render_sample``; runs on any device
     and takes any combination of the flags.  ``with_cull_stats`` replays
     the culled search per iteration (``hit_kernel.search_work``; slow).
+    With ``stream_b`` > 0 the tables are the streamed ones (S the tiles,
+    P the block boxes, n_super the used blocks): the search is the
+    streamed walk (``hit_kernel.streamed_closest``, which also counts the
+    cluster entries) and the payload is read from the tiles by block,
+    page and column (``tables.tile_columns``).
 
     ``work``: a dict to which the run adds what the kernel's work is
     counted from: "raygen", "miss", surface "hit" and "medium" hit lanes,
@@ -458,9 +541,14 @@ def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
                         width, height, camera_model, spp, rr_start, cluster,
                         super_, atlas, tex_hw, has_vattrs, has_tris,
                         has_motion, has_nee, lights, sample_base, tile_mask,
-                        tile, y0, band_h)
+                        tile, y0, band_h, stream_b)
     render_sample_plain.launches += 1
     dev = S.device
+    if stream_b:
+        tiles, block_boxes = S, P
+        P = tile_columns(tiles, slice(16, 16 + p_rows_for(
+            atlas is not None, has_vattrs, has_motion)), stream_b, cluster,
+            super_)
     f32 = torch.float32
     cam = [float(v) for v in cam_vec.detach().cpu().tolist()]
     t_min = cam[28]
@@ -549,17 +637,28 @@ def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
         u_med = rng.uniform(pk_all[ia], it, rng.SLOT_MED) if has_media \
             else None
         time = shutter[ia] if has_motion else None
-        best_t, col, *bary = brute_closest(
-            S, org, dirn, t_min, torch.full_like(ox, BIG), has_rects,
-            has_tris, with_uv, u_med=u_med, time=time, **med_kw)
+        if stream_b:
+            *found, n_ent = streamed_closest(
+                tiles, block_boxes, clusters, supers, n_super, stream_b,
+                org, dirn, t_min, torch.full_like(ox, BIG), has_rects,
+                has_tris, with_uv, u_med=u_med, time=time, cluster=cluster,
+                super_=super_, **med_kw)
+            best_t, col, *bary = found
+            entered += n_ent
+        else:
+            best_t, col, *bary = brute_closest(
+                S, org, dirn, t_min, torch.full_like(ox, BIG), has_rects,
+                has_tris, with_uv, u_med=u_med, time=time, **med_kw)
         hit = col >= 0
         cont_a = torch.zeros_like(hit)
-        if work is not None or with_cull_stats:
-            sw = search_work(S, clusters, supers, n_super, org, dirn, t_min,
-                             has_rects=has_rects, has_tris=has_tris,
-                             u_med=u_med, time=time, cluster=cluster,
-                             super_=super_, **med_kw)
-            entered += sw["entered"]
+        if work is not None or (with_cull_stats and not stream_b):
+            sw = search_work(*search_tables(S, clusters, supers, n_super,
+                                            stream_b, cluster, super_),
+                             org, dirn, t_min, has_rects=has_rects,
+                             has_tris=has_tris, u_med=u_med, time=time,
+                             cluster=cluster, super_=super_, **med_kw)
+            if not stream_b:
+                entered += sw["entered"]
         if work is not None:
             pc = p_packc[col[hit]]
             n_med = int((((pc >> 4) & 7) == 5).sum())
@@ -746,6 +845,22 @@ def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
 render_sample_plain.launches = 0
 
 
+def table_args(S, P, clusters, supers, n_super, stream_b, cluster,
+               super_) -> tuple:
+    """The C entries' table arguments and the entry's suffix: resident
+    (S, P, clusters, supers, np, nc, nsc, n_super, cluster, super_), or
+    with ``stream_b`` > 0 streamed (tiles, block boxes, clusters, supers,
+    nbc, nc, nsc, n_blocks, r8, block_b, cluster, super_)."""
+    ptrs = (S.data_ptr(), P.data_ptr(), clusters.data_ptr(),
+            supers.data_ptr())
+    if stream_b:
+        return "_streamed", (*ptrs, S.shape[0], clusters.shape[1],
+                             supers.shape[1], int(n_super), S.shape[1],
+                             int(stream_b), cluster, super_)
+    return "", (*ptrs, S.shape[1], clusters.shape[1], supers.shape[1],
+                int(n_super), cluster, super_)
+
+
 def atlas_args(atlas, tex_hw) -> tuple:
     """The C entries' (atlas, tex_hw, slots, ah, aw) arguments."""
     if atlas is None:
@@ -766,7 +881,8 @@ def render_sample(S, P, clusters, supers, n_super, cam_vec, seed, max_depth,
                   has_qmc: bool = False, sample_base: int = 0,
                   tile_mask=None, tile=None, y0: int = 0,
                   band_h: int | None = None, with_cull_stats: bool = False,
-                  cluster: int = CLUSTER, super_: int = SUPER):
+                  stream_b: int = 0, cluster: int = CLUSTER,
+                  super_: int = SUPER):
     """``spp`` samples per pixel of the megakernel -> f32[band_h, width, 3]
     radiance SUM (divide by spp to display) of the image rows y0 .. y0 +
     band_h - 1 (the whole image by default), plus the int64 ray count (a
@@ -798,8 +914,16 @@ def render_sample(S, P, clusters, supers, n_super, cam_vec, seed, max_depth,
     ``parallel/tiling.py``) lies inside the ``height``-row image, whose
     camera it is rendered with; a mask then covers the band's rows.
 
+    ``stream_b`` > 0 (``pallas_render_sample``'s convention) takes the
+    streamed tables of ``tables.pack_stream_tiles`` (``tables.
+    stream_tables_to_torch``): S the tiles, P the block boxes, the padded
+    clusters and supers, and n_super the used blocks; its CUDA launches
+    count in ``render_sample.streamed_launches``, the resident ones in
+    ``render_sample.launches``.
+
     CUDA tensors launch the kernel instantiation ``render_variant`` picks
-    (``NotImplementedError`` when none serves the flags); CPU tensors run
+    (``NotImplementedError`` when none serves the flags); a failed build
+    or launch raises, for either layout.  CPU tensors run
     ``render_sample_plain``.
     """
     spp, max_depth, rr_start = int(spp), int(max_depth), int(rr_start)
@@ -808,7 +932,7 @@ def render_sample(S, P, clusters, supers, n_super, cam_vec, seed, max_depth,
                         width, height, camera_model, spp, rr_start, cluster,
                         super_, atlas, tex_hw, has_vattrs, has_tris,
                         has_motion, has_nee, lights, sample_base, tile_mask,
-                        tile, y0, band_h)
+                        tile, y0, band_h, stream_b)
     feat = dict(has_noise=has_noise, has_media=has_media, has_boxm=has_boxm,
                 has_rotm=has_rotm, has_motion=has_motion, has_nee=has_nee)
     if S.device.type == "cpu":
@@ -820,11 +944,12 @@ def render_sample(S, P, clusters, supers, n_super, cam_vec, seed, max_depth,
             atlas=atlas, tex_hw=tex_hw, lights=lights, nee_p=nee_p,
             has_qmc=has_qmc, sample_base=sample_base, tile_mask=tile_mask,
             tile=tile, y0=y0, band_h=band_h, with_cull_stats=with_cull_stats,
-            cluster=cluster, super_=super_, **feat)
+            stream_b=stream_b, cluster=cluster, super_=super_, **feat)
     if S.device.type != "cuda":
         raise ValueError(f"render_sample runs on cuda or cpu, not {S.device}")
     variant = render_variant(has_rects, has_tris, has_vattrs,
-                             atlas is not None, **feat)
+                             atlas is not None, streamed=bool(stream_b),
+                             **feat)
     # the mask's tile shape and tile columns (unread without a mask)
     mask_geom = (0, 0, 0) if tile_mask is None else (
         int(tile[0]), int(tile[1]), mask_grid(width, band_h, tile)[1])
@@ -833,12 +958,12 @@ def render_sample(S, P, clusters, supers, n_super, cam_vec, seed, max_depth,
     # the ray count and the cluster entries
     counts = torch.zeros(2, dtype=torch.int64, device=S.device)
     lib = build.load_library()
+    suffix, tabs = table_args(S, P, clusters, supers, n_super, stream_b,
+                              cluster, super_)
+    entry = "crt_render_sample" + suffix
     with torch.cuda.device(S.device):
-        rc = lib.crt_render_sample(
-            S.data_ptr(), P.data_ptr(), clusters.data_ptr(),
-            supers.data_ptr(), S.shape[1], clusters.shape[1],
-            supers.shape[1], int(n_super), cluster, super_,
-            cam_vec.data_ptr(), rng.key_for(int(seed), int(stream)),
+        rc = getattr(lib, entry)(
+            *tabs, cam_vec.data_ptr(), rng.key_for(int(seed), int(stream)),
             max_depth, width, height, spp, rr_start,
             int(camera_model == "two_plane"), 1.0 / width, 1.0 / height,
             *variant, *atlas_args(atlas, tex_hw),
@@ -848,10 +973,14 @@ def render_sample(S, P, clusters, supers, n_super, cam_vec, seed, max_depth,
             y0, band_h, counts[1:].data_ptr() if with_cull_stats else None,
             out.data_ptr(), counts.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
-    build.check(lib, "crt_render_sample", rc)
-    render_sample.launches += 1
+    build.check(lib, entry, rc)
+    if stream_b:
+        render_sample.streamed_launches += 1
+    else:
+        render_sample.launches += 1
     stats = [c for c, on in zip(counts, (with_stats, with_cull_stats)) if on]
     return (out, *stats) if stats else out
 
 
 render_sample.launches = 0
+render_sample.streamed_launches = 0

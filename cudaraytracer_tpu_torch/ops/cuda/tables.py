@@ -9,9 +9,11 @@ the tables on a device, and the scene's static kernel flags
 (``kernel_flags``, computed as the JAX pipeline computes them) with
 ``kernel_inputs``, which sets up tables, flags and atlas for the kernels
 as the render loop does, ``nee_inputs``, the megakernel's NEE light
-table, and ``mask_tile``, the adaptive mask's tiles as the JAX pipeline
-picks them.  The native C++ packer waits
-for a later port.
+table, ``mask_tile``, the adaptive mask's tiles as the JAX pipeline
+picks them, and the streamed layout of the tables
+(``pack_stream_tiles``, ``stream_tables_to_torch``) with its route on
+the card (``streams_on_card``: the tables against a share of the
+card's L2, ``stream_budget``).  The native C++ packer waits for a later port.
 """
 
 from __future__ import annotations
@@ -583,13 +585,21 @@ def kernel_flags(scene) -> dict:
         has_rotm=bool((scene.edge2[idx][pt == 5, 0] != 0).any()))
 
 
-def kernel_inputs(scene, device) -> tuple[TorchTables, dict]:
+def kernel_inputs(scene, device, budget: int | None = None) -> tuple:
     """Tables and keyword flags of the scene for ``render_sample`` and
     ``gbuffer``, as the render loop sets them up: uv rows and the atlas
     (``atlas``/``tex_hw``) with image textures, the vertex-attribute and
-    velocity rows the packer finds, and ``kernel_flags``."""
+    velocity rows the packer finds, and ``kernel_flags``.  The tables
+    are ``TorchTables``, or, when ``budget`` is given and they outgrow it
+    (``streams_on_card``), ``TorchStreamTables`` (``pack_stream_tiles``,
+    passed with ``stream_b=block_b``)."""
     images = has_images(scene)
-    t = tables_to_torch(pack_scene_tables(scene, with_uv=images), device)
+    packed = pack_scene_tables(scene, with_uv=images)
+    if budget is not None and streams_on_card(packed, budget):
+        t = stream_tables_to_torch(pack_stream_tiles(packed), device,
+                                   table_bytes(packed))
+    else:
+        t = tables_to_torch(packed, device)
     flags = dict(kernel_flags(scene), has_vattrs=t.vattrs)
     if images:
         flags.update(zip(("atlas", "tex_hw"), atlas_to_torch(scene, device)))
@@ -643,7 +653,178 @@ def fits_megakernel(n_active: int, has_vattrs: bool, tables=None) -> bool:
 
 def mask_tile(scene, tables) -> tuple[int, int]:
     """The adaptive mask's (rows, columns) tile for ``scene`` packed as
-    ``tables``, as the JAX pipeline picks it."""
-    if fits_megakernel(scene.num_active, bool(tables.vattrs), tables=tables):
+    ``tables``, as the JAX pipeline picks it (tables the card streams are
+    far beyond the TPU's budget, so the JAX pipeline streams them too)."""
+    if not hasattr(tables, "tiles") and fits_megakernel(
+            scene.num_active, bool(tables.vattrs), tables=tables):
         return (16, 256)
     return (16, 128)
+
+
+# ------------------------------------------------------- streamed layout
+# The JAX megakernel streams its tables from HBM when they outgrow the
+# TPU's scalar memory (render_kernel.py:381-455, routed by
+# fits_megakernel in viewer/app.py:864-881).  The card's kernels read
+# their tables through L2, which holds every registered scene's (at most
+# 4.5 MB against the H100's 50 MB), and staging a tile into shared
+# memory costs ~0.3 us per visit more than reading it in place (PERF.md,
+# the staging probe).  So on the card the route is the table bytes
+# against a share of the card's L2 (``streams_on_card``), not the TPU's
+# budget.
+
+
+class StreamTables(_t.NamedTuple):
+    """Block-tiled tables of the streamed kernels (JAX's StreamTables):
+    built from SceneTables by ``pack_stream_tiles``."""
+
+    tiles: "np.ndarray"  # f32[n_blocks_cap, R8, block_b*128]: S rows 0-15, P 16..
+    block_boxes: "np.ndarray"  # f32[6, n_blocks_cap] block AABBs
+    clusters: "np.ndarray"  # f32[7, >= n_blocks_cap*block_b*super_]
+    supers: "np.ndarray"  # f32[6, >= n_blocks_cap*block_b]
+    n_blocks: int  # used blocks (even, >= 2)
+    prim_map: "np.ndarray"  # i32[NP] packed column -> scene slot (-1 pad)
+    cluster: int
+    super_: int
+    block_b: int  # superclusters per block, one per 128-column page
+    vattrs: bool
+    motion: bool = False
+
+
+STREAM_BLOCK_B = 4  # superclusters per streamed block (512 f32 columns)
+
+
+def stream_rows(p_rows: int) -> int:
+    """R8: the S and P rows of a tile (16 + p_rows), padded to 8."""
+    return -(-(16 + p_rows) // 8) * 8
+
+
+def pack_stream_tiles(t: SceneTables, block_b: int = STREAM_BLOCK_B
+                      ) -> StreamTables:
+    """Re-tile packed SceneTables for the streamed kernels, array for
+    array as the JAX package's ``pack_stream_tiles``: block bi holds the
+    superclusters bi*block_b + s, one per 128-column page, rows 0-15 the
+    S table and rows 16.. the P table, zero-padded; the cluster and
+    supercluster tables padded with point boxes at +BIG to cover every
+    index the walk probes; a block's box the union of its USED members'
+    boxes; ``n_blocks`` the used blocks, even and at least 2."""
+    span = t.cluster * t.super_
+    assert span <= 128, (t.cluster, t.super_)
+    p_rows = t.P.shape[0]
+    rows = 16 + p_rows
+    npd = t.S.shape[1]
+    nsc_cap = npd // span
+    n_blocks_cap = max(2, -(-nsc_cap // block_b))
+    n_blocks_cap += n_blocks_cap % 2
+    tiles = np.zeros((n_blocks_cap, stream_rows(p_rows), block_b * 128),
+                     np.float32)
+    # page s of block bi = supercluster bi*block_b + s (vectorized over
+    # the superclusters of a page)
+    for s in range(block_b):
+        ks = np.arange(s, nsc_cap, block_b)
+        if ks.size == 0:
+            continue
+        cols = (ks[:, None] * span + np.arange(span)[None, :])
+        tiles[ks // block_b, 0:16, s * 128:s * 128 + span] = \
+            t.S[:, cols].transpose(1, 0, 2)
+        tiles[ks // block_b, 16:rows, s * 128:s * 128 + span] = \
+            t.P[:, cols].transpose(1, 0, 2)
+    need_sc = n_blocks_cap * block_b
+    supers = np.full((6, need_sc), BIG, np.float32)
+    supers[:, :t.supers.shape[1]] = t.supers
+    need_cl = need_sc * t.super_
+    clusters = np.zeros((7, need_cl), np.float32)
+    clusters[0:6, :] = BIG
+    clusters[:, :t.clusters.shape[1]] = t.clusters
+    block_boxes = np.full((6, n_blocks_cap), BIG, np.float32)
+    n_used = int(t.n_super)
+    for bi in range(n_blocks_cap):
+        lo, hi = bi * block_b, min((bi + 1) * block_b, n_used)
+        if lo < hi:
+            block_boxes[0:3, bi] = t.supers[0:3, lo:hi].min(axis=1)
+            block_boxes[3:6, bi] = t.supers[3:6, lo:hi].max(axis=1)
+    n_blocks = min(n_blocks_cap, max(2, -(-n_used // block_b)))
+    n_blocks += n_blocks % 2
+    n_blocks = min(n_blocks, n_blocks_cap)
+    return StreamTables(tiles, block_boxes, clusters, supers, n_blocks,
+                        t.prim_map, t.cluster, t.super_, block_b,
+                        bool(t.vattrs), bool(t.motion))
+
+
+class TorchStreamTables(_t.NamedTuple):
+    """StreamTables on a torch device; ``render_sample``/``gbuffer`` take
+    (tiles, block_boxes, clusters, supers, n_blocks) in place of (S, P,
+    clusters, supers, n_super), with ``stream_b=block_b``."""
+
+    tiles: torch.Tensor
+    block_boxes: torch.Tensor
+    clusters: torch.Tensor
+    supers: torch.Tensor
+    n_blocks: int
+    prim_map: torch.Tensor
+    cluster: int
+    super_: int
+    block_b: int
+    vattrs: bool = False
+    motion: bool = False
+    table_bytes: int = 0  # the resident layout's bytes (table_bytes)
+
+
+def stream_tables_to_torch(st: StreamTables, device,
+                           resident_bytes: int = 0) -> TorchStreamTables:
+    """Upload streamed tables to ``device``; ``resident_bytes`` records
+    the resident layout's size (the route's reason)."""
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return TorchStreamTables(
+        put(st.tiles), put(st.block_boxes), put(st.clusters), put(st.supers),
+        int(st.n_blocks), put(st.prim_map), int(st.cluster), int(st.super_),
+        int(st.block_b), bool(st.vattrs), bool(st.motion),
+        int(resident_bytes))
+
+
+def tile_columns(tiles: torch.Tensor, rows: slice, block_b: int,
+                 cluster: int, super_: int) -> torch.Tensor:
+    """Rows ``rows`` of the streamed ``tiles`` in the resident layout:
+    column j (supercluster si = j // span) read from block si //
+    block_b, page si % block_b, page column j % span, as the streamed
+    kernels read a winner's payload (search.cuh::stream_payload)."""
+    span = cluster * super_
+    j = torch.arange(tiles.shape[0] * block_b * span, device=tiles.device)
+    si = j // span
+    page_col = (si % block_b) * 128 + j % span
+    return tiles[si // block_b, rows, page_col].t()
+
+
+def table_bytes(t) -> int:
+    """Bytes of the resident tables the kernels read: S, P, the cluster
+    and supercluster tables (NumPy or torch)."""
+    return 4 * sum(int(np.prod(tuple(a.shape)))
+                   for a in (t.S, t.P, t.clusters, t.supers))
+
+
+# The share of the card's L2 beyond which the tables stream.  Measured on
+# an NVIDIA H100 80GB HBM3 at 700 W (scripts/stream_crossover.py, smooth
+# heightfield meshes at the main path's 1280x720, 4 spp, depth 12; PERF.md,
+# the streamed layout's findings): the streamed megakernel is slower below ~0.4 of the L2 (1.16x at
+# 0.04) and about 0.9x from ~0.6 on, where its block level, one box test
+# for four superclusters, outweighs its copies.
+STREAM_L2_SHARE = 0.5
+
+
+def stream_budget(device) -> int | None:
+    """The table bytes above which the card's kernels stream: the L2 of
+    ``device`` (times STREAM_L2_SHARE); None (never) on the CPU, whose
+    plain versions read any layout alike."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    return int(l2 * STREAM_L2_SHARE)
+
+
+def streams_on_card(tables, budget_bytes: int) -> bool:
+    """Do the resident tables (S + P + clusters + supers) outgrow
+    ``budget_bytes`` (``stream_budget``), so that the card's kernels read
+    them in the streamed layout?"""
+    return table_bytes(tables) > int(budget_bytes)

@@ -6,18 +6,21 @@
 Counterpart of ``__graft_entry__.py::dryrun_multichip`` (:116) for the
 megakernel: builds a rows x samples mesh (two sample streams when
 n_devices is even), renders one frame with ``render_sharded_sample`` on
-tiny shapes, and checks it, for two paths:
+tiny shapes, and checks it, for three paths:
 
 * the resident default scene (two_plane, 128 x 16 * n_rows, depth 3);
+* the streamed shard: the same scene in the streamed layout
+  (``tables.pack_stream_tiles``, ``stream_b``), which must equal the
+  resident frame bit for bit (__graft_entry__.py:185-258);
 * the feature shard: ``all_feature_probe_scene`` with every static flag,
   NEE over its lights and QMC from sample base 5.
 
-Each frame must be f32[H, W, 3], finite, and equal bit for bit to the sum
-over the sample streams of single ``render_sample`` launches with the
-same band, stream and sample base, made on the mesh's first device.  The
-JAX dry run's streamed-layout shard waits for the port of the streamed
-layout.  The places are the first n CUDA devices, or the one card in
-every place when there are fewer (``--device cpu``: the plain versions).
+The resident and feature frames must be f32[H, W, 3], finite, and equal
+bit for bit to the sum over the sample streams of single
+``render_sample`` launches with the same band, stream and sample base,
+made on the mesh's first device.  The places are the first n CUDA
+devices, or the one card in every place when there are fewer
+(``--device cpu``: the plain versions).
 """
 
 from __future__ import annotations
@@ -28,7 +31,9 @@ import torch
 
 from ..models import scenes
 from ..ops.cuda.render_kernel import render_sample
-from ..ops.cuda.tables import kernel_inputs, nee_inputs, pack_camera_np
+from ..ops.cuda.tables import (kernel_inputs, nee_inputs, pack_camera_np,
+                               pack_scene_tables, pack_stream_tiles,
+                               stream_tables_to_torch)
 from .tiling import band_launches, make_mesh, render_sharded_sample
 
 
@@ -59,7 +64,7 @@ def launch_sum(tb, cv, mesh, seed, max_depth, width, height, spp,
 
 
 def dryrun_multichip(n_devices: int, device: str = "cuda") -> dict:
-    """Run and check both sharded paths; returns their means."""
+    """Run and check the three sharded paths; returns their means."""
     devices = mesh_devices(n_devices, device)
     n_samples = 2 if n_devices % 2 == 0 and n_devices >= 2 else 1
     n_rows = n_devices // n_samples
@@ -96,9 +101,22 @@ def dryrun_multichip(n_devices: int, device: str = "cuda") -> dict:
             raise AssertionError(f"{tag}: sharded frame != the sum of its "
                                  "launches")
         means[tag] = float(out.mean())
+        if tag == "resident":
+            # the streamed shard: same scene, seeds and bands
+            st = stream_tables_to_torch(pack_stream_tiles(
+                pack_scene_tables(scene)), home)
+            sout = render_sharded_sample(
+                (st.tiles, st.block_boxes, st.clusters, st.supers),
+                st.n_blocks, cv, seed, depth, width=width, height=height,
+                mesh=mesh, tile_h=16, tile_w=128, spp=spp, sample_base=base,
+                **dict(kw, stream_b=st.block_b))
+            if not torch.equal(sout, out):
+                raise AssertionError("streamed shard != resident shard")
+            means["streamed"] = float(sout.mean())
     print(f"dryrun_multichip OK: mesh rows={n_rows} samples={n_samples} "
           f"({home}), resident {(height, width, 3)} mean="
-          f"{means['resident']:.4f}, feature shard "
+          f"{means['resident']:.4f}, streamed (stream_b={st.block_b}, "
+          f"{st.n_blocks} blocks) bit-identical, feature shard "
           f"(nee+noise+media+motion+rotated-boxm+qmc) mean="
           f"{means['features']:.4f}", flush=True)
     return {"rows": n_rows, "samples": n_samples, "device": str(home),

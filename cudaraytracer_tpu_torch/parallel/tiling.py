@@ -86,10 +86,14 @@ def render_sharded_sample(tables, n_super, cam_vec, seed, max_depth, *,
     (divide by spp * n_samples to display), on the device of
     ``tables[0]``.
 
-    ``tables`` is (S, P, clusters, supers) (``tables.tables_to_torch``);
-    ``kw`` are ``render_sample``'s other keywords (camera model, Russian
-    roulette, the scene's static flags, the atlas, NEE with its light
-    table, QMC, cluster sizes), the same at every place.  Band ``ri`` is
+    ``tables`` is (S, P, clusters, supers) (``tables.tables_to_torch``),
+    or with ``stream_b`` > 0 in ``kw`` the streamed (tiles, block_boxes,
+    clusters, supers) with ``n_super`` the used blocks
+    (``tables.stream_tables_to_torch``), as JAX's
+    ``render_sharded_pallas`` takes them (tiling.py:144-211); ``kw`` are
+    ``render_sample``'s other keywords (camera model, Russian roulette,
+    the scene's static flags, the atlas, NEE with its light table, QMC,
+    cluster sizes, ``stream_b``), the same at every place.  Band ``ri`` is
     the image rows ri * band_h .. (ri + 1) * band_h - 1 with band_h =
     height / n_rows; the places are ``band_launches``.
 

@@ -16,17 +16,21 @@ with NEE and QMC in 4 bands of 180 rows: stitched against the
 whole-image launch, and the second band against its plain version), the
 sharded frame (2 x 2 places on the card against the sum of its four
 launches with the streams and sample bases written out) and the staging
-probe (every variant's CTA sums against ``expected``).  "sound" is the
-unedited copy, checked on every scene, "sound_options" the same with
-every option on the NEE scenes, and "sound_slice" the bands, the sharded
-frame and the probe.  Prints one JSON line per
+probe (every variant's CTA sums against ``expected``), and the streamed
+layout (the streamed launch against the resident one at 1280x720, 4
+spp, depth 12, with QMC, and NEE on book2_final: pixels, rays and
+cluster entries).  "sound" is the unedited copy, checked on every
+scene, "sound_options" the same with every option on the NEE scenes,
+"sound_slice" the bands, the sharded frame and the probe, and
+"sound_stream" the streamed layout.  Prints one JSON line per
 fault: pixels off by more than 1e-3, the relative change of the mean and
 of the ray count, G-buffer masks and pixels off by more than 1e-6,
 closest-hit masks and columns, band and sharded pixels off, probe CTAs
-off, and "caught": whether chip_smoke.py's limits (more than 0.01% of
-pixels or 1e-4 on mean or rays; any G-buffer mask or pixel; any
-closest-hit mask or column; any band, sharded or probe mismatch) would
-fail the copy.  Needs a GPU and nvcc; the checkout is never edited.
+off, streamed pixels, rays and entries off the resident launch, and
+"caught": whether chip_smoke.py's limits (more than 0.01% of pixels or
+1e-4 on mean or rays; any G-buffer mask or pixel; any closest-hit mask
+or column; any band, sharded, probe or streamed mismatch) would fail the
+copy.  Needs a GPU and nvcc; the checkout is never edited.
 """
 
 from __future__ import annotations
@@ -52,6 +56,8 @@ NEE = ("default", "cornell", "mirror_room", "cornell_mesh_light", "smoke",
 ALL = {"nee": True, "qmc": True, "sample_base": 4113, "half_mask": True}
 # the slice checks: bands, the sharded frame, the staging probe
 SLICE = {"bands": True, "shard": True, "probe": True}
+# the streamed layout against the resident one
+STREAM = ("rtow_final", "terrain_big", "book2_final")
 
 # name -> ([(file under the package, text, replacement)], scenes[,
 #          render options])
@@ -65,8 +71,8 @@ FAULTS = {
     # a ray on a rect's edge misses it
     "rect_extent": ([(
         "csrc/search.cuh",
-        "fabsf(p_a - __ldg(S + S_CA * np + j)) <= __ldg(S + S_HA * np + j)",
-        "fabsf(p_a - __ldg(S + S_CA * np + j)) < __ldg(S + S_HA * np + j)")],
+        "fabsf(p_a - L::ld(S + S_CA * np + j)) <= L::ld(S + S_HA * np + j)",
+        "fabsf(p_a - L::ld(S + S_CA * np + j)) < L::ld(S + S_HA * np + j)")],
         FLAT),
     # rect and triangle normals point away from the ray's side
     "rect_flip": ([(
@@ -98,14 +104,14 @@ FAULTS = {
         ("smoke", "cornell_smoke", "book2_final")),
     # the shutter time drawn anew at every bounce, not once per path
     "time_every_bounce": ([(
-        "csrc/render_kernel.cu", "    ++nrays;\n",
-        "    ++nrays;\n"
+        "csrc/render_kernel.cu", "    if (want) ++nrays;\n",
+        "    if (want) ++nrays;\n"
         "    if constexpr (kMotion) time = crt::u01(pk, uit, crt::SLOT_TIME);\n")],
         ("bounce", "book2_final")),
     # a yawed box medium rotated the other way
     "yaw_sine_flipped": ([(
-        "csrc/search.cuh", "const float syr = __ldg(S + S_D1 * np + j);",
-        "const float syr = -__ldg(S + S_D1 * np + j);")],
+        "csrc/search.cuh", "const float syr = L::ld(S + S_D1 * np + j);",
+        "const float syr = -L::ld(S + S_D1 * np + j);")],
         ("cornell_smoke",)),
     # six turbulence octaves instead of seven
     "six_octaves": ([("csrc/surface.cuh", "constexpr int kTurbOctaves = 7;",
@@ -160,6 +166,23 @@ FAULTS = {
     "streamrows_first_row_only": ([(
         "csrc/stream_probe.cu", "mbar_expect_tx(&bar, rows * row_bytes);",
         "mbar_expect_tx(&bar, row_bytes);")], (), {"probe": True}),
+    "sound_stream": ([], STREAM, {"stream": True}),
+    # the winner's payload read from the wrong page of its tile
+    "stream_page_offset": ([(
+        "csrc/search.cuh", "j = j - si * span + s * 128;",
+        "j = j - si * span + s * span;")], STREAM, {"stream": True}),
+    # a block skipped when only one ray of the CTA enters it
+    "stream_block_one_ray": ([(
+        "csrc/search.cuh",
+        "if (__syncthreads_or(box_hit(st.boxes, st.nbc, b, r, t_min, best_t)))",
+        "if (__syncthreads_count(box_hit(st.boxes, st.nbc, b, r, t_min, "
+        "best_t)) > 1)")], STREAM, {"stream": True}),
+    # the next block chosen under a best_t tighter than the rays' own
+    "stream_prefetch_tight": ([(
+        "csrc/search.cuh",
+        "const int nxt = next_block(st, cur + 1, r, t_min, best_t);",
+        "const int nxt = next_block(st, cur + 1, r, t_min, 0.5f * best_t);")],
+        STREAM, {"stream": True}),
 }
 
 CHECK = r'''
@@ -168,7 +191,9 @@ from cudaraytracer_tpu_torch.models import scenes
 from cudaraytracer_tpu_torch.ops.cuda.gbuffer_kernel import gbuffer, gbuffer_plain
 from cudaraytracer_tpu_torch.ops.cuda.hit_kernel import closest_hit, closest_hit_plain
 from cudaraytracer_tpu_torch.ops.cuda.render_kernel import mask_grid, render_sample, render_sample_plain
-from cudaraytracer_tpu_torch.ops.cuda.tables import kernel_inputs, nee_inputs, pack_camera_np
+from cudaraytracer_tpu_torch.ops.cuda.tables import (
+    SceneTables, kernel_inputs, nee_inputs, pack_camera_np, pack_stream_tiles,
+    stream_tables_to_torch)
 dev, W, H, res = torch.device("cuda"), 1280, 720, {}
 opts = json.loads(sys.argv[2])
 mk = {}
@@ -179,7 +204,7 @@ if opts.get("half_mask"):
     m = np.random.RandomState(5).permutation(gi * gj) < gi * gj // 2
     mk.update(tile_mask=torch.from_numpy(m.astype(np.int32)).to(dev),
               tile=(16, 128))
-slice_only = any(opts.get(k) for k in ("bands", "shard", "probe"))
+slice_only = any(opts.get(k) for k in ("bands", "shard", "probe", "stream"))
 for name in json.loads(sys.argv[1]):
     sc, cam = scenes.SCENES[name][0](), scenes.SCENES[name][1]()
     model = scenes.camera_model_for(name)
@@ -192,6 +217,21 @@ for name in json.loads(sys.argv[1]):
     if slice_only:
         kw = dict(width=W, height=H, camera_model=model, spp=4, rr_start=2,
                   **fl, **nee_inputs(sc, dev), has_qmc=True)
+        if opts.get("stream"):
+            st = stream_tables_to_torch(pack_stream_tiles(SceneTables(*(
+                x.cpu().numpy() if torch.is_tensor(x) else x for x in tb))),
+                dev)
+            if name != "book2_final":  # NEE on the lit scene only
+                kw.pop("has_nee"), kw.pop("lights")
+            ir, nr, cr = render_sample(*a, 7, 12, with_stats=True,
+                                       with_cull_stats=True, **kw)
+            is_, ns, cs = render_sample(
+                st.tiles, st.block_boxes, st.clusters, st.supers,
+                st.n_blocks, cv, 7, 12, stream_b=st.block_b,
+                with_stats=True, with_cull_stats=True, **kw)
+            res[name + "/stream"] = {
+                "pixels": int((ir != is_).any(2).sum()),
+                "rays_off": int(ns) - int(nr), "entries_off": int(cs) - int(cr)}
         if opts.get("bands"):
             full = render_sample(*a, 7, 12, stream=3, sample_base=8, **kw)
             bands = [render_sample(*a, 7, 12, stream=3, sample_base=8,
@@ -279,6 +319,9 @@ def caught(res: dict) -> bool:
         if key.endswith("/shard") and r["pixels"]:
             return True
         if key.startswith("probe/") and r["ctas_off"]:
+            return True
+        if key.endswith("/stream") and (r["pixels"] or r["rays_off"]
+                                        or r["entries_off"]):
             return True
     return False
 

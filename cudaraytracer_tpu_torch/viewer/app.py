@@ -43,7 +43,7 @@ from ..ops.cuda.gbuffer_kernel import gbuffer, gbuffer_variant
 from ..ops.cuda.render_kernel import (FEATURES, mask_grid, render_sample,
                                       render_variant)
 from ..ops.cuda.tables import (kernel_inputs, mask_tile, nee_inputs,
-                               pack_camera_np)
+                               pack_camera_np, stream_budget)
 from ..ops.denoise import atrous_denoise
 from ..ops.gbuffer import GBuffer
 from ..ops.pack import to_rgba8, tonemap
@@ -165,13 +165,27 @@ class _CudaPipeline:
     static flags (``tables.kernel_inputs``), one ``render_sample`` launch
     per progressive frame and one ``gbuffer`` launch per G-buffer (the JAX
     package's ``_PallasPipeline``), and with ``cfg.adaptive`` the tile
-    mask and its statistics.  Built anew on every scene edit; a flag
+    mask and its statistics.  Tables that outgrow the card's budget
+    (``tables.stream_budget``, half its L2; never on the CPU) are packed in the
+    streamed layout and both kernels run their streamed entries
+    (``stream_b``), where the JAX pipeline streams tables beyond the
+    TPU's scalar memory.  Built anew on every scene edit; a flag
     combination that no kernel instantiation serves (``--nee`` on a scene
     without an NEE instantiation) raises ``NotImplementedError`` here, on
     either device."""
 
     def __init__(self, scene, cfg: RenderConfig, device: torch.device):
-        self._tabs, self._flags = kernel_inputs(scene, device)
+        budget = stream_budget(device)
+        self._tabs, self._flags = kernel_inputs(scene, device, budget)
+        # superclusters per streamed block; 0: the resident layout
+        self.stream_b = getattr(self._tabs, "block_b", 0)
+        if self.stream_b:
+            rtlog.rt_info(
+                "Scene (%d prims -> %.1f MB packed tables%s) exceeds the "
+                "card's L2 budget of %.1f MB; the kernels stream block "
+                "tiles from device memory", scene.num_active,
+                self._tabs.table_bytes / 1e6,
+                ", vattr" if self._tabs.vattrs else "", budget / 1e6)
         # the megakernel's NEE keywords (the G-buffer samples no light)
         self._nee = nee_inputs(scene, device) if cfg.nee else {}
         fl = self._flags
@@ -179,8 +193,10 @@ class _CudaPipeline:
                 "atlas" in fl)
         feat = {name: fl[name] for name, _, _ in FEATURES
                 if name != "has_nee"}
-        render_variant(*base, **feat, has_nee=bool(cfg.nee))
-        gbuffer_variant(*base, **feat)
+        streamed = bool(self.stream_b)
+        render_variant(*base, **feat, streamed=streamed,
+                       has_nee=bool(cfg.nee))
+        gbuffer_variant(*base, **feat, streamed=streamed)
         self._cfg = cfg
         self._device = device
         self._bg = (np.asarray(scene.background_start, np.float32),
@@ -220,6 +236,16 @@ class _CudaPipeline:
             self._nlaunch, self._grid, *self._tile)[:cfg.height, :cfg.width])
         return var / n
 
+    def _tables(self) -> tuple:
+        """The kernels' five table arguments and their layout keywords."""
+        tb = self._tabs
+        kw = dict(cluster=tb.cluster, super_=tb.super_,
+                  stream_b=self.stream_b)
+        if self.stream_b:
+            return (tb.tiles, tb.block_boxes, tb.clusters, tb.supers,
+                    tb.n_blocks), kw
+        return (tb.S, tb.P, tb.clusters, tb.supers, tb.n_super), kw
+
     def _cam_vec(self, cam) -> torch.Tensor:
         cfg = self._cfg
         return torch.from_numpy(pack_camera_np(
@@ -237,15 +263,14 @@ class _CudaPipeline:
         cfg = self._cfg
         # the seed rule of the JAX pipeline: injective in frame_index
         seed = (cfg.seed * 2654435761 + frame_index) & 0x7FFFFFFF
-        tb = self._tabs
+        tabs, layout = self._tables()
         out = render_sample(
-            tb.S, tb.P, tb.clusters, tb.supers, tb.n_super,
-            self._cam_vec(cam), seed, max_depth, width=cfg.width,
+            *tabs, self._cam_vec(cam), seed, max_depth, width=cfg.width,
             height=cfg.height, camera_model=cfg.camera_model, spp=spp,
             rr_start=cfg.rr_start, nee_p=cfg.nee_p, has_qmc=cfg.qmc,
             sample_base=sample_base,
             tile_mask=self._mask if self.adaptive else None, tile=self._tile,
-            cluster=tb.cluster, super_=tb.super_, **self._flags, **self._nee)
+            **layout, **self._flags, **self._nee)
         if self.adaptive:
             n = tile_activity_plane(self._mask, self._grid, *self._tile)[
                 :cfg.height, :cfg.width] * float(spp)
@@ -259,11 +284,11 @@ class _CudaPipeline:
     def gbuffer(self, cam) -> GBuffer:
         """Pixel-centre primary pass over this pipeline's tables -> GBuffer
         (render-oriented rows)."""
-        cfg, tb = self._cfg, self._tabs
-        return gbuffer(tb.S, tb.P, tb.clusters, tb.supers, tb.n_super,
-                       self._cam_vec(cam), width=cfg.width,
+        cfg = self._cfg
+        tabs, layout = self._tables()
+        return gbuffer(*tabs, self._cam_vec(cam), width=cfg.width,
                        height=cfg.height, camera_model=cfg.camera_model,
-                       cluster=tb.cluster, super_=tb.super_, **self._flags)
+                       **layout, **self._flags)
 
 
 class RenderLayer(Layer):

@@ -19,7 +19,10 @@ unmasked one on active tiles, zero elsewhere).  Row bands must stitch
 bit for bit to the whole-image launch with the same stream, the sharded
 frame must equal the sum of its launches, the cluster entries must equal
 the plain version's replay, and every variant of the staging probe must
-sum to ``expected``.  The megakernel limits here are the ones it states
+sum to ``expected``.  The streamed layout must equal the resident
+kernels bit for bit (image, rays, cluster entries; masked and in a band
+too) and its plain walk, and a scene class without a streamed
+instantiation raises.  The megakernel limits here are the ones it states
 and why; at 96x54 they allow no differing pixel.  The G-buffer kernel and
 its plain version do the same float operations: equal hit masks, and
 the buffers equal to 1e-6.
@@ -372,3 +375,104 @@ def test_stream_probe_rejects_unaligned_tiles(cuda):
         stream_probe.stream_probe(stream_probe.probe_table(4, 66, 1, cuda),
                                   "stream")
     assert stream_probe.stream_probe.launches == n0
+
+
+def stream_setup(name, dev, w, h, nee=False, block_b=ttab.STREAM_BLOCK_B):
+    """A scene's resident and streamed frame arguments and keywords."""
+    scene, cam = tscenes.SCENES[name][0](), tscenes.SCENES[name][1]()
+    tb, kw = frame_setup(scene, dev)
+    if nee:
+        kw.update(ttab.nee_inputs(scene, dev))
+    st = ttab.stream_tables_to_torch(ttab.pack_stream_tiles(
+        ttab.pack_scene_tables(scene, with_uv=ttab.has_images(scene)),
+        block_b), dev)
+    cv = torch.from_numpy(ttab.pack_camera_np(
+        cam, scene.background_start, scene.background_end, w, h,
+        1e-3)).to(dev)
+    kw.update(width=w, height=h, camera_model=tscenes.camera_model_for(name))
+    return ((tb.S, tb.P, tb.clusters, tb.supers, tb.n_super, cv),
+            (st.tiles, st.block_boxes, st.clusters, st.supers, st.n_blocks,
+             cv), dict(stream_b=block_b), kw)
+
+
+@pytest.mark.parametrize("name,nee,block_b", [
+    ("rtow_final", False, 1), ("default", False, 4), ("terrain", True, 2),
+    ("book2_final", True, 4), ("cornell_mesh_light", True, 4),
+    ("mesh_smooth", True, 2)])
+def test_streamed_kernel_equals_resident(cuda, name, nee, block_b):
+    """The streamed layout renders the resident kernel's image bit for bit,
+    with equal ray and cluster-entry counts, masked and in a band too."""
+    res, stm, skw, kw = stream_setup(name, cuda, 160, 96, nee, block_b)
+    kw.update(spp=2, rr_start=2, with_stats=True, with_cull_stats=True,
+              has_qmc=nee, stream=2)
+    n0 = render_kernel.render_sample.streamed_launches
+    # the mask: a (6, 2) grid of 16 x 128 tiles over 160 x 96
+    for extra in ({}, dict(tile=(16, 128), tile_mask=torch.tensor(
+            [1, 0] * 6, dtype=torch.int32, device=cuda)),
+                  dict(y0=24, band_h=40)):
+        a, na, ca = render_kernel.render_sample(*res, 7, 12, **kw, **extra)
+        b, nb, cb = render_kernel.render_sample(*stm, 7, 12, **kw, **extra,
+                                                **skw)
+        assert torch.equal(a, b) and float(a.sum()) > 0
+        assert int(na) == int(nb) and int(ca) == int(cb) > 0
+    assert render_kernel.render_sample.streamed_launches == n0 + 3
+
+
+@pytest.mark.parametrize("name", ["rtow_final", "terrain", "book2_final",
+                                  "cornell_mesh_light", "mesh_smooth"])
+def test_streamed_kernels_match_plain(cuda, name):
+    """The streamed kernels against their plain versions (the walk over
+    the tiles): no pixel differs at 48x32, the G-buffers to 1e-6."""
+    _, stm, skw, kw = stream_setup(name, cuda, 48, 32, nee=name != "rtow_final")
+    rkw = dict(kw, spp=2, rr_start=2, with_stats=True, with_cull_stats=True)
+    ik, nk, ck = render_kernel.render_sample(*stm, 7, 6, **rkw, **skw)
+    ip, np_, cp = render_kernel.render_sample_plain(*stm, 7, 6, **rkw, **skw)
+    assert int(((ik - ip).abs().amax(2) > 1e-3).sum()) == 0
+    assert int(nk) == int(np_) and int(ck) == int(cp)
+    # the G-buffer samples no light
+    gkw = {k: v for k, v in kw.items() if k not in ("has_nee", "lights")}
+    gk_ = gbuffer_kernel.gbuffer(*stm, **gkw, **skw)
+    gp_ = gbuffer_kernel.gbuffer_plain(*stm, **gkw, **skw)
+    assert torch.equal(gk_.depth > 0, gp_.depth > 0)
+    assert max(float((a - b).abs().max()) for a, b in zip(gk_, gp_)) <= 1e-6
+
+
+@pytest.mark.parametrize("name", ["rtow_final", "terrain_big",
+                                  "book2_final"])
+def test_streamed_gbuffer_equals_resident(cuda, name):
+    res, stm, skw, kw = stream_setup(name, cuda, 320, 180)
+    n0 = gbuffer_kernel.gbuffer.streamed_launches
+    a = gbuffer_kernel.gbuffer(*res, **kw)
+    b = gbuffer_kernel.gbuffer(*stm, **kw, **skw)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert gbuffer_kernel.gbuffer.streamed_launches == n0 + 1
+
+
+def test_streamed_unserved_flags_raise(cuda):
+    """No fallback: a scene class without a streamed instantiation raises
+    (marble: noise without rects), and launches nothing."""
+    _, stm, skw, kw = stream_setup("marble", cuda, 32, 16)
+    n0 = render_kernel.render_sample.streamed_launches
+    with pytest.raises(NotImplementedError, match="streamed megakernel"):
+        render_kernel.render_sample(*stm, 7, 2, **kw, **skw)
+    assert render_kernel.render_sample.streamed_launches == n0
+
+
+def test_pipeline_streams_beyond_the_budget_on_the_card(cuda, monkeypatch):
+    from cudaraytracer_tpu_torch.config import RenderConfig
+    from cudaraytracer_tpu_torch.viewer import app
+
+    monkeypatch.setattr(app, "stream_budget", lambda dev: 1000)
+    cfg = RenderConfig(scene="terrain", camera_model="look_at", width=64,
+                       height=32, progressive_spp=2, max_depth=4,
+                       denoise=True)
+    r0 = render_kernel.render_sample.launches
+    s0 = render_kernel.render_sample.streamed_launches
+    a = app.Application(cfg)
+    rl = a.setup_default_layers()
+    a.run(max_frames=2)
+    assert rl._pipeline.stream_b == ttab.STREAM_BLOCK_B
+    assert np.isfinite(rl.framebuffer_rgba8()).all()
+    a.close()
+    assert render_kernel.render_sample.streamed_launches == s0 + 2
+    assert render_kernel.render_sample.launches == r0

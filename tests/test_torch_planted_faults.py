@@ -20,7 +20,9 @@ transposed fails the masked launch's check.  The pixel key taken from
 the band's row instead of the image's fails the band seams; two sample
 streams of a band sharing one generator stream fail the sharded frame
 against its launches; the probe's streamrows waiting on its first row
-only fails the sum against the JAX kernels'.
+only fails the sum against the JAX kernels'; the streamed layout's
+payload read from the wrong page of its tile fails the tiles' columns
+against the resident tables.
 
     PYTHONPATH=.:tests python tests/test_torch_planted_faults.py
 
@@ -49,6 +51,7 @@ import test_torch_parallel as parallel_tests  # noqa: E402
 import test_torch_qmc as qmc_tests  # noqa: E402
 import test_torch_render_media as render_media  # noqa: E402
 import test_torch_sampling as sampling_tests  # noqa: E402
+import test_torch_stream as stream_tests  # noqa: E402
 import test_torch_stream_probe as probe_tests  # noqa: E402
 
 from cudaraytracer_tpu_torch.ops import noise as tnoise  # noqa: E402
@@ -56,6 +59,7 @@ from cudaraytracer_tpu_torch.ops import sampling as tsampling  # noqa: E402
 from cudaraytracer_tpu_torch.ops.cuda import hit_kernel as hk  # noqa: E402
 from cudaraytracer_tpu_torch.ops.cuda import render_kernel as rk  # noqa: E402
 from cudaraytracer_tpu_torch.ops.cuda import stream_probe as sp  # noqa: E402
+from cudaraytracer_tpu_torch.ops.cuda import tables as ttab  # noqa: E402
 from cudaraytracer_tpu_torch.parallel import tiling  # noqa: E402
 from cudaraytracer_tpu_torch.scripts import planted_faults as card_faults  # noqa: E402
 
@@ -159,6 +163,11 @@ FAULTS = {
         sp, "stream_probe_plain", "waited = rows", "waited = 1",
         lambda: probe_tests.test_plain_probe_equals_the_jax_kernels(
             4, "streamrows", 9), ()),
+    # the streamed payload read from the wrong page of its tile
+    "stream_page_offset": (
+        ttab, "tile_columns", "page_col = (si % block_b) * 128 + j % span",
+        "page_col = (si % block_b) * span + j % span",
+        stream_tests.test_tile_columns_read_the_resident_columns, ()),
 }
 
 # the later faults' checks as readings (name, function)
@@ -179,6 +188,9 @@ READINGS = {
                             parallel_tests.band_mismatch),
     "stream_shared": ("sharded pixels off its launches' sum (0)",
                       parallel_tests.shard_mismatch),
+    "stream_page_offset": (
+        "terrain payload columns off the resident P at block_b 4 (0)",
+        stream_tests.payload_mismatch),
     "streamrows_first_row_only": (
         "streamrows sum at 9 tiles of 4 x 64 (expected)",
         lambda: [int(sp.stream_probe(sp.probe_table(9, 64, 4),
