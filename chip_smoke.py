@@ -21,11 +21,17 @@ bounce and a smooth OBJ, which the last NEE instantiations serve) with
 the launch counts set to 0 before each and read after it, and times
 every kernel and the denoiser at the main-path shapes, the megakernel on
 every scene without options, with QMC, with a random half of its tiles
-masked and, where an instantiation serves it, with NEE.  Then this
-slice's paths: row bands and the multi-device tiling on the one card
-(book2_final ``--nee --qmc`` and rtow_final at 1280x720, 4 spp: bands of
-180 and 360 rows stitched against the whole-image launch bit for bit, a
-band against its plain version, ``parallel.render_sharded_sample`` over
+masked and, where an instantiation serves it, with NEE, with the lane
+and CTA utilisation of its path loop (``scripts/megakernel_util.py``'s
+cases: a one-thread-per-pixel grid's from the plain version's per-pixel
+ray counts, and the refilling kernel's own in the media
+instantiations), and checks the refilling kernel's ragged batches
+(cornell_smoke ``--nee --qmc`` at 1277x719, and in a half-masked band
+of 333 rows; every output block NaN before the launch).  Then the paths of the earlier slices: row bands and the
+multi-device tiling on the one card (book2_final ``--nee --qmc`` and
+rtow_final at 1280x720, 4 spp: bands of 180 and 360 rows stitched
+against the whole-image launch bit for bit, a band against its plain
+version, ``parallel.render_sharded_sample`` over
 4 x 1 and 2 x 2 places on cuda:0 against its launches written out, and
 ``parallel/dryrun.py``), the cull statistic on 16 scenes at 320x180
 (entries per ray, the kernel's count equal to the plain version's
@@ -167,28 +173,29 @@ sys.path.insert(0, ROOT)
 
 W_MAIN, H_MAIN, DEPTH, RR, SPP_MAIN = 1280, 720, 12, 2, 4
 # registers / spill-store bytes of every instantiation before this slice's
-# kernel changes, as PERF.md records them (the parent's build log, NVIDIA
+# kernel changes: the parent's build log, as PERF.md records it (NVIDIA
 # H100 80GB HBM3): the template flags are (rects, tris[, vattrs, images,
 # features]); the probe's, its variant
 BASE_PTXAS = {
     "closest_hit_kernel<0,0>": (40, 0), "closest_hit_kernel<1,0>": (36, 0),
     "closest_hit_kernel<1,1>": (79, 0), "gbuffer_kernel<0,0,0,0,0>": (34, 0),
     "gbuffer_kernel<0,0,0,0,1>": (40, 12),
-    "gbuffer_kernel<0,0,0,1,0>": (38, 0),
-    "gbuffer_kernel<1,0,0,0,0>": (36, 0),
+    "gbuffer_kernel<0,0,0,1,0>": (38, 0), "gbuffer_kernel<1,0,0,0,0>": (36, 0),
     "gbuffer_kernel<1,0,0,0,3>": (40, 12),
-    "gbuffer_kernel<1,0,0,1,0>": (38, 0),
-    "gbuffer_kernel<1,1,0,0,0>": (72, 0),
-    "gbuffer_kernel<1,1,0,1,0>": (72, 0),
-    "gbuffer_kernel<1,1,0,1,3>": (68, 0),
-    "gbuffer_kernel<1,1,1,0,0>": (72, 0),
-    "gbuffer_kernel<1,1,1,1,0>": (72, 0),
-    "render_kernel<0,0,0,0,0>": (56, 40),
-    "render_kernel<0,0,0,0,16>": (72, 8),
+    "gbuffer_kernel<1,0,0,1,0>": (38, 0), "gbuffer_kernel<1,1,0,0,0>": (72, 0),
+    "gbuffer_kernel<1,1,0,1,0>": (72, 0), "gbuffer_kernel<1,1,0,1,3>": (68, 0),
+    "gbuffer_kernel<1,1,1,0,0>": (72, 0), "gbuffer_kernel<1,1,1,1,0>": (72, 0),
+    "gbuffer_kernel_streamed<0,0,0,0,0>": (46, 0),
+    "gbuffer_kernel_streamed<1,0,0,0,0>": (60, 0),
+    "gbuffer_kernel_streamed<1,0,0,0,3>": (56, 8),
+    "gbuffer_kernel_streamed<1,1,0,0,0>": (64, 8),
+    "gbuffer_kernel_streamed<1,1,0,1,3>": (64, 14),
+    "gbuffer_kernel_streamed<1,1,1,0,0>": (64, 14),
+    "gbuffer_kernel_streamed<1,1,1,1,0>": (64, 14),
+    "render_kernel<0,0,0,0,0>": (56, 40), "render_kernel<0,0,0,0,16>": (72, 8),
     "render_kernel<0,0,0,0,1>": (72, 56),
     "render_kernel<0,0,0,0,48>": (80, 24),
-    "render_kernel<0,0,0,1,0>": (56, 40),
-    "render_kernel<1,0,0,0,0>": (80, 36),
+    "render_kernel<0,0,0,1,0>": (56, 40), "render_kernel<1,0,0,0,0>": (80, 36),
     "render_kernel<1,0,0,0,15>": (96, 74),
     "render_kernel<1,0,0,0,31>": (96, 106),
     "render_kernel<1,0,0,0,32>": (96, 0),
@@ -197,8 +204,7 @@ BASE_PTXAS = {
     "render_kernel<1,0,0,0,63>": (96, 74),
     "render_kernel<1,0,0,0,7>": (96, 36),
     "render_kernel<1,0,0,1,0>": (72, 122),
-    "render_kernel<1,0,0,1,32>": (96, 4),
-    "render_kernel<1,1,0,0,0>": (113, 0),
+    "render_kernel<1,0,0,1,32>": (96, 4), "render_kernel<1,1,0,0,0>": (113, 0),
     "render_kernel<1,1,0,0,32>": (114, 0),
     "render_kernel<1,1,0,1,0>": (119, 0),
     "render_kernel<1,1,0,1,23>": (124, 0),
@@ -206,8 +212,20 @@ BASE_PTXAS = {
     "render_kernel<1,1,1,0,0>": (118, 0),
     "render_kernel<1,1,1,0,32>": (115, 0),
     "render_kernel<1,1,1,1,0>": (119, 0),
-    "render_kernel<1,1,1,1,32>": (118, 0), "stream_probe_kernel<0>": (42, 0),
-    "stream_probe_kernel<1>": (24, 0), "stream_probe_kernel<2>": (24, 0),
+    "render_kernel<1,1,1,1,32>": (118, 0),
+    "render_kernel_streamed<0,0,0,0,0>": (64, 0),
+    "render_kernel_streamed<1,0,0,0,0>": (56, 126),
+    "render_kernel_streamed<1,0,0,0,63>": (64, 194),
+    "render_kernel_streamed<1,1,0,0,0>": (64, 154),
+    "render_kernel_streamed<1,1,0,0,32>": (64, 154),
+    "render_kernel_streamed<1,1,0,1,23>": (93, 0),
+    "render_kernel_streamed<1,1,0,1,55>": (93, 0),
+    "render_kernel_streamed<1,1,1,0,0>": (64, 174),
+    "render_kernel_streamed<1,1,1,0,32>": (64, 174),
+    "render_kernel_streamed<1,1,1,1,0>": (64, 174),
+    "render_kernel_streamed<1,1,1,1,32>": (64, 174),
+    "stream_probe_kernel<0>": (42, 0), "stream_probe_kernel<1>": (24, 0),
+    "stream_probe_kernel<2>": (24, 0),
 }
 # megakernel against its plain version (see the module docstring)
 MEGA_DIFF_SHARE, MEGA_MEAN_RTOL, MEGA_RAYS_RTOL = 1e-4, 1e-4, 1e-4
@@ -246,13 +264,15 @@ def main():
     from cudaraytracer_tpu_torch.ops.cuda.hit_kernel import (
         OPS, closest_hit, closest_hit_plain, search_ops, search_work)
     from cudaraytracer_tpu_torch.ops.cuda.render_kernel import (
-        FEATURES, SHADE_OPS, mask_grid, render_sample, render_sample_plain,
-        render_variant)
+        FEATURES, SHADE_OPS, mask_grid, refills, render_sample,
+        render_sample_plain, render_variant)
     from cudaraytracer_tpu_torch.ops.cuda import stream_probe as sp
     from cudaraytracer_tpu_torch.ops.cuda.tables import (
         BIG, kernel_inputs, mask_tile, nee_inputs, pack_camera_np,
         SceneTables, pack_stream_tiles, stream_budget, stream_tables_to_torch,
         table_bytes)
+    from cudaraytracer_tpu_torch.scripts.megakernel_util import (
+        one_pixel_per_thread)
     from cudaraytracer_tpu_torch.ops.denoise import atrous_denoise
     from cudaraytracer_tpu_torch.parallel import dryrun, tiling
     from cudaraytracer_tpu_torch.scripts import stream_probe as probe_script
@@ -279,7 +299,7 @@ def main():
     ptxas, entry, spill = {}, None, 0
     for ln in info["log"].splitlines():  # nvcc -Xptxas=-v, per instantiation
         m = re.search(r"(render_kernel|closest_hit_kernel|gbuffer_kernel"
-                      r"|stream_probe_kernel)(?:_media)?(_streamed)?I"
+                      r"|stream_probe_kernel)(?:_media|_refill)?(_streamed)?I"
                       r"((?:L[bi]\d+E)+)E", ln)
         if "Compiling entry function" in ln and m:
             # template flags: rects, tris[, vattrs, images, feature bits];
@@ -289,8 +309,12 @@ def main():
         elif entry and (m := re.search(r"(\d+) bytes spill stores", ln)):
             spill = int(m.group(1))
         elif entry and (m := re.search(r"Used (\d+) registers", ln)):
+            # the static shared memory (no resident kernel asks for
+            # dynamic shared memory)
+            smem = re.search(r"(\d+) bytes smem", ln)
             ptxas[entry] = {"registers": int(m.group(1)),
-                            "spill_store_bytes": spill}
+                            "spill_store_bytes": spill,
+                            "smem_bytes": int(smem.group(1)) if smem else 0}
             entry, spill = None, 0
     # the recorded instantiations against PERF.md (shown, not enforced: a
     # toolchain other than the recorded one may allocate otherwise), and
@@ -306,6 +330,11 @@ def main():
                                    for v in recorded.values()),
           "base_changed": sorted(k for k, v in recorded.items()
                                  if v["recorded"] != v["now"]),
+          # this slice changes the resident megakernel alone: the G-buffer,
+          # closest-hit, streamed and probe instantiations keep theirs
+          "others_as_recorded": all(
+              v["recorded"] == v["now"] for k, v in recorded.items()
+              if not k.startswith("render_kernel<")),
           "base_ptxas": recorded,
           "new_ptxas": {k: [v["registers"], v["spill_store_bytes"]]
                         for k, v in ptxas.items() if k not in BASE_PTXAS},
@@ -341,6 +370,8 @@ def main():
             self.tags["has_images"] = self.atlas_bytes > 0
             tb = self.tb
             self.tabs = (tb.S, tb.clusters, tb.supers, tb.n_super)
+            # the resident megakernel's block boxes
+            self.bb = {"block_boxes": tb.block_boxes}
             self.table_bytes = 4 * (tb.S.numel() + tb.P.numel()
                                     + tb.clusters.numel()
                                     + tb.supers.numel() + 38)
@@ -350,6 +381,11 @@ def main():
             self.nee = nee_inputs(self.scene, dev)
             self.tile = mask_tile(self.scene, tb)
             fl = self.flags
+            # does the scene's instantiation refill lanes (the media ones)?
+            self.refills = refills(render_variant(
+                fl["has_rects"], fl["has_tris"], fl["has_vattrs"],
+                "atlas" in fl, **{name: fl[name] for name, _, _ in FEATURES
+                                  if name != "has_nee"}))
             try:
                 render_variant(fl["has_rects"], fl["has_tris"],
                                fl["has_vattrs"], "atlas" in fl,
@@ -509,16 +545,38 @@ def main():
     hit_cml = hit_check(cml, (-2.4, 0.1, -2.4), (2.4, 4.9, 4.0), 20260102)
 
     # ---- 4. megakernel, kernel against plain ----
-    def mega_check(su, w, h, seed, with_bound=False, **opts):
+    def mega_check(su, w, h, seed, with_bound=False, util=False,
+                   time_plain=False, **opts):
         """Kernel against plain at w x h, SPP_MAIN spp, with the render
-        options ``opts`` (Setup.options); raise on a miss."""
+        options ``opts`` (Setup.options); raise on a miss.  The output's
+        block is first filled with NaN and freed, so that a pixel the
+        kernel never writes reads NaN (not finite: a miss).  With
+        ``with_bound`` the plain run also tallies the work of the bound;
+        with ``util`` it counts each pixel's rays, and the lane and CTA
+        utilisation of a one-thread-per-pixel grid and of the kernel (its
+        lane and CTA slots) are added.  ``plain_ms`` is the
+        plain run's time; with the work tally (which replays the search
+        per iteration) it is ``plain_work_ms``, and ``time_plain`` times a
+        plain run without it too."""
         args = (*su.frame_args(w, h), seed, DEPTH)
         kw = dict(width=w, height=h, camera_model=su.model, spp=SPP_MAIN,
-                  rr_start=RR, with_stats=True, **su.flags,
+                  rr_start=RR, with_stats=True, **su.flags, **su.bb,
                   **su.options(**opts))
-        img_k, rays_k = render_sample(*args, **kw)
+        torch.full((h, w, 3), float("nan"), device=dev)  # freed at once
+        sched = torch.zeros(2, dtype=torch.int64, device=dev)
+        img_k, rays_k = render_sample(*args, **kw, **(
+            {"sched_stats": sched} if su.refills else {}))
+        work = {} if with_bound else None
+        pix = torch.zeros(w * h, dtype=torch.int64, device=dev) if util \
+            else None
         (img_p, rays_p), plain_ms = host_ms(
-            lambda: render_sample_plain(*args, **kw))
+            lambda: render_sample_plain(*args, **kw, work=work,
+                                        pixel_rays=pix))
+        timed = {"plain_ms": plain_ms}
+        if with_bound:
+            timed = {"plain_work_ms": plain_ms, "plain_ms": host_ms(
+                lambda: render_sample_plain(*args, **kw))[1]
+                if time_plain else None}
         img_k, img_p = img_k.cpu().numpy(), img_p.cpu().numpy()
         rays_k, rays_p = int(rays_k), int(rays_p)
         if not (np.isfinite(img_k).all() and img_k.shape == (h, w, 3)):
@@ -527,17 +585,31 @@ def main():
         differing = int((err > 1e-3).sum())
         mean_rel = abs(float(img_k.mean()) / float(img_p.mean()) - 1.0)
         rays_rel = abs(rays_k / rays_p - 1.0)
-        res = {"max_abs_err": float(err.max()), "plain_ms": plain_ms}
+        res = {"max_abs_err": float(err.max()), **timed}
         if with_bound:
-            work = {}
-            render_sample_plain(*args, **kw, work=work)
-            # tables once (with the light table and the mask), the texels
-            # read, the f32[h, w, 3] sum and the ray count written
+            # tables once (with the light table, the mask and, where the
+            # kernel refills, the block boxes), the texels read, the
+            # f32[h, w, 3] sum and the ray count written
             extra = sum(4 * kw[k].numel() for k in ("lights", "tile_mask")
                         if k in kw)
+            if su.refills:
+                extra += 4 * kw["block_boxes"].numel()
             res.update(bound(su.table_bytes + extra + su.texel_bytes(work)
                              + 12 * w * h + 8, work_ops(work, SHADE_OPS)),
                        work=work)
+        if util:
+            # the kernel's own: its slots where it refills, else the grid
+            # of one thread per pixel that it runs
+            grid = one_pixel_per_thread(pix.reshape(h, w).cpu().numpy())
+            kernel = {"lane": grid["lane"], "cta": grid["cta"]}
+            if su.refills:
+                lane_slots, cta_slots = (int(v) for v in sched.cpu())
+                kernel = {"lane": rays_k / lane_slots,
+                          "cta": rays_k / cta_slots,
+                          "lane_slots": lane_slots, "cta_slots": cta_slots}
+            res["utilisation"] = {"one_pixel_per_thread": grid,
+                                  "kernel": kernel,
+                                  "refills": su.refills}
         shown = {k: v for k, v in opts.items() if k != "mask"}
         if opts.get("mask") is not None:
             shown["masked_tiles"] = int((opts["mask"] == 0).sum())
@@ -595,7 +667,8 @@ def main():
         opts = dict(nee=True, qmc=True, sample_base=8)
         args = (*su.frame_args(W_MAIN, H_MAIN), 7, DEPTH)
         kw = dict(width=W_MAIN, height=H_MAIN, camera_model=su.model,
-                  spp=SPP_MAIN, rr_start=RR, with_stats=True, **su.flags)
+                  spp=SPP_MAIN, rr_start=RR, with_stats=True, **su.flags,
+                  **su.bb)
         full, n_full = render_sample(*args, **kw, **su.options(**opts))
         part, n_part = render_sample(*args, **kw,
                                      **su.options(**opts, mask=mask))
@@ -789,7 +862,7 @@ def main():
         for s in spps:
             args = (*su.frame_args(*size), 7, DEPTH)
             kw = dict(width=size[0], height=size[1], camera_model=su.model,
-                      spp=s, rr_start=RR, **su.flags)
+                      spp=s, rr_start=RR, **su.flags, **su.bb)
             _, nr = render_sample(*args, **kw, with_stats=True)
             ms = cuda_ms(lambda: render_sample(*args, **kw), 10)
             timing[f"{su.name}/{s}spp"] = {
@@ -815,35 +888,74 @@ def main():
     for su, tag, opts in runs:
         args = (*su.frame_args(W_MAIN, H_MAIN), 7, DEPTH)
         kw = dict(width=W_MAIN, height=H_MAIN, camera_model=su.model,
-                  spp=SPP_MAIN, rr_start=RR, **su.flags, **su.options(**opts))
+                  spp=SPP_MAIN, rr_start=RR, **su.flags, **su.bb,
+                  **su.options(**opts))
         _, nr = render_sample(*args, **kw, with_stats=True)
         ms = cuda_ms(lambda: render_sample(*args, **kw), 10)
         timing[f"{su.name}/{tag}/{SPP_MAIN}spp"] = {
             "ms": ms, "rays": int(nr),
             "mrays_per_s": int(nr) / (ms * 1e-3) / 1e6,
             "plain_ms": None, "bound_ms": None, "bound_by": None}
+    # the utilisation readings (scripts/megakernel_util.py's cases)
+    util_cases = (rtow, default, terrain_big, csmoke)
     checks = {f"{su.name}/{SPP_MAIN}spp": mega_check(
-        su, W_MAIN, H_MAIN, 7, with_bound=True)
+        su, W_MAIN, H_MAIN, 7, with_bound=True, util=su in util_cases)
         for su in (rtow, default, cml, terrain, smooth, rimage, mirror,
                    terrain_big, marble, smoke, csmoke, bounce, book2,
                    rtow_big, mesh_demo)}
     checks[f"book2_final/nee_qmc/{SPP_MAIN}spp"] = mega_check(
-        book2, W_MAIN, H_MAIN, 7, with_bound=True, **main_opts)
+        book2, W_MAIN, H_MAIN, 7, with_bound=True, util=True,
+        time_plain=True, **main_opts)
     checks[f"book2_final/nee_qmc_half_mask/{SPP_MAIN}spp"] = mega_check(
         book2, W_MAIN, H_MAIN, 7, with_bound=True, **main_opts,
         mask=book2_mask)
     mega_err = max(mega_err, *(c["max_abs_err"] for c in checks.values()))
     for key, c in checks.items():
-        timing[key].update(plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
-                           bound_by=c["bound_by"])
+        timing[key].update(plain_ms=c["plain_ms"],
+                           plain_work_ms=c["plain_work_ms"],
+                           bound_ms=c["bound_ms"], bound_by=c["bound_by"])
+    util = {k: {**c["utilisation"], "ms": timing[k]["ms"]}
+            for k, c in checks.items() if "utilisation" in c}
     emit({"phase": "timing", "shape": [W_MAIN, H_MAIN], "depth": DEPTH,
           "rr_start": RR, "megakernel": timing, "nvidia_smi": smi})
+    emit({"phase": "utilisation", "shape": [W_MAIN, H_MAIN], "depth": DEPTH,
+          "spp": SPP_MAIN, "by_case": util, "nvidia_smi": smi})
+
+    # ---- 7b. the refilling kernel's ragged batches: 1277x719 (a ragged
+    # batch closes every batch row and the bottom row), cornell_smoke
+    # --nee --qmc against its plain version, and in a band of 333 rows at
+    # y0 101 with half its tiles masked; every output block NaN before
+    # the launch, so a pixel no lane takes fails
+    sched = {}
+    w_r, h_r = 1277, 719
+    sched["cornell_smoke/nee_qmc"] = mega_check(csmoke, w_r, h_r, 7,
+                                                **main_opts)
+    gi, gj = mask_grid(w_r, 333, csmoke.tile)
+    band_mask = torch.from_numpy((np.random.RandomState(6).permutation(
+        gi * gj) < gi * gj // 2).astype(np.int32)).to(dev)
+    args = (*csmoke.frame_args(w_r, h_r), 7, DEPTH)
+    kw = dict(width=w_r, height=h_r, camera_model=csmoke.model,
+              spp=SPP_MAIN, rr_start=RR, with_stats=True,
+              with_cull_stats=True, y0=101, band_h=333, tile_mask=band_mask,
+              tile=csmoke.tile, **csmoke.flags, **csmoke.bb)
+    torch.full((333, w_r, 3), float("nan"), device=dev)  # freed at once
+    ik, nk, ck = render_sample(*args, **kw)
+    ip, np_, cp = render_sample_plain(*args, **kw)
+    sched["cornell_smoke/band_half_mask"] = {
+        "pixels_differing": int((~((ik - ip).abs().amax(2) <= 1e-3)).sum()),
+        "rays": [int(nk), int(np_)], "cull": [int(ck), int(cp)]}
+    emit({"phase": "sched_check", "size": [w_r, h_r], "by_case": sched})
+    if sched["cornell_smoke/band_half_mask"]["pixels_differing"] \
+            or int(nk) != int(np_) or int(ck) != int(cp):
+        raise AssertionError(f"ragged batches: {sched}")
+    mega_err = max(mega_err, sched["cornell_smoke/nee_qmc"]["max_abs_err"])
 
     # ---- 8. the denoiser (plain PyTorch; no kernel) ----
     color = render_sample(*default.frame_args(W_MAIN, H_MAIN), 7, DEPTH,
                           width=W_MAIN, height=H_MAIN,
                           camera_model=default.model, spp=SPP_MAIN,
-                          rr_start=RR, **default.flags) / SPP_MAIN
+                          rr_start=RR, **default.flags,
+                          **default.bb) / SPP_MAIN
     den_ms = cuda_ms(lambda: atrous_denoise(color, gb_default_buf,
                                             iterations=4), 10)
     out = atrous_denoise(color, gb_default_buf, iterations=4)
@@ -866,7 +978,8 @@ def main():
     for su, opts in ((book2, main_opts), (rtow, {})):
         args = (*su.frame_args(W_MAIN, H_MAIN), 7, DEPTH)
         kw = dict(width=W_MAIN, height=H_MAIN, camera_model=su.model,
-                  spp=SPP_MAIN, rr_start=RR, **su.flags, **su.options(**opts))
+                  spp=SPP_MAIN, rr_start=RR, **su.flags, **su.bb,
+                  **su.options(**opts))
         base = kw.pop("sample_base", 0)
         full = render_sample(*args, stream=5, sample_base=base, **kw)
         seams = {}
@@ -944,7 +1057,7 @@ def main():
         w, h = 320, 180
         args = (*su.frame_args(w, h), 7, DEPTH)
         kw = dict(width=w, height=h, camera_model=su.model, spp=1,
-                  rr_start=RR, with_stats=True, **su.flags)
+                  rr_start=RR, with_stats=True, **su.flags, **su.bb)
         img_k, rays_k, cull_k = render_sample(*args, with_cull_stats=True,
                                               **kw)
         img_n, _ = render_sample(*args, **kw)
@@ -969,7 +1082,7 @@ def main():
     for su in (book2, terrain_big):
         args = (*su.frame_args(W_MAIN, H_MAIN), 7, DEPTH)
         kw = dict(width=W_MAIN, height=H_MAIN, camera_model=su.model,
-                  spp=SPP_MAIN, rr_start=RR, **su.flags)
+                  spp=SPP_MAIN, rr_start=RR, **su.flags, **su.bb)
         cull_ms[su.name] = {
             "ms": cuda_ms(lambda: render_sample(*args, **kw), 10),
             "ms_with_cull_stats": cuda_ms(lambda: render_sample(
@@ -1100,7 +1213,7 @@ def main():
                   with_cull_stats=True, **su.flags, **su.options(**opts),
                   **band)
         ir, nr, cr = render_sample(*su.frame_args(W_MAIN, H_MAIN), 7, DEPTH,
-                                   **kw)
+                                   **kw, **su.bb)
         is_, ns, cs = render_sample(*sargs, 7, DEPTH, **kw, **skw)
         res = {"scene": su.name, "case": tag, "size": [W_MAIN, H_MAIN],
                "spp": SPP_MAIN, "depth": DEPTH,
@@ -1236,16 +1349,16 @@ def main():
         kw = dict(width=w, height=h, camera_model=su.model, spp=spp_t,
                   rr_start=RR, **su.flags, **su.options(**opts))
         rargs = (*su.frame_args(w, h), 7, depth_t)
-        ir, nr = render_sample(*rargs, with_stats=True, **kw)
+        ir, nr = render_sample(*rargs, with_stats=True, **kw, **su.bb)
         is_, ns = render_sample(*sargs, 7, depth_t, with_stats=True, **kw,
                                 **skw)
         # parent-child order: resident, streamed, streamed, resident
-        ms_r1 = cuda_ms(lambda: render_sample(*rargs, **kw), 5)
+        ms_r1 = cuda_ms(lambda: render_sample(*rargs, **kw, **su.bb), 5)
         ms_s1 = cuda_ms(lambda: render_sample(*sargs, 7, depth_t, **kw,
                                               **skw), 5)
         ms_s2 = cuda_ms(lambda: render_sample(*sargs, 7, depth_t, **kw,
                                               **skw), 5)
-        ms_r2 = cuda_ms(lambda: render_sample(*rargs, **kw), 5)
+        ms_r2 = cuda_ms(lambda: render_sample(*rargs, **kw, **su.bb), 5)
         key = su.name + ("/nee_qmc" if opts else "")
         stream_timing[key] = {
             "size": [w, h], "spp": spp_t, "depth": depth_t,
@@ -1255,7 +1368,15 @@ def main():
             "blocks": su.st.n_blocks,
             "resident_ms": [ms_r1, ms_r2], "streamed_ms": [ms_s1, ms_s2],
             "streamed_over_resident": (ms_s1 + ms_s2) / (ms_r1 + ms_r2),
-            "rays": int(nr), "pixels_differing": int((ir != is_).any(2).sum())}
+            "rays": int(nr), "pixels_differing": int((ir != is_).any(2).sum()),
+            # the streamed walk's bound from its block-box tests alone
+            # (every ray tests every block's box; the supercluster,
+            # cluster and primitive tests come on top) and a miss's
+            # shading per ray: a lower bound of this run's work
+            "streamed_bound": bound(
+                4 * sum(t.numel() for t in sargs[:4]) + 4 * 38
+                + 12 * w * h + 8, (OPS["box"] * su.st.n_blocks
+                                   + SHADE_OPS["miss"]) * int(nr))}
         if stream_timing[key]["pixels_differing"] or int(nr) != int(ns):
             raise AssertionError(f"streamed != resident on {key}")
     emit({"phase": "streamed_timing", "by_scene": stream_timing,
@@ -1264,20 +1385,18 @@ def main():
 
     # the streamed kernels' lines: timed on the main path's scene and
     # options (book2_final --nee --qmc, 1280x720, 4 spp), where the
-    # resident kernel's work tally gives the search's tests; the walk
-    # adds one block-box test per ray and block
+    # resident kernel's work tally (its three-level walk) gives the
+    # search's tests: the streamed walk tests every box that walk tests
+    # (its block gate is the CTA's, not the ray's), so they bound it
     b2 = checks[f"book2_final/nee_qmc/{SPP_MAIN}spp"]
     b2_sargs, b2_skw = book2.stream_args(W_MAIN, H_MAIN)
     b2_kw = dict(width=W_MAIN, height=H_MAIN, camera_model=book2.model,
                  spp=SPP_MAIN, rr_start=RR, **book2.flags,
                  **book2.options(**main_opts), **b2_skw)
-    b2_rays = b2["work"]["hit"] + b2["work"]["miss"] \
-        + b2["work"].get("medium", 0)
     b2_bytes = 4 * sum(t.numel() for t in b2_sargs[:4]) + 4 * 38 \
         + 4 * book2.nee["lights"].numel() + book2.texel_bytes(b2["work"]) \
         + 12 * W_MAIN * H_MAIN + 8
-    b2_bound = bound(b2_bytes, b2["ops"] + OPS["box"] * b2_rays
-                     * book2.st.n_blocks)
+    b2_bound = bound(b2_bytes, b2["ops"])
     _, b2_plain_ms = host_ms(lambda: render_sample_plain(
         *b2_sargs, 7, DEPTH, **b2_kw))
     b2_ms = stream_timing["book2_final/nee_qmc"]["streamed_ms"]
@@ -1314,7 +1433,9 @@ def main():
                       "book2_final --nee --qmc and rtow_final at 1280x720; "
                       "cull statistics equal (with equal pixels) at "
                       "320x180 on 16 scenes; bands and sharded frames "
-                      "bit-identical to their launches",
+                      "bit-identical to their launches; ragged batches: "
+                      "cornell_smoke --nee --qmc at 1277x719 and in a "
+                      "half-masked band of 333 rows, every pixel written",
          "ms": mk["ms"], "plain_ms": mk["plain_ms"],
          "bound_ms": mk["bound_ms"], "bound_by": mk["bound_by"],
          "library_ms": None,
@@ -1327,6 +1448,7 @@ def main():
                 for k, v in b["sharded"].items()},
              "dryrun_multichip": dry_launches["render_sample"]},
          "by_scene": {k: v for k, v in timing.items()},
+         "utilisation": util,
          "cull_entries_per_ray": {k: v["entries_per_ray"]
                                   for k, v in cull.items()}},
         {"name": "closest_hit", "route": "cuda",

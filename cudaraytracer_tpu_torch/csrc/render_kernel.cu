@@ -61,9 +61,19 @@
 // plus, with images, three texel bytes per image hit.
 // Paths end at different depths, so the lanes of a warp diverge.  Design:
 // one thread per pixel runs the per-lane state machine of the TPU
-// kernel's bounce_body, each thread looping independently (a finished
-// lane stops; there is no whole-tile wave).  Materials take a branch each,
-// so the dielectric's 1/ior and its infinities never touch other lanes.
+// kernel's bounce_body (trace_pixel), each thread looping independently
+// (a finished lane stops; there is no whole-tile wave).  Materials take a
+// branch each, so the dielectric's 1/ior and its infinities never touch
+// other lanes.  A warp runs as long as its longest lane, and in the media
+// instantiations (refills), whose path lengths spread most, that left
+// 31-40% of the lanes idle: there the grid is persistent, a warp takes
+// batches of 32 band pixels (16 x 2, the grid's warp footprint) with one
+// atomic each, a lane whose pixel is done writes its sum and takes the
+// next pixel of the batch, and the search is the three-level walk
+// (search.cuh::closest_hit_blocks).  A pixel's draws are keyed on its own
+// iteration index, which restarts at 0 for every pixel a lane takes, so
+// the image, the ray count and the cull count do not depend on which
+// lane traced a pixel.
 // The static flags are template parameters, so the sphere-only
 // instantiation carries no rect or triangle code, and the others no
 // vertex-attribute, image, noise, media or motion code they do not use;
@@ -94,6 +104,13 @@ namespace {
 constexpr int kBlockX = 16;
 constexpr int kBlockY = 8;
 constexpr int kThreads = kBlockX * kBlockY;
+// The refilling kernel's batch of band pixels, taken by one warp: a block
+// of kBatchX x kBatchY pixels, the footprint of a warp of the
+// one-thread-per-pixel grid (ops/cuda/render_kernel.py reads these).
+constexpr int kBatchX = 16;
+constexpr int kBatchY = 2;
+constexpr int kBatch = kBatchX * kBatchY;
+static_assert(kBatch == 32, "a batch is one pixel per lane of a warp");
 
 // Constants rounded from double exactly as Python rounds them to float32.
 constexpr float kTwoPi = static_cast<float>(2.0 * 3.14159265358979323846);
@@ -130,21 +147,122 @@ struct StreamCtx {
   crt::Stage sg;
 };
 
+// Is the mask tile of band pixel (x, yb) active?
+__device__ __forceinline__ bool tile_active(const Opts& o, int x, int yb) {
+  return o.mask == nullptr ||
+         __ldg(o.mask + (yb / o.tile_h) * o.tiles_x + x / o.tile_w) != 0;
+}
+
+// Do the instantiations with these feature bits refill lanes?  The media
+// ones: a medium scatters a path at a random depth, so their paths'
+// lengths spread most, and a warp of one pixel per lane left 31-40% of
+// its lanes idle (book2_final NEE + QMC, cornell_smoke; PERF.md).  On the
+// others the lanes were 80-97% busy, and the refilling kernel, its
+// three-level walk with it, ran up to 14% slower than the grid
+// (ops/cuda/render_kernel.py::refills mirrors it).
+__host__ __device__ constexpr bool refills(int feat) {
+  return (feat & crt::F_MEDIA) != 0;
+}
+
+// The refilling kernel's arguments, a kernel argument of their own (as
+// Opts).
+struct Sched {
+  crt::BlockTables bt;       // the walk's block boxes
+  int batches_x, n_batches;  // batches of kBatchX x kBatchY band pixels
+  unsigned long long* next;   // the batch counter, zeroed by the caller
+  unsigned long long* slots;  // (lane, CTA) slots are added here, or null
+};
+
+// Band pixel k (0 .. kBatch-1) of batch b: the batches tile the band
+// row-major, batches_x of them to a batch row, and a batch's pixels are
+// kBatchX to a row (ops/cuda/render_kernel.py::batch_pixels mirrors it).
+__device__ __forceinline__ void batch_pixel(int b, int k, int batches_x,
+                                            int& x, int& yb) {
+  const int by = b / batches_x;
+  x = (b - by * batches_x) * kBatchX + k % kBatchX;
+  yb = by * kBatchY + k / kBatchX;
+}
+
+// A lane's view of its warp's batches in the refilling kernel: the
+// warp's batch and its next pixel, whether the batch counter is past the
+// last batch (the same in every lane), and the warp's iterations.
+struct Refill {
+  const Sched* sd;
+  int batch, next;
+  bool spent;
+  unsigned long long iters;
+
+  // Every lane of the warp calls it at the top of each iteration.  The
+  // idle lanes take the batch's next pixels in lane order (the warp takes
+  // the next batch with one atomic when its batch is used up); a pixel
+  // of a converged tile is written as zero and skipped.  Returns -1 when
+  // the warp has nothing left to trace, else 1 if this lane took band
+  // pixel (x, yb) and 0 if it stays as it was (busy, or idle).
+  __device__ __forceinline__ int take(const Params& p, const Opts& o,
+                                      float* __restrict__ out, bool busy,
+                                      int& x, int& yb) {
+    const unsigned lane = threadIdx.x & 31u;
+    const unsigned below = (1u << lane) - 1u;  // the lanes below this one
+    bool took = false;
+    __syncwarp();
+    while (true) {
+      const unsigned idle = __ballot_sync(0xffffffffu, !(busy || took));
+      if (idle == 0u) break;
+      if (next >= kBatch) {
+        if (spent) break;
+        unsigned long long b = 0;
+        if (lane == 0) b = atomicAdd(sd->next, 1ull);
+        b = __shfl_sync(0xffffffffu, b, 0);
+        if (b >= static_cast<unsigned long long>(sd->n_batches)) {
+          spent = true;
+          break;
+        }
+        batch = static_cast<int>(b);
+        next = 0;
+      }
+      const int k = next + __popc(idle & below);
+      if (!(busy || took) && k < kBatch) {
+        batch_pixel(batch, k, sd->batches_x, x, yb);
+        if (x < p.width && yb < o.band_h) {
+          if (p.spp * p.max_depth > 0 && tile_active(o, x, yb)) {
+            took = true;
+          } else {  // a converged tile (or no iteration): nothing traced
+            float* px = out + 3 * (static_cast<size_t>(yb) * p.width + x);
+            px[0] = 0.0f;
+            px[1] = 0.0f;
+            px[2] = 0.0f;
+          }
+        }
+      }
+      next += __popc(idle);
+    }
+    if (!__any_sync(0xffffffffu, busy || took)) return -1;
+    ++iters;
+    return took ? 1 : 0;
+  }
+};
+
 // Trace all spp samples of pixel (x, y); returns the rays traced and
 // stores the (ray, cluster) entries of its search in `entered`.  With
 // kStream the search is the CTA's streamed walk (search.cuh): every
 // thread of the CTA calls this and iterates while any of them has a path
 // to trace, a thread without one (has_px false: outside the image or
-// band, or its samples done) joining the walk with no ray.
+// band, or its samples done) joining the walk with no ray.  With kRefill
+// every lane of a warp calls this once and iterates while its warp has a
+// pixel to trace: a lane whose pixel is done writes the pixel's sum to
+// `out` (f32[band_h, width, 3]) and takes another (rf->take), restarting
+// the pixel's state, its iteration index (the draws' counter) too; the
+// search is the three-level walk over the block boxes bt.
 template <bool kRects, bool kTris, bool kVattrs, bool kImages, int kFeat,
-          bool kStream = false>
+          bool kStream = false, bool kRefill = false>
 __device__ unsigned long long trace_pixel(const Params& p,
                                           const crt::Atlas& atlas,
                                           const Opts& o, int x, int y,
                                           float* __restrict__ out,
                                           unsigned& entered,
                                           StreamCtx* sc = nullptr,
-                                          bool has_px = true) {
+                                          bool has_px = true,
+                                          Refill* rf = nullptr) {
   // the winner's barycentrics feed the smooth normal and a triangle's uv
   constexpr bool kUV = kVattrs || (kTris && kImages);
   constexpr int vn_base = crt::vn_base_for(kImages);
@@ -155,12 +273,12 @@ __device__ unsigned long long trace_pixel(const Params& p,
   constexpr int kSurf = kFeat & ~crt::F_NEE;
   constexpr int vel_base = crt::vel_base_for(kImages, kVattrs);
   const float* __restrict__ cam = p.cam;
-  const uint32_t pk =
+  uint32_t pk =
       crt::pixel_key(p.key, static_cast<uint32_t>(y) *
                                     static_cast<uint32_t>(p.width) +
                                 static_cast<uint32_t>(x));
-  const float xs = static_cast<float>(x);
-  const float ys = static_cast<float>(y);
+  float xs = static_cast<float>(x);
+  float ys = static_cast<float>(y);
   const float t_min = __ldg(cam + 28);
   const int np = p.tb.np;
 
@@ -180,11 +298,42 @@ __device__ unsigned long long trace_pixel(const Params& p,
   float qrx = 0.f, qry = 0.f;
   if (o.qmc) crt::pixel_rotation(xs, ys, qrx, qry);
 
-  for (int it = 0; it < n_iter && (kStream || alive || done < p.spp); ++it) {
+  bool busy = false;  // kRefill: this lane has a pixel whose loop runs
+  float* px_out = out;
+  for (int it = 0;
+       kRefill || (it < n_iter && (kStream || alive || done < p.spp)); ++it) {
     bool want = true;  // this thread has a path to trace
     if constexpr (kStream) {
       want = alive || done < p.spp;
       if (!__syncthreads_or(want)) break;  // the CTA's paths are done
+    }
+    if constexpr (kRefill) {
+      if (busy && !(it < n_iter && (alive || done < p.spp))) {
+        px_out[0] = rx;  // the pixel's loop is over
+        px_out[1] = ry;
+        px_out[2] = rz;
+        busy = false;
+      }
+      int yb;
+      const int took = rf->take(p, o, out, busy, x, yb);
+      if (took < 0) break;  // the warp's pixels are done
+      if (took > 0) {
+        // the lane's next pixel: its state from the start, as above
+        pk = crt::pixel_key(p.key, static_cast<uint32_t>(o.y0 + yb) *
+                                       static_cast<uint32_t>(p.width) +
+                                   static_cast<uint32_t>(x));
+        xs = static_cast<float>(x);
+        ys = static_cast<float>(o.y0 + yb);
+        rx = ry = rz = 0.f;
+        alive = false;
+        done = depth = 0;
+        it = 0;  // the new pixel's draws start at its iteration 0
+        qrx = qry = 0.f;
+        if (o.qmc) crt::pixel_rotation(xs, ys, qrx, qry);
+        px_out = out + 3 * (static_cast<size_t>(yb) * p.width + x);
+        busy = true;
+      }
+      if (!busy) continue;
     }
     const uint32_t uit = static_cast<uint32_t>(it);
     if (want && !alive) {
@@ -226,6 +375,10 @@ __device__ unsigned long long trace_pixel(const Params& p,
           p.tb, sc->st, sc->sg, ray, t_min, best_t, bc, u_med, time,
           &n_entered);
       if (!want) continue;  // it only joined the CTA's walk
+    } else if constexpr (kRefill) {
+      j = crt::closest_hit_blocks<kRects, kTris, kUV, kSurf>(
+          p.tb, rf->sd->bt, ray, t_min, best_t, bc, u_med, time,
+          &n_entered);
     } else {
       j = crt::closest_hit<kRects, kTris, kUV, kSurf>(
           p.tb, ray, t_min, best_t, bc, u_med, time, &n_entered);
@@ -396,9 +549,11 @@ __device__ unsigned long long trace_pixel(const Params& p,
       alive = false;
     }
   }
-  out[0] = rx;
-  out[1] = ry;
-  out[2] = rz;
+  if constexpr (!kRefill) {
+    out[0] = rx;
+    out[1] = ry;
+    out[2] = rz;
+  }
   entered = n_entered;
   return nrays;
 }
@@ -420,12 +575,6 @@ __device__ __forceinline__ void block_add(unsigned long long v,
     atomicAdd(dst, total);
   }
   __syncthreads();  // warp_sums is reused by the next call
-}
-
-// Is the mask tile of band pixel (x, yb) active?
-__device__ __forceinline__ bool tile_active(const Opts& o, int x, int yb) {
-  return o.mask == nullptr ||
-         __ldg(o.mask + (yb / o.tile_h) * o.tiles_x + x / o.tile_w) != 0;
 }
 
 // The launch's pixels: the body of both resident kernel entries below.
@@ -462,40 +611,114 @@ render_kernel(Params p, float* __restrict__ out,
                                                         atlas, o);
 }
 
-// The media instantiations without triangles, with room left for five
-// blocks of kThreads per SM (96 registers).  Left free, the allocator
-// gave cornell_smoke's 112 registers and no spills, one block fewer per
-// SM, which ran 10.7% slower than 96 registers with 74 bytes of spills;
-// the same bound on the other instantiations raised marble's and
-// bounce's 72 registers to 86-90 and slowed them 11% (NVIDIA H100,
-// PERF.md).
+// The refilling kernel's pixels (refills): a persistent grid of CTAs of
+// kThreads (as many as the card holds at once), each warp taking batches
+// of kBatch band pixels with one atomic on the batch counter and each
+// lane tracing pixel after pixel of them (trace_pixel with kRefill); the
+// warp leaves when the counter is past the last batch and its lanes are
+// idle.  The sums are added when the CTA leaves, with the lane slots
+// (32 per warp iteration) and the CTA slots (128 per iteration of the
+// CTA's longest warp) when asked for.
 template <bool kRects, bool kTris, bool kVattrs, bool kImages, int kFeat>
-__global__ void __launch_bounds__(kThreads, 5)
-render_kernel_media(Params p, float* __restrict__ out,
-                    unsigned long long* __restrict__ nrays_out,
-                    crt::Atlas atlas, Opts o) {
-  render_pixels<kRects, kTris, kVattrs, kImages, kFeat>(p, out, nrays_out,
-                                                        atlas, o);
+__device__ __forceinline__ void render_pixels_refill(
+    const Params& p, float* __restrict__ out,
+    unsigned long long* __restrict__ nrays_out, const crt::Atlas& atlas,
+    const Opts& o, const Sched& sd) {
+  constexpr int kWarps = kThreads / 32;
+  Refill rf{&sd, 0, kBatch, false, 0};
+  unsigned entered = 0;
+  const unsigned long long rays =
+      trace_pixel<kRects, kTris, kVattrs, kImages, kFeat, false, true>(
+          p, atlas, o, 0, 0, out, entered, nullptr, true, &rf);
+  block_add(rays, nrays_out);
+  if (o.cull != nullptr) block_add(entered, o.cull);
+  if (sd.slots != nullptr) {
+    block_add(rf.iters, sd.slots);
+    __shared__ unsigned long long warp_iters[kWarps];
+    if ((threadIdx.x & 31u) == 0) warp_iters[threadIdx.x >> 5] = rf.iters;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      unsigned long long most = 0;
+      for (int w = 0; w < kWarps; ++w) {
+        most = warp_iters[w] > most ? warp_iters[w] : most;
+      }
+      atomicAdd(sd.slots + 1, most * kThreads);
+    }
+  }
 }
 
-// Launch instantiation <R, T, V, I, F> if it is the one asked for.
+// The refilling instantiations with triangles (book2_final's).
+template <bool kRects, bool kTris, bool kVattrs, bool kImages, int kFeat>
+__global__ void __launch_bounds__(kThreads)
+render_kernel_refill(Params p, float* __restrict__ out,
+                     unsigned long long* __restrict__ nrays_out,
+                     crt::Atlas atlas, Opts o, Sched sd) {
+  render_pixels_refill<kRects, kTris, kVattrs, kImages, kFeat>(
+      p, out, nrays_out, atlas, o, sd);
+}
+
+// The refilling (media) instantiations without triangles, with room left
+// for six blocks of kThreads per SM (80 registers): on cornell_smoke and
+// smoke that ran 2-4% faster than five blocks (96 registers), as the
+// one-thread-per-pixel grid's media instantiations ran 10.7% faster with
+// five blocks than with the allocator left free; a bound on the other
+// instantiations slowed them (PERF.md).
+template <bool kRects, bool kTris, bool kVattrs, bool kImages, int kFeat>
+__global__ void __launch_bounds__(kThreads, 6)
+render_kernel_media(Params p, float* __restrict__ out,
+                    unsigned long long* __restrict__ nrays_out,
+                    crt::Atlas atlas, Opts o, Sched sd) {
+  render_pixels_refill<kRects, kTris, kVattrs, kImages, kFeat>(
+      p, out, nrays_out, atlas, o, sd);
+}
+
+// Launch instantiation <R, T, V, I, F> if it is the one asked for: a CTA
+// of kBlockX x kBlockY pixels, or for the refilling instantiations as
+// many CTAs of kThreads as the card holds at once, no more than the
+// batches need; *rc gets the error of the occupancy query or the launch.
 template <bool R, bool T, bool V, bool I, int F>
 bool launch_if(const int (&want)[5], const Params& p, const crt::Atlas& atlas,
-               const Opts& o, float* out, unsigned long long* nrays,
-               cudaStream_t st) {
+               const Opts& o, const Sched& sd, float* out,
+               unsigned long long* nrays, cudaStream_t st, int* rc) {
   if (want[0] != R || want[1] != T || want[2] != V || want[3] != I ||
       want[4] != F) {
     return false;
   }
-  const dim3 block(kBlockX, kBlockY);
-  const dim3 grid((p.width + kBlockX - 1) / kBlockX,
-                  (o.band_h + kBlockY - 1) / kBlockY);
-  if constexpr (!T && (F & crt::F_MEDIA) != 0) {
-    render_kernel_media<R, T, V, I, F><<<grid, block, 0, st>>>(
-        p, out, nrays, atlas, o);
+  if constexpr (refills(F)) {
+    void (*kernel)(Params, float*, unsigned long long*, crt::Atlas, Opts,
+                   Sched);
+    if constexpr (T) {
+      kernel = render_kernel_refill<R, T, V, I, F>;
+    } else {
+      kernel = render_kernel_media<R, T, V, I, F>;
+    }
+    static int per_sm = 0;  // CTAs of the kernel an SM holds, asked once
+    cudaError_t e = cudaSuccess;
+    if (per_sm == 0) {
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, 0);
+    }
+    int dev = 0, sms = 0;
+    if (e == cudaSuccess) e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) {
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    if (e == cudaSuccess) {
+      constexpr int kWarps = kThreads / 32;
+      int grid = (sd.n_batches + kWarps - 1) / kWarps;
+      if (sms * per_sm < grid) grid = sms * per_sm;
+      kernel<<<grid > 0 ? grid : 1, kThreads, 0, st>>>(p, out, nrays, atlas,
+                                                       o, sd);
+      e = cudaGetLastError();
+    }
+    *rc = static_cast<int>(e);
   } else {
+    const dim3 block(kBlockX, kBlockY);
+    const dim3 grid((p.width + kBlockX - 1) / kBlockX,
+                    (o.band_h + kBlockY - 1) / kBlockY);
     render_kernel<R, T, V, I, F><<<grid, block, 0, st>>>(p, out, nrays,
                                                         atlas, o);
+    *rc = static_cast<int>(cudaGetLastError());
   }
   return true;
 }
@@ -585,8 +808,13 @@ bool launch_streamed_if(const int (&want)[5], const Params& p,
 // pixels over the band's rows, row-major) may be null.  The launch renders
 // the rows y0 .. y0 + band_h - 1 of the height-row image into ``out``
 // (f32[band_h, width, 3]); ``cull`` (u64[1]), when not null, gets the
-// launch's (ray, cluster) entries added.  Returns cudaGetLastError()
-// after the launch.
+// launch's (ray, cluster) entries added.  The refilling instantiations
+// (refills) read ``blocks`` (f32[6, nbc], the block boxes of block_b
+// superclusters each: tables.block_boxes) and ``next`` (u64[1], zeroed by
+// the caller: the batch counter), and add their lane and CTA slots to
+// ``sched_slots`` (u64[2]) when it is not null; the others read none of
+// them.
+// Returns the error of the occupancy query or the launch.
 extern "C" int crt_render_sample(const float* S, const float* P,
                                  const float* clusters, const float* supers,
                                  int np, int nc, int nsc, int n_super,
@@ -602,9 +830,20 @@ extern "C" int crt_render_sample(const float* S, const float* P,
                                  int qmc, int sample_base, const int* mask,
                                  int tile_h, int tile_w, int tiles_x,
                                  int y0, int band_h,
-                                 unsigned long long* cull, float* out,
-                                 unsigned long long* nrays, void* stream) {
+                                 unsigned long long* cull,
+                                 const float* blocks, int nbc, int block_b,
+                                 unsigned long long* next,
+                                 unsigned long long* sched_slots,
+                                 float* out, unsigned long long* nrays,
+                                 void* stream) {
   if (width <= 0 || band_h <= 0) return 0;
+  if (block_b <= 0 || nbc * block_b < n_super) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int batches_x = (width + kBatchX - 1) / kBatchX;
+  const Sched sd{crt::BlockTables{blocks, nbc, block_b}, batches_x,
+                 batches_x * ((band_h + kBatchY - 1) / kBatchY), next,
+                 sched_slots};
   Params p;
   p.tb = crt::SearchTables{S, clusters, supers, np, nc, nsc,
                            n_super, cluster, super_};
@@ -628,14 +867,15 @@ extern "C" int crt_render_sample(const float* S, const float* P,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int want[5] = {has_rects != 0, has_tris != 0, has_vattrs != 0,
                        has_images != 0, features};
+  int rc = 0;
   // one launch_if per instantiation of variants.cuh, in its order
-#define CRT_LAUNCH(R, T, V, I, F) \
-  || launch_if<R != 0, T != 0, V != 0, I != 0, F>(want, p, at, o, out, nrays, \
-                                                  st)
+#define CRT_LAUNCH(R, T, V, I, F)                                           \
+  || launch_if<R != 0, T != 0, V != 0, I != 0, F>(want, p, at, o, sd, out,  \
+                                                  nrays, st, &rc)
   const bool launched = false CRT_RENDER_VARIANTS(CRT_LAUNCH);
 #undef CRT_LAUNCH
   if (!launched) return static_cast<int>(cudaErrorNotSupported);
-  return static_cast<int>(cudaGetLastError());
+  return rc;
 }
 #else
 // Plain C entry of the streamed layout (ops/cuda/render_kernel.py::

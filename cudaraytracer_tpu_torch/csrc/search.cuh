@@ -1,4 +1,6 @@
-// Two-level closest-hit search over the packed scene tables.
+// Closest-hit search over the packed scene tables: two culling levels
+// (closest_hit), three (closest_hit_blocks, the megakernel's) or the
+// streamed walk (closest_hit_streamed).
 //
 // Replaces the search of the JAX megakernel,
 // cudaraytracer_tpu/ops/pallas/render_kernel.py::hierarchical_search
@@ -404,6 +406,54 @@ __device__ __forceinline__ int closest_hit(const SearchTables& tb,
                                                ci * tb.cluster, r, t_min,
                                                u_med, time, best_t, best_j,
                                                bc);
+    }
+  }
+  return best_j;
+}
+
+// ------------------------------------------- resident three-level walk
+// The megakernel's walk (render_kernel.cu): blocks of block_b consecutive
+// superclusters gate their superclusters, which gate their clusters,
+// which gate their primitives.  A block's box is the union of its
+// superclusters' boxes, and a supercluster's the union of its clusters'
+// (ops/cuda/tables.py::block_boxes; min and max are exact), so a ray that
+// enters a cluster's box closer than best_t enters its supercluster's and
+// its block's too: the walk enters the clusters closest_hit enters, in
+// the same ascending order, and gives the same hit, barycentrics and
+// cull count, with one box test per block where closest_hit tests
+// block_b supercluster boxes.  A block of one supercluster has that
+// supercluster's box, so it is not tested twice.
+
+// The block boxes of the walk: f32[6, nbc] (tables.block_boxes).
+struct BlockTables {
+  const float* boxes;
+  int nbc, block_b;
+};
+
+// The three-level closest hit: closest_hit's arguments and result, with
+// the block boxes bt.
+template <bool kRects, bool kTris, bool kUV, int kFeat = 0>
+__device__ __forceinline__ int closest_hit_blocks(
+    const SearchTables& tb, const BlockTables& bt, const Ray& r,
+    float t_min, float& best_t, Bary& bc, float u_med = 0.0f,
+    float time = 0.0f, unsigned* entered = nullptr) {
+  int best_j = -1;
+  for (int s0 = 0, b = 0; s0 < tb.n_super; s0 += bt.block_b, ++b) {
+    const int s_end = min(s0 + bt.block_b, tb.n_super);
+    if (s_end - s0 > 1 && !box_hit(bt.boxes, bt.nbc, b, r, t_min, best_t)) {
+      continue;
+    }
+    for (int si = s0; si < s_end; ++si) {
+      if (!box_hit(tb.supers, tb.nsc, si, r, t_min, best_t)) continue;
+      const int c_end = (si + 1) * tb.super_;
+      for (int ci = si * tb.super_; ci < c_end; ++ci) {
+        if (!box_hit(tb.clusters, tb.nc, ci, r, t_min, best_t)) continue;
+        if (entered != nullptr) ++*entered;
+        cluster_tests<kRects, kTris, kUV, kFeat>(tb, ci, tb.S, tb.np,
+                                                 ci * tb.cluster, r, t_min,
+                                                 u_med, time, best_t, best_j,
+                                                 bc);
+      }
     }
   }
   return best_j;

@@ -54,7 +54,7 @@ SIGNATURES = {
                           ctypes.c_uint32, _i, _i, _i, _i, _i, _i, _f, _f,
                           _i, _i, _i, _i, _i, _p, _p, _i, _i, _i,
                           _p, _f, _i, _i, _p, _i, _i, _i, _i, _i, _p,
-                          _p, _p, _p],
+                          _p, _i, _i, _p, _p, _p, _p, _p],
     "crt_gbuffer": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p, _i, _i, _i,
                     _f, _f, _i, _i, _i, _i, _i, _p, _p, _i, _i, _i, _p, _p,
                     _p, _p],
@@ -88,6 +88,19 @@ def variants(name: str) -> tuple:
         raise BuildError(f"{name} not found in {CSRC / 'variants.cuh'}")
     return tuple(tuple(int(v) for v in x) for x in re.findall(
         r"X\((\d+), (\d+), (\d+), (\d+), (\d+)\)", m.group(1)))
+
+
+def constants(source: str, *names: str) -> tuple:
+    """The values of the ``constexpr int`` constants ``names`` of
+    csrc/``source``: sizes that a kernel and its Python side share."""
+    text = (CSRC / source).read_text()
+    vals = []
+    for name in names:
+        m = re.search(rf"^constexpr int {name} = (\d+);$", text, re.M)
+        if m is None:
+            raise BuildError(f"{name} not found in {CSRC / source}")
+        vals.append(int(m.group(1)))
+    return tuple(vals)
 
 
 def source_hash() -> str:

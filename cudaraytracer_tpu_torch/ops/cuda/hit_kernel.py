@@ -11,9 +11,11 @@ per-primitive formulas, for CPU tensors.  Both count their launches
 G-buffer: with ``has_media`` it runs the constant-medium test on medium
 columns (given the iteration's medium uniforms; without them they never
 hit) and with a ``time`` per ray it moves spheres to their shutter-time
-centres, as csrc/search.cuh does.  ``search_work`` replays the kernel's
-culled traversal to count the box and primitive tests a set of rays
-needs: the operation count behind each kernel's bound (``OPS``).
+centres, as csrc/search.cuh does.  ``culled_closest`` walks the
+kernels' culled traversal (two levels, or three with the block boxes
+of the megakernel's walk) and ``search_work`` counts with it the box and
+primitive tests a set of rays needs: the operation count behind each
+kernel's bound (``OPS``).
 """
 
 from __future__ import annotations
@@ -22,9 +24,10 @@ import numpy as np
 import torch
 
 from . import build
-from .tables import (BIG, CLUSTER, SUPER, S_AAX, S_BAX, S_CA, S_CB, S_CK,
-                     S_CX, S_CY, S_CZ, S_D1, S_D2, S_DENS, S_DN, S_HA, S_HB,
-                     S_KAX, S_PTYPE, S_R2, S_VX, S_VY, S_VZ)
+from .tables import (BIG, CLUSTER, STREAM_BLOCK_B, SUPER, S_AAX, S_BAX,
+                     S_CA, S_CB, S_CK, S_CX, S_CY, S_CZ, S_D1, S_D2, S_DENS,
+                     S_DN, S_HA, S_HB, S_KAX, S_PTYPE, S_R2, S_VX, S_VY,
+                     S_VZ)
 
 # rays per brute-force chunk: chunk * NP stays near 2^24 elements on the
 # CPU and 2^26 on a GPU (a few GB of temporaries)
@@ -306,31 +309,35 @@ def _box_enter(box, i, o, d_inv, t_min, best_t):
     return tfar > tnear
 
 
-def search_work(S, clusters, supers, n_super, org, dirn, t_min: float = 1e-3,
-                *, has_rects: bool = False, has_tris: bool = False,
-                has_media: bool = False, u_med=None, time=None,
-                has_boxm: bool = False, has_rotm: bool = False,
-                cluster: int = CLUSTER, super_: int = SUPER) -> dict:
-    """Count the tests the kernel's culled search needs for rays (org,
-    dirn): {"entered": the (ray, cluster) entries, clusters whose box a
-    ray entered (the megakernel's cull statistic), "box": supercluster
-    and cluster box tests, "sphere"/"rect"/
-    "tri"/"med": primitive tests, "med_box"/"med_rot": tests of box media
-    (the box chord) and of yawed box media (the rotation), "motion":
-    tests of moving spheres (the centre at the path's time)}.  It replays
-    csrc/search.cuh::closest_hit in table order, cluster by cluster over
-    all rays at once, with the same running best_t and the same kind
-    dispatch (kind-4 medium clusters run the medium test with ``u_med``
-    and are skipped without it), so a cluster counts for a ray only where
-    the kernel would enter it.  Within an entered cluster only the
-    primitives count, not the padding columns the kernel's loop also runs
-    over (r^2 = -1 spheres).  Runs on any device."""
+def culled_closest(S, clusters, supers, n_super, org, dirn,
+                   t_min: float = 1e-3, *, block_boxes=None,
+                   block_b: int = STREAM_BLOCK_B, has_rects: bool = False,
+                   has_tris: bool = False, with_uv: bool = False,
+                   has_media: bool = False, u_med=None, time=None,
+                   has_boxm: bool = False, has_rotm: bool = False,
+                   cluster: int = CLUSTER, super_: int = SUPER) -> tuple:
+    """csrc/search.cuh's culled walk on tensors, all rays at once in
+    table order with each ray's running best_t: ``closest_hit`` (every
+    supercluster box, then the cluster boxes of those entered) or, with
+    ``block_boxes`` (f32[6, >= ceil(n_super / block_b)], tables.
+    block_boxes), ``closest_hit_blocks`` (a block's box first, then its
+    ``block_b`` superclusters).  An entered cluster's primitives are
+    tested with ``brute_closest``'s arithmetic; its kind picks the tests
+    as the kernel's dispatch does (kind-4 medium clusters run the medium
+    test with ``u_med`` and are skipped without it).  Returns (best_t,
+    col, bu, bv, work): the closest hit as ``brute_closest`` gives it
+    (col -1 on a miss; bu, bv the winner's barycentrics with ``with_uv``,
+    else 0) and the tests counted as ``search_work`` describes them."""
     check_search_tables(S, clusters, supers, n_super, cluster, super_)
     _rays(org, dirn, S.device)
     t_min = float(np.float32(t_min))
     n = org.shape[0]
+    dev = S.device
     d_inv = 1.0 / torch.where(dirn == 0.0, 1e-30, dirn)
-    best_t = torch.full((n,), BIG, dtype=torch.float32, device=S.device)
+    best_t = torch.full((n,), BIG, dtype=torch.float32, device=dev)
+    col = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    bu = torch.zeros((n,), dtype=torch.float32, device=dev)
+    bv = torch.zeros_like(bu)
     kinds = clusters[6].tolist()
     # primitives of each cluster by type: lists of NC counts
     ptype = S[S_PTYPE]
@@ -350,48 +357,105 @@ def search_work(S, clusters, supers, n_super, org, dirn, t_min: float = 1e-3,
     if time is not None:
         work["motion"] = 0
     flat = has_rects or has_tris or has_media
-    for si in range(int(n_super)):
-        work["box"] += n
-        rays = torch.nonzero(_box_enter(supers, si, org, d_inv, t_min,
-                                        best_t)).squeeze(1)
-        for ci in range(si * super_, (si + 1) * super_):
-            if rays.numel() == 0:
+    every = torch.arange(n, device=dev)
+    n_super = int(n_super)
+    if block_boxes is None:
+        walk = [(None, range(n_super))]
+    else:
+        if tuple(block_boxes.shape[:1]) != (6,) \
+                or block_boxes.shape[1] * block_b < n_super:
+            raise ValueError(f"block_boxes {list(block_boxes.shape)} do not "
+                             f"cover {n_super} superclusters")
+        walk = [(bi, range(bi * block_b, min((bi + 1) * block_b, n_super)))
+                for bi in range(-(-n_super // block_b))]
+    for bi, sis in walk:
+        rb = every
+        if bi is not None and len(sis) > 1:  # a block of one: its box
+            work["box"] += n
+            rb = every[_box_enter(block_boxes, bi, org, d_inv, t_min,
+                                  best_t)]
+        for si in sis:
+            if rb.numel() == 0:
                 break
-            work["box"] += rays.numel()
-            inside = _box_enter(clusters, ci, org[rays], d_inv[rays], t_min,
-                                best_t[rays])
-            r = rays[inside]
-            m = r.numel()
-            if m == 0:
-                continue
-            work["entered"] += m
-            cols = slice(ci * cluster, (ci + 1) * cluster)
-            kind = kinds[ci]
-            if has_media and kind > 3.5:
-                if u_med is None:
-                    continue  # the G-buffer skips medium clusters
-                work["med"] += m * n_med[ci]
-                work["med_box"] += m * n_box[ci] if has_boxm else 0
-                work["med_rot"] += m * n_box[ci] if has_rotm else 0
-            elif flat and 0.5 < kind < 1.5:
-                work["rect"] += m * n_rect[ci]
-            elif flat and kind > 2.5:
-                work["tri"] += m * n_tri[ci]
-            else:  # spheres, or the mixed cluster's per-type tests
-                work["sphere"] += m * n_sph[ci]
-                if flat:
+            work["box"] += rb.numel()
+            if rb is every:  # every ray: no gather
+                rays = torch.nonzero(_box_enter(supers, si, org, d_inv,
+                                                t_min, best_t)).squeeze(1)
+            else:
+                rays = rb[_box_enter(supers, si, org[rb], d_inv[rb], t_min,
+                                     best_t[rb])]
+            for ci in range(si * super_, (si + 1) * super_):
+                if rays.numel() == 0:
+                    break
+                work["box"] += rays.numel()
+                inside = _box_enter(clusters, ci, org[rays], d_inv[rays],
+                                    t_min, best_t[rays])
+                r = rays[inside]
+                m = r.numel()
+                if m == 0:
+                    continue
+                work["entered"] += m
+                kind = kinds[ci]
+                if has_media and kind > 3.5:
+                    if u_med is None:
+                        continue  # the G-buffer skips medium clusters
+                    work["med"] += m * n_med[ci]
+                    work["med_box"] += m * n_box[ci] if has_boxm else 0
+                    work["med_rot"] += m * n_box[ci] if has_rotm else 0
+                elif flat and 0.5 < kind < 1.5:
                     work["rect"] += m * n_rect[ci]
-                    work["tri"] += m * n_tri[ci] if has_tris else 0
-                if time is not None:
-                    work["motion"] += m * n_mov[ci]
-            bt, _ = brute_closest(
-                S[:, cols].contiguous(), org[r], dirn[r], t_min, best_t[r],
-                has_rects, has_tris, has_media=has_media,
-                u_med=None if u_med is None else u_med[r],
-                time=None if time is None else time[r], has_boxm=has_boxm,
-                has_rotm=has_rotm)
-            best_t[r] = bt
-    return work
+                elif flat and kind > 2.5:
+                    work["tri"] += m * n_tri[ci]
+                else:  # spheres, or the mixed cluster's per-type tests
+                    work["sphere"] += m * n_sph[ci]
+                    if flat:
+                        work["rect"] += m * n_rect[ci]
+                        work["tri"] += m * n_tri[ci] if has_tris else 0
+                    if time is not None:
+                        work["motion"] += m * n_mov[ci]
+                cols = slice(ci * cluster, (ci + 1) * cluster)
+                bt, jc, *uv = brute_closest(
+                    S[:, cols].contiguous(), org[r], dirn[r], t_min,
+                    best_t[r], has_rects, has_tris, with_uv,
+                    has_media=has_media,
+                    u_med=None if u_med is None else u_med[r],
+                    time=None if time is None else time[r],
+                    has_boxm=has_boxm, has_rotm=has_rotm)
+                won = jc >= 0
+                best_t[r] = bt
+                col[r[won]] = jc[won] + ci * cluster
+                if with_uv:
+                    bu[r[won]] = uv[0][won]
+                    bv[r[won]] = uv[1][won]
+    return best_t, col, bu, bv, work
+
+
+def search_work(S, clusters, supers, n_super, org, dirn, t_min: float = 1e-3,
+                *, block_boxes=None, block_b: int = STREAM_BLOCK_B,
+                has_rects: bool = False, has_tris: bool = False,
+                has_media: bool = False, u_med=None, time=None,
+                has_boxm: bool = False, has_rotm: bool = False,
+                cluster: int = CLUSTER, super_: int = SUPER) -> dict:
+    """Count the tests the kernel's culled search needs for rays (org,
+    dirn): {"entered": the (ray, cluster) entries, clusters whose box a
+    ray entered (the megakernel's cull statistic), "box": block,
+    supercluster and cluster box tests, "sphere"/"rect"/"tri"/"med":
+    primitive tests, "med_box"/"med_rot": tests of box media (the box
+    chord) and of yawed box media (the rotation), "motion": tests of
+    moving spheres (the centre at the path's time)}.  It replays the walk
+    (``culled_closest``: csrc/search.cuh::closest_hit, or with
+    ``block_boxes`` closest_hit_blocks) cluster by cluster over all rays
+    at once, so a cluster counts for a ray only where the kernel would
+    enter it; both walks enter the same clusters, the three-level one
+    tests fewer boxes.  Within an entered cluster only the primitives
+    count, not the padding columns the kernel's loop also runs over (r^2
+    = -1 spheres).  Runs on any device."""
+    return culled_closest(
+        S, clusters, supers, n_super, org, dirn, t_min,
+        block_boxes=block_boxes, block_b=block_b, has_rects=has_rects,
+        has_tris=has_tris, has_media=has_media, u_med=u_med, time=time,
+        has_boxm=has_boxm, has_rotm=has_rotm, cluster=cluster,
+        super_=super_)[-1]
 
 
 def streamed_closest(tiles, block_boxes, clusters, supers, n_blocks,

@@ -42,7 +42,12 @@ change the table layout or its meaning) whose rects/noise/media/boxm
 flags include the scene's (their branches are inert on columns without
 the feature); any other combination raises ``NotImplementedError``.
 
-* CUDA tensors launch ``csrc/render_kernel.cu``, one thread per pixel.
+* CUDA tensors launch ``csrc/render_kernel.cu``, one thread per pixel;
+  the media instantiations (``refills``) run a persistent grid whose
+  warps take batches of 32 band pixels (``batch_pixels``) and refill a
+  lane with the batch's next pixel when its pixel is done, searching
+  with the three-level walk over the block boxes (``block_boxes``,
+  required on the card).
 * CPU tensors run ``render_sample_plain``: the same per-lane state machine
   over whole-image tensors in lockstep iterations, with the brute-force
   search of ``hit_kernel.brute_closest`` and the same random draws
@@ -74,8 +79,9 @@ from . import build
 from .hit_kernel import (brute_closest, check_search_tables, search_work,
                          streamed_closest)
 from .tables import (BIG, CLUSTER, P_CX, P_CY, P_CZ, P_HA, P_HB, P_MPARAM,
-                     P_PACKA, P_PACKB, P_PACKC, SUPER, p_rows_for,
-                     stream_rows, tile_columns, vn_base_for)
+                     P_PACKA, P_PACKB, P_PACKC, STREAM_BLOCK_B, SUPER,
+                     block_count, p_rows_for, stream_rows, tile_columns,
+                     vn_base_for)
 
 # Feature bits of the static flags beyond (rects, tris, vattrs, images):
 # the kernels' ``kFeat`` template argument (csrc/search.cuh F_*), with the
@@ -95,6 +101,37 @@ _SUPERSET_BITS = F_NOISE | F_MEDIA | F_BOXM
 RENDER_VARIANTS = build.variants("CRT_RENDER_VARIANTS")
 # those of its streamed entry (stream_b > 0), CRT_RENDER_STREAM_VARIANTS
 RENDER_STREAM_VARIANTS = build.variants("CRT_RENDER_STREAM_VARIANTS")
+# the refilling kernel's batch: BATCH_X x BATCH_Y band pixels a warp
+BATCH_X, BATCH_Y = build.constants("render_kernel.cu", "kBatchX", "kBatchY")
+
+
+def refills(variant: tuple) -> bool:
+    """Does this instantiation (``render_variant``) run the refilling
+    kernel?  csrc/render_kernel.cu::refills: the media ones."""
+    return bool(variant[4] & F_MEDIA)
+
+
+def batch_grid(width: int, band_h: int) -> tuple:
+    """(batches to a batch row, batches) of the refilling kernel over a
+    band of ``width`` x ``band_h`` pixels, the ragged edges padded."""
+    bx = -(-width // BATCH_X)
+    return bx, bx * -(-band_h // BATCH_Y)
+
+
+def batch_pixels(b, width: int, band_h: int) -> tuple:
+    """The band pixels of the refilling kernel's batch ``b`` (an int or
+    an int64 tensor of batch indices), csrc/render_kernel.cu::batch_pixel
+    for k = 0 .. BATCH_X * BATCH_Y - 1: (x, yb, inside), each of shape
+    [..., 32], yb the row in the band and ``inside`` False for the padding
+    of a ragged batch (beyond the band's right or bottom edge), which the
+    kernel skips.  Every band pixel lies in exactly one batch."""
+    bx, _ = batch_grid(width, band_h)
+    b = torch.as_tensor(b, dtype=torch.int64)[..., None]
+    k = torch.arange(BATCH_X * BATCH_Y, dtype=torch.int64)
+    by = b // bx
+    x = (b - by * bx) * BATCH_X + k % BATCH_X
+    yb = by * BATCH_Y + k // BATCH_X
+    return x, yb, (x < width) & (yb < band_h)
 
 
 def feature_bits(has_noise=False, has_media=False, has_boxm=False,
@@ -272,11 +309,25 @@ def mask_grid(width: int, height: int, tile) -> tuple:
 def _check(S, P, clusters, supers, n_super, cam_vec, max_depth, width,
            height, camera_model, spp, rr_start, cluster, super_, atlas,
            tex_hw, has_vattrs, has_tris, has_motion, has_nee, lights,
-           sample_base, tile_mask, tile, y0, band_h, stream_b):
+           sample_base, tile_mask, tile, y0, band_h, stream_b, block_boxes):
     check_frame_args(S, P, clusters, supers, n_super, cam_vec, width, height,
                      camera_model, cluster, super_, atlas, tex_hw,
                      has_vattrs, has_tris, has_motion, has_nee, lights,
                      stream_b)
+    if block_boxes is not None:
+        nbc = block_count(supers.shape[1])
+        if stream_b:
+            raise ValueError("block_boxes are the resident layout's; the "
+                             "streamed one passes its own as P")
+        if not isinstance(block_boxes, torch.Tensor) \
+                or block_boxes.dtype != torch.float32 \
+                or tuple(block_boxes.shape) != (6, nbc) \
+                or not block_boxes.is_contiguous() \
+                or block_boxes.device != S.device:
+            raise ValueError(
+                f"block_boxes must be a contiguous f32[6, {nbc}] on "
+                f"{S.device} (tables.block_boxes of the {supers.shape[1]} "
+                "superclusters)")
     # the band: band_h None means the rows from y0 to the image's end
     y0 = int(y0)
     band_h = height - y0 if band_h is None else int(band_h)
@@ -518,7 +569,8 @@ def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
                         tile=None, y0: int = 0, band_h: int | None = None,
                         with_cull_stats: bool = False, stream_b: int = 0,
                         cluster: int = CLUSTER, super_: int = SUPER,
-                        work: dict | None = None):
+                        block_boxes=None, sched_stats=None,
+                        work: dict | None = None, pixel_rays=None):
     """Plain PyTorch version of the megakernel (see the module docstring).
     Same arguments and results as ``render_sample``; runs on any device
     and takes any combination of the flags.  ``with_cull_stats`` replays
@@ -527,21 +579,31 @@ def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
     P the block boxes, n_super the used blocks): the search is the
     streamed walk (``hit_kernel.streamed_closest``, which also counts the
     cluster entries) and the payload is read from the tiles by block,
-    page and column (``tables.tile_columns``).
+    page and column (``tables.tile_columns``).  With ``block_boxes`` and
+    ``has_media`` the replayed search is the refilling kernel's
+    three-level walk (``search_work`` then counts its block-box tests; it
+    enters the same clusters as the two-level one).  ``sched_stats`` is
+    the kernel's own reading of its scheduler and raises here.
 
     ``work``: a dict to which the run adds what the kernel's work is
     counted from: "raygen", "miss", surface "hit" and "medium" hit lanes,
     "smooth" (triangle hits with vertex normals), "image" hits (one texel
     read each), "noise" hits, "nee" scatters with "nee_slot" = their
     valid light slots, "qmc" raygens, and the search's tests and cluster
-    entries (``hit_kernel.search_work``, replayed per iteration; slow)."""
+    entries (``hit_kernel.search_work``, replayed per iteration; slow).
+    ``pixel_rays``: an int64 tensor of ``band_h * width`` elements on the
+    tables' device, to which each pixel's rays are added (row-major; the
+    per-pixel path lengths behind ``scripts/megakernel_util.py``)."""
     spp, max_depth, rr_start = int(spp), int(max_depth), int(rr_start)
     sample_base = int(sample_base)
     y0, band_h = _check(S, P, clusters, supers, n_super, cam_vec, max_depth,
                         width, height, camera_model, spp, rr_start, cluster,
                         super_, atlas, tex_hw, has_vattrs, has_tris,
                         has_motion, has_nee, lights, sample_base, tile_mask,
-                        tile, y0, band_h, stream_b)
+                        tile, y0, band_h, stream_b, block_boxes)
+    if sched_stats is not None:
+        raise ValueError("sched_stats reads the refilling kernel's "
+                         "scheduler: the plain version has none")
     render_sample_plain.launches += 1
     dev = S.device
     if stream_b:
@@ -600,6 +662,8 @@ def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
         if ia.numel() == 0:
             break
         nrays += ia.numel()
+        if pixel_rays is not None:
+            pixel_rays[ia] += 1
 
         # ---- path regeneration (csrc/render_kernel.cu raygen) ----
         ib = ia[need[ia]]
@@ -654,7 +718,9 @@ def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
         if work is not None or (with_cull_stats and not stream_b):
             sw = search_work(*search_tables(S, clusters, supers, n_super,
                                             stream_b, cluster, super_),
-                             org, dirn, t_min, has_rects=has_rects,
+                             org, dirn, t_min,
+                             block_boxes=block_boxes if has_media else None,
+                             has_rects=has_rects,
                              has_tris=has_tris, u_med=u_med, time=time,
                              cluster=cluster, super_=super_, **med_kw)
             if not stream_b:
@@ -882,7 +948,7 @@ def render_sample(S, P, clusters, supers, n_super, cam_vec, seed, max_depth,
                   tile_mask=None, tile=None, y0: int = 0,
                   band_h: int | None = None, with_cull_stats: bool = False,
                   stream_b: int = 0, cluster: int = CLUSTER,
-                  super_: int = SUPER):
+                  super_: int = SUPER, block_boxes=None, sched_stats=None):
     """``spp`` samples per pixel of the megakernel -> f32[band_h, width, 3]
     radiance SUM (divide by spp to display) of the image rows y0 .. y0 +
     band_h - 1 (the whole image by default), plus the int64 ray count (a
@@ -919,7 +985,14 @@ def render_sample(S, P, clusters, supers, n_super, cam_vec, seed, max_depth,
     stream_tables_to_torch``): S the tiles, P the block boxes, the padded
     clusters and supers, and n_super the used blocks; its CUDA launches
     count in ``render_sample.streamed_launches``, the resident ones in
-    ``render_sample.launches``.
+    ``render_sample.launches``.  The resident kernel also takes
+    ``block_boxes`` (``TorchTables.block_boxes``, ``tables.block_boxes``:
+    the third culling level of the refilling kernel's walk; required on
+    the card), and in the refilling instantiations ``sched_stats``, an
+    int64[2] tensor on the card, gets the lane and CTA slots added (the
+    iterations each warp ran times 32, and each CTA's longest warp's
+    times 128: the rays over them are the lane and CTA utilisation,
+    ``scripts/megakernel_util.py``).
 
     CUDA tensors launch the kernel instantiation ``render_variant`` picks
     (``NotImplementedError`` when none serves the flags); a failed build
@@ -932,7 +1005,7 @@ def render_sample(S, P, clusters, supers, n_super, cam_vec, seed, max_depth,
                         width, height, camera_model, spp, rr_start, cluster,
                         super_, atlas, tex_hw, has_vattrs, has_tris,
                         has_motion, has_nee, lights, sample_base, tile_mask,
-                        tile, y0, band_h, stream_b)
+                        tile, y0, band_h, stream_b, block_boxes)
     feat = dict(has_noise=has_noise, has_media=has_media, has_boxm=has_boxm,
                 has_rotm=has_rotm, has_motion=has_motion, has_nee=has_nee)
     if S.device.type == "cpu":
@@ -944,19 +1017,31 @@ def render_sample(S, P, clusters, supers, n_super, cam_vec, seed, max_depth,
             atlas=atlas, tex_hw=tex_hw, lights=lights, nee_p=nee_p,
             has_qmc=has_qmc, sample_base=sample_base, tile_mask=tile_mask,
             tile=tile, y0=y0, band_h=band_h, with_cull_stats=with_cull_stats,
-            stream_b=stream_b, cluster=cluster, super_=super_, **feat)
+            stream_b=stream_b, cluster=cluster, super_=super_,
+            block_boxes=block_boxes, sched_stats=sched_stats, **feat)
     if S.device.type != "cuda":
         raise ValueError(f"render_sample runs on cuda or cpu, not {S.device}")
     variant = render_variant(has_rects, has_tris, has_vattrs,
                              atlas is not None, streamed=bool(stream_b),
                              **feat)
+    if not stream_b and block_boxes is None:
+        raise ValueError("the resident kernel needs block_boxes "
+                         "(TorchTables.block_boxes)")
+    if sched_stats is not None and (
+            stream_b or not refills(variant)
+            or not isinstance(sched_stats, torch.Tensor)
+            or sched_stats.dtype != torch.int64
+            or tuple(sched_stats.shape) != (2,)
+            or sched_stats.device != S.device):
+        raise ValueError(f"sched_stats must be an int64[2] on {S.device}, "
+                         "for a refilling instantiation (refills)")
     # the mask's tile shape and tile columns (unread without a mask)
     mask_geom = (0, 0, 0) if tile_mask is None else (
         int(tile[0]), int(tile[1]), mask_grid(width, band_h, tile)[1])
     out = torch.empty((band_h, width, 3), dtype=torch.float32,
                       device=S.device)
-    # the ray count and the cluster entries
-    counts = torch.zeros(2, dtype=torch.int64, device=S.device)
+    # the ray count, the cluster entries and the batch counter
+    counts = torch.zeros(3, dtype=torch.int64, device=S.device)
     lib = build.load_library()
     suffix, tabs = table_args(S, P, clusters, supers, n_super, stream_b,
                               cluster, super_)
@@ -971,6 +1056,10 @@ def render_sample(S, P, clusters, supers, n_super, cam_vec, seed, max_depth,
             int(has_qmc), sample_base,
             None if tile_mask is None else tile_mask.data_ptr(), *mask_geom,
             y0, band_h, counts[1:].data_ptr() if with_cull_stats else None,
+            *(() if stream_b else (
+                block_boxes.data_ptr(), block_boxes.shape[1], STREAM_BLOCK_B,
+                counts[2:].data_ptr(),
+                None if sched_stats is None else sched_stats.data_ptr())),
             out.data_ptr(), counts.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     build.check(lib, entry, rc)
@@ -978,7 +1067,8 @@ def render_sample(S, P, clusters, supers, n_super, cam_vec, seed, max_depth,
         render_sample.streamed_launches += 1
     else:
         render_sample.launches += 1
-    stats = [c for c, on in zip(counts, (with_stats, with_cull_stats)) if on]
+    stats = [c for c, on in zip(counts[:2], (with_stats, with_cull_stats))
+             if on]
     return (out, *stats) if stats else out
 
 

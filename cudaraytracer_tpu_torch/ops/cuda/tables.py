@@ -133,6 +133,8 @@ class SceneTables(_t.NamedTuple):
     super_: int = SUPER  # clusters/supercluster (kernel must use the same)
     vattrs: bool = False  # P has per-vertex attr rows (pass has_vattrs=)
     motion: bool = False  # P has velocity rows (pass has_motion=)
+    # f32[6, block_count(NSC)] block AABBs of the resident walk (block_boxes)
+    block_boxes: "np.ndarray | None" = None
 
 
 def _npad_for(scene, cluster: int = CLUSTER, super_: int = SUPER) -> int:
@@ -467,7 +469,8 @@ def pack_scene_tables(scene, with_uv: bool = False,
 
     return SceneTables(S, P, clusters, supers, n_super, prim_map,
                        cluster, super_, vattrs=with_vattrs,
-                       motion=has_motion)
+                       motion=has_motion, block_boxes=block_boxes(
+                           supers, n_super, block_count(supers.shape[1])))
 
 
 def pack_camera_np(cam, background_start, background_end,
@@ -528,6 +531,8 @@ class TorchTables(_t.NamedTuple):
     super_: int
     vattrs: bool = False  # P has the vertex-attribute rows (has_vattrs)
     motion: bool = False  # P has the velocity rows (has_motion)
+    # f32[6, block_count(NSC)]: render_sample's block_boxes
+    block_boxes: torch.Tensor | None = None
 
 
 def tables_to_torch(t: SceneTables, device) -> TorchTables:
@@ -538,7 +543,8 @@ def tables_to_torch(t: SceneTables, device) -> TorchTables:
 
     return TorchTables(put(t.S), put(t.P), put(t.clusters), put(t.supers),
                        int(t.n_super), put(t.prim_map), int(t.cluster),
-                       int(t.super_), bool(t.vattrs), bool(t.motion))
+                       int(t.super_), bool(t.vattrs), bool(t.motion),
+                       put(t.block_boxes))
 
 
 def has_images(scene) -> bool:
@@ -693,6 +699,33 @@ class StreamTables(_t.NamedTuple):
 STREAM_BLOCK_B = 4  # superclusters per streamed block (512 f32 columns)
 
 
+def block_count(nsc: int, block_b: int = STREAM_BLOCK_B) -> int:
+    """Blocks of ``block_b`` superclusters covering ``nsc``, rounded up to
+    an even count of at least 2, as JAX's ``pack_stream_tiles`` sizes its
+    block table (the resident block boxes equal its box for box)."""
+    n = max(2, -(-int(nsc) // block_b))
+    return n + n % 2
+
+
+def block_boxes(supers, n_super: int, n_blocks: int,
+                block_b: int = STREAM_BLOCK_B) -> np.ndarray:
+    """f32[6, n_blocks]: block bi's box is the union of the USED
+    supercluster boxes bi*block_b .. (bi+1)*block_b - 1 (those below
+    ``n_super``; the others are point boxes at +BIG and would stretch it),
+    a point box at +BIG where it has none.  The third culling level of
+    both layouts: the resident walk (search.cuh::closest_hit_blocks) and
+    the streamed one (``pack_stream_tiles``).  min and max are exact, so a
+    box holds its members' boxes bit for bit."""
+    supers = np.asarray(supers)
+    boxes = np.full((6, n_blocks), BIG, np.float32)
+    for bi in range(n_blocks):
+        lo, hi = bi * block_b, min((bi + 1) * block_b, int(n_super))
+        if lo < hi:
+            boxes[0:3, bi] = supers[0:3, lo:hi].min(axis=1)
+            boxes[3:6, bi] = supers[3:6, lo:hi].max(axis=1)
+    return boxes
+
+
 def stream_rows(p_rows: int) -> int:
     """R8: the S and P rows of a tile (16 + p_rows), padded to 8."""
     return -(-(16 + p_rows) // 8) * 8
@@ -713,8 +746,7 @@ def pack_stream_tiles(t: SceneTables, block_b: int = STREAM_BLOCK_B
     rows = 16 + p_rows
     npd = t.S.shape[1]
     nsc_cap = npd // span
-    n_blocks_cap = max(2, -(-nsc_cap // block_b))
-    n_blocks_cap += n_blocks_cap % 2
+    n_blocks_cap = block_count(nsc_cap, block_b)
     tiles = np.zeros((n_blocks_cap, stream_rows(p_rows), block_b * 128),
                      np.float32)
     # page s of block bi = supercluster bi*block_b + s (vectorized over
@@ -735,17 +767,12 @@ def pack_stream_tiles(t: SceneTables, block_b: int = STREAM_BLOCK_B
     clusters = np.zeros((7, need_cl), np.float32)
     clusters[0:6, :] = BIG
     clusters[:, :t.clusters.shape[1]] = t.clusters
-    block_boxes = np.full((6, n_blocks_cap), BIG, np.float32)
     n_used = int(t.n_super)
-    for bi in range(n_blocks_cap):
-        lo, hi = bi * block_b, min((bi + 1) * block_b, n_used)
-        if lo < hi:
-            block_boxes[0:3, bi] = t.supers[0:3, lo:hi].min(axis=1)
-            block_boxes[3:6, bi] = t.supers[3:6, lo:hi].max(axis=1)
+    boxes = block_boxes(t.supers, n_used, n_blocks_cap, block_b)
     n_blocks = min(n_blocks_cap, max(2, -(-n_used // block_b)))
     n_blocks += n_blocks % 2
     n_blocks = min(n_blocks, n_blocks_cap)
-    return StreamTables(tiles, block_boxes, clusters, supers, n_blocks,
+    return StreamTables(tiles, boxes, clusters, supers, n_blocks,
                         t.prim_map, t.cluster, t.super_, block_b,
                         bool(t.vattrs), bool(t.motion))
 

@@ -89,14 +89,15 @@ def dryrun_multichip(n_devices: int, device: str = "cuda") -> dict:
         out = render_sharded_sample(
             (tb.S, tb.P, tb.clusters, tb.supers), tb.n_super, cv, seed,
             depth, width=width, height=height, mesh=mesh, tile_h=16,
-            tile_w=128, spp=spp, sample_base=base, **kw)
+            tile_w=128, spp=spp, sample_base=base,
+            block_boxes=tb.block_boxes, **kw)
         if out.shape != (height, width, 3) or out.dtype != torch.float32:
             raise AssertionError(f"{tag}: frame is {out.dtype}"
                                  f"{list(out.shape)}")
         if not bool(torch.isfinite(out).all()):
             raise AssertionError(f"{tag}: frame is not finite")
         want = launch_sum(tb, cv, mesh, seed, depth, width, height, spp,
-                          base, kw)
+                          base, dict(kw, block_boxes=tb.block_boxes))
         if not torch.equal(out, want):
             raise AssertionError(f"{tag}: sharded frame != the sum of its "
                                  "launches")

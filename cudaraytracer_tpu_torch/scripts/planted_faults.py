@@ -21,8 +21,13 @@ layout (the streamed launch against the resident one at 1280x720, 4
 spp, depth 12, with QMC, and NEE on book2_final: pixels, rays and
 cluster entries).  "sound" is the unedited copy, checked on every
 scene, "sound_options" the same with every option on the NEE scenes,
-"sound_slice" the bands, the sharded frame and the probe, and
-"sound_stream" the streamed layout.  Prints one JSON line per
+"sound_slice" the bands, the sharded frame and the probe,
+"sound_stream" the streamed layout, and "sound_sched" the refilling
+kernel's ragged batches (the megakernel against its plain version at
+1277x719, and in a band of 333 rows at y0 101 with half its tiles
+masked, NEE on book2_final, QMC; a block of NaN of the output's size is
+freed before each launch, so that a pixel the kernel never writes reads
+NaN, which counts as off).  Prints one JSON line per
 fault: pixels off by more than 1e-3, the relative change of the mean and
 of the ray count, G-buffer masks and pixels off by more than 1e-6,
 closest-hit masks and columns, band and sharded pixels off, probe CTAs
@@ -58,6 +63,9 @@ ALL = {"nee": True, "qmc": True, "sample_base": 4113, "half_mask": True}
 SLICE = {"bands": True, "shard": True, "probe": True}
 # the streamed layout against the resident one
 STREAM = ("rtow_final", "terrain_big", "book2_final")
+# the refilling kernel's ragged batches (media scenes): an odd image size
+# and a band with half its tiles masked
+SCHED = ("cornell_smoke", "book2_final")
 
 # name -> ([(file under the package, text, replacement)], scenes[,
 #          render options])
@@ -136,8 +144,11 @@ FAULTS = {
     # the QMC rotation's x and y channels swapped
     "qmc_rotation_swapped": ([(
         "csrc/render_kernel.cu",
-        "if (o.qmc) crt::pixel_rotation(xs, ys, qrx, qry);",
-        "if (o.qmc) crt::pixel_rotation(xs, ys, qry, qrx);")],
+        "  if (o.qmc) crt::pixel_rotation(xs, ys, qrx, qry);\n\n",
+        "  if (o.qmc) crt::pixel_rotation(xs, ys, qry, qrx);\n\n"), (
+        "csrc/render_kernel.cu",
+        "        if (o.qmc) crt::pixel_rotation(xs, ys, qrx, qry);\n",
+        "        if (o.qmc) crt::pixel_rotation(xs, ys, qry, qrx);\n")],
         ("default", "book2_final"), {"qmc": True}),
     # the launch's sample base ignored
     "sample_base_ignored": ([(
@@ -156,7 +167,10 @@ FAULTS = {
     "band_key_without_y0": ([(
         "csrc/render_kernel.cu",
         "crt::pixel_key(p.key, static_cast<uint32_t>(y) *",
-        "crt::pixel_key(p.key, static_cast<uint32_t>(y - o.y0) *")],
+        "crt::pixel_key(p.key, static_cast<uint32_t>(y - o.y0) *"), (
+        "csrc/render_kernel.cu",
+        "crt::pixel_key(p.key, static_cast<uint32_t>(o.y0 + yb) *",
+        "crt::pixel_key(p.key, static_cast<uint32_t>(yb) *")],
         ("book2_final",), {"bands": True}),
     # two sample streams of a band drawing the same generator stream
     "stream_shared": ([(
@@ -166,6 +180,26 @@ FAULTS = {
     "streamrows_first_row_only": ([(
         "csrc/stream_probe.cu", "mbar_expect_tx(&bar, rows * row_bytes);",
         "mbar_expect_tx(&bar, row_bytes);")], (), {"probe": True}),
+    "sound_sched": ([], SCHED, {"sched": True}),
+    # a lane's draw counter not restarted for the next pixel it takes (the
+# media instantiations refill lanes)
+    "refill_it_not_reset": ([(
+        "csrc/render_kernel.cu",
+        "        it = 0;  // the new pixel's draws start at its iteration 0\n",
+        "")],
+        ("cornell_smoke", "book2_final")),
+    # the batch counter handing every batch to two warps
+    "batch_to_two_warps": ([(
+        "csrc/render_kernel.cu",
+        "if (lane == 0) b = atomicAdd(sd->next, 1ull);",
+        "if (lane == 0) b = atomicAdd(sd->next, 1ull) >> 1;")],
+        ("cornell_smoke", "book2_final")),
+    # the batch rows rounded down: the pixels of the ragged batches at the
+    # band's right edge are never taken
+    "ragged_batch_skipped": ([(
+        "csrc/render_kernel.cu",
+        "const int batches_x = (width + kBatchX - 1) / kBatchX;",
+        "const int batches_x = width / kBatchX;")], SCHED, {"sched": True}),
     "sound_stream": ([], STREAM, {"stream": True}),
     # the winner's payload read from the wrong page of its tile
     "stream_page_offset": ([(
@@ -214,6 +248,39 @@ for name in json.loads(sys.argv[1]):
     cv = torch.from_numpy(pack_camera_np(cam, sc.background_start,
                                          sc.background_end, W, H, 1e-3)).to(dev)
     a = (tb.S, tb.P, tb.clusters, tb.supers, tb.n_super, cv)
+    bb = dict(block_boxes=tb.block_boxes)  # the resident kernel's
+    if opts.get("sched"):
+        # 1277 x 719: a ragged batch at the right edge of every batch row
+        # and at the bottom; then a band of 333 rows at y0 101 with half
+        # its tiles masked.  The output is allocated with torch.empty, so
+        # a block of NaN of its size is freed first: a pixel the kernel
+        # never writes reads NaN, and NaN counts as off
+        w2, h2 = 1277, 719
+        cv2 = torch.from_numpy(pack_camera_np(
+            cam, sc.background_start, sc.background_end, w2, h2,
+            1e-3)).to(dev)
+        gi, gj = mask_grid(w2, 333, (16, 128))
+        m2 = np.random.RandomState(6).permutation(gi * gj) < gi * gj // 2
+        for tag, extra in (("ragged", {}), ("band_half_mask", dict(
+                y0=101, band_h=333, tile=(16, 128), tile_mask=torch.from_numpy(
+                    m2.astype(np.int32)).to(dev)))):
+            kw = dict(width=w2, height=h2, camera_model=model, spp=4,
+                      rr_start=2, with_stats=True, **fl, **bb,
+                      **nee_inputs(sc, dev), has_qmc=True, sample_base=8,
+                      **extra)
+            if name != "book2_final":
+                kw.pop("has_nee"), kw.pop("lights")
+            torch.full((extra.get("band_h", h2), w2, 3), float("nan"),
+                       device=dev)  # freed at once: the output's block
+            ik, nk = render_sample(*a[:5], cv2, 7, 12, **kw)
+            ip, np_ = render_sample_plain(*a[:5], cv2, 7, 12, **kw)
+            e = (ik - ip).abs().amax(2)
+            res[f"{name}/{tag}/megakernel"] = {
+                "pixels": int((~(e <= 1e-3)).sum()),
+                "mean_rel": abs(float(ik.nan_to_num(1e9).mean())
+                                / float(ip.mean()) - 1),
+                "rays_rel": abs(int(nk) / int(np_) - 1)}
+        continue
     if slice_only:
         kw = dict(width=W, height=H, camera_model=model, spp=4, rr_start=2,
                   **fl, **nee_inputs(sc, dev), has_qmc=True)
@@ -224,7 +291,7 @@ for name in json.loads(sys.argv[1]):
             if name != "book2_final":  # NEE on the lit scene only
                 kw.pop("has_nee"), kw.pop("lights")
             ir, nr, cr = render_sample(*a, 7, 12, with_stats=True,
-                                       with_cull_stats=True, **kw)
+                                       with_cull_stats=True, **kw, **bb)
             is_, ns, cs = render_sample(
                 st.tiles, st.block_boxes, st.clusters, st.supers,
                 st.n_blocks, cv, 7, 12, stream_b=st.block_b,
@@ -233,9 +300,10 @@ for name in json.loads(sys.argv[1]):
                 "pixels": int((ir != is_).any(2).sum()),
                 "rays_off": int(ns) - int(nr), "entries_off": int(cs) - int(cr)}
         if opts.get("bands"):
-            full = render_sample(*a, 7, 12, stream=3, sample_base=8, **kw)
+            full = render_sample(*a, 7, 12, stream=3, sample_base=8, **kw,
+                                 **bb)
             bands = [render_sample(*a, 7, 12, stream=3, sample_base=8,
-                                   y0=180 * i, band_h=180, **kw)
+                                   y0=180 * i, band_h=180, **kw, **bb)
                      for i in range(4)]
             plain = render_sample_plain(*a, 7, 12, stream=3, sample_base=8,
                                         y0=180, band_h=180, **kw)
@@ -247,17 +315,17 @@ for name in json.loads(sys.argv[1]):
             from cudaraytracer_tpu_torch.parallel import tiling
             out = tiling.render_sharded_sample(
                 a[:4], a[4], a[5], 7, 12, mesh=tiling.make_mesh(
-                    2, 2, [dev] * 4), sample_base=8, **kw)
+                    2, 2, [dev] * 4), sample_base=8, **kw, **bb)
             want = torch.cat([sum(render_sample(
                 *a, 7, 12, y0=360 * ri, band_h=360, stream=2 * ri + si,
-                sample_base=8 + 4 * si, **kw) for si in range(2))
+                sample_base=8 + 4 * si, **kw, **bb) for si in range(2))
                 for ri in range(2)])
             res[name + "/shard"] = {"pixels": int((out != want).any(2).sum())}
         continue
     if name != "rtow_final":
         kw = dict(width=W, height=H, camera_model=model, spp=4, rr_start=2,
                   with_stats=True, **fl, **nee, **mk)
-        ik, nk = render_sample(*a, 7, 12, **kw)
+        ik, nk = render_sample(*a, 7, 12, **kw, **bb)
         ip, np_ = render_sample_plain(*a, 7, 12, **kw)
         e = (ik - ip).abs().amax(2)
         res[name + "/megakernel"] = {

@@ -121,15 +121,16 @@ def measure(n: int, shapes, device) -> dict:
         res = (tb.S, tb.P, tb.clusters, tb.supers, tb.n_super, cv, 7, depth)
         stm = (st.tiles, st.block_boxes, st.clusters, st.supers,
                st.n_blocks, cv, 7, depth)
-        a, na = render_sample(*res, with_stats=True, **kw)
+        bb = dict(block_boxes=tb.block_boxes)
+        a, na = render_sample(*res, with_stats=True, **kw, **bb)
         b, nb = render_sample(*stm, with_stats=True, stream_b=st.block_b,
                               **kw)
         if not torch.equal(a, b) or int(na) != int(nb):
             raise AssertionError(f"streamed != resident at n={n}")
-        r1 = _ms(lambda: render_sample(*res, **kw), cuda)
+        r1 = _ms(lambda: render_sample(*res, **kw, **bb), cuda)
         s1 = _ms(lambda: render_sample(*stm, stream_b=st.block_b, **kw), cuda)
         s2 = _ms(lambda: render_sample(*stm, stream_b=st.block_b, **kw), cuda)
-        r2 = _ms(lambda: render_sample(*res, **kw), cuda)
+        r2 = _ms(lambda: render_sample(*res, **kw, **bb), cuda)
         gkw = {k: v for k, v in kw.items() if k not in ("spp", "rr_start")}
         g_r = _ms(lambda: gbuffer(*res[:6], **gkw), cuda)
         g_s = _ms(lambda: gbuffer(*stm[:6], stream_b=st.block_b, **gkw), cuda)

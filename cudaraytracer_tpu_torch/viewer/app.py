@@ -246,6 +246,11 @@ class _CudaPipeline:
                     tb.n_blocks), kw
         return (tb.S, tb.P, tb.clusters, tb.supers, tb.n_super), kw
 
+    def _blocks(self) -> dict:
+        """The megakernel's block boxes (its resident walk's third
+        level); the streamed layout passes its own among the tables."""
+        return {} if self.stream_b else {"block_boxes": self._tabs.block_boxes}
+
     def _cam_vec(self, cam) -> torch.Tensor:
         cfg = self._cfg
         return torch.from_numpy(pack_camera_np(
@@ -270,7 +275,7 @@ class _CudaPipeline:
             rr_start=cfg.rr_start, nee_p=cfg.nee_p, has_qmc=cfg.qmc,
             sample_base=sample_base,
             tile_mask=self._mask if self.adaptive else None, tile=self._tile,
-            **layout, **self._flags, **self._nee)
+            **layout, **self._flags, **self._nee, **self._blocks())
         if self.adaptive:
             n = tile_activity_plane(self._mask, self._grid, *self._tile)[
                 :cfg.height, :cfg.width] * float(spp)

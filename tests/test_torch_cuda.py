@@ -146,7 +146,7 @@ def test_megakernel_matches_plain(cuda, model):
         cam, scene.background_start, scene.background_end, w, h,
         1e-3)).to(cuda)
     kw = dict(width=w, height=h, camera_model=model, spp=spp, rr_start=2,
-              with_stats=True, **flags)
+              with_stats=True, block_boxes=tb.block_boxes, **flags)
     p0 = render_kernel.render_sample_plain.launches
     img_k, n_k = render_kernel.render_sample(
         tb.S, tb.P, tb.clusters, tb.supers, tb.n_super, cv, 11, 8, **kw)
@@ -202,7 +202,7 @@ def option_check(cuda, name, w=96, h=54, spp=2, **opts):
         cam, scene.background_start, scene.background_end, w, h,
         1e-3)).to(cuda)
     kw = dict(width=w, height=h, camera_model=model, spp=spp, rr_start=2,
-              with_stats=True, **flags, **opts)
+              with_stats=True, block_boxes=tb.block_boxes, **flags, **opts)
     a = (tb.S, tb.P, tb.clusters, tb.supers, tb.n_super, cv, 11, 8)
     p0 = render_kernel.render_sample_plain.launches
     img_k, n_k = render_kernel.render_sample(*a, **kw)
@@ -287,7 +287,7 @@ def frame_args(name, dev, w, h):
     return ((tb.S, tb.P, tb.clusters, tb.supers, tb.n_super, cv),
             dict(width=w, height=h, camera_model=model, rr_start=2,
                  has_qmc=True, sample_base=3, cluster=tb.cluster,
-                 super_=tb.super_, **flags))
+                 super_=tb.super_, block_boxes=tb.block_boxes, **flags))
 
 
 @pytest.mark.parametrize("bands", [2, 4])
@@ -349,6 +349,76 @@ def test_sharded_frame_is_the_sum_of_its_launches(cuda):
     assert torch.equal(out, torch.cat(want))
 
 
+def frame_check(cuda, name, w, h, nee=False, spp=2, depth=8, **extra):
+    """The megakernel against its plain version at w x h (QMC, and NEE
+    with ``nee``; ``extra``: a band, a mask), its output block first
+    filled with NaN and freed, so that a pixel the kernel never writes
+    reads NaN and counts as off: no pixel off by more than 1e-3, equal
+    rays and cluster entries, and in a refilling instantiation lane
+    slots at least the rays and CTA slots at least the lane slots."""
+    a, kw = frame_args(name, cuda, w, h)
+    if not nee:
+        kw.pop("has_nee"), kw.pop("lights")
+    kw.update(spp=spp, with_stats=True, with_cull_stats=True, **extra)
+    refill = render_kernel.refills(render_kernel.render_variant(
+        kw["has_rects"], kw["has_tris"], kw["has_vattrs"], "atlas" in kw,
+        **{k: kw.get(k, False) for k, _, _ in render_kernel.FEATURES}))
+    sched = torch.zeros(2, dtype=torch.int64, device=cuda)
+    torch.full((kw.get("band_h", h), w, 3), float("nan"), device=cuda)
+    ik, nk, ck = render_kernel.render_sample(
+        *a, 11, depth, **kw, **({"sched_stats": sched} if refill else {}))
+    ip, np_, cp = render_kernel.render_sample_plain(*a, 11, depth, **kw)
+    assert int((~((ik - ip).abs().amax(2) <= 1e-3)).sum()) == 0
+    assert int(nk) == int(np_) and int(ck) == int(cp)
+    if refill:
+        lane, cta = (int(v) for v in sched.cpu())
+        assert int(nk) <= lane <= cta
+
+
+@pytest.mark.parametrize("name", [
+    "default", "rtow_final", "rtow_image", "rtow_big", "cornell",
+    "cornell_mesh_light", "mirror_room", "mesh_demo", "mesh_smooth",
+    "terrain", "terrain_big", "marble", "smoke", "cornell_smoke", "bounce",
+    "book2_final"])
+def test_megakernel_full_frame(cuda, name):
+    """Every registered scene at 1280x720 (1 spp, depth 4): every pixel
+    written (the refilling kernel's batches cover the frame) and equal
+    to the plain version."""
+    frame_check(cuda, name, 1280, 720, spp=1, depth=4)
+
+
+@pytest.mark.parametrize("name,nee", [
+    ("default", True), ("rtow_final", False), ("cornell_smoke", True),
+    ("smoke", False), ("bounce", True), ("terrain", True),
+    ("book2_final", True)])
+def test_megakernel_ragged_batches(cuda, name, nee):
+    """97x55 (ragged batches at the right and bottom edges), then a band of
+    33 rows at y0 7 with a random half of its 4 x 16 tiles masked, with
+    and without NEE, on refilling (media) instantiations and others."""
+    frame_check(cuda, name, 97, 55, nee=nee)
+    gi, gj = render_kernel.mask_grid(97, 33, (4, 16))
+    mask = torch.from_numpy((np.random.RandomState(3).permutation(
+        gi * gj) < gi * gj // 2).astype(np.int32)).to(cuda)
+    frame_check(cuda, name, 97, 55, nee=nee, y0=7, band_h=33,
+                tile_mask=mask, tile=(4, 16))
+
+
+def test_sched_stats_only_where_the_kernel_refills(cuda):
+    a, kw = frame_args("default", cuda, 32, 16)
+    with pytest.raises(ValueError, match="sched_stats"):
+        render_kernel.render_sample(*a, 7, 2, sched_stats=torch.zeros(
+            2, dtype=torch.int64, device=cuda), **kw)
+
+
+def test_resident_kernel_needs_block_boxes(cuda):
+    a, kw = frame_args("default", cuda, 32, 16)
+    kw.pop("block_boxes")
+    n0 = render_kernel.render_sample.launches
+    with pytest.raises(ValueError, match="block_boxes"):
+        render_kernel.render_sample(*a, 7, 2, **kw)
+    assert render_kernel.render_sample.launches == n0
+
+
 def test_dryrun_on_the_card(cuda):
     res = dryrun.dryrun_multichip(4, "cuda")
     assert res["rows"] == 2 and res["samples"] == 2
@@ -378,7 +448,8 @@ def test_stream_probe_rejects_unaligned_tiles(cuda):
 
 
 def stream_setup(name, dev, w, h, nee=False, block_b=ttab.STREAM_BLOCK_B):
-    """A scene's resident and streamed frame arguments and keywords."""
+    """A scene's resident and streamed frame arguments, the streamed
+    keyword, the shared keywords and the resident kernel's block boxes."""
     scene, cam = tscenes.SCENES[name][0](), tscenes.SCENES[name][1]()
     tb, kw = frame_setup(scene, dev)
     if nee:
@@ -392,7 +463,8 @@ def stream_setup(name, dev, w, h, nee=False, block_b=ttab.STREAM_BLOCK_B):
     kw.update(width=w, height=h, camera_model=tscenes.camera_model_for(name))
     return ((tb.S, tb.P, tb.clusters, tb.supers, tb.n_super, cv),
             (st.tiles, st.block_boxes, st.clusters, st.supers, st.n_blocks,
-             cv), dict(stream_b=block_b), kw)
+             cv), dict(stream_b=block_b), kw,
+            dict(block_boxes=tb.block_boxes))
 
 
 @pytest.mark.parametrize("name,nee,block_b", [
@@ -402,7 +474,7 @@ def stream_setup(name, dev, w, h, nee=False, block_b=ttab.STREAM_BLOCK_B):
 def test_streamed_kernel_equals_resident(cuda, name, nee, block_b):
     """The streamed layout renders the resident kernel's image bit for bit,
     with equal ray and cluster-entry counts, masked and in a band too."""
-    res, stm, skw, kw = stream_setup(name, cuda, 160, 96, nee, block_b)
+    res, stm, skw, kw, bb = stream_setup(name, cuda, 160, 96, nee, block_b)
     kw.update(spp=2, rr_start=2, with_stats=True, with_cull_stats=True,
               has_qmc=nee, stream=2)
     n0 = render_kernel.render_sample.streamed_launches
@@ -410,7 +482,8 @@ def test_streamed_kernel_equals_resident(cuda, name, nee, block_b):
     for extra in ({}, dict(tile=(16, 128), tile_mask=torch.tensor(
             [1, 0] * 6, dtype=torch.int32, device=cuda)),
                   dict(y0=24, band_h=40)):
-        a, na, ca = render_kernel.render_sample(*res, 7, 12, **kw, **extra)
+        a, na, ca = render_kernel.render_sample(*res, 7, 12, **kw, **extra,
+                                                **bb)
         b, nb, cb = render_kernel.render_sample(*stm, 7, 12, **kw, **extra,
                                                 **skw)
         assert torch.equal(a, b) and float(a.sum()) > 0
@@ -423,7 +496,8 @@ def test_streamed_kernel_equals_resident(cuda, name, nee, block_b):
 def test_streamed_kernels_match_plain(cuda, name):
     """The streamed kernels against their plain versions (the walk over
     the tiles): no pixel differs at 48x32, the G-buffers to 1e-6."""
-    _, stm, skw, kw = stream_setup(name, cuda, 48, 32, nee=name != "rtow_final")
+    _, stm, skw, kw, _ = stream_setup(name, cuda, 48, 32,
+                                      nee=name != "rtow_final")
     rkw = dict(kw, spp=2, rr_start=2, with_stats=True, with_cull_stats=True)
     ik, nk, ck = render_kernel.render_sample(*stm, 7, 6, **rkw, **skw)
     ip, np_, cp = render_kernel.render_sample_plain(*stm, 7, 6, **rkw, **skw)
@@ -440,7 +514,7 @@ def test_streamed_kernels_match_plain(cuda, name):
 @pytest.mark.parametrize("name", ["rtow_final", "terrain_big",
                                   "book2_final"])
 def test_streamed_gbuffer_equals_resident(cuda, name):
-    res, stm, skw, kw = stream_setup(name, cuda, 320, 180)
+    res, stm, skw, kw, _ = stream_setup(name, cuda, 320, 180)
     n0 = gbuffer_kernel.gbuffer.streamed_launches
     a = gbuffer_kernel.gbuffer(*res, **kw)
     b = gbuffer_kernel.gbuffer(*stm, **kw, **skw)
@@ -451,7 +525,7 @@ def test_streamed_gbuffer_equals_resident(cuda, name):
 def test_streamed_unserved_flags_raise(cuda):
     """No fallback: a scene class without a streamed instantiation raises
     (marble: noise without rects), and launches nothing."""
-    _, stm, skw, kw = stream_setup("marble", cuda, 32, 16)
+    _, stm, skw, kw, _ = stream_setup("marble", cuda, 32, 16)
     n0 = render_kernel.render_sample.streamed_launches
     with pytest.raises(NotImplementedError, match="streamed megakernel"):
         render_kernel.render_sample(*stm, 7, 2, **kw, **skw)
