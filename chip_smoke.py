@@ -52,13 +52,20 @@ twice the card's L2 and renders it through ``render --obj ...
 640x360: the streamed launch counts must be above 0 and the resident
 ones 0; then the kernels of that path on that mesh against their plain
 versions (the megakernel without and with NEE in a band of 4 of its
-rows, the G-buffer at 32x18) and the streamed G-buffer against the
-resident one at 640x360; ``streamed_timing`` times both layouts at
-1280x720 on terrain_big, book2_final and the mesh (the sweep over table
-sizes behind the route's budget, ``tables.STREAM_L2_SHARE``, is
-``scripts/stream_crossover.py``).  Every phase prints one JSON line,
-with the seconds since the start (``t_s``); any failure raises and the
-script exits non-zero.  The last lines
+rows, the G-buffer at 32x18; the walk's counters, ``stream_stats``,
+printed from a second launch through the counting entries, whose
+output must equal the timed entries' bit for bit, and those that are the
+rays' own equal to the plain walk's) and the streamed G-buffer against
+the resident one at 640x360; every streamed table's group boxes are
+held to the exact union of their blocks' boxes;
+``streamed_timing`` times both layouts of both kernels at 1280x720 on
+terrain_big, book2_final and the mesh, with the walk's counters and the
+least time of the work they count (``scripts/stream_util.py::
+counted_bound``; the sweep over table sizes behind the route's budget,
+``tables.STREAM_L2_SHARE``, is ``scripts/stream_crossover.py``, the
+design parts' readings ``scripts/design_sweep.py``).  Every phase prints
+one JSON line, with the seconds since the start (``t_s``); any failure
+raises and the script exits non-zero.  The last lines
 are the card's name and power limit (nvidia-smi), the per-kernel
 summary, and the result object.
 
@@ -196,19 +203,19 @@ BASE_PTXAS = {
     "render_kernel<0,0,0,0,1>": (72, 56),
     "render_kernel<0,0,0,0,48>": (80, 24),
     "render_kernel<0,0,0,1,0>": (56, 40), "render_kernel<1,0,0,0,0>": (80, 36),
-    "render_kernel<1,0,0,0,15>": (96, 74),
-    "render_kernel<1,0,0,0,31>": (96, 106),
+    "render_kernel<1,0,0,0,15>": (80, 24),
+    "render_kernel<1,0,0,0,31>": (80, 40),
     "render_kernel<1,0,0,0,32>": (96, 0),
-    "render_kernel<1,0,0,0,39>": (96, 20),
-    "render_kernel<1,0,0,0,47>": (96, 52),
-    "render_kernel<1,0,0,0,63>": (96, 74),
-    "render_kernel<1,0,0,0,7>": (96, 36),
+    "render_kernel<1,0,0,0,39>": (80, 8),
+    "render_kernel<1,0,0,0,47>": (80, 16),
+    "render_kernel<1,0,0,0,63>": (80, 24),
+    "render_kernel<1,0,0,0,7>": (80, 24),
     "render_kernel<1,0,0,1,0>": (72, 122),
     "render_kernel<1,0,0,1,32>": (96, 4), "render_kernel<1,1,0,0,0>": (113, 0),
     "render_kernel<1,1,0,0,32>": (114, 0),
     "render_kernel<1,1,0,1,0>": (119, 0),
-    "render_kernel<1,1,0,1,23>": (124, 0),
-    "render_kernel<1,1,0,1,55>": (119, 0),
+    "render_kernel<1,1,0,1,23>": (128, 0),
+    "render_kernel<1,1,0,1,55>": (128, 0),
     "render_kernel<1,1,1,0,0>": (118, 0),
     "render_kernel<1,1,1,0,32>": (115, 0),
     "render_kernel<1,1,1,1,0>": (119, 0),
@@ -264,19 +271,21 @@ def main():
     from cudaraytracer_tpu_torch.ops.cuda.hit_kernel import (
         OPS, closest_hit, closest_hit_plain, search_ops, search_work)
     from cudaraytracer_tpu_torch.ops.cuda.render_kernel import (
-        FEATURES, SHADE_OPS, mask_grid, refills, render_sample,
+        FEATURES, SHADE_OPS, STREAM_STATS, mask_grid, refills, render_sample,
         render_sample_plain, render_variant)
     from cudaraytracer_tpu_torch.ops.cuda import stream_probe as sp
     from cudaraytracer_tpu_torch.ops.cuda.tables import (
         BIG, kernel_inputs, mask_tile, nee_inputs, pack_camera_np,
-        SceneTables, pack_stream_tiles, stream_budget, stream_tables_to_torch,
-        table_bytes)
+        STREAM_GROUP_G, SceneTables, pack_stream_tiles, stream_budget,
+        stream_tables_to_torch, table_bytes)
     from cudaraytracer_tpu_torch.scripts.megakernel_util import (
         one_pixel_per_thread)
     from cudaraytracer_tpu_torch.ops.denoise import atrous_denoise
     from cudaraytracer_tpu_torch.parallel import dryrun, tiling
     from cudaraytracer_tpu_torch.scripts import stream_probe as probe_script
     from cudaraytracer_tpu_torch.scripts.stream_crossover import heightfield
+    from cudaraytracer_tpu_torch.scripts.stream_util import (
+        counted_bound, group_boxes_off)
     from cudaraytracer_tpu_torch.viewer.app import tile_activity_plane
 
     # ---- 1. device ----
@@ -330,11 +339,12 @@ def main():
                                    for v in recorded.values()),
           "base_changed": sorted(k for k, v in recorded.items()
                                  if v["recorded"] != v["now"]),
-          # this slice changes the resident megakernel alone: the G-buffer,
-          # closest-hit, streamed and probe instantiations keep theirs
-          "others_as_recorded": all(
+          # this slice changes the streamed instantiations alone: every
+          # resident one (megakernel, G-buffer, closest hit, probe) keeps
+          # its registers and spills
+          "resident_as_recorded": all(
               v["recorded"] == v["now"] for k, v in recorded.items()
-              if not k.startswith("render_kernel<")),
+              if "_streamed" not in k),
           "base_ptxas": recorded,
           "new_ptxas": {k: [v["registers"], v["spill_store_bytes"]]
                         for k, v in ptxas.items() if k not in BASE_PTXAS},
@@ -428,16 +438,27 @@ def main():
                     self.cam_vec(w, h))
 
         def stream_args(self, w, h):
-            """The streamed layout's tables (pack_stream_tiles, made once)
-            and camera, and the stream_b keyword."""
+            """The streamed layout's tables (pack_stream_tiles, made once,
+            their group boxes held to the exact union of their blocks'
+            boxes: a box a few ulps small moves no pixel, so no other
+            check sees it) and camera, and the stream_b and group_boxes
+            keywords."""
             if not hasattr(self, "st"):
                 # re-tiled from the resident tables (SceneTables' fields)
                 self.st = stream_tables_to_torch(pack_stream_tiles(
                     SceneTables(*(x.cpu().numpy() if torch.is_tensor(x)
                                   else x for x in self.tb))), dev)
+                off = group_boxes_off(self.st.block_boxes,
+                                      self.st.group_boxes,
+                                      self.st.n_blocks, STREAM_GROUP_G)
+                if off:
+                    raise AssertionError(
+                        f"{self.name}: {off} group boxes are not the "
+                        "exact union of their blocks' boxes")
             st = self.st
             return (st.tiles, st.block_boxes, st.clusters, st.supers,
-                    st.n_blocks, self.cam_vec(w, h)), {"stream_b": st.block_b}
+                    st.n_blocks, self.cam_vec(w, h)), {
+                        "stream_b": st.block_b, "group_boxes": st.group_boxes}
 
     rtow = Setup("rtow_final")
     default = Setup("default")
@@ -1151,13 +1172,34 @@ def main():
     probe_su = Setup("all_feature_probe", scenes.all_feature_probe_scene(),
                      scenes.cornell_like_camera(), "two_plane")
 
+    per_ray = (("group_tests", "group"), ("block_tests", "block"),
+               ("block_entries", "block_in"), ("ray_pages", "ray_pages"))
+
+    def counters_off(kst, pwork, su):
+        """The walk's counters that disagree: those of the rays' own
+        against the plain walk's, and the pages entered (each once a
+        launch) outside (0, min(pages staged, (ray, page) entries,
+        pages of the tables)]."""
+        off = [k for k, w in per_ray if kst[k] != pwork[w]]
+        if not 0 < kst["pages_entered"] <= min(
+                kst["pages"], kst["ray_pages"],
+                su.st.n_blocks * su.st.block_b):
+            off.append("pages_entered")
+        return off
+
     def stream_plain_check(su, nee=False, size=(96, 54), spp=2, depth=6,
-                           band=None, gsize=None, with_gbuffer=True):
+                           band=None, gsize=None, with_gbuffer=True,
+                           stats=False):
         """The streamed kernel against its plain version (the walk over
         the tiles), by default at 96x54, 2 spp, depth 6, and unless
         ``with_gbuffer`` is False the G-buffer at ``gsize`` (default
         ``size``): the megakernel limits.  ``band``: (y0, rows) of
-        ``size`` that the megakernel renders."""
+        ``size`` that the megakernel renders.  With ``stats`` each kernel
+        is launched again through its counting entry (stream_stats): its
+        output, rays and cluster entries must equal the timed entry's bit
+        for bit, the counters that are the rays' own the plain walk's,
+        and the pages entered lie within the pages and the (ray, page)
+        entries."""
         w, h = size
         gw, gh = gsize or size
         y0, bh = band or (0, h)
@@ -1168,8 +1210,9 @@ def main():
         if band:
             kw.update(y0=y0, band_h=bh)
         ik, nk, ck = render_sample(*sargs, 7, depth, **kw)
+        pwork = {} if stats else None
         (ip, np_, cp), plain_ms = host_ms(
-            lambda: render_sample_plain(*sargs, 7, depth, **kw))
+            lambda: render_sample_plain(*sargs, 7, depth, **kw, work=pwork))
         off = int(((ik - ip).abs().amax(2) > 1e-3).sum())
         mean_rel = abs(float(ik.mean()) / float(ip.mean()) - 1.0)
         rays_rel = abs(int(nk) / int(np_) - 1.0)
@@ -1181,22 +1224,47 @@ def main():
                "rays": [int(nk), int(np_)], "cull": [int(ck), int(cp)],
                "max_abs_err": float((ik - ip).abs().max()),
                "plain_ms": plain_ms}
+        stats_off, entries_same = [], []
+        if stats:
+            kstats = torch.zeros(len(STREAM_STATS), dtype=torch.int64,
+                                 device=dev)
+            ic, nc_, cc = render_sample(*sargs, 7, depth, **kw,
+                                        stream_stats=kstats)
+            res["stream_stats"] = dict(zip(STREAM_STATS, kstats.tolist()))
+            stats_off += counters_off(res["stream_stats"], pwork, su)
+            entries_same.append(torch.equal(ic, ik) and int(nc_) == int(nk)
+                                and int(cc) == int(ck))
         if with_gbuffer:
             gargs = (*sargs[:5], su.cam_vec(gw, gh))
             gkw = dict(width=gw, height=gh, camera_model=su.model,
                        **su.flags, **skw)
             gk_ = gbuffer(*gargs, **gkw)
-            gp_, gplain_ms = host_ms(lambda: gbuffer_plain(*gargs, **gkw))
+            gwork = {} if stats else None
+            gp_, gplain_ms = host_ms(lambda: gbuffer_plain(*gargs, **gkw,
+                                                           work=gwork))
+            if stats:
+                gstats = torch.zeros(len(STREAM_STATS), dtype=torch.int64,
+                                     device=dev)
+                gc_ = gbuffer(*gargs, **gkw, stream_stats=gstats)
+                res["gbuffer_stream_stats"] = dict(zip(STREAM_STATS,
+                                                       gstats.tolist()))
+                stats_off += ["gbuffer_" + k for k in counters_off(
+                    res["gbuffer_stream_stats"], gwork, su)]
+                entries_same.append(all(torch.equal(a, b)
+                                        for a, b in zip(gc_, gk_)))
             g_err = max(float((a - b).abs().max())
                         for a, b in zip(gk_, gp_))
             g_masks = int(((gk_.depth > 0) != (gp_.depth > 0)).sum())
             res.update(gbuffer_size=[gw, gh], gbuffer_masks_differ=g_masks,
                        gbuffer_max_abs_err=g_err,
                        gbuffer_plain_ms=gplain_ms)
+        res.update(stats_off=stats_off,
+                   counting_entries_equal_timed=all(entries_same))
         emit({"phase": "streamed_check", "against": "plain", **res})
         if (off > MEGA_DIFF_SHARE * w * bh or mean_rel > MEGA_MEAN_RTOL
                 or rays_rel > MEGA_RAYS_RTOL or g_masks or g_err > GBUF_ATOL
-                or (off == 0 and int(ck) != int(cp))):
+                or (off == 0 and int(ck) != int(cp))
+                or (off == 0 and stats_off) or not all(entries_same)):
             raise AssertionError(f"streamed kernel against plain: {res}")
         return res
 
@@ -1321,7 +1389,8 @@ def main():
     # resident one at 640x360
     stream_plain += [stream_plain_check(hf_su, nee=nee, size=(w_p, h_p),
                                         spp=1, depth=2, band=(296, 4),
-                                        gsize=(32, 18), with_gbuffer=not nee)
+                                        gsize=(32, 18), with_gbuffer=not nee,
+                                        stats=True)
                      for nee in (False, True)]
     sargs, skw = hf_su.stream_args(w_p, h_p)
     kw = dict(width=w_p, height=h_p, camera_model=hf_su.model,
@@ -1341,7 +1410,9 @@ def main():
         raise AssertionError("streamed G-buffer != resident on the mesh")
 
     # ---- 14. resident against streamed, timed on the scenes the route
-    # weighs: terrain_big, book2_final --nee --qmc and the beyond-L2 mesh
+    # weighs: terrain_big, book2_final --nee --qmc and the beyond-L2 mesh;
+    # the walk's counters of a streamed launch of each kernel, and the
+    # least time of the work they count (stream_util.counted_bound)
     stream_timing = {}
     for su, opts in ((terrain_big, {}), (book2, main_opts), (hf_su, {})):
         w, h, spp_t, depth_t = W_MAIN, H_MAIN, SPP_MAIN, DEPTH
@@ -1359,6 +1430,17 @@ def main():
         ms_s2 = cuda_ms(lambda: render_sample(*sargs, 7, depth_t, **kw,
                                               **skw), 5)
         ms_r2 = cuda_ms(lambda: render_sample(*rargs, **kw, **su.bb), 5)
+        kst = torch.zeros(len(STREAM_STATS), dtype=torch.int64, device=dev)
+        _, _, ce = render_sample(*sargs, 7, depth_t, with_stats=True,
+                                 with_cull_stats=True, stream_stats=kst,
+                                 **kw, **skw)
+        kst = dict(zip(STREAM_STATS, kst.tolist()))
+        gkw = dict(width=w, height=h, camera_model=su.model, **su.flags)
+        gst = torch.zeros(len(STREAM_STATS), dtype=torch.int64, device=dev)
+        gbuffer(*sargs, **gkw, **skw, stream_stats=gst)
+        gst = dict(zip(STREAM_STATS, gst.tolist()))
+        geo = dict(block_b=su.st.block_b, super_=su.st.super_,
+                   cluster=su.st.cluster)
         key = su.name + ("/nee_qmc" if opts else "")
         stream_timing[key] = {
             "size": [w, h], "spp": spp_t, "depth": depth_t,
@@ -1366,19 +1448,33 @@ def main():
             "l2_share": table_bytes(su.tb) / l2,
             "streams_on_card": table_bytes(su.tb) > budget,
             "blocks": su.st.n_blocks,
+            "groups": int(su.st.group_boxes.shape[1]),
             "resident_ms": [ms_r1, ms_r2], "streamed_ms": [ms_s1, ms_s2],
             "streamed_over_resident": (ms_s1 + ms_s2) / (ms_r1 + ms_r2),
             "rays": int(nr), "pixels_differing": int((ir != is_).any(2).sum()),
-            # the streamed walk's bound from its block-box tests alone
-            # (every ray tests every block's box; the supercluster,
-            # cluster and primitive tests come on top) and a miss's
-            # shading per ray: a lower bound of this run's work
-            "streamed_bound": bound(
-                4 * sum(t.numel() for t in sargs[:4]) + 4 * 38
-                + 12 * w * h + 8, (OPS["box"] * su.st.n_blocks
-                                   + SHADE_OPS["miss"]) * int(nr))}
+            "cull_entries": int(ce), "stream_stats": kst,
+            # the least time of the walk's counted work: its box tests,
+            # 28 triangle tests per cluster entry, a miss's shading per
+            # ray, a raygen per sample; or the bytes of the pages its
+            # rays enter, each read once, and of the image
+            "streamed_bound": counted_bound(
+                kst, int(ns), w * h * spp_t, 12 * w * h, int(ce), **geo),
+            "gbuffer": {
+                "ms": cuda_ms(lambda: gbuffer(*sargs, **gkw, **skw), 5),
+                "resident_ms": cuda_ms(lambda: gbuffer(
+                    *su.frame_args(w, h), **gkw), 5),
+                "stream_stats": gst,
+                # without its cluster entries (the G-buffer counts none)
+                "bound": counted_bound(gst, w * h, w * h, 28 * w * h,
+                                       gbuffer_pass=True, **geo)}}
         if stream_timing[key]["pixels_differing"] or int(nr) != int(ns):
             raise AssertionError(f"streamed != resident on {key}")
+        # the pages entered (the bound's bytes), each once a launch
+        for c in (kst, gst):
+            if not 0 < c["pages_entered"] <= min(
+                    c["pages"], c["ray_pages"],
+                    su.st.n_blocks * su.st.block_b):
+                raise AssertionError(f"pages entered on {key}: {c}")
     emit({"phase": "streamed_timing", "by_scene": stream_timing,
           "l2_bytes": l2, "budget_bytes": budget, "nvidia_smi": smi})
     del hf_su
@@ -1405,9 +1501,12 @@ def main():
                   **book2.flags, **b2_skw)
     _, gb2_plain_ms = host_ms(lambda: gbuffer_plain(*gb2_sargs, **gb2_kw))
     g2 = gb_new["book2_final"]
+    # the resident G-buffer's counted work and the streamed walk's sweep
+    gb2_st = stream_timing["book2_final/nee_qmc"]["gbuffer"]["stream_stats"]
     gb2_bound = bound(4 * sum(t.numel() for t in gb2_sargs[:4]) + 4 * 38
                       + 28 * W_MAIN * H_MAIN, g2["ops"] + OPS["box"]
-                      * W_MAIN * H_MAIN * book2.st.n_blocks)
+                      * (gb2_st["group_tests"] + gb2_st["block_tests"]))
+    mesh_t = stream_timing["heightfield"]
 
     # the main path: render --scene book2_final --nee --qmc --adaptive
     # --denoise --aov
@@ -1495,7 +1594,10 @@ def main():
                       "rays and cull counts at 1280x720 (rtow_final, "
                       "terrain_big, book2_final --nee --qmc unmasked, half "
                       "masked and a band; terrain_big, book2_final and the "
-                      "beyond-L2 mesh in the timing phase)",
+                      "beyond-L2 mesh in the timing phase); on the mesh the "
+                      "walk's counters of the rays' own (group and block "
+                      "tests, block and page entries) equal the plain "
+                      "walk's",
          "ms": statistics.median(b2_ms), "plain_ms": b2_plain_ms,
          "bound_ms": b2_bound["bound_ms"], "bound_by": b2_bound["bound_by"],
          "library_ms": None,
@@ -1505,6 +1607,16 @@ def main():
              **{f"heightfield_obj_{k}": path[k]["launches"][
                  "render_sample_streamed"] for k in ("smooth", "smooth_nee")},
              "dryrun_multichip": dry_launches["streamed"]},
+         # the beyond-L2 mesh that the launches above render, at 1280x720
+         "mesh": {"triangles": path["triangles"],
+                  "ms": statistics.median(mesh_t["streamed_ms"]),
+                  "resident_ms": statistics.median(mesh_t["resident_ms"]),
+                  "launches": path["smooth"]["launches"][
+                      "render_sample_streamed"],
+                  **{k: mesh_t["streamed_bound"][k] for k in (
+                      "bound_ms", "bound_by")},
+                  "stream_stats": mesh_t["stream_stats"],
+                  "timed": f"{W_MAIN}x{H_MAIN} {SPP_MAIN} spp depth {DEPTH}"},
          "by_scene": stream_timing},
         {"name": "gbuffer_streamed", "route": "cuda",
          "source": "cudaraytracer_tpu_torch/csrc/gbuffer_kernel.cu "
@@ -1524,7 +1636,16 @@ def main():
          "bound_ms": gb2_bound["bound_ms"],
          "bound_by": gb2_bound["bound_by"], "library_ms": None,
          "timed": f"book2_final {W_MAIN}x{H_MAIN} (launches: the beyond-L2 "
-                  "OBJ path)", "by_scene": stream_gbuf},
+                  "OBJ path)",
+         "mesh": {"triangles": path["triangles"],
+                  "ms": mesh_t["gbuffer"]["ms"],
+                  "resident_ms": mesh_t["gbuffer"]["resident_ms"],
+                  "launches": path["smooth"]["launches"]["gbuffer_streamed"],
+                  **{k: mesh_t["gbuffer"]["bound"][k] for k in (
+                      "bound_ms", "bound_by")},
+                  "stream_stats": mesh_t["gbuffer"]["stream_stats"],
+                  "timed": f"{W_MAIN}x{H_MAIN}"},
+         "by_scene": stream_gbuf},
         *(probe_line(name, rows_, variant, replaces)
           for name, rows_, variant, replaces in (
               ("stream_probe", 1, "stream", "tools/stream_probe.py:57"),

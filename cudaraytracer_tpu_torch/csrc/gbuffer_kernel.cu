@@ -28,8 +28,8 @@
 // (:223-251; the kernel reads the winner's P column).  The streamed layout
 // (:150, :192-198, :439-510; tables beyond the card's budget) is
 // gbuffer_kernel_streamed: the same pass with search.cuh::
-// closest_hit_streamed, every thread of the CTA joining the walk (one
-// outside the image with no ray), medium clusters skipped as here.
+// closest_hit_streamed, every thread of a walking unit joining its walk
+// (one outside the image with no ray), medium clusters skipped as here.
 #include <cuda_runtime.h>
 
 #include "search.cuh"
@@ -40,6 +40,7 @@ namespace {
 
 constexpr int kBlockX = 16;
 constexpr int kBlockY = 8;
+constexpr int kWarps = kBlockX * kBlockY / 32;
 
 struct Params {
   crt::SearchTables tb;
@@ -50,8 +51,9 @@ struct Params {
 };
 
 // One pixel's primary pass.  With kStream (gbuffer_kernel_streamed) the
-// search is the CTA's streamed walk (search.cuh): every thread of the CTA
-// calls this, one outside the image joining the walk with no ray.
+// search is the streamed walk (search.cuh) of the thread's warp: every
+// thread of the CTA calls this, one outside the image joining the walk
+// with no ray.
 template <bool kRects, bool kTris, bool kVattrs, bool kImages, int kFeat,
           bool kStream = false>
 __device__ __forceinline__ void gbuffer_pixel(
@@ -128,16 +130,40 @@ gbuffer_kernel(Params p, float* __restrict__ normal, float* __restrict__ albedo,
 }
 
 // The streamed layout (the tables beyond the card's budget; dynamic shared
-// memory crt::stage_bytes(st.w)).
+// memory crt::stage_bytes(st.n_blocks, kWarps)); with kCount the
+// walk's counters are kept and added to ss.out (gbuffer_kernel_streamed_
+// count, launched when they are asked for).
+template <bool kRects, bool kTris, bool kVattrs, bool kImages, int kFeat,
+          bool kCount>
+__device__ __forceinline__ void gbuffer_pixels_streamed(
+    const Params& p, float* __restrict__ normal, float* __restrict__ albedo,
+    float* __restrict__ depth, const crt::Atlas& atlas,
+    const crt::StreamTables& st, const crt::StreamStats& ss) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  crt::Stage sg = crt::stage_init(smem, st.n_blocks, kCount, ss);
+  gbuffer_pixel<kRects, kTris, kVattrs, kImages, kFeat, true>(
+      p, normal, albedo, depth, atlas, &st, &sg);
+  crt::stat_flush(sg, ss);
+}
+
 template <bool kRects, bool kTris, bool kVattrs, bool kImages, int kFeat>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 gbuffer_kernel_streamed(Params p, float* __restrict__ normal,
                         float* __restrict__ albedo, float* __restrict__ depth,
-                        crt::Atlas atlas, crt::StreamTables st) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  crt::Stage sg = crt::stage_init(smem, st.w);
-  gbuffer_pixel<kRects, kTris, kVattrs, kImages, kFeat, true>(
-      p, normal, albedo, depth, atlas, &st, &sg);
+                        crt::Atlas atlas, crt::StreamTables st,
+                        crt::StreamStats ss) {
+  gbuffer_pixels_streamed<kRects, kTris, kVattrs, kImages, kFeat, false>(
+      p, normal, albedo, depth, atlas, st, ss);
+}
+
+template <bool kRects, bool kTris, bool kVattrs, bool kImages, int kFeat>
+__global__ void __launch_bounds__(kBlockX * kBlockY)
+gbuffer_kernel_streamed_count(Params p, float* __restrict__ normal,
+                              float* __restrict__ albedo,
+                              float* __restrict__ depth, crt::Atlas atlas,
+                              crt::StreamTables st, crt::StreamStats ss) {
+  gbuffer_pixels_streamed<kRects, kTris, kVattrs, kImages, kFeat, true>(
+      p, normal, albedo, depth, atlas, st, ss);
 }
 
 // Launch instantiation <R, T, V, I, F> if it is the one asked for.
@@ -157,26 +183,32 @@ bool launch_if(const int (&want)[5], const Params& p, const crt::Atlas& at,
 }
 
 // Launch streamed instantiation <R, T, V, I, F> if it is the one asked
-// for; *rc gets the error of the shared-memory attribute or the launch.
+// for (its counting entry when ss.out is not null); *rc gets the error of
+// the shared-memory attribute or the launch.
 template <bool R, bool T, bool V, bool I, int F>
 bool launch_streamed_if(const int (&want)[5], const Params& p,
                         const crt::Atlas& at, const crt::StreamTables& tabs,
-                        float* normal, float* albedo, float* depth,
-                        cudaStream_t st, int* rc) {
+                        const crt::StreamStats& ss, float* normal,
+                        float* albedo, float* depth, cudaStream_t st,
+                        int* rc) {
   if (want[0] != R || want[1] != T || want[2] != V || want[3] != I ||
       want[4] != F) {
     return false;
   }
-  const size_t smem = crt::stage_bytes(tabs.w);
+  void (*kernel)(Params, float*, float*, float*, crt::Atlas,
+                 crt::StreamTables, crt::StreamStats) =
+      ss.out != nullptr ? gbuffer_kernel_streamed_count<R, T, V, I, F>
+                        : gbuffer_kernel_streamed<R, T, V, I, F>;
+  const size_t smem = crt::stage_bytes(tabs.n_blocks, kWarps);
   cudaError_t e = cudaFuncSetAttribute(
-      gbuffer_kernel_streamed<R, T, V, I, F>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (e == cudaSuccess) {
     const dim3 block(kBlockX, kBlockY);
     const dim3 grid((p.width + kBlockX - 1) / kBlockX,
                     (p.height + kBlockY - 1) / kBlockY);
-    gbuffer_kernel_streamed<R, T, V, I, F>
-        <<<grid, block, smem, st>>>(p, normal, albedo, depth, at, tabs);
+    kernel<<<grid, block, smem, st>>>(p, normal, albedo, depth, at, tabs,
+                                      ss);
     e = cudaGetLastError();
   }
   *rc = static_cast<int>(e);
@@ -229,9 +261,10 @@ extern "C" int crt_gbuffer(const float* S, const float* P,
 
 // Plain C entry of the streamed layout (ops/cuda/gbuffer_kernel.py::
 // gbuffer with stream_b > 0): as crt_gbuffer, with the streamed tables
-// (``tiles``, the block ``boxes``, the padded ``clusters``/``supers`` and
-// ``n_blocks``, as crt_render_sample_streamed takes them) in place of S
-// and P; the instantiation is one of CRT_GBUFFER_STREAM_VARIANTS.
+// (``tiles``, the block ``boxes``, the padded ``clusters``/``supers``,
+// ``n_blocks`` and the group boxes, as crt_render_sample_streamed takes
+// them) in place of S and P, and its ``stats`` and ``seen``; the
+// instantiation is one of CRT_GBUFFER_STREAM_VARIANTS.
 extern "C" int crt_gbuffer_streamed(
     const float* tiles, const float* boxes, const float* clusters,
     const float* supers, int nbc, int nc, int nsc, int n_blocks, int r8,
@@ -239,9 +272,14 @@ extern "C" int crt_gbuffer_streamed(
     int height, int two_plane, float inv_w, float inv_h, int has_rects,
     int has_tris, int has_vattrs, int has_images, int features,
     const unsigned char* atlas, const int* tex_hw, int slots, int ah, int aw,
-    float* normal, float* albedo, float* depth, void* stream) {
+    const float* groups, int ngc, int group_g, unsigned long long* stats,
+    unsigned* seen, float* normal, float* albedo, float* depth,
+    void* stream) {
   if (width <= 0 || height <= 0) return 0;
-  if (block_b <= 0 || crt::stage_bytes(block_b * 128) > 227 * 1024) {
+  if (block_b <= 0 || block_b > 32 || cluster * super_ > 128 ||
+      crt::stage_bytes(n_blocks, kWarps) > 227 * 1024 || group_g <= 0 ||
+      ngc != (n_blocks + group_g - 1) / group_g ||
+      (stats == nullptr) != (seen == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
@@ -255,15 +293,17 @@ extern "C" int crt_gbuffer_streamed(
   p.inv_w = inv_w;
   p.inv_h = inv_h;
   const crt::Atlas at{atlas, tex_hw, slots, ah, aw};
-  const crt::StreamTables tabs{tiles, boxes, nbc, n_blocks, r8, block_b,
-                               block_b * 128};
+  const crt::StreamTables tabs{tiles,    boxes,   groups,        nbc,
+                               n_blocks, r8,      block_b,       block_b * 128,
+                               ngc,      group_g};
+  const crt::StreamStats ss{stats, seen};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int want[5] = {has_rects != 0, has_tris != 0, has_vattrs != 0,
                        has_images != 0, features};
   int rc = 0;
 #define CRT_LAUNCH(R, T, V, I, F)                                          \
   || launch_streamed_if<R != 0, T != 0, V != 0, I != 0, F>(               \
-         want, p, at, tabs, normal, albedo, depth, st, &rc)
+         want, p, at, tabs, ss, normal, albedo, depth, st, &rc)
   const bool launched = false CRT_GBUFFER_STREAM_VARIANTS(CRT_LAUNCH);
 #undef CRT_LAUNCH
   if (!launched) return static_cast<int>(cudaErrorNotSupported);

@@ -49,10 +49,10 @@
 // the number of rays traced and, when asked for, the cluster entries.
 // The streamed layout (stream_b, :1193 _streamed_search_payload, for
 // tables beyond the card's budget) is render_kernel_streamed below, compiled
-// in render_stream.cu: the same per-pixel state machine, but the CTA
-// iterates while any of its pixels has a path to trace and searches with
-// search.cuh::closest_hit_streamed, the winner's payload read from its
-// tile.
+// in render_stream.cu: the same per-pixel state machine, but each warp
+// iterates while any of its pixels has a path to trace and searches
+// with search.cuh::closest_hit_streamed, the winner's payload read from
+// its tile.
 //
 // What bounds it on the card: instruction issue and divergence.  The
 // tables are a few tens of kilobytes, read at warp-uniform addresses and
@@ -244,11 +244,12 @@ struct Refill {
 
 // Trace all spp samples of pixel (x, y); returns the rays traced and
 // stores the (ray, cluster) entries of its search in `entered`.  With
-// kStream the search is the CTA's streamed walk (search.cuh): every
-// thread of the CTA calls this and iterates while any of them has a path
-// to trace, a thread without one (has_px false: outside the image or
-// band, or its samples done) joining the walk with no ray.  With kRefill
-// every lane of a warp calls this once and iterates while its warp has a
+// kStream the search is the streamed walk of the thread's warp
+// (search.cuh): every lane of the warp calls this and iterates while any
+// of them has a path to trace, a lane without one (has_px false: outside
+// the image or band, or its samples done) joining the walk with no ray.
+// With kRefill every lane of a warp calls this once and iterates while
+// its warp has a
 // pixel to trace: a lane whose pixel is done writes the pixel's sum to
 // `out` (f32[band_h, width, 3]) and takes another (rf->take), restarting
 // the pixel's state, its iteration index (the draws' counter) too; the
@@ -305,7 +306,7 @@ __device__ unsigned long long trace_pixel(const Params& p,
     bool want = true;  // this thread has a path to trace
     if constexpr (kStream) {
       want = alive || done < p.spp;
-      if (!__syncthreads_or(want)) break;  // the CTA's paths are done
+      if (!__any_sync(0xffffffffu, want)) break;  // the warp's paths are done
     }
     if constexpr (kRefill) {
       if (busy && !(it < n_iter && (alive || done < p.spp))) {
@@ -725,17 +726,28 @@ bool launch_if(const int (&want)[5], const Params& p, const crt::Atlas& atlas,
 
 #ifdef CRT_STREAMED
 // The streamed layout (search.cuh::closest_hit_streamed): the tables
-// beyond the card's budget.  A kernel entry of its own, compiled in a unit of
-// its own (-DCRT_STREAMED), so that the resident instantiations' code
-// does not change.  The CTA (16 x 8 pixels) lies inside one mask tile
-// (the wrapper checks the tile shape), so a masked CTA leaves whole; the
-// others trace together, a thread outside the image or band joining the
-// walk with no ray.  Dynamic shared memory: crt::stage_bytes(st.w).
-template <bool kRects, bool kTris, bool kVattrs, bool kImages, int kFeat>
-__global__ void __launch_bounds__(kThreads)
-render_kernel_streamed(Params p, float* __restrict__ out,
-                       unsigned long long* __restrict__ nrays_out,
-                       crt::Atlas atlas, Opts o, crt::StreamTables st) {
+// beyond the card's budget.  Kernel entries of their own, compiled in a
+// unit of their own (-DCRT_STREAMED), so that the resident
+// instantiations' code does not change.  The CTA (16 x 8 pixels) lies
+// inside one mask tile (the wrapper checks the tile shape), so a masked
+// CTA leaves whole; in the others each warp traces while one of its
+// pixels has a path, a lane outside the image or band, or whose samples
+// are done, joining the walk with no ray.  Dynamic shared memory:
+// crt::stage_bytes(st.n_blocks, kThreads / 32).  With kCount the
+// walk's counters are kept and added to ss.out (render_kernel_streamed_
+// count, launched when they are asked for); without, their code is not
+// compiled in (it cost the walk 4-8%, PERF.md).  The entries are bounded
+// at three CTAs an SM, the residency their shared memory allows (two page
+// slots of 8 KB a warp): left to aim at eight, ptxas gave the mesh's
+// instantiation 64 registers and 48 B of spills and the walk ran 18%
+// slower than with the 123 registers and no spills it takes so bounded
+// (PERF.md).
+template <bool kRects, bool kTris, bool kVattrs, bool kImages, int kFeat,
+          bool kCount>
+__device__ __forceinline__ void render_pixels_streamed(
+    const Params& p, float* __restrict__ out,
+    unsigned long long* __restrict__ nrays_out, const crt::Atlas& atlas,
+    const Opts& o, const crt::StreamTables& st, const crt::StreamStats& ss) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int x = blockIdx.x * kBlockX + threadIdx.x;
   const int yb = blockIdx.y * kBlockY + threadIdx.y;  // row in the band
@@ -749,7 +761,7 @@ render_kernel_streamed(Params p, float* __restrict__ out,
     }
     return;
   }
-  StreamCtx sc{st, crt::stage_init(smem, st.w)};
+  StreamCtx sc{st, crt::stage_init(smem, st.n_blocks, kCount, ss)};
   float rgb[3];
   unsigned entered = 0;
   const unsigned long long rays =
@@ -762,29 +774,55 @@ render_kernel_streamed(Params p, float* __restrict__ out,
   }
   block_add(rays, nrays_out);
   if (o.cull != nullptr) block_add(entered, o.cull);
+  crt::stat_flush(sc.sg, ss);
+}
+
+template <bool kRects, bool kTris, bool kVattrs, bool kImages, int kFeat>
+__global__ void __launch_bounds__(kThreads, 3)
+render_kernel_streamed(Params p, float* __restrict__ out,
+                       unsigned long long* __restrict__ nrays_out,
+                       crt::Atlas atlas, Opts o, crt::StreamTables st,
+                       crt::StreamStats ss) {
+  render_pixels_streamed<kRects, kTris, kVattrs, kImages, kFeat, false>(
+      p, out, nrays_out, atlas, o, st, ss);
+}
+
+template <bool kRects, bool kTris, bool kVattrs, bool kImages, int kFeat>
+__global__ void __launch_bounds__(kThreads, 3)
+render_kernel_streamed_count(Params p, float* __restrict__ out,
+                             unsigned long long* __restrict__ nrays_out,
+                             crt::Atlas atlas, Opts o, crt::StreamTables st,
+                             crt::StreamStats ss) {
+  render_pixels_streamed<kRects, kTris, kVattrs, kImages, kFeat, true>(
+      p, out, nrays_out, atlas, o, st, ss);
 }
 
 // Launch streamed instantiation <R, T, V, I, F> if it is the one asked
-// for; *rc gets the error of the shared-memory attribute or the launch.
+// for (its counting entry when ss.out is not null); *rc gets the error of
+// the shared-memory attribute or the launch.
 template <bool R, bool T, bool V, bool I, int F>
 bool launch_streamed_if(const int (&want)[5], const Params& p,
                         const crt::Atlas& atlas, const Opts& o,
-                        const crt::StreamTables& st, float* out,
+                        const crt::StreamTables& st,
+                        const crt::StreamStats& ss, float* out,
                         unsigned long long* nrays, cudaStream_t s, int* rc) {
   if (want[0] != R || want[1] != T || want[2] != V || want[3] != I ||
       want[4] != F) {
     return false;
   }
-  const size_t smem = crt::stage_bytes(st.w);
+  void (*kernel)(Params, float*, unsigned long long*, crt::Atlas, Opts,
+                 crt::StreamTables, crt::StreamStats) =
+      ss.out != nullptr ? render_kernel_streamed_count<R, T, V, I, F>
+                        : render_kernel_streamed<R, T, V, I, F>;
+  const size_t smem = crt::stage_bytes(st.n_blocks, kThreads / 32);
   cudaError_t e = cudaFuncSetAttribute(
-      render_kernel_streamed<R, T, V, I, F>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (e == cudaSuccess) {
     const dim3 block(kBlockX, kBlockY);
     const dim3 grid((p.width + kBlockX - 1) / kBlockX,
                     (o.band_h + kBlockY - 1) / kBlockY);
-    render_kernel_streamed<R, T, V, I, F><<<grid, block, smem, s>>>(
-        p, out, nrays, atlas, o, st);
+    kernel<<<grid, block, smem, s>>>(p, out, nrays, atlas, o, st, ss);
     e = cudaGetLastError();
   }
   *rc = static_cast<int>(e);
@@ -882,11 +920,16 @@ extern "C" int crt_render_sample(const float* S, const float* P,
 // render_sample with stream_b > 0): as crt_render_sample, with the
 // streamed tables in place of S and P: ``tiles`` (f32[nbc, r8,
 // block_b * 128], 16-byte aligned), ``boxes`` (f32[6, nbc] block AABBs),
-// the resident ``clusters``/``supers`` padded by pack_stream_tiles, and
-// ``n_blocks`` used blocks; the instantiation is one of
-// CRT_RENDER_STREAM_VARIANTS.  With a mask, tile_h must be a multiple of
-// 8 and tile_w of 16 (a CTA inside one tile); else, or for a block_b the
-// shared memory cannot stage, it returns cudaErrorInvalidValue.
+// the resident ``clusters``/``supers`` padded by pack_stream_tiles,
+// ``n_blocks`` used blocks and ``groups`` (f32[6, ngc], the boxes of
+// group_g consecutive blocks each: tables.group_boxes); the instantiation
+// is one of CRT_RENDER_STREAM_VARIANTS.  ``stats`` (u64[kStreamStats]),
+// when not null, gets the walk's counters added, with ``seen``
+// (u32[n_blocks * block_b] zeros, null with ``stats``) the flags of the
+// pages some ray enters.  With a mask, tile_h
+// must be a multiple of 8 and tile_w of 16 (a CTA inside one tile);
+// else, or for a candidate bitmask the shared memory cannot hold, it
+// returns cudaErrorInvalidValue.
 extern "C" int crt_render_sample_streamed(
     const float* tiles, const float* boxes, const float* clusters,
     const float* supers, int nbc, int nc, int nsc, int n_blocks, int r8,
@@ -897,10 +940,14 @@ extern "C" int crt_render_sample_streamed(
     const int* tex_hw, int slots, int ah, int aw, const float* lights,
     float nee_p, int qmc, int sample_base, const int* mask, int tile_h,
     int tile_w, int tiles_x, int y0, int band_h, unsigned long long* cull,
-    float* out, unsigned long long* nrays, void* stream) {
+    const float* groups, int ngc, int group_g, unsigned long long* stats,
+    unsigned* seen, float* out, unsigned long long* nrays, void* stream) {
   if (width <= 0 || band_h <= 0) return 0;
   if ((mask != nullptr && (tile_h % kBlockY != 0 || tile_w % kBlockX != 0)) ||
-      block_b <= 0 || crt::stage_bytes(block_b * 128) > 227 * 1024) {
+      block_b <= 0 || block_b > 32 || cluster * super_ > 128 ||
+      crt::stage_bytes(n_blocks, kThreads / 32) > 227 * 1024 ||
+      group_g <= 0 || ngc != (n_blocks + group_g - 1) / group_g ||
+      (stats == nullptr) != (seen == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
@@ -920,8 +967,10 @@ extern "C" int crt_render_sample_streamed(
   const crt::Atlas at{atlas, tex_hw, slots, ah, aw};
   const Opts o{lights, mask, cull, tile_h, tile_w, tiles_x, qmc,
                sample_base, nee_p, y0, band_h};
-  const crt::StreamTables st{tiles, boxes, nbc, n_blocks, r8, block_b,
-                             block_b * 128};
+  const crt::StreamTables st{tiles,    boxes,   groups,        nbc,
+                             n_blocks, r8,      block_b,       block_b * 128,
+                             ngc,      group_g};
+  const crt::StreamStats ss{stats, seen};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int want[5] = {has_rects != 0, has_tris != 0, has_vattrs != 0,
                        has_images != 0, features};
@@ -929,8 +978,8 @@ extern "C" int crt_render_sample_streamed(
   // one launch_streamed_if per instantiation of variants.cuh, in its order
 #define CRT_LAUNCH(R, T, V, I, F)                                           \
   || launch_streamed_if<R != 0, T != 0, V != 0, I != 0, F>(want, p, at, o, \
-                                                           st, out, nrays, \
-                                                           s, &rc)
+                                                           st, ss, out,    \
+                                                           nrays, s, &rc)
   const bool launched = false CRT_RENDER_STREAM_VARIANTS(CRT_LAUNCH);
 #undef CRT_LAUNCH
   if (!launched) return static_cast<int>(cudaErrorNotSupported);

@@ -467,97 +467,276 @@ __device__ __forceinline__ int closest_hit_blocks(
 // one per 128-column page of f32[r8, block_b*128], rows 0-15 S, rows
 // 16.. P; the cluster and supercluster tables stay resident, padded with
 // point boxes at +BIG; each block has its box, the union of its used
-// superclusters' boxes.
+// superclusters' boxes, and each group of group_g consecutive blocks the
+// union of theirs (tables.group_boxes).
 //
-// The walk is the CTA's, not the ray's: every thread of the block calls
-// it, with its own ray or with none (best_t < 0 enters no box), and
-// reaches every barrier.  The blocks are visited in ascending order, the
-// resident search's supercluster order, so ties break alike and the two
-// layouts give the same closest hit (JAX's front-to-back sort served the
-// TPU's whole-tile gates and is not carried over).  A block that no ray
-// of the CTA enters closer than its best_t is skipped (__syncthreads_or
-// on the block's box).  An entered block's S rows (16 x block_b*128 f32,
-// contiguous, 32 KB at block_b 4) are staged by one bulk copy into one of
-// two shared buffers, the next entered block's copy in flight while the
-// current one is tested; that block is chosen under the current best_t,
-// which later tests only lower, so the set of blocks is never too small.
-// Inside a block the supercluster and cluster gates are the resident
-// search's, per ray, on the resident tables, and the primitive tests
-// read the staged S.  P stays in global memory: the caller reads the
-// winner's payload from its tile (stream_payload).
+// What bounds it on the card: the tables are beyond the L2, so every
+// staged page is a read from device memory, and the walk must not pay a
+// barrier or a box test per block for every ray.  The walk is a warp's:
+// every lane of the warp calls it, with its own ray or with none (best_t
+// < 0 enters no box), and takes part in every vote; no CTA barrier.
+// 1. The candidate sweep: the warp tests its rays against every group
+//    box and, in the groups one of its rays enters, the block boxes,
+//    under the rays' best_t at the walk's start; the blocks some ray
+//    enters are set in the warp's bitmask in shared memory (one vote per
+//    box).
+// 2. The candidates in ascending block order (the resident search's
+//    supercluster order, so ties break alike and the layouts give the
+//    same closest hit; JAX's front-to-back sort served the TPU's
+//    whole-tile gates and is not carried over).  Each candidate is
+//    re-gated under the rays' current best_t: its block box, then its
+//    block_b supercluster boxes, ORed over the warp into the mask of the
+//    pages some ray enters.
+// 3. Each such page, the 16 S rows of one supercluster (16 bulk copies
+//    of a row onto one mbarrier), is staged into one of the warp's two
+//    page slots, the next page's copy in flight while the current one is
+//    tested.  The pages are chosen under a best_t that later tests only
+//    lower, and a box holds its members' boxes bit for bit (min and max
+//    are exact), so a ray that enters a cluster closer than its best_t
+//    finds its page staged: the set is never too small.  Inside a page
+//    the supercluster and cluster gates are the resident search's, per
+//    ray, on the resident tables, and the primitive tests read the
+//    staged S.
+// P stays in global memory: the caller reads the winner's payload from
+// its tile (stream_payload).  Measured and removed (PERF.md): the CTA (of
+// 128 or 64 threads) as the walking unit, staging every page of an
+// entered block, one page slot a warp.
+
+// A page slot: 16 S rows of 128 columns.
+constexpr int kPageFloats = 16 * 128;
 
 struct StreamTables {
-  const float* tiles;  // f32[n_blocks_cap, r8, w]
-  const float* boxes;  // f32[6, nbc] block AABBs
+  const float* tiles;   // f32[n_blocks_cap, r8, w]
+  const float* boxes;   // f32[6, nbc] block AABBs
+  const float* groups;  // f32[6, ngc] group AABBs (tables.group_boxes)
   int nbc, n_blocks, r8, block_b, w;  // w = block_b * 128
+  int ngc, group_g;  // group boxes, group_g blocks each
 };
 
-// The CTA's staging state: two shared buffers of 16 x w floats, their
-// barriers, and per thread the parity each buffer's next copy completes
-// and whether a wait has timed out (later waits are then skipped: the
-// result is wrong, and the checks against the resident kernel and the
-// plain version catch it).
+// The walk's counters (stream_stats, read only when asked for: a kernel
+// argument of its own, ops/cuda/render_kernel.py::STREAM_STATS names
+// them): the warps' walks, lane walks without a ray, group- and
+// block-box tests by lanes with a ray in the candidate sweep and the
+// block boxes they enter, the re-gating tests, candidate blocks, pages
+// and bytes staged, the (ray, page) entries (rays that pass a staged
+// page's supercluster gate) and the pages some ray enters, each once a
+// launch (the pages the launch needs, whatever stages them).
+constexpr int ST_WALKS = 0, ST_IDLE = 1, ST_GROUP = 2, ST_BLOCK = 3,
+              ST_BLOCK_IN = 4, ST_GATE = 5, ST_CAND = 6, ST_PAGES = 7,
+              ST_BYTES = 8, ST_RAY_PAGES = 9, ST_PAGES_IN = 10,
+              kStreamStats = 11;
+
+struct StreamStats {
+  unsigned long long* out;  // u64[kStreamStats], added to, or null
+  unsigned* seen;  // u32[n_blocks * block_b] zeros: the pages entered
+};
+
+// A warp's staging state in shared memory: two page slots, their
+// barriers, the candidate bitmask; per lane the parity each slot's next
+// copy completes and whether a wait has timed out (later waits are then
+// skipped: the result is wrong, and the checks against the resident
+// kernel and the plain version catch it); cnt, the CTA's counters in
+// shared memory, and seen, the launch's flags of the pages entered
+// (StreamStats::seen), or null when they are not asked for.
 struct Stage {
-  float* buf;
+  float* ring;
   uint64_t* bar;
+  unsigned* mask;
+  unsigned long long* cnt;
+  unsigned* seen;
   unsigned phase;
   bool lost;
 };
 
-__device__ __forceinline__ bool cta_leader() {
-  return threadIdx.x == 0 && threadIdx.y == 0;
+__device__ __forceinline__ int cta_tid() {
+  return static_cast<int>(threadIdx.y * blockDim.x + threadIdx.x);
 }
 
-// The shared memory of the stage: 2 buffers of 16 x w floats, 2 barriers.
-__host__ __device__ constexpr size_t stage_bytes(int w) {
-  return 2 * 16 * 4 * static_cast<size_t>(w) + 2 * sizeof(uint64_t);
+__device__ __forceinline__ unsigned lane_id() {
+  unsigned id;
+  asm("mov.u32 %0, %%laneid;" : "=r"(id));
+  return id;
 }
 
-// Lay the stage out in the dynamic shared memory `smem` and initialize
-// its barriers; every thread of the CTA calls it.
-__device__ __forceinline__ Stage stage_init(unsigned char* smem, int w) {
+// Bytes of one warp's part of the stage: two page slots, two barriers and
+// the candidate bitmask of n_blocks bits, rounded to 128 bytes.
+__host__ __device__ constexpr size_t warp_stage_bytes(int n_blocks) {
+  return (2 * kPageFloats * 4 + 2 * sizeof(uint64_t) +
+          4 * static_cast<size_t>((n_blocks + 31) / 32) + 127) /
+         128 * 128;
+}
+
+// The dynamic shared memory of the stage: `warps` warps' parts, then the
+// counters.
+__host__ __device__ constexpr size_t stage_bytes(int n_blocks, int warps) {
+  return warps * warp_stage_bytes(n_blocks) +
+         kStreamStats * sizeof(unsigned long long);
+}
+
+// Add v to counter k (one thread's call).
+__device__ __forceinline__ void stat_add(const Stage& sg, int k,
+                                         unsigned long long v) {
+  if (sg.cnt != nullptr) atomicAdd(sg.cnt + k, v);
+}
+
+// Add `weight` to counter k for each lane of the warp where p holds;
+// every lane of the warp calls it.
+__device__ __forceinline__ void stat_lanes(const Stage& sg, int k, bool p,
+                                           unsigned weight = 1) {
+  if (sg.cnt == nullptr) return;
+  const unsigned n = __popc(__ballot_sync(0xffffffffu, p));
+  if (lane_id() == 0 && n != 0) {
+    atomicAdd(sg.cnt + k, static_cast<unsigned long long>(n) * weight);
+  }
+}
+
+// Lay the stage out in the dynamic shared memory `smem` (the CTA's warps'
+// parts one after another, then the counters) for a walk over n_blocks
+// blocks and initialize its barriers and, when `counting`, its counters
+// (with ss's flags of the pages entered); every thread of the CTA calls
+// it.
+__device__ __forceinline__ Stage stage_init(unsigned char* smem, int n_blocks,
+                                            bool counting,
+                                            const StreamStats& ss) {
+  const int warps = static_cast<int>(blockDim.x * blockDim.y) / 32;
+  unsigned char* base = smem + (cta_tid() >> 5) * warp_stage_bytes(n_blocks);
   Stage sg;
-  sg.buf = reinterpret_cast<float*>(smem);
-  sg.bar = reinterpret_cast<uint64_t*>(smem + 2 * 16 * 4 *
-                                       static_cast<size_t>(w));
+  sg.ring = reinterpret_cast<float*>(base);
+  sg.bar = reinterpret_cast<uint64_t*>(base + 2 * kPageFloats * 4);
+  sg.mask = reinterpret_cast<unsigned*>(sg.bar + 2);
+  sg.cnt = counting ? reinterpret_cast<unsigned long long*>(
+                          smem + warps * warp_stage_bytes(n_blocks))
+                    : nullptr;
+  sg.seen = counting ? ss.seen : nullptr;
   sg.phase = 0;
   sg.lost = false;
-  if (cta_leader()) {
+  if (lane_id() == 0) {
     mbar_init(sg.bar, 1);
     mbar_init(sg.bar + 1, 1);
   }
+  if (counting && cta_tid() < kStreamStats) sg.cnt[cta_tid()] = 0;
   __syncthreads();
   return sg;
 }
 
-// The first block from b on whose box a ray of the CTA enters closer
-// than its best_t, or n_blocks.
-__device__ __forceinline__ int next_block(const StreamTables& st, int b,
-                                          const Ray& r, float t_min,
-                                          float best_t) {
-  for (; b < st.n_blocks; ++b) {
-    if (__syncthreads_or(box_hit(st.boxes, st.nbc, b, r, t_min, best_t))) {
-      return b;
+// Add the CTA's counters to `out` when asked for; every thread of the
+// CTA calls it, last.
+__device__ __forceinline__ void stat_flush(const Stage& sg,
+                                           const StreamStats& ss) {
+  if (sg.cnt == nullptr) return;
+  __syncthreads();
+  if (cta_tid() < kStreamStats) {
+    atomicAdd(ss.out + cta_tid(), sg.cnt[cta_tid()]);
+  }
+}
+
+// Count page si once a launch if one of the warp's rays enters it (p);
+// every lane of the warp calls it.
+__device__ __forceinline__ void stat_page(const Stage& sg, int si, bool p) {
+  if (sg.seen == nullptr) return;
+  if (__any_sync(0xffffffffu, p) && lane_id() == 0 &&
+      atomicExch(sg.seen + si, 1u) == 0u) {
+    atomicAdd(sg.cnt + ST_PAGES_IN, 1ull);
+  }
+}
+
+// Step 1: set the warp's bitmask to the blocks whose box one of its rays
+// enters under its best_t (the group boxes first; a lane without a ray
+// tests nothing).
+__device__ __forceinline__ void sweep_candidates(const StreamTables& st,
+                                                 Stage& sg, const Ray& r,
+                                                 float t_min, float best_t) {
+  const int words = (st.n_blocks + 31) >> 5;
+  __syncwarp();  // the last walk's reads of the mask are done
+  for (int i = lane_id(); i < words; i += 32) sg.mask[i] = 0u;
+  __syncwarp();
+  const bool ray = best_t >= 0.0f;
+  for (int b0 = 0, g = 0; b0 < st.n_blocks; b0 += st.group_g, ++g) {
+    const bool in_g = box_hit(st.groups, st.ngc, g, r, t_min, best_t);
+    stat_lanes(sg, ST_GROUP, ray);
+    if (!__any_sync(0xffffffffu, in_g)) continue;
+    const int b1 = min(b0 + st.group_g, st.n_blocks);
+    stat_lanes(sg, ST_BLOCK, in_g, b1 - b0);
+    for (int b = b0; b < b1; ++b) {
+      const unsigned in_b = __ballot_sync(
+          0xffffffffu, in_g && box_hit(st.boxes, st.nbc, b, r, t_min, best_t));
+      if (lane_id() == 0 && in_b != 0u) {
+        stat_add(sg, ST_BLOCK_IN, __popc(in_b));
+        sg.mask[b >> 5] |= 1u << (b & 31);
+      }
     }
   }
-  return b;
+  __syncwarp();
 }
 
-// Start the copy of block b's S rows into buffer `slot` (the leader).
-__device__ __forceinline__ void stage_block(const Stage& sg, int slot,
-                                            const StreamTables& st, int b) {
-  if (cta_leader()) {
-    const unsigned bytes = 16u * 4u * static_cast<unsigned>(st.w);
+// The warp's cursor over its candidates (the same in every lane): the
+// bitmask word w and its bits not yet taken, the current candidate block
+// and its pages not yet taken.
+struct Cursor {
+  int w, block;
+  unsigned bits, pages;
+};
+
+// Step 2: the next page some ray of the warp enters, as (block, page s),
+// or false when the candidates are spent.
+__device__ __forceinline__ bool next_page(const SearchTables& tb,
+                                          const StreamTables& st, Stage& sg,
+                                          Cursor& cu, const Ray& r,
+                                          float t_min, float best_t,
+                                          int& block, int& s) {
+  const int words = (st.n_blocks + 31) >> 5;
+  while (cu.pages == 0u) {
+    while (cu.bits == 0u) {
+      if (++cu.w >= words) return false;
+      cu.bits = *(volatile unsigned*)(sg.mask + cu.w);
+    }
+    cu.block = (cu.w << 5) + __ffs(cu.bits) - 1;
+    cu.bits &= cu.bits - 1u;
+    // re-gate under the current best_t: the block's box, then its pages'
+    unsigned m = 0u;
+    const bool in = box_hit(st.boxes, st.nbc, cu.block, r, t_min, best_t);
+    if (in) {
+      for (int k = 0; k < st.block_b; ++k) {
+        if (box_hit(tb.supers, tb.nsc, cu.block * st.block_b + k, r, t_min,
+                    best_t)) {
+          m |= 1u << k;
+        }
+      }
+    }
+    stat_lanes(sg, ST_GATE, best_t >= 0.0f);
+    stat_lanes(sg, ST_GATE, in, st.block_b);
+    if (lane_id() == 0) stat_add(sg, ST_CAND, 1);
+    cu.pages = __reduce_or_sync(0xffffffffu, m);
+  }
+  block = cu.block;
+  s = __ffs(cu.pages) - 1;
+  cu.pages &= cu.pages - 1u;
+  return true;
+}
+
+// Step 3: start the copy of page s of block b (its supercluster's 16 S
+// rows, span columns each) into slot `slot` (lane 0).
+__device__ __forceinline__ void stage_page(const Stage& sg, int slot,
+                                           const StreamTables& st, int span,
+                                           int b, int s) {
+  if (lane_id() == 0) {
+    const unsigned row = (4u * static_cast<unsigned>(span) + 15u) & ~15u;
+    const float* src =
+        st.tiles + static_cast<size_t>(b) * st.r8 * st.w + s * 128;
+    float* dst = sg.ring + slot * kPageFloats;
+    stat_add(sg, ST_PAGES, 1);
+    stat_add(sg, ST_BYTES, 16u * row);
     fence_proxy_async();
-    mbar_expect_tx(sg.bar + slot, bytes);
-    bulk_copy(sg.buf + slot * 16 * st.w,
-              st.tiles + static_cast<size_t>(b) * st.r8 * st.w, bytes,
-              sg.bar + slot);
+    mbar_expect_tx(sg.bar + slot, 16u * row);
+    for (int k = 0; k < 16; ++k) {
+      bulk_copy(dst + k * 128, src + static_cast<size_t>(k) * st.w, row,
+                sg.bar + slot);
+    }
   }
 }
 
-// Wait for buffer `slot`'s copy.
-__device__ __forceinline__ void wait_block(Stage& sg, int slot) {
+// Wait for slot `slot`'s copy.
+__device__ __forceinline__ void wait_slot(Stage& sg, int slot) {
   if (!sg.lost && !mbar_wait(sg.bar + slot, (sg.phase >> slot) & 1u)) {
     sg.lost = true;
   }
@@ -565,7 +744,7 @@ __device__ __forceinline__ void wait_block(Stage& sg, int slot) {
 }
 
 // The streamed closest hit: as closest_hit (the same gates, tests, order
-// and cull count), over the staged tiles.  Returns the winner's column
+// and cull count), over the staged pages.  Returns the winner's column
 // in the resident layout (supercluster si's columns si*span ..), or -1.
 template <bool kRects, bool kTris, bool kUV, int kFeat = 0>
 __device__ __forceinline__ int closest_hit_streamed(
@@ -573,31 +752,40 @@ __device__ __forceinline__ int closest_hit_streamed(
     float t_min, float& best_t, Bary& bc, float u_med = 0.0f,
     float time = 0.0f, unsigned* entered = nullptr) {
   const int span = tb.cluster * tb.super_;
+  stat_lanes(sg, ST_IDLE, best_t < 0.0f);
+  if (lane_id() == 0) stat_add(sg, ST_WALKS, 1);
+  sweep_candidates(st, sg, r, t_min, best_t);
+  Cursor cu{-1, 0, 0u, 0u};
   int best_j = -1;
-  int slot = 0;
-  int cur = next_block(st, 0, r, t_min, best_t);
-  if (cur < st.n_blocks) stage_block(sg, slot, st, cur);
-  while (cur < st.n_blocks) {
-    const int nxt = next_block(st, cur + 1, r, t_min, best_t);
-    if (nxt < st.n_blocks) stage_block(sg, slot ^ 1, st, nxt);
-    wait_block(sg, slot);
-    const float* S = sg.buf + slot * 16 * st.w;
-    for (int s = 0; s < st.block_b; ++s) {
-      const int si = cur * st.block_b + s;
-      if (!box_hit(tb.supers, tb.nsc, si, r, t_min, best_t)) continue;
+  int b0 = 0, s0 = 0, slot = 0;
+  bool have = next_page(tb, st, sg, cu, r, t_min, best_t, b0, s0);
+  if (have) stage_page(sg, slot, st, span, b0, s0);
+  while (have) {
+    int b1 = 0, s1 = 0;
+    const bool more = next_page(tb, st, sg, cu, r, t_min, best_t, b1, s1);
+    if (more) stage_page(sg, slot ^ 1, st, span, b1, s1);
+    wait_slot(sg, slot);
+    const float* S = sg.ring + slot * kPageFloats;
+    const int si = b0 * st.block_b + s0;
+    const bool in = box_hit(tb.supers, tb.nsc, si, r, t_min, best_t);
+    stat_lanes(sg, ST_RAY_PAGES, in);
+    stat_page(sg, si, in);
+    if (in) {
       for (int c = 0; c < tb.super_; ++c) {
         const int ci = si * tb.super_ + c;
         if (!box_hit(tb.clusters, tb.nc, ci, r, t_min, best_t)) continue;
         if (entered != nullptr) ++*entered;
         int jl = -1;  // a closer hit in this cluster: its page column
         cluster_tests<kRects, kTris, kUV, kFeat, Lds>(
-            tb, ci, S, st.w, s * 128 + c * tb.cluster, r, t_min, u_med, time,
-            best_t, jl, bc);
-        if (jl >= 0) best_j = jl + (si * span - s * 128);
+            tb, ci, S, 128, c * tb.cluster, r, t_min, u_med, time, best_t,
+            jl, bc);
+        if (jl >= 0) best_j = jl + si * span;
       }
     }
-    __syncthreads();  // buffer `slot` is free for the block after next
-    cur = nxt;
+    __syncwarp();  // slot `slot` is free for the page after next
+    b0 = b1;
+    s0 = s1;
+    have = more;
     slot ^= 1;
   }
   return best_j;

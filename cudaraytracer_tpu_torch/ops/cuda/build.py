@@ -60,15 +60,18 @@ SIGNATURES = {
                     _p, _p],
     # the streamed entries: (tiles, boxes, clusters, supers, nbc, nc, nsc,
     # n_blocks, r8, block_b, cluster, super_) in place of the resident
-    # tables and sizes, then as their resident twins
+    # tables and sizes, then as their resident twins, with the group
+    # boxes (groups, ngc, group_g) and the walk's counters and page flags
+    # before the outputs
     "crt_render_sample_streamed": [
         _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _p,
         ctypes.c_uint32, _i, _i, _i, _i, _i, _i, _f, _f, _i, _i, _i, _i, _i,
-        _p, _p, _i, _i, _i, _p, _f, _i, _i, _p, _i, _i, _i, _i, _i, _p, _p,
-        _p, _p],
+        _p, _p, _i, _i, _i, _p, _f, _i, _i, _p, _i, _i, _i, _i, _i, _p,
+        _p, _i, _i, _p, _p, _p, _p, _p],
     "crt_gbuffer_streamed": [
         _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _p, _i, _i, _i, _f,
-        _f, _i, _i, _i, _i, _i, _p, _p, _i, _i, _i, _p, _p, _p, _p],
+        _f, _i, _i, _i, _i, _i, _p, _p, _i, _i, _i, _p, _i, _i, _p, _p, _p,
+        _p, _p, _p],
     "crt_stream_probe": [_p, _i, _i, _i, _i, _i, _p, _p],
 }
 

@@ -34,9 +34,10 @@ from ..gbuffer import GBuffer
 from . import build
 from .hit_kernel import brute_closest, search_work, streamed_closest
 from .render_kernel import (F_MEDIA, F_NOISE, atlas_args, check_frame_args,
-                            feature_bits, hit_normal, primary_rays,
-                            resolve_variant, search_tables, sky_rgb,
-                            surface_rgb, table_args)
+                            check_stream_extras, feature_bits, hit_normal,
+                            primary_rays, resolve_variant, search_tables,
+                            sky_rgb, stream_extra_args, surface_rgb,
+                            table_args)
 from .tables import (BIG, CLUSTER, P_PACKA, P_PACKB, P_PACKC, SUPER,
                      p_rows_for, tile_columns, vn_base_for)
 
@@ -76,12 +77,14 @@ def gbuffer_plain(S, P, clusters, supers, n_super, cam_vec, *, width: int,
                   has_rotm: bool = False, has_motion: bool = False,
                   atlas=None, tex_hw=None, stream_b: int = 0,
                   cluster: int = CLUSTER, super_: int = SUPER,
+                  group_boxes=None, stream_stats=None,
                   work: dict | None = None) -> GBuffer:
     """Plain PyTorch version of the G-buffer kernel (module docstring).
     Same arguments and result as ``gbuffer``; runs on any device.  With
     ``stream_b`` > 0 the search is the streamed walk over the tiles
-    (``hit_kernel.streamed_closest``) and the payload their columns, as
-    in ``render_kernel.render_sample_plain``.
+    (``hit_kernel.streamed_closest`` with ``group_boxes``) and the
+    payload their columns, as in
+    ``render_kernel.render_sample_plain``; ``stream_stats`` raises here.
     ``work``: a dict to which the run adds its "raygen", "hit" and "miss"
     lanes, "smooth", "image" and "noise" hits and the search's tests
     (``hit_kernel.search_work``)."""
@@ -89,6 +92,8 @@ def gbuffer_plain(S, P, clusters, supers, n_super, cam_vec, *, width: int,
     check_frame_args(S, P, clusters, supers, n_super, cam_vec, width, height,
                      camera_model, cluster, super_, atlas, tex_hw,
                      has_vattrs, has_tris, has_motion, stream_b=stream_b)
+    check_stream_extras(S, n_super, stream_b, group_boxes, stream_stats,
+                        False)
     gbuffer_plain.launches += 1
     dev, f32 = S.device, torch.float32
     cam = [float(v) for v in cam_vec.detach().cpu().tolist()]
@@ -112,7 +117,8 @@ def gbuffer_plain(S, P, clusters, supers, n_super, cam_vec, *, width: int,
         best_t, col, *bary, _ = streamed_closest(
             tiles, block_boxes, clusters, supers, n_super, stream_b, org,
             dirn, cam[28], best_t0, has_rects, has_tris, with_uv,
-            has_media=has_media, cluster=cluster, super_=super_)
+            has_media=has_media, cluster=cluster, super_=super_,
+            group_boxes=group_boxes)
     else:
         best_t, col, *bary = brute_closest(
             S, org, dirn, cam[28], best_t0, has_rects, has_tris, with_uv,
@@ -134,7 +140,11 @@ def gbuffer_plain(S, P, clusters, supers, n_super, cam_vec, *, width: int,
                                                  super_), org, dirn,
                                   cam[28], has_rects=has_rects,
                                   has_tris=has_tris, has_media=has_media,
-                                  cluster=cluster, super_=super_).items()):
+                                  cluster=cluster, super_=super_,
+                                  **(dict(block_boxes=block_boxes,
+                                          group_boxes=group_boxes,
+                                          streamed=True)
+                                     if stream_b else {})).items()):
             work[k] = work.get(k, 0) + v
 
     normal = torch.zeros((n, 3), dtype=f32, device=dev)
@@ -175,7 +185,8 @@ def gbuffer(S, P, clusters, supers, n_super, cam_vec, *, width: int,
             has_media: bool = False, has_boxm: bool = False,
             has_rotm: bool = False, has_motion: bool = False, atlas=None,
             tex_hw=None, stream_b: int = 0, cluster: int = CLUSTER,
-            super_: int = SUPER) -> GBuffer:
+            super_: int = SUPER, group_boxes=None,
+            stream_stats=None) -> GBuffer:
     """One primary-visibility pass -> GBuffer(normal, albedo, depth).
 
     Arguments follow ``pallas_gbuffer``: the packed tables S, P, clusters,
@@ -183,10 +194,11 @@ def gbuffer(S, P, clusters, supers, n_super, cam_vec, *, width: int,
     vector (tables.pack_camera_np), the scene's static flags and for image
     textures the atlas and ``tex_hw``, as ``render_sample`` takes them
     (``tables.kernel_inputs``).  ``stream_b`` > 0 takes the streamed
-    tables as ``render_sample`` does (its launches count in
-    ``gbuffer.streamed_launches``).  CUDA tensors launch the
-    csrc/gbuffer_kernel.cu instantiation ``gbuffer_variant`` picks (a
-    failed build or launch raises); CPU tensors run ``gbuffer_plain``.
+    tables, ``group_boxes`` and ``stream_stats`` as ``render_sample``
+    does (its launches count in ``gbuffer.streamed_launches``).  CUDA
+    tensors launch the csrc/gbuffer_kernel.cu instantiation
+    ``gbuffer_variant`` picks (a failed build or launch raises); CPU
+    tensors run ``gbuffer_plain``.
     """
     feat = dict(has_noise=has_noise, has_media=has_media, has_boxm=has_boxm,
                 has_rotm=has_rotm, has_motion=has_motion)
@@ -199,9 +211,12 @@ def gbuffer(S, P, clusters, supers, n_super, cam_vec, *, width: int,
                              camera_model=camera_model, has_rects=has_rects,
                              has_tris=has_tris, has_vattrs=has_vattrs,
                              atlas=atlas, tex_hw=tex_hw, stream_b=stream_b,
-                             cluster=cluster, super_=super_, **feat)
+                             cluster=cluster, super_=super_,
+                             group_boxes=group_boxes,
+                             stream_stats=stream_stats, **feat)
     if S.device.type != "cuda":
         raise ValueError(f"gbuffer runs on cuda or cpu, not {S.device}")
+    check_stream_extras(S, n_super, stream_b, group_boxes, stream_stats, True)
     variant = gbuffer_variant(has_rects, has_tris, has_vattrs,
                               atlas is not None, streamed=bool(stream_b),
                               **feat)
@@ -213,12 +228,14 @@ def gbuffer(S, P, clusters, supers, n_super, cam_vec, *, width: int,
     suffix, tabs = table_args(S, P, clusters, supers, n_super, stream_b,
                               cluster, super_)
     entry = "crt_gbuffer" + suffix
+    sx, seen = stream_extra_args(n_super, stream_b, group_boxes,
+                                 stream_stats) if stream_b else ((), None)
     with torch.cuda.device(dev):
         rc = getattr(lib, entry)(
             *tabs, cam_vec.data_ptr(), width, height,
             int(camera_model == "two_plane"), 1.0 / width, 1.0 / height,
-            *variant, *atlas_args(atlas, tex_hw), normal.data_ptr(),
-            albedo.data_ptr(), depth.data_ptr(),
+            *variant, *atlas_args(atlas, tex_hw),
+            *sx, normal.data_ptr(), albedo.data_ptr(), depth.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     build.check(lib, entry, rc)
     if stream_b:

@@ -24,10 +24,10 @@ import numpy as np
 import torch
 
 from . import build
-from .tables import (BIG, CLUSTER, STREAM_BLOCK_B, SUPER, S_AAX, S_BAX,
-                     S_CA, S_CB, S_CK, S_CX, S_CY, S_CZ, S_D1, S_D2, S_DENS,
-                     S_DN, S_HA, S_HB, S_KAX, S_PTYPE, S_R2, S_VX, S_VY,
-                     S_VZ)
+from .tables import (BIG, CLUSTER, STREAM_BLOCK_B, STREAM_GROUP_G, SUPER,
+                     S_AAX, S_BAX, S_CA, S_CB, S_CK, S_CX, S_CY, S_CZ, S_D1,
+                     S_D2, S_DENS, S_DN, S_HA, S_HB, S_KAX, S_PTYPE, S_R2,
+                     S_VX, S_VY, S_VZ)
 
 # rays per brute-force chunk: chunk * NP stays near 2^24 elements on the
 # CPU and 2^26 on a GPU (a few GB of temporaries)
@@ -309,13 +309,49 @@ def _box_enter(box, i, o, d_inv, t_min, best_t):
     return tfar > tnear
 
 
+def stream_sweep(group_boxes, block_boxes, n_blocks: int, org, d_inv,
+                 t_min: float, best_t, work: dict,
+                 group_g: int = STREAM_GROUP_G) -> dict:
+    """The streamed walk's candidate sweep (csrc/search.cuh::
+    sweep_candidates) on tensors: each ray, under its best_t at the
+    walk's start, tests every group box of ``group_boxes`` (f32[6,
+    ceil(n_blocks / group_g)], ``tables.group_boxes``) and the block
+    boxes of the groups it enters.  Returns {block: the indices of the
+    rays that enter its box}, and adds to ``work`` the "group" and
+    "block" box tests and the "block_in" entries."""
+    n_blocks = int(n_blocks)
+    ngc = -(-n_blocks // group_g)
+    if not isinstance(group_boxes, torch.Tensor) \
+            or tuple(group_boxes.shape) != (6, ngc):
+        raise ValueError(f"the streamed walk needs group_boxes f32[6, {ngc}] "
+                         f"(tables.group_boxes of {n_blocks} blocks, "
+                         f"{group_g} a group)")
+    every = torch.arange(org.shape[0], device=org.device)
+    cand = {}
+    for g in range(ngc):
+        work["group"] += every.numel()
+        rg = every[_box_enter(group_boxes, g, org, d_inv, t_min, best_t)]
+        for b in range(g * group_g, min((g + 1) * group_g, n_blocks)):
+            if rg.numel() == 0:
+                break
+            work["block"] += rg.numel()
+            rb = rg[_box_enter(block_boxes, b, org[rg], d_inv[rg], t_min,
+                               best_t[rg])]
+            work["block_in"] += rb.numel()
+            if rb.numel():
+                cand[b] = rb
+    return cand
+
+
 def culled_closest(S, clusters, supers, n_super, org, dirn,
                    t_min: float = 1e-3, *, block_boxes=None,
                    block_b: int = STREAM_BLOCK_B, has_rects: bool = False,
                    has_tris: bool = False, with_uv: bool = False,
                    has_media: bool = False, u_med=None, time=None,
                    has_boxm: bool = False, has_rotm: bool = False,
-                   cluster: int = CLUSTER, super_: int = SUPER) -> tuple:
+                   cluster: int = CLUSTER, super_: int = SUPER,
+                   group_boxes=None, group_g: int = STREAM_GROUP_G,
+                   streamed: bool = False) -> tuple:
     """csrc/search.cuh's culled walk on tensors, all rays at once in
     table order with each ray's running best_t: ``closest_hit`` (every
     supercluster box, then the cluster boxes of those entered) or, with
@@ -324,10 +360,17 @@ def culled_closest(S, clusters, supers, n_super, org, dirn,
     ``block_b`` superclusters).  An entered cluster's primitives are
     tested with ``brute_closest``'s arithmetic; its kind picks the tests
     as the kernel's dispatch does (kind-4 medium clusters run the medium
-    test with ``u_med`` and are skipped without it).  Returns (best_t,
-    col, bu, bv, work): the closest hit as ``brute_closest`` gives it
-    (col -1 on a miss; bu, bv the winner's barycentrics with ``with_uv``,
-    else 0) and the tests counted as ``search_work`` describes them."""
+    test with ``u_med`` and are skipped without it).  With ``streamed``
+    (``block_boxes`` given) it is the streamed walk's
+    (``closest_hit_streamed``): the candidate sweep first
+    (``stream_sweep`` over ``group_boxes`` of ``group_g`` blocks each;
+    a block has its box tested there, once, for the rays that enter its
+    group), then each
+    candidate block's superclusters for its candidate rays.  Returns
+    (best_t, col, bu, bv, work): the closest hit as ``brute_closest``
+    gives it (col -1 on a miss; bu, bv the winner's barycentrics with
+    ``with_uv``, else 0) and the tests counted as ``search_work``
+    describes them."""
     check_search_tables(S, clusters, supers, n_super, cluster, super_)
     _rays(org, dirn, S.device)
     t_min = float(np.float32(t_min))
@@ -352,6 +395,8 @@ def culled_closest(S, clusters, supers, n_super, org, dirn,
         sph, (ptype > 0.5) & (ptype < 3.5), (ptype > 3.5) & (ptype < 4.5),
         med, med & (S[S_HA] > 0.0), moving))
     work = {"entered": 0, "box": 0, "sphere": 0, "rect": 0, "tri": 0}
+    if streamed:
+        work.update(group=0, block=0, block_in=0, ray_pages=0)
     if has_media and u_med is not None:
         work.update(med=0, med_box=0, med_rot=0)
     if time is not None:
@@ -368,9 +413,15 @@ def culled_closest(S, clusters, supers, n_super, org, dirn,
                              f"cover {n_super} superclusters")
         walk = [(bi, range(bi * block_b, min((bi + 1) * block_b, n_super)))
                 for bi in range(-(-n_super // block_b))]
+    if streamed:
+        cand = stream_sweep(group_boxes, block_boxes, len(walk), org, d_inv,
+                            t_min, best_t, work, group_g)
+        walk = [walk[bi] for bi in sorted(cand)]
     for bi, sis in walk:
         rb = every
-        if bi is not None and len(sis) > 1:  # a block of one: its box
+        if streamed:  # the sweep tested the block's box
+            rb = cand[bi]
+        elif bi is not None and len(sis) > 1:  # a block of one: its box
             work["box"] += n
             rb = every[_box_enter(block_boxes, bi, org, d_inv, t_min,
                                   best_t)]
@@ -384,6 +435,8 @@ def culled_closest(S, clusters, supers, n_super, org, dirn,
             else:
                 rays = rb[_box_enter(supers, si, org[rb], d_inv[rb], t_min,
                                      best_t[rb])]
+            if streamed:
+                work["ray_pages"] += rays.numel()
             for ci in range(si * super_, (si + 1) * super_):
                 if rays.numel() == 0:
                     break
@@ -435,7 +488,9 @@ def search_work(S, clusters, supers, n_super, org, dirn, t_min: float = 1e-3,
                 has_rects: bool = False, has_tris: bool = False,
                 has_media: bool = False, u_med=None, time=None,
                 has_boxm: bool = False, has_rotm: bool = False,
-                cluster: int = CLUSTER, super_: int = SUPER) -> dict:
+                cluster: int = CLUSTER, super_: int = SUPER,
+                group_boxes=None, group_g: int = STREAM_GROUP_G,
+                streamed: bool = False) -> dict:
     """Count the tests the kernel's culled search needs for rays (org,
     dirn): {"entered": the (ray, cluster) entries, clusters whose box a
     ray entered (the megakernel's cull statistic), "box": block,
@@ -444,10 +499,14 @@ def search_work(S, clusters, supers, n_super, org, dirn, t_min: float = 1e-3,
     chord) and of yawed box media (the rotation), "motion": tests of
     moving spheres (the centre at the path's time)}.  It replays the walk
     (``culled_closest``: csrc/search.cuh::closest_hit, or with
-    ``block_boxes`` closest_hit_blocks) cluster by cluster over all rays
-    at once, so a cluster counts for a ray only where the kernel would
-    enter it; both walks enter the same clusters, the three-level one
-    tests fewer boxes.  Within an entered cluster only the primitives
+    ``block_boxes`` closest_hit_blocks, or with ``streamed`` too
+    closest_hit_streamed) cluster by cluster over all rays at once, so a
+    cluster counts for a ray only where the kernel would enter it; every
+    walk enters the same clusters, those with more levels test fewer
+    boxes.  The streamed walk's counts add "group" and "block" (its
+    candidate sweep's box tests, outside "box"), "block_in" (the block
+    boxes entered there) and "ray_pages" (the superclusters entered: the
+    (ray, page) entries).  Within an entered cluster only the primitives
     count, not the padding columns the kernel's loop also runs over (r^2
     = -1 spheres).  Runs on any device."""
     return culled_closest(
@@ -455,7 +514,8 @@ def search_work(S, clusters, supers, n_super, org, dirn, t_min: float = 1e-3,
         block_boxes=block_boxes, block_b=block_b, has_rects=has_rects,
         has_tris=has_tris, has_media=has_media, u_med=u_med, time=time,
         has_boxm=has_boxm, has_rotm=has_rotm, cluster=cluster,
-        super_=super_)[-1]
+        super_=super_, group_boxes=group_boxes, group_g=group_g,
+        streamed=streamed)[-1]
 
 
 def streamed_closest(tiles, block_boxes, clusters, supers, n_blocks,
@@ -463,18 +523,23 @@ def streamed_closest(tiles, block_boxes, clusters, supers, n_blocks,
                      has_rects=False, has_tris=False, with_uv=False,
                      has_media=False, u_med=None, time=None,
                      has_boxm=False, has_rotm=False, cluster=CLUSTER,
-                     super_=SUPER):
-    """csrc/search.cuh::closest_hit_streamed on tensors: the walk over the
-    streamed tables (tables.pack_stream_tiles) in ascending block order,
-    each ray through the blocks whose box it enters, then the
-    superclusters and clusters whose boxes it enters, all with its
+                     super_=SUPER, group_boxes=None,
+                     group_g=STREAM_GROUP_G, work=None):
+    """csrc/search.cuh::closest_hit_streamed on tensors: the candidate
+    sweep over the group boxes (``group_boxes``, ``group_g`` blocks each,
+    required) and block boxes under each ray's starting best_t
+    (``stream_sweep``), then the
+    candidate blocks in ascending order, each ray through the
+    superclusters and clusters whose boxes it enters with its
     running best_t, and the primitive tests of an entered cluster reading
     S from its tile page (the per-primitive arithmetic of
     ``brute_closest``).  Returns (best_t, col, [bu, bv,] entered): col is
     the winner's column in the resident layout (-1 on a miss), entered
-    the (ray, cluster) entries.  The kernel gates a block once for its
-    CTA; a ray that does not enter a block enters none of its boxes, so
-    the result is the same."""
+    the (ray, cluster) entries; ``work``, a dict, gets the sweep's counts
+    and "ray_pages" (the superclusters entered) added.  The kernel stages
+    a page for its unit of rays; a ray that enters none of a block's
+    boxes enters none of its superclusters' under a lower best_t, so the
+    result is the ray's own."""
     t_min = float(np.float32(t_min))
     dev = org.device
     n = org.shape[0]
@@ -485,13 +550,19 @@ def streamed_closest(tiles, block_boxes, clusters, supers, n_blocks,
     bv = torch.zeros_like(bu)
     span = cluster * super_
     entered = 0
-    every = torch.arange(n, device=dev)
-    for bi in range(int(n_blocks)):
-        rb = every[_box_enter(block_boxes, bi, org, d_inv, t_min, best_t)]
+    cw = {"group": 0, "block": 0, "block_in": 0, "ray_pages": 0}
+    cand = stream_sweep(group_boxes, block_boxes, n_blocks, org, d_inv, t_min,
+                        best_t, cw, group_g)
+    for bi in sorted(cand):
+        rb = cand[bi]
+        # (the block's box under the running best_t: fewer rays to gate)
+        rb = rb[_box_enter(block_boxes, bi, org[rb], d_inv[rb], t_min,
+                           best_t[rb])]
         for s in range(block_b if rb.numel() else 0):
             si = bi * block_b + s
             rays = rb[_box_enter(supers, si, org[rb], d_inv[rb], t_min,
                                  best_t[rb])]
+            cw["ray_pages"] += rays.numel()
             for c in range(super_ if rays.numel() else 0):
                 ci = si * super_ + c
                 r = rays[_box_enter(clusters, ci, org[rays], d_inv[rays],
@@ -511,6 +582,9 @@ def streamed_closest(tiles, block_boxes, clusters, supers, n_blocks,
                 if with_uv:
                     bu[r[won]] = uv[0][won]
                     bv[r[won]] = uv[1][won]
+    if work is not None:
+        for k, v in cw.items():
+            work[k] = work.get(k, 0) + v
     return (best_t, col, bu, bv, entered) if with_uv else (best_t, col,
                                                            entered)
 

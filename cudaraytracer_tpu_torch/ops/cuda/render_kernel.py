@@ -79,9 +79,9 @@ from . import build
 from .hit_kernel import (brute_closest, check_search_tables, search_work,
                          streamed_closest)
 from .tables import (BIG, CLUSTER, P_CX, P_CY, P_CZ, P_HA, P_HB, P_MPARAM,
-                     P_PACKA, P_PACKB, P_PACKC, STREAM_BLOCK_B, SUPER,
-                     block_count, p_rows_for, stream_rows, tile_columns,
-                     vn_base_for)
+                     P_PACKA, P_PACKB, P_PACKC, STREAM_BLOCK_B,
+                     STREAM_GROUP_G, SUPER, block_count, p_rows_for,
+                     stream_rows, tile_columns, vn_base_for)
 
 # Feature bits of the static flags beyond (rects, tris, vattrs, images):
 # the kernels' ``kFeat`` template argument (csrc/search.cuh F_*), with the
@@ -103,6 +103,21 @@ RENDER_VARIANTS = build.variants("CRT_RENDER_VARIANTS")
 RENDER_STREAM_VARIANTS = build.variants("CRT_RENDER_STREAM_VARIANTS")
 # the refilling kernel's batch: BATCH_X x BATCH_Y band pixels a warp
 BATCH_X, BATCH_Y = build.constants("render_kernel.cu", "kBatchX", "kBatchY")
+# The streamed walk's counters, ``stream_stats[k]`` (csrc/search.cuh
+# ST_*): the warps' walks (one per warp and path-loop iteration), lane
+# walks without a ray, group- and block-box tests by lanes with a ray in
+# the candidate sweep and the block boxes their rays enter there, the
+# tests that re-gate a candidate block and its pages, candidate blocks,
+# pages and bytes staged, and (ray, page) entries (rays that pass a
+# staged page's supercluster gate), and the pages some ray enters, each
+# counted once a launch (the pages the launch needs whatever the walk
+# stages: the byte term of ``scripts/stream_util.py::counted_bound``).
+# The sweep's three and the (ray, page) entries are the rays' own: the
+# plain walk counts them too (``hit_kernel.culled_closest``'s "group",
+# "block", "block_in" and "ray_pages").  The walk has no CTA barrier.
+STREAM_STATS = ("walks", "idle_walks", "group_tests", "block_tests",
+                "block_entries", "gate_tests", "candidates", "pages",
+                "bytes", "ray_pages", "pages_entered")
 
 
 def refills(variant: tuple) -> bool:
@@ -230,6 +245,53 @@ def check_stream_tables(tiles, block_boxes, clusters, supers, n_blocks,
                          f"{list(supers.shape)} do not cover {nb} blocks")
     if not 0 <= int(n_blocks) <= nb:
         raise ValueError(f"n_blocks={n_blocks} outside [0, {nb}]")
+
+
+def check_stream_extras(S, n_super, stream_b, group_boxes, stream_stats,
+                        on_card: bool):
+    """Raise unless ``group_boxes`` (f32[6, ceil(n_blocks /
+    STREAM_GROUP_G)] on S's device, ``TorchStreamTables.group_boxes``:
+    required by both walks) and ``stream_stats`` (an
+    int64[len(STREAM_STATS)] on the card; the kernel's own counters, so
+    the plain version has none) fit the streamed tables; neither is
+    taken by the resident layout."""
+    if not stream_b:
+        if group_boxes is not None or stream_stats is not None:
+            raise ValueError("group_boxes and stream_stats are the "
+                             "streamed layout's (stream_b > 0)")
+        return
+    ngc = -(-int(n_super) // STREAM_GROUP_G)
+    if not isinstance(group_boxes, torch.Tensor) \
+            or group_boxes.dtype != torch.float32 \
+            or tuple(group_boxes.shape) != (6, ngc) \
+            or not group_boxes.is_contiguous() \
+            or group_boxes.device != S.device:
+        raise ValueError(
+            f"group_boxes must be a contiguous f32[6, {ngc}] on "
+            f"{S.device} (TorchStreamTables.group_boxes: the {n_super} "
+            f"blocks' boxes, {STREAM_GROUP_G} a group)")
+    if stream_stats is not None and (
+            not on_card or not isinstance(stream_stats, torch.Tensor)
+            or stream_stats.dtype != torch.int64
+            or tuple(stream_stats.shape) != (len(STREAM_STATS),)
+            or stream_stats.device != S.device):
+        raise ValueError(
+            f"stream_stats must be an int64[{len(STREAM_STATS)}] on the "
+            "card (the streamed kernel's counters; the plain version has "
+            "none)")
+
+
+def stream_extra_args(n_super, stream_b, group_boxes, stream_stats):
+    """The streamed C entries' (groups, ngc, group_g, stats, seen)
+    arguments, and ``seen``, the zeroed int32 flags of the n_super *
+    stream_b pages (with ``stream_stats`` only), which the caller keeps
+    alive over the launch."""
+    seen = None if stream_stats is None else torch.zeros(
+        int(n_super) * int(stream_b), dtype=torch.int32,
+        device=stream_stats.device)
+    return (group_boxes.data_ptr(), group_boxes.shape[1], STREAM_GROUP_G,
+            None if stream_stats is None else stream_stats.data_ptr(),
+            None if seen is None else seen.data_ptr()), seen
 
 
 def check_frame_args(S, P, clusters, supers, n_super, cam_vec, width,
@@ -550,7 +612,8 @@ def search_tables(S, clusters, supers, n_super, stream_b, cluster, super_):
     of the used blocks n_super (the padded ones enter no box)."""
     if not stream_b:
         return S, clusters, supers, n_super
-    return (tile_columns(S, slice(0, 16), stream_b, cluster, super_),
+    return (tile_columns(S, slice(0, 16), stream_b, cluster,
+                         super_).contiguous(),
             clusters, supers, int(n_super) * stream_b)
 
 
@@ -570,20 +633,21 @@ def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
                         with_cull_stats: bool = False, stream_b: int = 0,
                         cluster: int = CLUSTER, super_: int = SUPER,
                         block_boxes=None, sched_stats=None,
+                        group_boxes=None, stream_stats=None,
                         work: dict | None = None, pixel_rays=None):
     """Plain PyTorch version of the megakernel (see the module docstring).
     Same arguments and results as ``render_sample``; runs on any device
     and takes any combination of the flags.  ``with_cull_stats`` replays
     the culled search per iteration (``hit_kernel.search_work``; slow).
     With ``stream_b`` > 0 the tables are the streamed ones (S the tiles,
-    P the block boxes, n_super the used blocks): the search is the
-    streamed walk (``hit_kernel.streamed_closest``, which also counts the
-    cluster entries) and the payload is read from the tiles by block,
+    P the block boxes, n_super the used blocks, and ``group_boxes``): the
+    search is the streamed walk (``hit_kernel.streamed_closest``, which
+    also counts the cluster entries) and the payload is read from the tiles by block,
     page and column (``tables.tile_columns``).  With ``block_boxes`` and
     ``has_media`` the replayed search is the refilling kernel's
     three-level walk (``search_work`` then counts its block-box tests; it
-    enters the same clusters as the two-level one).  ``sched_stats`` is
-    the kernel's own reading of its scheduler and raises here.
+    enters the same clusters as the two-level one).  ``sched_stats`` and ``stream_stats`` are the kernels' own readings of
+    their scheduler and walk and raise here.
 
     ``work``: a dict to which the run adds what the kernel's work is
     counted from: "raygen", "miss", surface "hit" and "medium" hit lanes,
@@ -604,6 +668,8 @@ def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
     if sched_stats is not None:
         raise ValueError("sched_stats reads the refilling kernel's "
                          "scheduler: the plain version has none")
+    check_stream_extras(S, n_super, stream_b, group_boxes, stream_stats,
+                        False)
     render_sample_plain.launches += 1
     dev = S.device
     if stream_b:
@@ -706,7 +772,7 @@ def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
                 tiles, block_boxes, clusters, supers, n_super, stream_b,
                 org, dirn, t_min, torch.full_like(ox, BIG), has_rects,
                 has_tris, with_uv, u_med=u_med, time=time, cluster=cluster,
-                super_=super_, **med_kw)
+                super_=super_, group_boxes=group_boxes, **med_kw)
             best_t, col, *bary = found
             entered += n_ent
         else:
@@ -719,8 +785,10 @@ def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
             sw = search_work(*search_tables(S, clusters, supers, n_super,
                                             stream_b, cluster, super_),
                              org, dirn, t_min,
-                             block_boxes=block_boxes if has_media else None,
-                             has_rects=has_rects,
+                             block_boxes=block_boxes
+                             if has_media or stream_b else None,
+                             group_boxes=group_boxes,
+                             streamed=bool(stream_b), has_rects=has_rects,
                              has_tris=has_tris, u_med=u_med, time=time,
                              cluster=cluster, super_=super_, **med_kw)
             if not stream_b:
@@ -948,7 +1016,8 @@ def render_sample(S, P, clusters, supers, n_super, cam_vec, seed, max_depth,
                   tile_mask=None, tile=None, y0: int = 0,
                   band_h: int | None = None, with_cull_stats: bool = False,
                   stream_b: int = 0, cluster: int = CLUSTER,
-                  super_: int = SUPER, block_boxes=None, sched_stats=None):
+                  super_: int = SUPER, block_boxes=None, sched_stats=None,
+                  group_boxes=None, stream_stats=None):
     """``spp`` samples per pixel of the megakernel -> f32[band_h, width, 3]
     radiance SUM (divide by spp to display) of the image rows y0 .. y0 +
     band_h - 1 (the whole image by default), plus the int64 ray count (a
@@ -985,8 +1054,13 @@ def render_sample(S, P, clusters, supers, n_super, cam_vec, seed, max_depth,
     stream_tables_to_torch``): S the tiles, P the block boxes, the padded
     clusters and supers, and n_super the used blocks; its CUDA launches
     count in ``render_sample.streamed_launches``, the resident ones in
-    ``render_sample.launches``.  The resident kernel also takes
-    ``block_boxes`` (``TorchTables.block_boxes``, ``tables.block_boxes``:
+    ``render_sample.launches``; it also takes the group boxes
+    (``group_boxes``, ``TorchStreamTables.group_boxes``: the level above
+    the blocks) and on the card ``stream_stats``, an
+    int64[len(STREAM_STATS)] tensor to which the walk's counters are
+    added (``STREAM_STATS``).  The
+    resident kernel also takes ``block_boxes`` (``TorchTables.
+    block_boxes``, ``tables.block_boxes``:
     the third culling level of the refilling kernel's walk; required on
     the card), and in the refilling instantiations ``sched_stats``, an
     int64[2] tensor on the card, gets the lane and CTA slots added (the
@@ -1018,9 +1092,11 @@ def render_sample(S, P, clusters, supers, n_super, cam_vec, seed, max_depth,
             has_qmc=has_qmc, sample_base=sample_base, tile_mask=tile_mask,
             tile=tile, y0=y0, band_h=band_h, with_cull_stats=with_cull_stats,
             stream_b=stream_b, cluster=cluster, super_=super_,
-            block_boxes=block_boxes, sched_stats=sched_stats, **feat)
+            block_boxes=block_boxes, sched_stats=sched_stats,
+            group_boxes=group_boxes, stream_stats=stream_stats, **feat)
     if S.device.type != "cuda":
         raise ValueError(f"render_sample runs on cuda or cpu, not {S.device}")
+    check_stream_extras(S, n_super, stream_b, group_boxes, stream_stats, True)
     variant = render_variant(has_rects, has_tris, has_vattrs,
                              atlas is not None, streamed=bool(stream_b),
                              **feat)
@@ -1046,6 +1122,8 @@ def render_sample(S, P, clusters, supers, n_super, cam_vec, seed, max_depth,
     suffix, tabs = table_args(S, P, clusters, supers, n_super, stream_b,
                               cluster, super_)
     entry = "crt_render_sample" + suffix
+    sx, seen = stream_extra_args(n_super, stream_b, group_boxes,
+                                 stream_stats) if stream_b else ((), None)
     with torch.cuda.device(S.device):
         rc = getattr(lib, entry)(
             *tabs, cam_vec.data_ptr(), rng.key_for(int(seed), int(stream)),
@@ -1056,7 +1134,7 @@ def render_sample(S, P, clusters, supers, n_super, cam_vec, seed, max_depth,
             int(has_qmc), sample_base,
             None if tile_mask is None else tile_mask.data_ptr(), *mask_geom,
             y0, band_h, counts[1:].data_ptr() if with_cull_stats else None,
-            *(() if stream_b else (
+            *(sx if stream_b else (
                 block_boxes.data_ptr(), block_boxes.shape[1], STREAM_BLOCK_B,
                 counts[2:].data_ptr(),
                 None if sched_stats is None else sched_stats.data_ptr())),

@@ -697,6 +697,9 @@ class StreamTables(_t.NamedTuple):
 
 
 STREAM_BLOCK_B = 4  # superclusters per streamed block (512 f32 columns)
+# blocks per group: the level above the blocks of the streamed walk
+# (``group_boxes``; search.cuh::closest_hit_streamed)
+STREAM_GROUP_G = 16
 
 
 def block_count(nsc: int, block_b: int = STREAM_BLOCK_B) -> int:
@@ -724,6 +727,20 @@ def block_boxes(supers, n_super: int, n_blocks: int,
             boxes[0:3, bi] = supers[0:3, lo:hi].min(axis=1)
             boxes[3:6, bi] = supers[3:6, lo:hi].max(axis=1)
     return boxes
+
+
+def group_boxes(boxes, n_blocks: int,
+                group_g: int = STREAM_GROUP_G) -> np.ndarray:
+    """f32[6, ceil(n_blocks / group_g)]: group gi's box is the union of the
+    block boxes gi*group_g .. (gi+1)*group_g - 1 among the ``n_blocks``
+    that the walk visits, those holding a used supercluster (the others
+    are point boxes at +BIG and would stretch it), by the helper that
+    unions the blocks' superclusters (``block_boxes``).  The fourth
+    culling level of the streamed walk; min and max are exact, so a
+    group's box holds its blocks' boxes bit for bit."""
+    boxes = np.asarray(boxes)[:, :int(n_blocks)]
+    n_used = int(np.count_nonzero(boxes[0] < BIG))
+    return block_boxes(boxes, n_used, -(-int(n_blocks) // group_g), group_g)
 
 
 def stream_rows(p_rows: int) -> int:
@@ -794,12 +811,15 @@ class TorchStreamTables(_t.NamedTuple):
     vattrs: bool = False
     motion: bool = False
     table_bytes: int = 0  # the resident layout's bytes (table_bytes)
+    group_boxes: torch.Tensor | None = None  # group_boxes, STREAM_GROUP_G
 
 
 def stream_tables_to_torch(st: StreamTables, device,
                            resident_bytes: int = 0) -> TorchStreamTables:
-    """Upload streamed tables to ``device``; ``resident_bytes`` records
-    the resident layout's size (the route's reason)."""
+    """Upload streamed tables to ``device``, with their group boxes
+    (``group_boxes``: passed as ``render_sample``'s and ``gbuffer``'s
+    ``group_boxes``); ``resident_bytes`` records the resident layout's
+    size (the route's reason)."""
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
@@ -807,7 +827,7 @@ def stream_tables_to_torch(st: StreamTables, device,
         put(st.tiles), put(st.block_boxes), put(st.clusters), put(st.supers),
         int(st.n_blocks), put(st.prim_map), int(st.cluster), int(st.super_),
         int(st.block_b), bool(st.vattrs), bool(st.motion),
-        int(resident_bytes))
+        int(resident_bytes), put(group_boxes(st.block_boxes, st.n_blocks)))
 
 
 def tile_columns(tiles: torch.Tensor, rows: slice, block_b: int,
@@ -833,10 +853,13 @@ def table_bytes(t) -> int:
 # The share of the card's L2 beyond which the tables stream.  Measured on
 # an NVIDIA H100 80GB HBM3 at 700 W (scripts/stream_crossover.py, smooth
 # heightfield meshes at the main path's 1280x720, 4 spp, depth 12; PERF.md,
-# the streamed layout's findings): the streamed megakernel is slower below ~0.4 of the L2 (1.16x at
-# 0.04) and about 0.9x from ~0.6 on, where its block level, one box test
-# for four superclusters, outweighs its copies.
-STREAM_L2_SHARE = 0.5
+# the streamed walk's findings): the streamed megakernel, whose walk culls
+# by group and block boxes, takes 0.77 of the resident one's time at 0.04
+# of the L2, 0.64 at 0.10 and 0.34 at 0.93; the registered scenes stay
+# below a tenth of the L2 (terrain_big 0.086 at most), where the streamed
+# kernel ranges from 0.92 of the resident time (terrain_big) to 1.23
+# (book2_final with NEE and QMC, 0.018 of the L2).
+STREAM_L2_SHARE = 0.1
 
 
 def stream_budget(device) -> int | None:

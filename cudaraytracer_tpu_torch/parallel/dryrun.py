@@ -110,7 +110,7 @@ def dryrun_multichip(n_devices: int, device: str = "cuda") -> dict:
                 (st.tiles, st.block_boxes, st.clusters, st.supers),
                 st.n_blocks, cv, seed, depth, width=width, height=height,
                 mesh=mesh, tile_h=16, tile_w=128, spp=spp, sample_base=base,
-                **dict(kw, stream_b=st.block_b))
+                **dict(kw, stream_b=st.block_b, group_boxes=st.group_boxes))
             if not torch.equal(sout, out):
                 raise AssertionError("streamed shard != resident shard")
             means["streamed"] = float(sout.mean())

@@ -93,8 +93,8 @@ def render_sharded_sample(tables, n_super, cam_vec, seed, max_depth, *,
     ``render_sharded_pallas`` takes them (tiling.py:144-211); ``kw`` are
     ``render_sample``'s other keywords (camera model, Russian roulette,
     the scene's static flags, the atlas, NEE with its light table, QMC,
-    cluster sizes, ``stream_b`` or the resident ``block_boxes``), the
-    same at every place.  Band ``ri`` is
+    cluster sizes, ``stream_b`` with the streamed ``group_boxes``, or the
+    resident ``block_boxes``), the same at every place.  Band ``ri`` is
     the image rows ri * band_h .. (ri + 1) * band_h - 1 with band_h =
     height / n_rows; the places are ``band_launches``.
 

@@ -1,20 +1,27 @@
-"""The resident megakernel's design parts against its speed, on one GPU.
+"""The megakernel's and the streamed walk's design parts against their
+speed, on one GPU.
 
     python -m cudaraytracer_tpu_torch.scripts.design_sweep
         [--variants committed,no_refill,refill_all,two_level,media6]
         [--parent DIR] [--cases book2_final/nee_qmc,terrain_big,default]
         [--reps 10] [--out F.json]
 
-A variant is this package with edits to csrc/render_kernel.cu that take
-one design part out or change it (``EDITS``; joined with "+" they
-combine): ``no_refill`` (no instantiation refills lanes: the
-one-thread-per-pixel grid everywhere), ``refill_all`` (every
-instantiation does), ``two_level`` (the refilling kernel searches with
-search.cuh::closest_hit, without the block level), ``bound<k>`` (the
-resident entries launch-bounded to k CTAs of 128 threads per SM) and
-``media<k>`` (the refilling media entry alone);
-``committed`` is the package as it is, and
-``--parent DIR`` adds the checkout at DIR (e.g. the parent commit's
+A variant is this package with edits to its sources that take one
+design part out or change it (``EDITS``; joined with "+" they combine).
+The resident megakernel's (csrc/render_kernel.cu): ``no_refill`` (no
+instantiation refills lanes: the one-thread-per-pixel grid everywhere),
+``refill_all`` (every instantiation does), ``two_level`` (the refilling
+kernel searches with search.cuh::closest_hit, without the block level),
+``bound<k>`` (the resident entries launch-bounded to k CTAs of 128
+threads per SM) and ``media<k>`` (the refilling media entry alone);
+``sbound<k>`` and ``gbound<k>``, the streamed megakernel's and
+G-buffer's timed entries so bounded.  The
+streamed walk's (csrc/search.cuh::closest_hit_streamed): ``g8``,
+``g32`` and ``no_groups`` (8 or 32 blocks per group box, or one group:
+ops/cuda/tables.py STREAM_GROUP_G; the walking unit, the page slots and
+pages against whole blocks were swept by edits of the code then, whose
+losing paths are gone: PERF.md, the streamed walk's findings).
+``committed`` is the package as it is, and ``--parent DIR`` adds the checkout at DIR (e.g. the parent commit's
 ``git archive``) as the variant ``parent``.  Each variant is copied into
 a temporary directory (the checkout is never edited), built, and its
 build log read for the registers and spill stores of the cases'
@@ -22,11 +29,18 @@ instantiations; then the variants time the megakernel in turns (in
 order, then in reverse) on the cases at 1280x720, 4 spp, depth 12,
 Russian roulette from bounce 2, seed 7 (CUDA events, median of
 ``--reps`` launches after a warm-up; ``/nee_qmc`` adds NEE and QMC at
-sample base 8), set up as the render loop sets them up.  The persistent
-grid follows each build's occupancy.  Prints one JSON line per timed run
-and a summary: each case's median ms per variant beside the registers
-and spills, and the card's name and power limit (nvidia-smi).  Needs a
-GPU and nvcc.
+sample base 8), set up as the render loop sets them up.  A streamed case
+(``<scene>[/nee_qmc]/streamed``, or ``mesh`` and ``mesh_cli``: the
+1,036,800-triangle heightfield of ``stream_crossover`` at 1280x720, 4
+spp, depth 12, and at 640x360, 2 spp, depth 4) times the streamed
+megakernel and G-buffer, holds them to the resident launch (pixels,
+rays, cluster entries, G-buffers) and reads the walk's counters where
+the variant has them (``stream_stats``).  The persistent grid follows
+each build's occupancy.  Prints one JSON line per timed run (or the
+error of a variant that does not build or run; the others go on) and a
+summary: each case's median ms per variant beside the registers and
+spills, and the card's name and power limit (nvidia-smi).  Needs a GPU
+and nvcc.
 """
 
 from __future__ import annotations
@@ -47,8 +61,23 @@ CASES = ("book2_final/nee_qmc", "terrain_big", "default", "rtow_final",
 ENTRIES = ("__launch_bounds__(kThreads)\nrender_kernel(",
            "__launch_bounds__(kThreads)\nrender_kernel_refill(",
            "__launch_bounds__(kThreads, 6)\nrender_kernel_media(")
-# a design part's edits to csrc/render_kernel.cu: (text, replacement)
+# the streamed entries' launch bounds: the megakernel's, the G-buffer's
+# (file, text, the text bounded at {} CTAs an SM)
+STREAM_ENTRIES = (
+    ("csrc/render_kernel.cu",
+     "__launch_bounds__(kThreads, 3)\nrender_kernel_streamed(",
+     "__launch_bounds__(kThreads, {})\nrender_kernel_streamed("),
+    ("csrc/gbuffer_kernel.cu",
+     "__launch_bounds__(kBlockX * kBlockY)\ngbuffer_kernel_streamed(",
+     "__launch_bounds__(kBlockX * kBlockY, {})\ngbuffer_kernel_streamed("))
+# a design part's edits: (text, replacement) in csrc/render_kernel.cu,
+# or (file under the package, text, replacement)
 EDITS = {
+    # blocks per group box: 8, 32, or one group of every block
+    **{f"g{g}": [("ops/cuda/tables.py", "STREAM_GROUP_G = 16",
+                  f"STREAM_GROUP_G = {g}")] for g in (8, 32)},
+    "no_groups": [("ops/cuda/tables.py", "STREAM_GROUP_G = 16",
+                   "STREAM_GROUP_G = 1 << 20")],
     "no_refill": [("  return (feat & crt::F_MEDIA) != 0;",
                    "  return feat < 0;")],
     "refill_all": [("  return (feat & crt::F_MEDIA) != 0;",
@@ -73,89 +102,181 @@ def edits_of(variant: str) -> list:
             out += [(old, f"__launch_bounds__(kThreads, {k})\n"
                           f"{old.split(chr(10))[1]}")
                     for old in ENTRIES[2 * part.startswith("media"):]]
+        elif part.startswith(("sbound", "gbound")):
+            # sbound<k>, gbound<k>: the streamed megakernel's or G-buffer's
+            # timed entry launch-bounded to k CTAs an SM
+            rel, old, new = STREAM_ENTRIES[part[0] == "g"]
+            out.append((rel, old, new.format(int(part[6:]))))
         elif part in EDITS:
             out += EDITS[part]
         else:
             raise SystemExit(f"unknown design part {part!r}")
     return out
 
-# run in a copy: build, then time the cases; prints RESULT {...}
-CHILD = r'''
-import inspect, json, re, sys, statistics, torch
+# run in a copy: build, then time the cases; prints RESULT {...}.  A
+# streamed case ("<scene>[/nee_qmc]/streamed", or "mesh" and "mesh_cli":
+# the 1,036,800-triangle heightfield at 1280x720 4 spp depth 12 and at
+# 640x360 2 spp depth 4) times the streamed megakernel and G-buffer,
+# checks them against the resident launch and, where the copy has them,
+# reads the walk's counters (stream_stats)
+CHILD = r"""
+import inspect, json, os, pickle, re, sys, statistics, torch
 from cudaraytracer_tpu_torch.models import scenes
+from cudaraytracer_tpu_torch.models.camera import make_camera_params
 from cudaraytracer_tpu_torch.ops.cuda import build
+from cudaraytracer_tpu_torch.ops.cuda import render_kernel as rk
+from cudaraytracer_tpu_torch.ops.cuda.gbuffer_kernel import gbuffer
 from cudaraytracer_tpu_torch.ops.cuda.render_kernel import (
     FEATURES, render_sample, render_variant)
 from cudaraytracer_tpu_torch.ops.cuda.tables import (
-    kernel_inputs, nee_inputs, pack_camera_np)
-cases, reps = json.loads(sys.argv[1]), int(sys.argv[2])
+    kernel_flags, kernel_inputs, nee_inputs, pack_camera_np,
+    pack_scene_tables, pack_stream_tiles, stream_tables_to_torch,
+    tables_to_torch)
+from cudaraytracer_tpu_torch.scripts.stream_crossover import (
+    CAMERA, heightfield_scene)
+cases, reps, cache = json.loads(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
 log = build.build()["log"]
 ptxas, entry = {}, None
 for ln in log.splitlines():
-    m = re.search(r"Compiling entry function '_ZN\S*?(render_kernel"
-                  r"(?:_media|_refill)?)I"
+    m = re.search(r"Compiling entry function '_ZN\S*?"
+                  r"((?:render|gbuffer)_kernel(?:_media|_refill|_streamed)?)I"
                   r"((?:L[bi]\d+E)+)E", ln)
     if m:
-        entry = "<" + ",".join(re.findall(r"L[bi](\d+)E", m.group(2))) + ">"
+        entry = m.group(1) + "<" + ",".join(
+            re.findall(r"L[bi](\d+)E", m.group(2))) + ">"
     elif entry and (m := re.search(r"(\d+) bytes spill stores", ln)):
         ptxas.setdefault(entry, {})["spill_store_bytes"] = int(m.group(1))
     elif entry and (m := re.search(r"Used (\d+) registers", ln)):
         ptxas.setdefault(entry, {})["registers"] = int(m.group(1))
         entry = None
+sig = inspect.signature(render_sample).parameters
 dev, res = torch.device("cuda"), {}
-for case in cases:
-    name, _, opts = case.partition("/")
-    sc, cam = scenes.SCENES[name][0](), scenes.SCENES[name][1]()
-    tb, fl = kernel_inputs(sc, dev)
-    cv = torch.from_numpy(pack_camera_np(cam, sc.background_start,
-                                         sc.background_end, 1280, 720,
-                                         1e-3)).to(dev)
-    kw = dict(width=1280, height=720, camera_model=scenes.camera_model_for(
-        name), spp=4, rr_start=2, **fl)
-    if "block_boxes" in inspect.signature(render_sample).parameters:
-        kw["block_boxes"] = tb.block_boxes
-    if opts == "nee_qmc":
-        kw.update(nee_inputs(sc, dev), has_qmc=True, sample_base=8)
-    args = (tb.S, tb.P, tb.clusters, tb.supers, tb.n_super, cv, 7, 12)
-    variant = render_variant(fl["has_rects"], fl["has_tris"],
-                             fl["has_vattrs"], "atlas" in fl,
-                             **{k: kw.get(k, False) for k, _, _ in FEATURES})
-    render_sample(*args, **kw)
+
+def ms(fn):
+    fn()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        render_sample(*args, **kw)
+        fn()
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+def mesh_tables():
+    path = os.path.join(cache, "heightfield720.pkl")
+    if not os.path.exists(path):
+        scene = heightfield_scene(720)
+        t = pack_scene_tables(scene)
+        with open(path + ".tmp", "wb") as f:
+            pickle.dump((t, kernel_flags(scene), scene.background_start,
+                         scene.background_end), f)
+        os.replace(path + ".tmp", path)
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+for case in cases:
+    parts = case.split("/")
+    name = parts[0]
+    streamed = parts[-1] == "streamed" or name in ("mesh", "mesh_cli")
+    w, h, spp, depth = (640, 360, 2, 4) if name == "mesh_cli" \
+        else (1280, 720, 4, 12)
+    if name in ("mesh", "mesh_cli"):
+        t, fl, b0, b1 = mesh_tables()
+        fl = dict(fl, has_vattrs=t.vattrs)
+        tb, cam, model = tables_to_torch(t, dev), \
+            make_camera_params(**CAMERA), "look_at"
+        sc = None
+    else:
+        sc, cam = scenes.SCENES[name][0](), scenes.SCENES[name][1]()
+        tb, fl = kernel_inputs(sc, dev)
+        b0, b1, model = sc.background_start, sc.background_end, \
+            scenes.camera_model_for(name)
+        t = pack_scene_tables(sc, with_uv="atlas" in fl) if streamed \
+            else None
+    cv = torch.from_numpy(pack_camera_np(cam, b0, b1, w, h, 1e-3)).to(dev)
+    kw = dict(width=w, height=h, camera_model=model, spp=spp, rr_start=2,
+              cluster=tb.cluster, super_=tb.super_, **fl)
+    if "nee_qmc" in parts:
+        kw.update(nee_inputs(sc, dev), has_qmc=True, sample_base=8)
+    rkw = dict(kw, block_boxes=tb.block_boxes) \
+        if "block_boxes" in sig else dict(kw)
+    rargs = (tb.S, tb.P, tb.clusters, tb.supers, tb.n_super, cv, 7, depth)
+    variant = render_variant(fl["has_rects"], fl["has_tris"],
+                             fl["has_vattrs"], "atlas" in fl,
+                             streamed=streamed,
+                             **{k: kw.get(k, False) for k, _, _ in FEATURES})
     key = "<" + ",".join(str(int(v)) for v in variant) + ">"
-    res[case] = {"ms": statistics.median(times), "instantiation": key,
-                 **ptxas.get(key, {})}
+    if not streamed:
+        render_sample(*rargs, **rkw)
+        kern = next((k + key for k in ("render_kernel_refill",
+                                       "render_kernel_media", "render_kernel")
+                     if k + key in ptxas), "render_kernel" + key)
+        res[case] = {"ms": ms(lambda: render_sample(*rargs, **rkw)),
+                     "instantiation": kern, **ptxas.get(kern, {})}
+        continue
+    st = stream_tables_to_torch(pack_stream_tiles(t), dev)
+    sargs = (st.tiles, st.block_boxes, st.clusters, st.supers, st.n_blocks,
+             cv, 7, depth)
+    skw = dict(kw, stream_b=st.block_b)
+    if "group_boxes" in sig:
+        skw["group_boxes"] = st.group_boxes
+    gkw = {k: v for k, v in skw.items() if k not in (
+        "spp", "rr_start", "lights", "has_nee", "has_qmc", "sample_base",
+        "nee_p")}
+    ir, nr, cr = render_sample(*rargs, with_stats=True, with_cull_stats=True,
+                               **rkw)
+    is_, ns, cs = render_sample(*sargs, with_stats=True,
+                                with_cull_stats=True, **skw)
+    gr = gbuffer(*rargs[:6], **{k: v for k, v in gkw.items() if k not in (
+        "stream_b", "group_boxes")})
+    gs = gbuffer(*sargs[:6], **gkw)
+    kern = "render_kernel_streamed" + key
+    r = {"ms": ms(lambda: render_sample(*sargs, **skw)),
+         "instantiation": kern, **ptxas.get(kern, {}),
+         "rays": int(ns), "cull_entries": int(cs),
+         "pixels_differing": int((ir != is_).any(2).sum()),
+         "rays_equal": int(nr) == int(ns), "cull_equal": int(cr) == int(cs),
+         "gbuffer_equal": all(torch.equal(a, b) for a, b in zip(gr, gs)),
+         "gbuffer_ms": ms(lambda: gbuffer(*sargs[:6], **gkw))}
+    if "stream_stats" in sig:
+        for tag, fn in (("stream_stats", lambda s: render_sample(
+                *sargs, stream_stats=s, **skw)), ("gbuffer_stream_stats",
+                lambda s: gbuffer(*sargs[:6], stream_stats=s, **gkw))):
+            s = torch.zeros(len(rk.STREAM_STATS), dtype=torch.int64,
+                            device=dev)
+            fn(s)
+            r[tag] = dict(zip(rk.STREAM_STATS, (int(v) for v in s.cpu())))
+    res[case] = r
+    del st, sargs, ir, is_
+    torch.cuda.empty_cache()
 print("RESULT " + json.dumps(res))
-'''
+"""
 
 
 def copy_of(variant: str, tmp: str, pkg: Path = PKG) -> str:
-    """A copy of the package ``pkg`` with the variant's edits; returns
-    its root."""
+    """A copy of the package ``pkg`` with the variant's edits (each
+    (file under the package, text, replacement), or (text, replacement)
+    in csrc/render_kernel.cu); returns its root."""
     root = os.path.join(tmp, variant)
     shutil.copytree(pkg, os.path.join(root, PKG.name),
                     ignore=shutil.ignore_patterns("__pycache__"))
-    src = Path(root, PKG.name, "csrc", "render_kernel.cu")
-    text = src.read_text()
-    for old, new in edits_of(variant):
+    for edit in edits_of(variant):
+        rel, old, new = edit if len(edit) == 3 else ("csrc/render_kernel.cu",
+                                                     *edit)
+        src = Path(root, PKG.name, rel)
+        text = src.read_text()
         if text.count(old) != 1:
             raise RuntimeError(f"{variant}: {old!r} not found once in {src}")
-        text = text.replace(old, new)
-    src.write_text(text)
+        src.write_text(text.replace(old, new))
     return root
 
 
-def run(root: str, cases, reps: int) -> dict:
+def run(root: str, cases, reps: int, cache: str) -> dict:
     proc = subprocess.run([sys.executable, "-c", CHILD, json.dumps(cases),
-                           str(reps)], cwd=root,
+                           str(reps), cache], cwd=root,
                           env=dict(os.environ, PYTHONPATH=root),
                           capture_output=True, text=True, timeout=900)
     for line in proc.stdout.splitlines():
@@ -190,17 +311,31 @@ def main(argv=None):
         if args.parent:
             roots["parent"] = copy_of(
                 "parent", tmp, Path(args.parent).resolve() / PKG.name)
+        failed = set()
         for v in variants + variants[::-1]:
-            r = run(roots[v], cases, args.reps)
+            if v in failed:
+                continue
+            try:
+                r = run(roots[v], cases, args.reps, tmp)
+            except (RuntimeError, subprocess.TimeoutExpired) as e:
+                # a variant that does not build or run is reported, and
+                # the others go on
+                print(json.dumps({"variant": v, "error": str(e)[-3000:]}),
+                      flush=True)
+                failed.add(v)
+                continue
             runs[v].append(r)
             print(json.dumps({"variant": v, **r, "nvidia_smi": smi}),
                   flush=True)
     summary = {v: {c: {"ms": statistics.median(r[c]["ms"] for r in runs[v]),
                        "ms_runs": [r[c]["ms"] for r in runs[v]],
-                       **{x: runs[v][0][c].get(x) for x in (
-                           "instantiation", "registers",
-                           "spill_store_bytes")}}
-                   for c in cases} for v in variants}
+                       **{x: runs[v][0][c][x] for x in (
+                           "instantiation", "registers", "spill_store_bytes",
+                           "gbuffer_ms", "pixels_differing", "rays_equal",
+                           "cull_equal", "gbuffer_equal", "stream_stats",
+                           "gbuffer_stream_stats")
+                          if x in runs[v][0][c]}}
+                   for c in cases} for v in variants if runs[v]}
     print(json.dumps({"summary": summary, "nvidia_smi": smi}), flush=True)
     if args.out:
         Path(args.out).write_text(json.dumps({"runs": runs,

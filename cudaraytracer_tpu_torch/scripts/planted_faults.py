@@ -4,7 +4,8 @@
         [--only NAME,NAME]
 
 For each fault below (or those ``--only`` names), copies this package
-into a temporary directory, edits one line of a CUDA source there,
+into a temporary directory, edits a source there (a CUDA one, or
+tables.py for the group boxes),
 builds that copy and compares its kernels with the unchanged plain
 versions at 1280x720 on the fault's scenes, set up as the render loop
 sets them up (``tables.kernel_inputs``; megakernel 4 spp, depth 12, rr 2,
@@ -19,7 +20,8 @@ launches with the streams and sample bases written out) and the staging
 probe (every variant's CTA sums against ``expected``), and the streamed
 layout (the streamed launch against the resident one at 1280x720, 4
 spp, depth 12, with QMC, and NEE on book2_final: pixels, rays and
-cluster entries).  "sound" is the unedited copy, checked on every
+cluster entries; and the group boxes against the exact union of their
+blocks' boxes).  "sound" is the unedited copy, checked on every
 scene, "sound_options" the same with every option on the NEE scenes,
 "sound_slice" the bands, the sharded frame and the probe,
 "sound_stream" the streamed layout, and "sound_sched" the refilling
@@ -34,8 +36,8 @@ closest-hit masks and columns, band and sharded pixels off, probe CTAs
 off, streamed pixels, rays and entries off the resident launch, and
 "caught": whether chip_smoke.py's limits (more than 0.01% of pixels or
 1e-4 on mean or rays; any G-buffer mask or pixel; any closest-hit mask
-or column; any band, sharded, probe or streamed mismatch) would fail the
-copy.  Needs a GPU and nvcc; the checkout is never edited.
+or column; any band, sharded, probe, streamed or group-box mismatch)
+would fail the copy.  Needs a GPU and nvcc; the checkout is never edited.
 """
 
 from __future__ import annotations
@@ -205,17 +207,48 @@ FAULTS = {
     "stream_page_offset": ([(
         "csrc/search.cuh", "j = j - si * span + s * 128;",
         "j = j - si * span + s * span;")], STREAM, {"stream": True}),
-    # a block skipped when only one ray of the CTA enters it
+    # a candidate block dropped when only one ray of the warp enters it
     "stream_block_one_ray": ([(
-        "csrc/search.cuh",
-        "if (__syncthreads_or(box_hit(st.boxes, st.nbc, b, r, t_min, best_t)))",
-        "if (__syncthreads_count(box_hit(st.boxes, st.nbc, b, r, t_min, "
-        "best_t)) > 1)")], STREAM, {"stream": True}),
-    # the next block chosen under a best_t tighter than the rays' own
+        "csrc/search.cuh", "if (lane_id() == 0 && in_b != 0u) {",
+        "if (lane_id() == 0 && __popc(in_b) > 1) {")], STREAM,
+        {"stream": True}),
+    # the next page re-gated under a best_t tighter than the rays' own
     "stream_prefetch_tight": ([(
         "csrc/search.cuh",
-        "const int nxt = next_block(st, cur + 1, r, t_min, best_t);",
-        "const int nxt = next_block(st, cur + 1, r, t_min, 0.5f * best_t);")],
+        "more = next_page(tb, st, sg, cu, r, t_min, best_t, b1, s1);",
+        "more = next_page(tb, st, sg, cu, r, t_min, 0.5f * best_t, b1, "
+        "s1);")], STREAM, {"stream": True}),
+    # a candidate bit dropped: the first block of every bitmask word
+    "stream_candidate_bit_dropped": ([(
+        "csrc/search.cuh", "sg.mask[b >> 5] |= 1u << (b & 31);",
+        "sg.mask[b >> 5] |= (1u << (b & 31)) & ~1u;")], STREAM,
+        {"stream": True}),
+    # a page's rows copied from the wrong offset in its block's tile
+    "stream_page_wrong_offset": ([(
+        "csrc/search.cuh",
+        "st.tiles + static_cast<size_t>(b) * st.r8 * st.w + s * 128;",
+        "st.tiles + static_cast<size_t>(b) * st.r8 * st.w + s * span;")],
+        STREAM, {"stream": True}),
+    # every group box shrunk by one ulp on its low side
+    "stream_group_box_shrunk": ([(
+        "ops/cuda/tables.py",
+        "    return block_boxes(boxes, n_used, -(-int(n_blocks) // group_g), "
+        "group_g)",
+        "    g = block_boxes(boxes, n_used, -(-int(n_blocks) // group_g), "
+        "group_g)\n"
+        "    g[0:3] = np.nextafter(g[0:3], np.float32(BIG))\n    return g")],
+        STREAM, {"stream": True}),
+    # the re-gate under a stale best_t: the lane's own from its last walk
+    "stream_regate_stale": ([
+        ("csrc/search.cuh", "  unsigned phase;\n",
+         "  unsigned phase;\n  float stale = kBig;\n"),
+        ("csrc/search.cuh",
+         "const bool in = box_hit(st.boxes, st.nbc, cu.block, r, t_min, "
+         "best_t);",
+         "const bool in = box_hit(st.boxes, st.nbc, cu.block, r, t_min, "
+         "fminf(best_t, sg.stale));"),
+        ("csrc/search.cuh", "    slot ^= 1;\n  }\n  return best_j;\n",
+         "    slot ^= 1;\n  }\n  sg.stale = best_t;\n  return best_j;\n")],
         STREAM, {"stream": True}),
 }
 
@@ -226,8 +259,9 @@ from cudaraytracer_tpu_torch.ops.cuda.gbuffer_kernel import gbuffer, gbuffer_pla
 from cudaraytracer_tpu_torch.ops.cuda.hit_kernel import closest_hit, closest_hit_plain
 from cudaraytracer_tpu_torch.ops.cuda.render_kernel import mask_grid, render_sample, render_sample_plain
 from cudaraytracer_tpu_torch.ops.cuda.tables import (
-    SceneTables, kernel_inputs, nee_inputs, pack_camera_np, pack_stream_tiles,
-    stream_tables_to_torch)
+    STREAM_GROUP_G as G, SceneTables, kernel_inputs, nee_inputs,
+    pack_camera_np, pack_stream_tiles, stream_tables_to_torch)
+from cudaraytracer_tpu_torch.scripts.stream_util import group_boxes_off
 dev, W, H, res = torch.device("cuda"), 1280, 720, {}
 opts = json.loads(sys.argv[2])
 mk = {}
@@ -295,10 +329,16 @@ for name in json.loads(sys.argv[1]):
             is_, ns, cs = render_sample(
                 st.tiles, st.block_boxes, st.clusters, st.supers,
                 st.n_blocks, cv, 7, 12, stream_b=st.block_b,
-                with_stats=True, with_cull_stats=True, **kw)
+                group_boxes=st.group_boxes, with_stats=True,
+                with_cull_stats=True, **kw)
+            # the group boxes against the exact union of their blocks'
+            # boxes (chip_smoke.py's check of every streamed table)
+            g_off = group_boxes_off(st.block_boxes, st.group_boxes,
+                                    st.n_blocks, G)
             res[name + "/stream"] = {
                 "pixels": int((ir != is_).any(2).sum()),
-                "rays_off": int(ns) - int(nr), "entries_off": int(cs) - int(cr)}
+                "rays_off": int(ns) - int(nr),
+                "entries_off": int(cs) - int(cr), "group_boxes_off": g_off}
         if opts.get("bands"):
             full = render_sample(*a, 7, 12, stream=3, sample_base=8, **kw,
                                  **bb)
@@ -389,7 +429,8 @@ def caught(res: dict) -> bool:
         if key.startswith("probe/") and r["ctas_off"]:
             return True
         if key.endswith("/stream") and (r["pixels"] or r["rays_off"]
-                                        or r["entries_off"]):
+                                        or r["entries_off"]
+                                        or r["group_boxes_off"]):
             return True
     return False
 

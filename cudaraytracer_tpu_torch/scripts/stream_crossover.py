@@ -3,11 +3,17 @@ layout starts to pay on the card.
 
     python -m cudaraytracer_tpu_torch.scripts.stream_crossover
         [--sizes 100,160,240,320,400,480,560,720] [--device cuda]
+        [--mesh heightfield|torus] [--flat] [--nee]
 
-For each size n, a smooth heightfield of 2 n^2 triangles on the
-checkered ground, set up as ``render --obj --obj-smooth`` sets up an OBJ
-model (``heightfield_scene``), is packed resident (``tables.
-pack_scene_tables``) and streamed (``tables.pack_stream_tiles``).  Both
+For each size n, a mesh of 2 n^2 triangles on the checkered ground, set
+up as ``render --obj --obj-smooth`` sets up an OBJ model: a smooth
+heightfield (``heightfield_scene``) or, with ``--mesh torus``, a torus
+of n x n quads (``utils/mesh.py::torus``, normalized as
+``register_obj_scene`` normalizes a file); ``--flat`` drops the vertex
+normals (``render --obj`` without ``--obj-smooth``), ``--nee`` adds
+light sampling (``render --obj --nee``).  It is packed resident
+(``tables.pack_scene_tables``) and streamed (``tables.
+pack_stream_tiles``).  Both
 layouts render the same launches, which must be equal bit for bit, and
 are timed in turns (resident, streamed, streamed, resident; CUDA events,
 median of 5 launches after a warm-up) at 640x360 1 spp depth 4 (the
@@ -34,9 +40,10 @@ import torch
 
 from ..models.camera import make_camera_params
 from ..models.scene import CHECKER, Scene
+from ..utils import mesh as meshlib
 from ..ops.cuda.gbuffer_kernel import gbuffer
 from ..ops.cuda.render_kernel import render_sample
-from ..ops.cuda.tables import (kernel_flags, pack_camera_np,
+from ..ops.cuda.tables import (kernel_flags, nee_inputs, pack_camera_np,
                                pack_scene_tables, pack_stream_tiles,
                                stream_tables_to_torch, table_bytes,
                                tables_to_torch)
@@ -61,16 +68,25 @@ def heightfield(n: int) -> tuple[np.ndarray, np.ndarray]:
     return v, f
 
 
-def heightfield_scene(n: int) -> Scene:
-    """The heightfield as ``register_obj_scene(smooth=True)`` sets up a
-    model spanning [-1, 1]: rested on the ground rect at y = -0.5, smooth
-    vertex normals, the default lambertian albedo."""
-    v, f = heightfield(n)
+def heightfield_scene(n: int, smooth: bool = True,
+                      mesh: str = "heightfield") -> Scene:
+    """The heightfield (or a torus of n x n quads, ``mesh="torus"``) as
+    ``register_obj_scene(smooth=smooth)`` sets up a model: spanning
+    [-1, 1] (the torus centred and scaled to it), rested on the ground
+    rect at y = -0.5, the default lambertian albedo."""
+    if mesh == "torus":
+        v, f = meshlib.torus(segments=n, sides=n)
+        v = (v * np.float32(2.0 / float(np.ptp(v, 0).max()))).astype(
+            np.float32)
+    elif mesh == "heightfield":
+        v, f = heightfield(n)
+    else:
+        raise ValueError(f"mesh {mesh!r}: heightfield or torus")
     v[:, 1] -= v[:, 1].min() + 0.5
     scene = Scene(capacity=len(f) + 16)
     scene.add_xz_rect((0.0, -0.5, 0.0), 60.0, 60.0, tex_type=CHECKER,
                       albedo=(0.2, 0.3, 0.1), albedo2=(0.9, 0.9, 0.9))
-    scene.add_mesh(v, f, smooth=True, albedo=(0.75, 0.73, 0.70))
+    scene.add_mesh(v, f, smooth=smooth, albedo=(0.75, 0.73, 0.70))
     return scene
 
 
@@ -94,21 +110,24 @@ def _ms(fn, cuda: bool, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def measure(n: int, shapes, device) -> dict:
+def measure(n: int, shapes, device, mesh: str = "heightfield",
+            smooth: bool = True, nee: bool = False) -> dict:
     """One size's row (module docstring)."""
     dev = torch.device(device)
     cuda = dev.type == "cuda"
-    scene = heightfield_scene(n)
+    scene = heightfield_scene(n, smooth, mesh)
     t0 = time.perf_counter()
     t = pack_scene_tables(scene)
     pack_s = time.perf_counter() - t0
     tb = tables_to_torch(t, dev)
     st = stream_tables_to_torch(pack_stream_tiles(t), dev)
     flags = dict(kernel_flags(scene), has_vattrs=t.vattrs)
+    lit = nee_inputs(scene, dev) if nee else {}
     nbytes = table_bytes(t)
     l2 = torch.cuda.get_device_properties(dev).L2_cache_size if cuda \
         else None
-    row = {"triangles": 2 * n * n, "table_bytes": nbytes,
+    row = {"mesh": mesh, "smooth": smooth, "nee": nee,
+           "triangles": 2 * n * n, "table_bytes": nbytes,
            "l2_share": nbytes / l2 if l2 else None, "pack_s": pack_s,
            "blocks": st.n_blocks, "supers": int(t.n_super)}
     cam = make_camera_params(**CAMERA)
@@ -116,24 +135,24 @@ def measure(n: int, shapes, device) -> dict:
         cv = torch.from_numpy(pack_camera_np(
             cam, scene.background_start, scene.background_end, w, h,
             1e-3)).to(dev)
-        kw = dict(width=w, height=h, camera_model="look_at", spp=spp,
-                  rr_start=2, cluster=t.cluster, super_=t.super_, **flags)
+        gkw = dict(width=w, height=h, camera_model="look_at",
+                   cluster=t.cluster, super_=t.super_, **flags)
+        kw = dict(gkw, spp=spp, rr_start=2, **lit)
         res = (tb.S, tb.P, tb.clusters, tb.supers, tb.n_super, cv, 7, depth)
         stm = (st.tiles, st.block_boxes, st.clusters, st.supers,
                st.n_blocks, cv, 7, depth)
         bb = dict(block_boxes=tb.block_boxes)
         a, na = render_sample(*res, with_stats=True, **kw, **bb)
-        b, nb = render_sample(*stm, with_stats=True, stream_b=st.block_b,
-                              **kw)
+        skw = dict(stream_b=st.block_b, group_boxes=st.group_boxes)
+        b, nb = render_sample(*stm, with_stats=True, **skw, **kw)
         if not torch.equal(a, b) or int(na) != int(nb):
             raise AssertionError(f"streamed != resident at n={n}")
         r1 = _ms(lambda: render_sample(*res, **kw, **bb), cuda)
-        s1 = _ms(lambda: render_sample(*stm, stream_b=st.block_b, **kw), cuda)
-        s2 = _ms(lambda: render_sample(*stm, stream_b=st.block_b, **kw), cuda)
+        s1 = _ms(lambda: render_sample(*stm, **skw, **kw), cuda)
+        s2 = _ms(lambda: render_sample(*stm, **skw, **kw), cuda)
         r2 = _ms(lambda: render_sample(*res, **kw, **bb), cuda)
-        gkw = {k: v for k, v in kw.items() if k not in ("spp", "rr_start")}
         g_r = _ms(lambda: gbuffer(*res[:6], **gkw), cuda)
-        g_s = _ms(lambda: gbuffer(*stm[:6], stream_b=st.block_b, **gkw), cuda)
+        g_s = _ms(lambda: gbuffer(*stm[:6], **skw, **gkw), cuda)
         row[f"{w}x{h}/{spp}spp/depth{depth}"] = {
             "rays": int(na), "resident_ms": [r1, r2], "streamed_ms": [s1, s2],
             "streamed_over_resident": (s1 + s2) / (r1 + r2),
@@ -141,7 +160,8 @@ def measure(n: int, shapes, device) -> dict:
     return row
 
 
-def run(sizes, device="cuda") -> dict:
+def run(sizes, device="cuda", mesh="heightfield", smooth=True,
+        nee=False) -> dict:
     """Every size's row, printed as it comes."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -160,7 +180,7 @@ def run(sizes, device="cuda") -> dict:
                                            if n <= 480 else [])
         else:
             shapes = [(32, 18, 1, 2)]
-        rows[n] = measure(n, shapes, dev)
+        rows[n] = measure(n, shapes, dev, mesh, smooth, nee)
         print(json.dumps({"n": n, **rows[n], "nvidia_smi": smi,
                           "mode": "compiled" if smi else "plain"}),
               flush=True)
@@ -172,8 +192,16 @@ def main(argv=None):
     ap.add_argument("--sizes", default="100,160,240,320,400,480,560,720",
                     help="comma-separated n (2 n^2 triangles each)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default="heightfield",
+                    choices=("heightfield", "torus"))
+    ap.add_argument("--flat", action="store_true",
+                    help="no vertex normals (render --obj without "
+                         "--obj-smooth)")
+    ap.add_argument("--nee", action="store_true",
+                    help="light sampling (render --obj --nee)")
     args = ap.parse_args(argv)
-    run([int(v) for v in args.sizes.split(",")], args.device)
+    run([int(v) for v in args.sizes.split(",")], args.device, args.mesh,
+        not args.flat, args.nee)
 
 
 if __name__ == "__main__":

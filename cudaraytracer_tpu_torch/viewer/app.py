@@ -166,10 +166,10 @@ class _CudaPipeline:
     per progressive frame and one ``gbuffer`` launch per G-buffer (the JAX
     package's ``_PallasPipeline``), and with ``cfg.adaptive`` the tile
     mask and its statistics.  Tables that outgrow the card's budget
-    (``tables.stream_budget``, half its L2; never on the CPU) are packed in the
-    streamed layout and both kernels run their streamed entries
-    (``stream_b``), where the JAX pipeline streams tables beyond the
-    TPU's scalar memory.  Built anew on every scene edit; a flag
+    (``tables.stream_budget``, a tenth of its L2; never on the CPU) are
+    packed in the streamed layout and both kernels run their streamed
+    entries (``stream_b``), where the JAX pipeline streams tables beyond
+    the TPU's scalar memory.  Built anew on every scene edit; a flag
     combination that no kernel instantiation serves (``--nee`` on a scene
     without an NEE instantiation) raises ``NotImplementedError`` here, on
     either device."""
@@ -237,13 +237,14 @@ class _CudaPipeline:
         return var / n
 
     def _tables(self) -> tuple:
-        """The kernels' five table arguments and their layout keywords."""
+        """The kernels' five table arguments and their layout keywords
+        (the streamed layout's with its group boxes)."""
         tb = self._tabs
         kw = dict(cluster=tb.cluster, super_=tb.super_,
                   stream_b=self.stream_b)
         if self.stream_b:
             return (tb.tiles, tb.block_boxes, tb.clusters, tb.supers,
-                    tb.n_blocks), kw
+                    tb.n_blocks), dict(kw, group_boxes=tb.group_boxes)
         return (tb.S, tb.P, tb.clusters, tb.supers, tb.n_super), kw
 
     def _blocks(self) -> dict:

@@ -21,9 +21,12 @@ frame must equal the sum of its launches, the cluster entries must equal
 the plain version's replay, and every variant of the staging probe must
 sum to ``expected``.  The streamed layout must equal the resident
 kernels bit for bit (image, rays, cluster entries; masked and in a band
-too) and its plain walk, and a scene class without a streamed
-instantiation raises.  The megakernel limits here are the ones it states
-and why; at 96x54 they allow no differing pixel.  The G-buffer kernel and
+too) and its plain walk, also on a heightfield beyond a forced budget
+in a ragged frame and a half-masked band, where the walk's counters of
+the rays' own (group and block tests, block and page entries) equal the
+plain walk's; ``stream_stats`` is checked, and a scene class without a
+streamed instantiation raises.  The megakernel limits here are the ones
+it states and why; at 96x54 they allow no differing pixel.  The G-buffer kernel and
 its plain version do the same float operations: equal hit masks, and
 the buffers equal to 1e-6.
 """
@@ -463,7 +466,7 @@ def stream_setup(name, dev, w, h, nee=False, block_b=ttab.STREAM_BLOCK_B):
     kw.update(width=w, height=h, camera_model=tscenes.camera_model_for(name))
     return ((tb.S, tb.P, tb.clusters, tb.supers, tb.n_super, cv),
             (st.tiles, st.block_boxes, st.clusters, st.supers, st.n_blocks,
-             cv), dict(stream_b=block_b), kw,
+             cv), dict(stream_b=block_b, group_boxes=st.group_boxes), kw,
             dict(block_boxes=tb.block_boxes))
 
 
@@ -550,3 +553,136 @@ def test_pipeline_streams_beyond_the_budget_on_the_card(cuda, monkeypatch):
     a.close()
     assert render_kernel.render_sample.streamed_launches == s0 + 2
     assert render_kernel.render_sample.launches == r0
+
+
+def heightfield_setup(dev, w, h, n=120, nee=False):
+    """A smooth heightfield of 2 n^2 triangles (scripts/stream_crossover)
+    packed resident and, as beyond a forced budget, streamed: the frame
+    arguments as ``stream_setup`` gives them."""
+    from cudaraytracer_tpu_torch.scripts.stream_crossover import (
+        CAMERA, heightfield_scene)
+
+    scene = heightfield_scene(n)
+    tb, kw = ttab.kernel_inputs(scene, dev)
+    st, _ = ttab.kernel_inputs(scene, dev, budget=1000)
+    assert isinstance(st, ttab.TorchStreamTables)
+    if nee:
+        kw.update(ttab.nee_inputs(scene, dev))
+    cv = torch.from_numpy(ttab.pack_camera_np(
+        make_camera_params(**CAMERA), scene.background_start,
+        scene.background_end, w, h, 1e-3)).to(dev)
+    kw.update(width=w, height=h, camera_model="look_at")
+    return ((tb.S, tb.P, tb.clusters, tb.supers, tb.n_super, cv),
+            (st.tiles, st.block_boxes, st.clusters, st.supers, st.n_blocks,
+             cv), dict(stream_b=st.block_b, group_boxes=st.group_boxes), kw,
+            dict(block_boxes=tb.block_boxes))
+
+
+@pytest.mark.parametrize("nee", [False, True])
+def test_streamed_heightfield_equals_resident(cuda, nee):
+    """The redesigned walk (candidate sweep over group and block boxes,
+    pages staged where rays enter) on a mesh of several groups beyond a
+    forced budget: bit for bit the resident kernels, in a ragged 97x55
+    frame and in a half-masked band, rays and cluster entries too."""
+    res, stm, skw, kw, bb = heightfield_setup(cuda, 97, 55, nee=nee)
+    assert stm[4] > 2 * ttab.STREAM_GROUP_G  # several groups
+    kw.update(spp=2, rr_start=2, with_stats=True, with_cull_stats=True,
+              has_qmc=nee, stream=4)
+    gi, gj = render_kernel.mask_grid(97, 40, (16, 128))
+    half = torch.tensor([i % 2 for i in range(gi * gj)], dtype=torch.int32,
+                        device=cuda)
+    for extra in ({}, dict(y0=8, band_h=40, tile=(16, 128), tile_mask=half)):
+        torch.full((55, 97, 3), float("nan"), device=cuda)  # freed at once
+        a, na, ca = render_kernel.render_sample(*res, 7, 8, **kw, **extra,
+                                                **bb)
+        b, nb, cb = render_kernel.render_sample(*stm, 7, 8, **kw, **extra,
+                                                **skw)
+        assert torch.equal(a, b) and float(a.sum()) > 0
+        assert int(na) == int(nb) and int(ca) == int(cb) > 0
+    gkw = {k: v for k, v in kw.items() if k in (
+        "width", "height", "camera_model", "has_rects", "has_tris",
+        "has_vattrs")}
+    g_r = gbuffer_kernel.gbuffer(*res, **gkw)
+    g_s = gbuffer_kernel.gbuffer(*stm, **gkw, **skw)
+    assert all(torch.equal(x, y) for x, y in zip(g_r, g_s))
+
+
+def test_stream_stats_equal_the_plain_walk(cuda):
+    """The walk's counters that are the rays' own (the sweep's group- and
+    block-box tests and block entries, the (ray, page) entries) equal the
+    plain walk's counts, for the G-buffer and the megakernel; the unit's
+    own add up (a walk per warp and iteration, pages and bytes)."""
+    _, stm, skw, kw, _ = heightfield_setup(cuda, 64, 40)
+    names = render_kernel.STREAM_STATS
+    gkw = {k: v for k, v in kw.items() if k not in ("has_nee", "lights")}
+    s = torch.zeros(len(names), dtype=torch.int64, device=cuda)
+    g_count = gbuffer_kernel.gbuffer(*stm, **gkw, **skw, stream_stats=s)
+    got = dict(zip(names, s.tolist()))
+    # the counting entry's output is the timed entry's
+    assert all(torch.equal(x, y) for x, y in zip(
+        g_count, gbuffer_kernel.gbuffer(*stm, **gkw, **skw)))
+    # each page entered counts once: within the pages staged, the (ray,
+    # page) entries and the tables' pages
+    assert 0 < got["pages_entered"] <= min(
+        got["pages"], got["ray_pages"], stm[4] * skw["stream_b"])
+    work = {}
+    gbuffer_kernel.gbuffer_plain(*stm, **gkw, **skw, work=work)
+    for k, w in (("group_tests", "group"), ("block_tests", "block"),
+                 ("block_entries", "block_in"), ("ray_pages", "ray_pages")):
+        assert got[k] == work[w], (k, got[k], work[w])
+    assert got["walks"] == 64 * 40 // 32 and got["idle_walks"] == 0
+    assert got["bytes"] == got["pages"] * 16 * 4 * 112 > 0
+    rkw = dict(kw, spp=2, rr_start=2, with_stats=True)
+    s.zero_()
+    img, rays = render_kernel.render_sample(*stm, 7, 4, **rkw, **skw,
+                                            stream_stats=s)
+    got = dict(zip(names, s.tolist()))
+    img_t, rays_t = render_kernel.render_sample(*stm, 7, 4, **rkw, **skw)
+    assert torch.equal(img, img_t) and int(rays) == int(rays_t)
+    assert 0 < got["pages_entered"] <= min(
+        got["pages"], got["ray_pages"], stm[4] * skw["stream_b"])
+    work = {}
+    _, rays_p = render_kernel.render_sample_plain(*stm, 7, 4, **rkw, **skw,
+                                                  work=work)
+    assert int(rays) == int(rays_p)
+    for k, w in (("group_tests", "group"), ("block_tests", "block"),
+                 ("block_entries", "block_in"), ("ray_pages", "ray_pages")):
+        assert got[k] == work[w], (k, got[k], work[w])
+    assert got["group_tests"] == int(rays) * skw["group_boxes"].shape[1]
+
+
+def test_stream_stats_checked(cuda):
+    """stream_stats and group_boxes are the streamed kernels' arguments:
+    checked before a launch, group_boxes required and of the blocks'
+    group count, and the plain version has no counters."""
+    res, stm, skw, kw, bb = stream_setup("terrain", cuda, 32, 16)
+    n = len(render_kernel.STREAM_STATS)
+    n0 = render_kernel.render_sample.streamed_launches
+    for bad in (torch.zeros(n, dtype=torch.int32, device=cuda),
+                torch.zeros(n + 1, dtype=torch.int64, device=cuda),
+                torch.zeros(n, dtype=torch.int64)):
+        with pytest.raises(ValueError, match="stream_stats"):
+            render_kernel.render_sample(*stm, 7, 2, **kw, **skw,
+                                        stream_stats=bad)
+        with pytest.raises(ValueError, match="stream_stats"):
+            gbuffer_kernel.gbuffer(*stm, **kw, **skw, stream_stats=bad)
+    with pytest.raises(ValueError, match="streamed layout"):
+        render_kernel.render_sample(*res, 7, 2, **kw, **bb,
+                                    stream_stats=torch.zeros(
+                                        n, dtype=torch.int64, device=cuda))
+    with pytest.raises(ValueError, match="group_boxes must be"):
+        render_kernel.render_sample(*stm, 7, 2, **kw,
+                                    stream_b=skw["stream_b"])
+    gb = skw["group_boxes"]
+    for bad in (gb[:, :0], torch.cat([gb, gb], 1)):
+        with pytest.raises(ValueError, match="group_boxes must be"):
+            gbuffer_kernel.gbuffer(*stm, **kw, stream_b=skw["stream_b"],
+                                   group_boxes=bad)
+    assert render_kernel.render_sample.streamed_launches == n0
+    cpu = [x.cpu() if torch.is_tensor(x) else x for x in stm]
+    with pytest.raises(ValueError, match="plain version has"):
+        render_kernel.render_sample_plain(
+            *cpu, 7, 2, **{k: v.cpu() if torch.is_tensor(v) else v
+                           for k, v in kw.items()},
+            stream_b=skw["stream_b"], group_boxes=gb.cpu(),
+            stream_stats=torch.zeros(n, dtype=torch.int64))

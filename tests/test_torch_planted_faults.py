@@ -22,7 +22,13 @@ streams of a band sharing one generator stream fail the sharded frame
 against its launches; the probe's streamrows waiting on its first row
 only fails the sum against the JAX kernels'; the streamed layout's
 payload read from the wrong page of its tile fails the tiles' columns
-against the resident tables.
+against the resident tables; the streamed walk's sweep dropping a
+candidate block and a page read from the wrong offset of its tile fail
+the walk against the resident walks and brute force, and a group box
+shrunk by one ulp fails the exact union of its blocks.  (The card's
+other streamed faults, a block dropped where one ray of a warp enters
+it, a page re-gated under a tighter or a stale best_t, are in the
+kernel's votes and gates, which the plain walk does not have.)
 
     PYTHONPATH=.:tests python tests/test_torch_planted_faults.py
 
@@ -53,6 +59,7 @@ import test_torch_render_media as render_media  # noqa: E402
 import test_torch_sampling as sampling_tests  # noqa: E402
 import test_torch_stream as stream_tests  # noqa: E402
 import test_torch_stream_probe as probe_tests  # noqa: E402
+import test_torch_stream_walk as walk_tests  # noqa: E402
 
 from cudaraytracer_tpu_torch.ops import noise as tnoise  # noqa: E402
 from cudaraytracer_tpu_torch.ops import sampling as tsampling  # noqa: E402
@@ -168,6 +175,29 @@ FAULTS = {
         ttab, "tile_columns", "page_col = (si % block_b) * 128 + j % span",
         "page_col = (si % block_b) * span + j % span",
         stream_tests.test_tile_columns_read_the_resident_columns, ()),
+    # the streamed walk's candidate sweep dropping the first block of
+    # every bitmask word
+    "stream_candidate_bit_dropped": (
+        hk, "stream_sweep", "            if rb.numel():\n                cand",
+        "            if rb.numel() and b % 32:\n                cand",
+        lambda: walk_tests.test_streamed_walk_equals_resident_walks(
+            "book2_final", 16), ()),
+    # a page's columns read from the wrong offset in its block's tile
+    "stream_page_wrong_offset": (
+        hk, "streamed_closest", "l0 = s * 128 + c * cluster",
+        "l0 = s * span + c * cluster",
+        lambda: walk_tests.test_streamed_walk_equals_resident_walks(
+            "terrain_big", 16), ()),
+    # every group box shrunk by one ulp on its low side
+    "stream_group_box_shrunk": (
+        ttab, "group_boxes",
+        "    return block_boxes(boxes, n_used, -(-int(n_blocks) // group_g), "
+        "group_g)",
+        "    g = block_boxes(boxes, n_used, -(-int(n_blocks) // group_g), "
+        "group_g)\n"
+        "    g[0:3] = np.nextafter(g[0:3], np.float32(BIG))\n    return g",
+        lambda: walk_tests.test_group_boxes_are_the_union_of_their_blocks(
+            "terrain_big", 16), ()),
 }
 
 # the later faults' checks as readings (name, function)
@@ -191,6 +221,15 @@ READINGS = {
     "stream_page_offset": (
         "terrain payload columns off the resident P at block_b 4 (0)",
         stream_tests.payload_mismatch),
+    "stream_candidate_bit_dropped": (
+        "book2_final rays off the brute-force hit (0)",
+        lambda: walk_tests.walk_mismatch("book2_final")),
+    "stream_page_wrong_offset": (
+        "terrain_big rays off the brute-force hit (0)",
+        lambda: walk_tests.walk_mismatch("terrain_big")),
+    "stream_group_box_shrunk": (
+        "terrain_big group boxes off their blocks' union (0)",
+        lambda: walk_tests.group_box_mismatch("terrain_big")),
     "streamrows_first_row_only": (
         "streamrows sum at 9 tiles of 4 x 64 (expected)",
         lambda: [int(sp.stream_probe(sp.probe_table(9, 64, 4),

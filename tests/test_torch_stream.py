@@ -153,7 +153,8 @@ def test_streamed_plain_render_equals_resident(case):
     kw.update(spp=2, rr_start=2, with_stats=True, with_cull_stats=True,
               stream=1, **opts)
     a, na, ca = rk.render_sample(*res, 7, 6, **kw)
-    b, nb, cb = rk.render_sample(*stm, 7, 6, stream_b=block_b, **kw)
+    b, nb, cb = rk.render_sample(*stm, 7, 6, stream_b=block_b,
+                                 group_boxes=st.group_boxes, **kw)
     assert torch.isfinite(a).all() and float(a.sum()) > 0
     assert torch.equal(a, b)
     assert int(na) == int(nb) and int(ca) == int(cb) > 0
@@ -166,7 +167,7 @@ def test_streamed_plain_render_equals_resident(case):
 def test_streamed_plain_gbuffer_equals_resident(name):
     res, stm, st, kw = setup(name, 2, 32, 16)
     a = gk.gbuffer(*res, **kw)
-    b = gk.gbuffer(*stm, stream_b=2, **kw)
+    b = gk.gbuffer(*stm, stream_b=2, group_boxes=st.group_boxes, **kw)
     assert float((a.depth > 0).float().mean()) > 0.1
     for x, y in zip(a, b):
         assert torch.equal(x, y)
@@ -184,7 +185,7 @@ def test_streamed_plain_gbuffer_matches_jax_streamed_kernel():
     n_x, a_x, d_x = (np.asarray(v) for v in ref[:3])
     _, stm, st, kw = setup("default", ttab.STREAM_BLOCK_B, w, h)
     n_p, a_p, d_p = (v.numpy() for v in gk.gbuffer(
-        *stm, stream_b=st.block_b, **kw))
+        *stm, stream_b=st.block_b, group_boxes=st.group_boxes, **kw))
     hit_x, hit_p = d_x > 0, d_p > 0
     assert (hit_x != hit_p).sum() == 0 and hit_p.mean() > 0.1
     np.testing.assert_allclose(d_p[hit_p], d_x[hit_p], rtol=5e-4, atol=1e-4)
@@ -269,7 +270,8 @@ def test_sharded_streamed_frame_equals_resident():
                                      mesh=mesh, sample_base=2, **kw)
     b = tiling.render_sharded_sample(stm[:4], stm[4], stm[5], 7, 4,
                                      mesh=mesh, sample_base=2,
-                                     stream_b=st.block_b, **kw)
+                                     stream_b=st.block_b,
+                                     group_boxes=st.group_boxes, **kw)
     assert float(a.sum()) > 0 and torch.equal(a, b)
 
 
