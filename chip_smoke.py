@@ -5,7 +5,14 @@
 Builds the port's CUDA kernels from ``cudaraytracer_tpu_torch/csrc/`` (one
 nvcc per source, run together), shows each instantiation's registers and
 spill stores (beside the numbers PERF.md recorded for the earlier ones),
-checks each kernel against its plain PyTorch version on the card, with
+checks each kernel against its plain PyTorch version on the card (the
+closest hit on 2^20 uniform rays, on the sorted bounce wavefronts of
+1280x720 frames of rtow_final, terrain_big and cornell_mesh_light and on
+rays that graze block corners, ``scripts/bounce_rays.py``; the resident
+G-buffer and the closest hit walk a warp's rays together,
+``search.cuh::closest_hit_packet``, and their counting entries' output
+must equal the timed entries' and their counters, ``hit_stats``, the
+plain walk's), with
 the render options too (NEE on the lit scenes, QMC, a random half of the
 tiles masked), drives the CLI paths (``python -m cudaraytracer_tpu_torch
 render`` at 1280x720 with ``--denoise --aov``: ``--scene book2_final
@@ -79,7 +86,10 @@ motion flags.
 Each kernel's ``bound_ms`` is the least time the card could take for the
 work of the timed call: the larger of its bytes (tables and inputs read
 once, outputs written once) over 3.35 TB/s and its float operations over
-67 TFLOP/s (f32, no tensor cores).  The operations are counted from this
+67 TFLOP/s (f32, no tensor cores).  The G-buffer's and the closest hit's
+count the work every walk does (``scripts/hit_util.py::walk_bound``):
+the primitive tests of the clusters the rays enter, the shading, no box
+test, which a walk that culls better would lower in its own bound.  The operations are counted from this
 run's data: the plain versions replay the kernels' culled search and
 count the box tests each ray runs and the primitive tests it needs in
 the clusters it enters, one per primitive, not per padding column; a
@@ -103,7 +113,13 @@ Tolerances, and why:
   give the same t (a genuine tie, resolved by visit order), and t must
   agree to rtol 1e-5.  Rays past n_alive must report (BIG, -1).  Checked
   on rtow_final (spheres) and on cornell_mesh_light (rects, triangles and
-  spheres).
+  spheres) with uniform rays, and on the bounce wavefronts and grazing
+  rays of those and terrain_big (these against the plain walk: a ray
+  through a box's corner may touch a primitive on the box's boundary,
+  which every culled walk and brute force may call differently).  The
+  walk's counters must equal the plain walk's exactly: a packet test a
+  few ulps too tight may move no hit, but it passes another count of
+  boxes (the grazing rays put many of them within a few ulps).
 * megakernel: both versions draw the same random numbers and round every
   operation alike, but a transcendental's last bit (``sinf`` at checker
   cell edges, ``cosf``/``expf``/``logf`` in the scatter draws) could send
@@ -149,7 +165,8 @@ Tolerances, and why:
   default scene (two_plane) at 1280x720, and on terrain, rtow_image and
   terrain_big (vertex attributes, image textures), and on marble, smoke,
   cornell_smoke, bounce and book2_final (noise albedo, media skipped,
-  moving spheres at time 0).  The sound kernel read
+  moving spheres at time 0); its walk's counters equal the plain walk's.
+  The sound kernel read
   equal masks and a max abs error of 0 on every buffer of rtow_final and
   default on an H100 (PERF.md); the limit leaves one float32 rounding
   step of room on the unit-scale normal and albedo and nothing on a depth
@@ -180,29 +197,35 @@ sys.path.insert(0, ROOT)
 
 W_MAIN, H_MAIN, DEPTH, RR, SPP_MAIN = 1280, 720, 12, 2, 4
 # registers / spill-store bytes of every instantiation before this slice's
-# kernel changes: the parent's build log, as PERF.md records it (NVIDIA
-# H100 80GB HBM3): the template flags are (rects, tris[, vattrs, images,
-# features]); the probe's, its variant
+# kernel changes: the parent's build log (nvcc for sm_90a on an NVIDIA
+# H100 80GB HBM3 machine, read on the card): the template flags
+# are (rects, tris[, vattrs, images, features]); the probe's, its variant
 BASE_PTXAS = {
     "closest_hit_kernel<0,0>": (40, 0), "closest_hit_kernel<1,0>": (36, 0),
     "closest_hit_kernel<1,1>": (79, 0), "gbuffer_kernel<0,0,0,0,0>": (34, 0),
     "gbuffer_kernel<0,0,0,0,1>": (40, 12),
-    "gbuffer_kernel<0,0,0,1,0>": (38, 0), "gbuffer_kernel<1,0,0,0,0>": (36, 0),
+    "gbuffer_kernel<0,0,0,1,0>": (38, 0),
+    "gbuffer_kernel<1,0,0,0,0>": (36, 0),
     "gbuffer_kernel<1,0,0,0,3>": (40, 12),
-    "gbuffer_kernel<1,0,0,1,0>": (38, 0), "gbuffer_kernel<1,1,0,0,0>": (72, 0),
-    "gbuffer_kernel<1,1,0,1,0>": (72, 0), "gbuffer_kernel<1,1,0,1,3>": (68, 0),
-    "gbuffer_kernel<1,1,1,0,0>": (72, 0), "gbuffer_kernel<1,1,1,1,0>": (72, 0),
-    "gbuffer_kernel_streamed<0,0,0,0,0>": (46, 0),
-    "gbuffer_kernel_streamed<1,0,0,0,0>": (60, 0),
-    "gbuffer_kernel_streamed<1,0,0,0,3>": (56, 8),
-    "gbuffer_kernel_streamed<1,1,0,0,0>": (64, 8),
-    "gbuffer_kernel_streamed<1,1,0,1,3>": (64, 14),
-    "gbuffer_kernel_streamed<1,1,1,0,0>": (64, 14),
-    "gbuffer_kernel_streamed<1,1,1,1,0>": (64, 14),
-    "render_kernel<0,0,0,0,0>": (56, 40), "render_kernel<0,0,0,0,16>": (72, 8),
+    "gbuffer_kernel<1,0,0,1,0>": (38, 0),
+    "gbuffer_kernel<1,1,0,0,0>": (72, 0),
+    "gbuffer_kernel<1,1,0,1,0>": (72, 0),
+    "gbuffer_kernel<1,1,0,1,3>": (68, 0),
+    "gbuffer_kernel<1,1,1,0,0>": (72, 0),
+    "gbuffer_kernel<1,1,1,1,0>": (72, 0),
+    "gbuffer_kernel_streamed<0,0,0,0,0>": (56, 0),
+    "gbuffer_kernel_streamed<1,0,0,0,0>": (48, 0),
+    "gbuffer_kernel_streamed<1,0,0,0,3>": (48, 0),
+    "gbuffer_kernel_streamed<1,1,0,0,0>": (56, 0),
+    "gbuffer_kernel_streamed<1,1,0,1,3>": (56, 0),
+    "gbuffer_kernel_streamed<1,1,1,0,0>": (56, 0),
+    "gbuffer_kernel_streamed<1,1,1,1,0>": (56, 0),
+    "render_kernel<0,0,0,0,0>": (56, 40),
+    "render_kernel<0,0,0,0,16>": (72, 8),
     "render_kernel<0,0,0,0,1>": (72, 56),
     "render_kernel<0,0,0,0,48>": (80, 24),
-    "render_kernel<0,0,0,1,0>": (56, 40), "render_kernel<1,0,0,0,0>": (80, 36),
+    "render_kernel<0,0,0,1,0>": (56, 40),
+    "render_kernel<1,0,0,0,0>": (80, 36),
     "render_kernel<1,0,0,0,15>": (80, 24),
     "render_kernel<1,0,0,0,31>": (80, 40),
     "render_kernel<1,0,0,0,32>": (96, 0),
@@ -211,7 +234,8 @@ BASE_PTXAS = {
     "render_kernel<1,0,0,0,63>": (80, 24),
     "render_kernel<1,0,0,0,7>": (80, 24),
     "render_kernel<1,0,0,1,0>": (72, 122),
-    "render_kernel<1,0,0,1,32>": (96, 4), "render_kernel<1,1,0,0,0>": (113, 0),
+    "render_kernel<1,0,0,1,32>": (96, 4),
+    "render_kernel<1,1,0,0,0>": (113, 0),
     "render_kernel<1,1,0,0,32>": (114, 0),
     "render_kernel<1,1,0,1,0>": (119, 0),
     "render_kernel<1,1,0,1,23>": (128, 0),
@@ -220,20 +244,23 @@ BASE_PTXAS = {
     "render_kernel<1,1,1,0,32>": (115, 0),
     "render_kernel<1,1,1,1,0>": (119, 0),
     "render_kernel<1,1,1,1,32>": (118, 0),
-    "render_kernel_streamed<0,0,0,0,0>": (64, 0),
-    "render_kernel_streamed<1,0,0,0,0>": (56, 126),
-    "render_kernel_streamed<1,0,0,0,63>": (64, 194),
-    "render_kernel_streamed<1,1,0,0,0>": (64, 154),
-    "render_kernel_streamed<1,1,0,0,32>": (64, 154),
-    "render_kernel_streamed<1,1,0,1,23>": (93, 0),
-    "render_kernel_streamed<1,1,0,1,55>": (93, 0),
-    "render_kernel_streamed<1,1,1,0,0>": (64, 174),
-    "render_kernel_streamed<1,1,1,0,32>": (64, 174),
-    "render_kernel_streamed<1,1,1,1,0>": (64, 174),
-    "render_kernel_streamed<1,1,1,1,32>": (64, 174),
+    "render_kernel_streamed<0,0,0,0,0>": (110, 0),
+    "render_kernel_streamed<1,0,0,0,0>": (114, 0),
+    "render_kernel_streamed<1,0,0,0,63>": (118, 0),
+    "render_kernel_streamed<1,1,0,0,0>": (114, 0),
+    "render_kernel_streamed<1,1,0,0,32>": (113, 0),
+    "render_kernel_streamed<1,1,0,1,23>": (108, 0),
+    "render_kernel_streamed<1,1,0,1,55>": (110, 0),
+    "render_kernel_streamed<1,1,1,0,0>": (123, 0),
+    "render_kernel_streamed<1,1,1,0,32>": (123, 0),
+    "render_kernel_streamed<1,1,1,1,0>": (106, 0),
+    "render_kernel_streamed<1,1,1,1,32>": (106, 0),
     "stream_probe_kernel<0>": (42, 0), "stream_probe_kernel<1>": (24, 0),
     "stream_probe_kernel<2>": (24, 0),
 }
+# the instantiations this slice redesigns (their BASE_PTXAS numbers are
+# the parent's, shown beside the new ones)
+REDESIGNED = ("gbuffer_kernel<", "closest_hit_kernel<")
 # megakernel against its plain version (see the module docstring)
 MEGA_DIFF_SHARE, MEGA_MEAN_RTOL, MEGA_RAYS_RTOL = 1e-4, 1e-4, 1e-4
 GBUF_ATOL = 1e-6
@@ -269,7 +296,8 @@ def main():
     from cudaraytracer_tpu_torch.ops.cuda.gbuffer_kernel import (
         GBUFFER_OPS, gbuffer, gbuffer_plain)
     from cudaraytracer_tpu_torch.ops.cuda.hit_kernel import (
-        OPS, closest_hit, closest_hit_plain, search_ops, search_work)
+        HIT_STATS, OPS, PACKET, closest_hit, closest_hit_plain,
+        search_ops, search_work)
     from cudaraytracer_tpu_torch.ops.cuda.render_kernel import (
         FEATURES, SHADE_OPS, STREAM_STATS, mask_grid, refills, render_sample,
         render_sample_plain, render_variant)
@@ -286,6 +314,8 @@ def main():
     from cudaraytracer_tpu_torch.scripts.stream_crossover import heightfield
     from cudaraytracer_tpu_torch.scripts.stream_util import (
         counted_bound, group_boxes_off)
+    from cudaraytracer_tpu_torch.scripts import bounce_rays
+    from cudaraytracer_tpu_torch.scripts.hit_util import readings, walk_bound
     from cudaraytracer_tpu_torch.viewer.app import tile_activity_plane
 
     # ---- 1. device ----
@@ -308,13 +338,14 @@ def main():
     ptxas, entry, spill = {}, None, 0
     for ln in info["log"].splitlines():  # nvcc -Xptxas=-v, per instantiation
         m = re.search(r"(render_kernel|closest_hit_kernel|gbuffer_kernel"
-                      r"|stream_probe_kernel)(?:_media|_refill)?(_streamed)?I"
-                      r"((?:L[bi]\d+E)+)E", ln)
+                      r"|stream_probe_kernel)(?:_media|_refill)?(_streamed)?"
+                      r"(_count)?I((?:L[bi]\d+E)+)E", ln)
         if "Compiling entry function" in ln and m:
             # template flags: rects, tris[, vattrs, images, feature bits];
             # the probe's: its variant
-            flags = ",".join(re.findall(r"L[bi](\d+)E", m.group(3)))
-            entry = f"{m.group(1)}{m.group(2) or ''}<{flags}>"
+            flags = ",".join(re.findall(r"L[bi](\d+)E", m.group(4)))
+            entry = f"{m.group(1)}{m.group(2) or ''}{m.group(3) or ''}" \
+                f"<{flags}>"
         elif entry and (m := re.search(r"(\d+) bytes spill stores", ln)):
             spill = int(m.group(1))
         elif entry and (m := re.search(r"Used (\d+) registers", ln)):
@@ -339,12 +370,12 @@ def main():
                                    for v in recorded.values()),
           "base_changed": sorted(k for k, v in recorded.items()
                                  if v["recorded"] != v["now"]),
-          # this slice changes the streamed instantiations alone: every
-          # resident one (megakernel, G-buffer, closest hit, probe) keeps
-          # its registers and spills
-          "resident_as_recorded": all(
+          # this slice changes the resident G-buffer and the closest hit
+          # alone: every other instantiation (megakernel, streamed
+          # entries, probe) keeps its registers and spills
+          "others_as_recorded": all(
               v["recorded"] == v["now"] for k, v in recorded.items()
-              if "_streamed" not in k),
+              if not k.startswith(REDESIGNED)),
           "base_ptxas": recorded,
           "new_ptxas": {k: [v["registers"], v["spill_store_bytes"]]
                         for k, v in ptxas.items() if k not in BASE_PTXAS},
@@ -504,24 +535,46 @@ def main():
         return out, (time.perf_counter() - t0) * 1000.0
 
     # ---- 3. closest hit, kernel against plain ----
-    def hit_check(su, lo, hi, seed):
-        rs = np.random.RandomState(seed)
-        n_rays = 1 << 20
-        n_alive = n_rays - 77777
-        org = rs.uniform(lo, hi, (n_rays, 3)).astype(np.float32)
-        dirn = rs.randn(n_rays, 3).astype(np.float32)
-        dirn /= np.linalg.norm(dirn, axis=1, keepdims=True)
-        org_t = torch.from_numpy(org).to(dev)
-        dir_t = torch.from_numpy(dirn).to(dev)
+    def walk_stats(fn, plain):
+        """The walk's counters from the counting entry (fn(hit_stats=)),
+        whose output must equal the timed entry's (fn()) bit for bit, and
+        whose counters the plain walk's (``plain``, a replay's work
+        dict): an exact check of the packet test, whose faults may move
+        no result."""
+        out = fn()
+        ks = torch.zeros(len(HIT_STATS), dtype=torch.int64, device=dev)
+        same = all(torch.equal(a, b) for a, b in zip(out, fn(hit_stats=ks)))
+        kd = dict(zip(HIT_STATS, ks.tolist()))
+        pd = {k: plain[k] for k in HIT_STATS}
+        if not same:
+            raise AssertionError("the counting entry's output differs from "
+                                 "the timed entry's")
+        if kd != pd:
+            raise AssertionError(
+                f"the walk's counters differ from the plain walk's: "
+                f"{ {k: (kd[k], pd[k]) for k in kd if kd[k] != pd[k]} }")
+        return kd
+
+    def hit_check(su, tag, rays):
+        """Kernel against plain on ``rays`` (org, dirn, n_alive: the
+        uniform rays, a sorted bounce wavefront or rays grazing block
+        corners, scripts/bounce_rays.py), then the counters and times.
+        The plain version is brute force, except on the grazing rays:
+        there a ray may touch a primitive on its cluster box's boundary,
+        which every culled walk (the parent's too) and brute force may
+        call differently, so they are held to the plain walk."""
+        org_t, dir_t, n_alive = rays
+        n_rays = org_t.shape[0]
+        kw = dict(**su.search_flags, **su.bb)
         n0 = closest_hit.launches
-        hk, tk, ck = closest_hit(*su.tabs, n_alive, org_t, dir_t,
-                                 **su.search_flags)
+        hk, tk, ck = closest_hit(*su.tabs, n_alive, org_t, dir_t, **kw)
         torch.cuda.synchronize()
         if closest_hit.launches != n0 + 1:
             raise AssertionError("closest_hit did not count its launch")
         p0 = closest_hit_plain.launches
-        hp, tp_, cp = closest_hit_plain(*su.tabs, n_alive, org_t, dir_t,
-                                        **su.search_flags)
+        hp, tp_, cp = closest_hit_plain(
+            *su.tabs, n_alive, org_t, dir_t, **su.search_flags,
+            **(su.bb if tag == "grazing" else {}))
         if closest_hit_plain.launches != p0 + 1:
             raise AssertionError("closest_hit_plain did not count its call")
         hk, tk, ck = hk.cpu().numpy(), tk.cpu().numpy(), ck.cpu().numpy()
@@ -544,26 +597,43 @@ def main():
         if not ((tk[dead] == np.float32(BIG)).all()
                 and (ck[dead] == -1).all()):
             raise AssertionError("dead rays must report (BIG, -1)")
+        # the plain walk's replay: its counters and the tests it needs
+        work = search_work(*su.tabs, org_t[:n_alive], dir_t[:n_alive],
+                           **kw, warps=torch.arange(n_alive, device=dev)
+                           // 32, packet=PACKET)
+        stats = walk_stats(
+            lambda **x: closest_hit(*su.tabs, n_alive, org_t, dir_t, **kw,
+                                    **x), work)
         ms = cuda_ms(lambda: closest_hit(*su.tabs, n_alive, org_t, dir_t,
-                                         **su.search_flags), 10)
+                                         **kw), 10)
         _, plain_ms = host_ms(lambda: closest_hit_plain(
             *su.tabs, n_alive, org_t, dir_t, **su.search_flags))  # warm
-        work = search_work(*su.tabs, org_t[:n_alive], dir_t[:n_alive],
-                           **su.search_flags)
-        # tables once, 24 B in and 8 B (t, col) out per ray
-        bd = bound(su.table_bytes + 32 * n_rays, search_ops(work))
+        # the work every walk does (the primitive tests of the clusters
+        # the rays enter), the tables once, 24 B in and 8 B (t, col) out
+        # per ray
+        bd = walk_bound(work, su.table_bytes + 32 * n_rays)
         err = float(t_err.max()) if t_err.size else 0.0
         ptype = su.tb.S[4].cpu().numpy()[ck[both]]
-        emit({"phase": "closest_hit", "scene": su.name, **su.search_flags,
-              "rays": n_rays, "n_alive": n_alive, "hits": int(hk.sum()),
+        emit({"phase": "closest_hit", "scene": su.name, "rays": tag,
+              **su.search_flags, "n_rays": n_rays, "n_alive": n_alive,
+              "hits": int(hk.sum()),
               "hits_by_ptype": {str(int(v)): int((ptype == v).sum())
                                 for v in np.unique(ptype)},
               "col_mismatch_t_ties": int(diff.sum()), "max_abs_err_t": err,
-              "ms": ms, "plain_ms": plain_ms, "work": work, **bd})
-        return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err, **bd}
+              "ms": ms, "plain_ms": plain_ms, "work": work,
+              "hit_stats": stats, "readings": readings(stats), **bd})
+        return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+                "hit_stats": stats, **bd}
 
-    hit_rtow = hit_check(rtow, (-12, 0.05, -12), (12, 3.0, 12), 20260101)
-    hit_cml = hit_check(cml, (-2.4, 0.1, -2.4), (2.4, 4.9, 4.0), 20260102)
+    hits = {}
+    for su in (rtow, cml):
+        hits[f"{su.name}/uniform"] = hit_check(
+            su, "uniform", bounce_rays.uniform_rays(su.name, dev))
+    for su in (rtow, terrain_big, cml):
+        hits[f"{su.name}/bounce"] = hit_check(
+            su, "bounce", bounce_rays.bounce_wavefront(su.name, dev))
+        hits[f"{su.name}/grazing"] = hit_check(
+            su, "grazing", bounce_rays.grazing_rays(su.tb.block_boxes, dev))
 
     # ---- 4. megakernel, kernel against plain ----
     def mega_check(su, w, h, seed, with_bound=False, util=False,
@@ -719,7 +789,7 @@ def main():
         args = su.frame_args(w, h)
         kw = dict(width=w, height=h, camera_model=su.model, **su.flags)
         p0 = gbuffer_plain.launches
-        gk = gbuffer(*args, **kw)
+        gk = gbuffer(*args, **kw, **su.bb)
         torch.cuda.synchronize()
         if gbuffer_plain.launches != p0:
             raise AssertionError("gbuffer fell back to its plain version")
@@ -729,25 +799,32 @@ def main():
                 for k, a, b in zip(gk._fields, gk, gp)}
         off = sum(int(((a - b).abs().reshape(h, w, -1) > GBUF_ATOL)
                        .any(-1).sum()) for a, b in zip(gk, gp))
-        ms = cuda_ms(lambda: gbuffer(*args, **kw), 10)
-        _, plain_ms = host_ms(lambda: gbuffer_plain(*args, **kw))  # warm
+        # the plain walk: its counters, and the tests and shading it needs
         work = {}
-        gbuffer_plain(*args, **kw, work=work)
-        bd = bound(su.table_bytes + su.texel_bytes(work) + 28 * w * h,
-                   work_ops(work, GBUFFER_OPS))
+        gbuffer_plain(*args, **kw, **su.bb, work=work)
+        stats = walk_stats(
+            lambda **x: gbuffer(*args, **kw, **su.bb, **x), work)
+        ms = cuda_ms(lambda: gbuffer(*args, **kw, **su.bb), 10)
+        _, plain_ms = host_ms(lambda: gbuffer_plain(*args, **kw))  # warm
+        # the work every walk does: the primitive tests of the clusters
+        # the rays enter, the shading, the texels, the tables, the output
+        bd = walk_bound(work, su.table_bytes + su.texel_bytes(work)
+                        + 28 * w * h, GBUFFER_OPS)
         emit({"phase": "gbuffer_check", "scene": su.name, **su.tags,
               "camera_model": su.model, "size": [w, h],
               "hit_share": float(hit_k.float().mean()),
               "hit_masks_differ": int((hit_k != hit_p).sum()),
               "max_abs_err": errs, "pixels_off_by_more_than_atol": off,
               "finite": bool(all(torch.isfinite(v).all() for v in gk)),
-              "ms": ms, "plain_ms": plain_ms, "work": work, **bd})
+              "ms": ms, "plain_ms": plain_ms, "work": work,
+              "hit_stats": stats, "readings": readings(stats), **bd})
         if not torch.equal(hit_k, hit_p) or max(errs.values()) > GBUF_ATOL:
             raise AssertionError(
                 f"G-buffer kernel disagrees with its plain version on "
                 f"{su.name}: {errs}")
         return gk, {"ms": ms, "plain_ms": plain_ms,
-                    "max_abs_err": max(errs.values()), **bd}
+                    "max_abs_err": max(errs.values()), "hit_stats": stats,
+                    **bd}
 
     _, gb_rtow = gbuf_check(rtow)
     gb_default_buf, gb_default = gbuf_check(default)
@@ -1307,14 +1384,14 @@ def main():
         sargs, skw = su.stream_args(W_MAIN, H_MAIN)
         kw = dict(width=W_MAIN, height=H_MAIN, camera_model=su.model,
                   **su.flags)
-        gr = gbuffer(*su.frame_args(W_MAIN, H_MAIN), **kw)
+        gr = gbuffer(*su.frame_args(W_MAIN, H_MAIN), **kw, **su.bb)
         gs = gbuffer(*sargs, **kw, **skw)
         same = all(torch.equal(a, b) for a, b in zip(gr, gs))
         stream_gbuf[su.name] = {
             "equal": same,
             "ms": cuda_ms(lambda: gbuffer(*sargs, **kw, **skw), 10),
             "resident_ms": cuda_ms(lambda: gbuffer(
-                *su.frame_args(W_MAIN, H_MAIN), **kw), 10)}
+                *su.frame_args(W_MAIN, H_MAIN), **kw, **su.bb), 10)}
         if not same:
             raise AssertionError(f"streamed G-buffer != resident on "
                                  f"{su.name}")
@@ -1395,14 +1472,14 @@ def main():
     sargs, skw = hf_su.stream_args(w_p, h_p)
     kw = dict(width=w_p, height=h_p, camera_model=hf_su.model,
               **hf_su.flags)
-    gr = gbuffer(*hf_su.frame_args(w_p, h_p), **kw)
+    gr = gbuffer(*hf_su.frame_args(w_p, h_p), **kw, **hf_su.bb)
     gs = gbuffer(*sargs, **kw, **skw)
     stream_gbuf[hf_su.name] = {
         "size": [w_p, h_p], "equal": all(torch.equal(a, b)
                                          for a, b in zip(gr, gs)),
         "ms": cuda_ms(lambda: gbuffer(*sargs, **kw, **skw), 10),
         "resident_ms": cuda_ms(lambda: gbuffer(
-            *hf_su.frame_args(w_p, h_p), **kw), 10)}
+            *hf_su.frame_args(w_p, h_p), **kw, **hf_su.bb), 10)}
     emit({"phase": "streamed_check", "against": "resident",
           "gbuffer": {hf_su.name: stream_gbuf[hf_su.name]},
           "nvidia_smi": smi})
@@ -1462,7 +1539,7 @@ def main():
             "gbuffer": {
                 "ms": cuda_ms(lambda: gbuffer(*sargs, **gkw, **skw), 5),
                 "resident_ms": cuda_ms(lambda: gbuffer(
-                    *su.frame_args(w, h), **gkw), 5),
+                    *su.frame_args(w, h), **gkw, **su.bb), 5),
                 "stream_stats": gst,
                 # without its cluster entries (the G-buffer counts none)
                 "bound": counted_bound(gst, w * h, w * h, 28 * w * h,
@@ -1500,11 +1577,16 @@ def main():
     gb2_kw = dict(width=W_MAIN, height=H_MAIN, camera_model=book2.model,
                   **book2.flags, **b2_skw)
     _, gb2_plain_ms = host_ms(lambda: gbuffer_plain(*gb2_sargs, **gb2_kw))
-    g2 = gb_new["book2_final"]
-    # the resident G-buffer's counted work and the streamed walk's sweep
+    # the streamed walk's counted work: the resident two-level walk's
+    # (its box tests too) and the streamed walk's sweep
+    g2_work = {}
+    gbuffer_plain(*book2.frame_args(W_MAIN, H_MAIN), width=W_MAIN,
+                  height=H_MAIN, camera_model=book2.model, **book2.flags,
+                  work=g2_work)
     gb2_st = stream_timing["book2_final/nee_qmc"]["gbuffer"]["stream_stats"]
     gb2_bound = bound(4 * sum(t.numel() for t in gb2_sargs[:4]) + 4 * 38
-                      + 28 * W_MAIN * H_MAIN, g2["ops"] + OPS["box"]
+                      + 28 * W_MAIN * H_MAIN,
+                      work_ops(g2_work, GBUFFER_OPS) + OPS["box"]
                       * (gb2_st["group_tests"] + gb2_st["block_tests"]))
     mesh_t = stream_timing["heightfield"]
 
@@ -1554,12 +1636,21 @@ def main():
          "source": "cudaraytracer_tpu_torch/csrc/hit_kernel.cu",
          "replaces": "cudaraytracer_tpu/ops/pallas/hit_kernel.py:37",
          "launches": launches["closest_hit"], "on_main_path": False,
-         "max_abs_err": max(hit_rtow["max_abs_err"], hit_cml["max_abs_err"]),
-         "tolerance": "columns equal except t-ties; t rtol 1e-5",
-         "ms": hit_cml["ms"], "plain_ms": hit_cml["plain_ms"],
-         "bound_ms": hit_cml["bound_ms"], "bound_by": hit_cml["bound_by"],
-         "library_ms": None, "timed": "cornell_mesh_light 2^20 rays",
-         "by_scene": {"rtow_final": hit_rtow, "cornell_mesh_light": hit_cml}},
+         "max_abs_err": max(v["max_abs_err"] for v in hits.values()),
+         "tolerance": "columns equal except t-ties; t rtol 1e-5; dead rays "
+                      "(BIG, -1); the walk's counters equal the plain "
+                      "walk's; on 2^20 uniform rays (rtow_final, "
+                      "cornell_mesh_light), the sorted bounce wavefronts of "
+                      "1280x720 frames and rays grazing block corners "
+                      "(rtow_final, terrain_big, cornell_mesh_light)",
+         "ms": hits["terrain_big/bounce"]["ms"],
+         "plain_ms": hits["terrain_big/bounce"]["plain_ms"],
+         "bound_ms": hits["terrain_big/bounce"]["bound_ms"],
+         "bound_by": hits["terrain_big/bounce"]["bound_by"],
+         "library_ms": None,
+         "timed": "terrain_big: the sorted bounce wavefront of a "
+                  f"{W_MAIN}x{H_MAIN} frame",
+         "by_scene": hits},
         {"name": "gbuffer", "route": "cuda",
          "source": "cudaraytracer_tpu_torch/csrc/gbuffer_kernel.cu",
          "replaces": "cudaraytracer_tpu/ops/pallas/gbuffer_kernel.py:62",
@@ -1567,6 +1658,7 @@ def main():
          "max_abs_err": max(gb_rtow["max_abs_err"], gb_default["max_abs_err"],
                             *(v["max_abs_err"] for v in gb_new.values())),
          "tolerance": f"hit masks equal; every buffer within {GBUF_ATOL}; "
+                      "the walk's counters equal the plain walk's; "
                       "rtow_final, default, terrain, rtow_image, "
                       "terrain_big, marble, smoke, cornell_smoke, bounce "
                       "and book2_final at 1280x720",

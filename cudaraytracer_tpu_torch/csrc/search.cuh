@@ -1,6 +1,7 @@
 // Closest-hit search over the packed scene tables: two culling levels
-// (closest_hit), three (closest_hit_blocks, the megakernel's) or the
-// streamed walk (closest_hit_streamed).
+// (closest_hit), three (closest_hit_blocks, the megakernel's), the
+// streamed walk (closest_hit_streamed) or the packet walk
+// (closest_hit_packet: the resident G-buffer's and the closest hit's).
 //
 // Replaces the search of the JAX megakernel,
 // cudaraytracer_tpu/ops/pallas/render_kernel.py::hierarchical_search
@@ -807,14 +808,415 @@ __device__ __forceinline__ const float* stream_payload(const SearchTables& tb,
   return st.tiles + (static_cast<size_t>(bi) * st.r8 + 16) * st.w;
 }
 
-// The search without the barycentrics or a feature flag (the closest-hit
-// kernel).
-template <bool kRects, bool kTris>
-__device__ __forceinline__ int closest_hit(const SearchTables& tb,
-                                           const Ray& r, float t_min,
-                                           float& best_t) {
-  Bary unused;
-  return closest_hit<kRects, kTris, false>(tb, r, t_min, best_t, unused);
+// ------------------------------------------------------ the packet walk
+// The resident G-buffer's and the closest-hit kernel's walk
+// (gbuffer_kernel.cu, hit_kernel.cu): closest_hit_blocks' three levels
+// (blocks of block_b superclusters, superclusters, clusters), with a
+// warp-wide conservative box test ahead of the rays' own gates at the
+// levels set in kPacket.  Every lane of the warp calls it, with its ray
+// or with none (best_t < 0: it enters no box), and takes part in every
+// vote.
+//
+// What bounds it on the card: instruction issue, and a warp issues each
+// box test for all its lanes at once, so a box is worth a warp's test
+// only if some lane may enter it.  The warp's rays form a packet: per
+// axis the min and max of their origins and of their inverse directions.
+// Lane k tests box first + k against the packet's slab interval under
+// the warp's largest best_t, so one pass tests up to 32 boxes; the boxes
+// that pass are a bitmask (__ballot_sync) that every lane visits in
+// ascending order with its own exact gate (box_hit).  The packet test
+// bounds every lane's slab times from below (tnear) and above (tfar)
+// with directed rounding (__fsub_rd, __fmul_ru, ...), so it passes every
+// box that some lane's exact f32 test enters under its best_t, which
+// only falls: the walk enters the clusters closest_hit enters, in the
+// same order, and gives the same hit, barycentrics and ties bit for bit.
+// An axis on which the rays' directions differ in sign, or where some d
+// is 0 or 1/d is infinite, is not culled on.  A level of one box (a lone
+// block, a block of one supercluster) gets no packet test: the rays' own
+// gate costs the warp the same instructions.  The JAX G-buffer's whole-
+// tile any() gate and camera-distance sort (gbuffer_kernel.py:148-181)
+// served the TPU's vector unit; the packet test is the card's tile gate.
+// With BlockTables {supers, nsc, 1} the blocks are the superclusters
+// (closest_hit's two levels).
+//
+// A cluster that at most kSpread of the warp's lanes enter has its
+// (ray, primitive) tests spread over all 32 lanes (spread_tests): an
+// incoherent wavefront's warp enters many clusters with a few lanes
+// each, and the per-lane loop would run on those few.  Each test keeps
+// the window of its ray's best_t at the cluster's entry, and each ray
+// takes the least (t, column) of its hits, which is the sequential
+// strict-less loop's winner (ties to the lower column), bit for bit.
+
+// Levels of the packet test, and those the packet walk tests
+// (ops/cuda/hit_kernel.py PACKET: the plain walk tests the same).
+constexpr unsigned PK_BLOCK = 1u, PK_SUPER = 2u;
+constexpr unsigned kPacket = PK_BLOCK | PK_SUPER;
+// The most lanes of a cluster whose tests are spread over the warp
+// (spread_tests; 0: never).
+constexpr int kSpread = 16;
+// The walk's counters (hit_stats, read only when asked for: the counting
+// entries; ops/cuda/hit_kernel.py::HIT_STATS names them): lanes with a
+// ray and warps that walk; the exact block, supercluster and cluster box
+// tests of the lanes that run them; the (ray, cluster) entries and the
+// (warp, cluster) entries (clusters some lane of the warp enters: the
+// primitive loops the warp runs); per packet level (block,
+// supercluster) the boxes tested, those that pass, and those of them that
+// some lane then enters (passes its exact gate; a block of one
+// supercluster has none: any lane with a ray); the most clusters one
+// warp runs (a maximum, not a sum: the longest warp).
+constexpr int HS_RAYS = 0, HS_WARPS = 1, HS_BLOCK = 2, HS_SUPER = 3,
+              HS_CLUSTER = 4, HS_ENTERED = 5, HS_WARP_CLUSTERS = 6,
+              HS_PACKET = 7, HS_WARP_MAX = 13, kHitStats = 14;
+
+// Adds to the CTA's counters in shared memory (kOn; else nothing).  Every
+// lane of the warp calls these.
+template <bool kOn>
+struct WalkCount {
+  unsigned long long* cta;
+  // one for each lane where p holds
+  __device__ __forceinline__ void lanes(int k, bool p) const {
+    if constexpr (kOn) {
+      const unsigned n = __popc(__ballot_sync(0xffffffffu, p));
+      if (lane_id() == 0 && n != 0u) {
+        atomicAdd(cta + k, static_cast<unsigned long long>(n));
+      }
+    }
+  }
+  // v once for the warp
+  __device__ __forceinline__ void add(int k, unsigned v) const {
+    if constexpr (kOn) {
+      if (lane_id() == 0 && v != 0u) {
+        atomicAdd(cta + k, static_cast<unsigned long long>(v));
+      }
+    }
+  }
+  // counter k at least v (the warp's)
+  __device__ __forceinline__ void max(int k, unsigned v) const {
+    if constexpr (kOn) {
+      if (lane_id() == 0) atomicMax(cta + k, static_cast<unsigned long long>(v));
+    }
+  }
+};
+
+// The warp's rays as one packet: per axis the min and max of the origins
+// and of the slab-test inverse directions, and the axes culled on.
+struct Packet {
+  float lo[3], hi[3], ivlo[3], ivhi[3];
+  unsigned cull;  // bit k: axis k has one sign, no d == 0, no 1/d = inf
+};
+
+// An int key of a float that orders as the float does (no NaN).
+__device__ __forceinline__ int order_key(float f) {
+  const int i = __float_as_int(f);
+  return i >= 0 ? i : i ^ 0x7fffffff;
+}
+__device__ __forceinline__ float from_key(int k) {
+  return __int_as_float(k >= 0 ? k : k ^ 0x7fffffff);
+}
+__device__ __forceinline__ float warp_min(float v) {
+  return from_key(__reduce_min_sync(0xffffffffu, order_key(v)));
+}
+__device__ __forceinline__ float warp_max(float v) {
+  return from_key(__reduce_max_sync(0xffffffffu, order_key(v)));
+}
+
+// The packet of the lanes with a ray (`ray`; at least one).
+__device__ __forceinline__ Packet make_packet(const Ray& r, bool ray) {
+  const float o[3] = {r.ox, r.oy, r.oz};
+  const float d[3] = {r.dx, r.dy, r.dz};
+  const float iv[3] = {r.ivx, r.ivy, r.ivz};
+  const float kInf = __int_as_float(0x7f800000);
+  Packet pk;
+  unsigned bad = 0u;
+  for (int k = 0; k < 3; ++k) {
+    pk.lo[k] = warp_min(ray ? o[k] : kInf);
+    pk.hi[k] = warp_max(ray ? o[k] : -kInf);
+    pk.ivlo[k] = warp_min(ray ? iv[k] : kInf);
+    pk.ivhi[k] = warp_max(ray ? iv[k] : -kInf);
+    if (ray && (d[k] == 0.0f || isinf(iv[k]))) bad |= 1u << k;
+  }
+  bad = __reduce_or_sync(0xffffffffu, bad);
+  pk.cull = 0u;
+  for (int k = 0; k < 3; ++k) {
+    if (!((bad >> k) & 1u) && (pk.ivlo[k] > 0.0f || pk.ivhi[k] < 0.0f)) {
+      pk.cull |= 1u << k;
+    }
+  }
+  return pk;
+}
+
+// May a ray of the packet enter box i of a [6 or 7, stride] table closer
+// than bt (the warp's largest best_t)?  On a culled axis with 1/d > 0 a
+// lane's tnear is (lo - o) / d, at least (lo - hi_o) rounded down times
+// the 1/d that makes it least; its tfar (hi - o) / d, at most (hi - lo_o)
+// rounded up times the 1/d that makes it most; with 1/d < 0 the faces
+// swap.  Each bound is rounded outward, so it holds every lane's rounded
+// slab times: a box a lane enters passes.
+__device__ __forceinline__ bool packet_hit(const float* __restrict__ box,
+                                           int stride, int i,
+                                           const Packet& pk, float t_min,
+                                           float bt) {
+  float tn = t_min, tf = bt;
+  for (int k = 0; k < 3; ++k) {
+    if (!((pk.cull >> k) & 1u)) continue;
+    const float blo = __ldg(box + k * stride + i);
+    const float bhi = __ldg(box + (k + 3) * stride + i);
+    const bool pos = pk.ivlo[k] > 0.0f;
+    const float n = pos ? __fsub_rd(blo, pk.hi[k]) : __fsub_ru(bhi, pk.lo[k]);
+    const float f = pos ? __fsub_ru(bhi, pk.lo[k]) : __fsub_rd(blo, pk.hi[k]);
+    tn = fmaxf(tn, __fmul_rd(n, n >= 0.0f ? pk.ivlo[k] : pk.ivhi[k]));
+    tf = fminf(tf, __fmul_ru(f, f >= 0.0f ? pk.ivhi[k] : pk.ivlo[k]));
+  }
+  return tf > tn;
+}
+
+// The first n bits (n <= 32).
+__device__ __forceinline__ unsigned low_bits(int n) {
+  return n >= 32 ? 0xffffffffu : (1u << n) - 1u;
+}
+
+// The warp's largest best_t (a lane without a ray has best_t < 0, below
+// every ray's; the bits of floats >= 0 order as ints).
+__device__ __forceinline__ float warp_best_t(float best_t) {
+  return __int_as_float(
+      __reduce_max_sync(0xffffffffu, __float_as_int(best_t)));
+}
+
+// The packet test of boxes first .. first + count - 1 (count <= 32) at
+// packet level `level` (0 block, 1 supercluster): bit k set where box
+// first + k passes.
+template <bool kOn>
+__device__ __forceinline__ unsigned packet_votes(
+    const float* __restrict__ box, int stride, int first, int count,
+    const Packet& pk, float t_min, float best_t, int level,
+    const WalkCount<kOn>& wc) {
+  const float bt = warp_best_t(best_t);
+  const int k = static_cast<int>(lane_id());
+  const unsigned m = __ballot_sync(
+      0xffffffffu, k < count && packet_hit(box, stride, first + k, pk,
+                                           t_min, bt));
+  wc.add(HS_PACKET + 3 * level, static_cast<unsigned>(count));
+  wc.add(HS_PACKET + 3 * level + 1, __popc(m));
+  return m;
+}
+
+// A warp's shared scratch for spread_tests: the entering rays (origin,
+// direction and best_t at the cluster's entry, by rank among them) and
+// each one's least hit key (ordered t bits << 32 | column).
+struct SpreadSlots {
+  float ray[32][8];
+  unsigned long long key[32];
+};
+
+// One column's test as cluster_tests dispatches it on the cluster's kind.
+template <bool kRects, bool kTris, bool kUV, int kFeat>
+__device__ __forceinline__ void column_test(float kind,
+                                            const float* __restrict__ S,
+                                            int np, int j, const Ray& r,
+                                            float t_min, float& best_t,
+                                            int& best_j, Bary& bc) {
+  constexpr bool kMotion = (kFeat & F_MOTION) != 0;
+  if constexpr (!(kRects || kTris)) {
+    sphere_test<kMotion>(S, np, j, r, t_min, 0.0f, best_t, best_j);
+  } else if (kind < 0.5f) {
+    sphere_test<kMotion>(S, np, j, r, t_min, 0.0f, best_t, best_j);
+  } else if (kind < 1.5f) {
+    rect_test(S, np, j, r, t_min, best_t, best_j);
+  } else if (!kTris || kind < 2.5f) {
+    dual_test<kTris, kUV, kMotion>(S, np, j, r, t_min, 0.0f, best_t, best_j,
+                                   bc);
+  } else {
+    tri_test<kUV>(S, np, j, r, t_min, best_t, best_j, bc);
+  }
+}
+
+// An int key of a float as an unsigned that orders as the float does.
+__device__ __forceinline__ unsigned order_key_u(float f) {
+  return static_cast<unsigned>(order_key(f)) ^ 0x80000000u;
+}
+
+// The primitive tests of cluster ci for the lanes in m (in_c: this lane
+// is one), spread over the warp: pair q of (ray of rank q / cluster,
+// column q % cluster) runs on lane q % 32.  Every lane of the warp calls
+// it; updates best_t, best_j and, for a triangle winner, bc as
+// cluster_tests would.  No media: the packet walk's kernels have none to
+// test (media clusters are skipped before).
+template <bool kRects, bool kTris, bool kUV, int kFeat>
+__device__ __forceinline__ void spread_tests(const SearchTables& tb, int ci,
+                                             const Ray& r, float t_min,
+                                             bool in_c, unsigned m,
+                                             float& best_t, int& best_j,
+                                             Bary& bc, SpreadSlots& sl) {
+  static_assert((kFeat & F_MEDIA) == 0, "spread_tests tests no media");
+  const unsigned lane = lane_id();
+  const int rank = __popc(m & ((1u << lane) - 1u));
+  const float t0 = best_t;
+  if (in_c) {
+    float* a = sl.ray[rank];
+    a[0] = r.ox; a[1] = r.oy; a[2] = r.oz;
+    a[3] = r.dx; a[4] = r.dy; a[5] = r.dz;
+    a[6] = best_t;
+    sl.key[rank] = ~0ull;
+  }
+  __syncwarp();
+  const float kind = (kRects || kTris) ? __ldg(tb.clusters + 6 * tb.nc + ci)
+                                       : 0.0f;
+  const int c = tb.cluster, j0 = ci * tb.cluster;
+  const int pairs = __popc(m) * c;
+  int ri = static_cast<int>(lane) / c;
+  int col = static_cast<int>(lane) - ri * c;
+  for (int q = static_cast<int>(lane); q < pairs; q += 32) {
+    const float* a = sl.ray[ri];
+    Ray rr;
+    rr.ox = a[0]; rr.oy = a[1]; rr.oz = a[2];
+    rr.dx = a[3]; rr.dy = a[4]; rr.dz = a[5];
+    rr.ivx = rr.ivy = rr.ivz = 0.0f;  // the primitive tests read no 1/d
+    float t = a[6];
+    int j = -1;
+    Bary unused;
+    column_test<kRects, kTris, false, kFeat>(kind, tb.S, tb.np, j0 + col,
+                                             rr, t_min, t, j, unused);
+    if (j >= 0) {
+      atomicMin(&sl.key[ri], (static_cast<unsigned long long>(
+                                  order_key_u(t)) << 32) |
+                                 static_cast<unsigned>(j));
+    }
+    col += 32;
+    while (col >= c) {
+      col -= c;
+      ++ri;
+    }
+  }
+  __syncwarp();
+  if (in_c) {
+    const unsigned long long key = sl.key[rank];
+    if (key != ~0ull) {
+      best_j = static_cast<int>(key & 0xffffffffu);
+      // the winner's test again in this lane: its t, and its (u, v)
+      float t = t0;
+      int j = -1;
+      column_test<kRects, kTris, kUV, kFeat>(kind, tb.S, tb.np, best_j, r,
+                                             t_min, t, j, bc);
+      best_t = t;
+    }
+  }
+  __syncwarp();  // the slots are free for the next cluster
+}
+
+// The packet walk: closest_hit_blocks' arguments and result (no medium
+// uniform or shutter time: the G-buffer and the closest hit need none),
+// with the walk's counters wc; a cluster that at most kSpread lanes
+// enter runs spread_tests in the warp's slots sl.
+template <bool kRects, bool kTris, bool kUV, int kFeat, bool kCount>
+__device__ __forceinline__ int closest_hit_packet(
+    const SearchTables& tb, const BlockTables& bt, const Ray& r,
+    float t_min, float& best_t, Bary& bc, const WalkCount<kCount>& wc,
+    SpreadSlots* sl) {
+  constexpr bool kSkipMedia = (kFeat & F_SKIP_MEDIA) != 0;
+  int best_j = -1;
+  const bool ray = best_t >= 0.0f;
+  if (!__any_sync(0xffffffffu, ray)) return best_j;
+  // the warp's packet, made here even where no level of more than one box
+  // needs it: made when first needed, it cost the closest hit 20% (ptxas
+  // gave it twice the registers, half the warps an SM; PERF.md)
+  Packet pk;
+  if constexpr (kPacket != 0u) pk = make_packet(r, ray);
+  unsigned run = 0u;  // the clusters this warp runs (kCount)
+  wc.lanes(HS_RAYS, ray);
+  wc.add(HS_WARPS, 1u);
+  const int nb = (tb.n_super + bt.block_b - 1) / bt.block_b;
+  for (int b0 = 0; b0 < nb; b0 += 32) {
+    const int n_b = min(nb - b0, 32);
+    const bool pk_b = (kPacket & PK_BLOCK) != 0u && n_b > 1;
+    unsigned cb = low_bits(n_b);
+    if (pk_b) {
+      cb = packet_votes(bt.boxes, bt.nbc, b0, n_b, pk, t_min, best_t, 0,
+                        wc);
+    }
+    while (cb != 0u) {
+      const int b = b0 + __ffs(cb) - 1;
+      cb &= cb - 1u;
+      const int s0 = b * bt.block_b;
+      const int n_s = min(s0 + bt.block_b, tb.n_super) - s0;
+      if (n_s > 1) wc.lanes(HS_BLOCK, ray);
+      const bool in_b =
+          ray && (n_s == 1 || box_hit(bt.boxes, bt.nbc, b, r, t_min, best_t));
+      const bool any_b = __any_sync(0xffffffffu, in_b);
+      if (pk_b) wc.add(HS_PACKET + 2, any_b);
+      if (!any_b) continue;
+      const bool pk_s = (kPacket & PK_SUPER) != 0u && n_s > 1;
+      unsigned cs = low_bits(n_s);
+      if (pk_s) {
+        cs = packet_votes(tb.supers, tb.nsc, s0, n_s, pk, t_min, best_t, 1,
+                          wc);
+      }
+      while (cs != 0u) {
+        const int si = s0 + __ffs(cs) - 1;
+        cs &= cs - 1u;
+        wc.lanes(HS_SUPER, in_b);
+        const bool in_s =
+            in_b && box_hit(tb.supers, tb.nsc, si, r, t_min, best_t);
+        const bool any_s = __any_sync(0xffffffffu, in_s);
+        if (pk_s) wc.add(HS_PACKET + 5, any_s);
+        if (!any_s) continue;
+        const int c0 = si * tb.super_;
+        for (int ci = c0; ci < c0 + tb.super_; ++ci) {
+          wc.lanes(HS_CLUSTER, in_s);
+          const bool in_c =
+              in_s && box_hit(tb.clusters, tb.nc, ci, r, t_min, best_t);
+          if constexpr (kCount) {
+            const bool any_c = __any_sync(0xffffffffu, in_c);
+            wc.add(HS_WARP_CLUSTERS, any_c);
+            run += any_c;
+            wc.lanes(HS_ENTERED, in_c);
+          }
+          if constexpr (kSpread > 0) {
+            const unsigned m = __ballot_sync(0xffffffffu, in_c);
+            if (m == 0u) continue;
+            if (__popc(m) <= kSpread &&
+                !(kSkipMedia && __ldg(tb.clusters + 6 * tb.nc + ci) > 3.5f)) {
+              spread_tests<kRects, kTris, kUV, kFeat>(
+                  tb, ci, r, t_min, in_c, m, best_t, best_j, bc, *sl);
+              continue;
+            }
+          }
+          if (in_c) {
+            cluster_tests<kRects, kTris, kUV, kFeat>(
+                tb, ci, tb.S, tb.np, ci * tb.cluster, r, t_min, 0.0f, 0.0f,
+                best_t, best_j, bc);
+          }
+        }
+      }
+    }
+  }
+  wc.max(HS_WARP_MAX, run);
+  return best_j;
+}
+
+// Zero the CTA's walk counters cnt (kOn); every thread of the CTA calls
+// it.
+template <bool kOn>
+__device__ __forceinline__ void walk_count_init(unsigned long long* cnt) {
+  if constexpr (kOn) {
+    if (cta_tid() < kHitStats) cnt[cta_tid()] = 0ull;
+    __syncthreads();
+  }
+}
+
+// Add the CTA's walk counters cnt to out (the maximum: max it in) (kOn);
+// every thread of the CTA calls it, last.
+template <bool kOn>
+__device__ __forceinline__ void walk_count_flush(
+    const unsigned long long* cnt, unsigned long long* out) {
+  if constexpr (kOn) {
+    __syncthreads();
+    const int k = cta_tid();
+    if (k == HS_WARP_MAX) {
+      atomicMax(out + k, cnt[k]);
+    } else if (k < kHitStats && cnt[k] != 0ull) {
+      atomicAdd(out + k, cnt[k]);
+    }
+  }
 }
 
 }  // namespace crt

@@ -48,16 +48,16 @@ _f = ctypes.c_float
 # C signatures of the entries in csrc/*.cu (pointers and the stream as
 # c_void_p: a bare Python int would be passed as a 32-bit int)
 SIGNATURES = {
-    "crt_closest_hit": [_p, _p, _p, _i, _i, _i, _i, _i, _i, _p, _p, _i, _i,
-                        _f, _i, _i, _p, _p, _p],
+    "crt_closest_hit": [_p, _p, _p, _i, _i, _i, _i, _i, _i, _p, _i, _i, _p,
+                        _p, _i, _i, _f, _i, _i, _p, _p, _p, _p],
     "crt_render_sample": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p,
                           ctypes.c_uint32, _i, _i, _i, _i, _i, _i, _f, _f,
                           _i, _i, _i, _i, _i, _p, _p, _i, _i, _i,
                           _p, _f, _i, _i, _p, _i, _i, _i, _i, _i, _p,
                           _p, _i, _i, _p, _p, _p, _p, _p],
     "crt_gbuffer": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p, _i, _i, _i,
-                    _f, _f, _i, _i, _i, _i, _i, _p, _p, _i, _i, _i, _p, _p,
-                    _p, _p],
+                    _f, _f, _i, _i, _i, _i, _i, _p, _p, _i, _i, _i, _p, _i,
+                    _i, _p, _p, _p, _p, _p],
     # the streamed entries: (tiles, boxes, clusters, supers, nbc, nc, nsc,
     # n_blocks, r8, block_b, cluster, super_) in place of the resident
     # tables and sizes, then as their resident twins, with the group

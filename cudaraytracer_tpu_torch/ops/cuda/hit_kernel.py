@@ -3,9 +3,14 @@
 Port of ``cudaraytracer_tpu/ops/pallas/hit_kernel.py::pallas_closest_hit``
 with its ``has_rects``/``has_tris`` flags.  ``closest_hit`` launches the
 hand-written CUDA kernel ``csrc/hit_kernel.cu`` for CUDA tensors and runs
-``closest_hit_plain``, a brute-force PyTorch version of the same
-per-primitive formulas, for CPU tensors.  Both count their launches
-(``closest_hit.launches``, ``closest_hit_plain.launches``).
+``closest_hit_plain``, a PyTorch version of the same per-primitive
+formulas (brute force, or with the block boxes the kernel's walk), for
+CPU tensors.  Both count their launches (``closest_hit.launches``,
+``closest_hit_plain.launches``).  The kernel and the resident G-buffer
+walk a warp's rays together (csrc/search.cuh::closest_hit_packet): its
+plain version is ``culled_closest`` with ``warps``, the packet test
+``make_packets``/``packet_pass`` (directed rounding emulated exactly:
+``_sub_directed``, ``_mul_directed``), its counters ``HIT_STATS``.
 
 ``brute_closest`` is also the plain search of the megakernel and the
 G-buffer: with ``has_media`` it runs the constant-medium test on medium
@@ -27,7 +32,7 @@ from . import build
 from .tables import (BIG, CLUSTER, STREAM_BLOCK_B, STREAM_GROUP_G, SUPER,
                      S_AAX, S_BAX, S_CA, S_CB, S_CK, S_CX, S_CY, S_CZ, S_D1,
                      S_D2, S_DENS, S_DN, S_HA, S_HB, S_KAX, S_PTYPE, S_R2,
-                     S_VX, S_VY, S_VZ)
+                     S_VX, S_VY, S_VZ, block_count)
 
 # rays per brute-force chunk: chunk * NP stays near 2^24 elements on the
 # CPU and 2^26 on a GPU (a few GB of temporaries)
@@ -351,7 +356,8 @@ def culled_closest(S, clusters, supers, n_super, org, dirn,
                    has_boxm: bool = False, has_rotm: bool = False,
                    cluster: int = CLUSTER, super_: int = SUPER,
                    group_boxes=None, group_g: int = STREAM_GROUP_G,
-                   streamed: bool = False) -> tuple:
+                   streamed: bool = False, warps=None,
+                   packet: int = 0) -> tuple:
     """csrc/search.cuh's culled walk on tensors, all rays at once in
     table order with each ray's running best_t: ``closest_hit`` (every
     supercluster box, then the cluster boxes of those entered) or, with
@@ -366,11 +372,18 @@ def culled_closest(S, clusters, supers, n_super, org, dirn,
     (``stream_sweep`` over ``group_boxes`` of ``group_g`` blocks each;
     a block has its box tested there, once, for the rays that enter its
     group), then each
-    candidate block's superclusters for its candidate rays.  Returns
-    (best_t, col, bu, bv, work): the closest hit as ``brute_closest``
-    gives it (col -1 on a miss; bu, bv the winner's barycentrics with
-    ``with_uv``, else 0) and the tests counted as ``search_work``
-    describes them."""
+    candidate block's superclusters for its candidate rays.  With
+    ``warps`` (i64[R], each ray's warp) it is ``closest_hit_packet``, the
+    walk of the G-buffer and the closest-hit kernel: the rays of a warp
+    walk together, and at the levels set in ``packet`` (``PK_BLOCK``,
+    ``PK_SUPER``) a box is tested by a ray only where the packet test of
+    its warp (``packet_pass``) passed it, a level of more than one box;
+    without ``block_boxes`` the blocks are the superclusters (two
+    levels).
+    Returns (best_t, col, bu, bv, work): the closest hit as
+    ``brute_closest`` gives it (col -1 on a miss; bu, bv the winner's
+    barycentrics with ``with_uv``, else 0) and the tests counted as
+    ``search_work`` describes them."""
     check_search_tables(S, clusters, supers, n_super, cluster, super_)
     _rays(org, dirn, S.device)
     t_min = float(np.float32(t_min))
@@ -402,8 +415,53 @@ def culled_closest(S, clusters, supers, n_super, org, dirn,
     if time is not None:
         work["motion"] = 0
     flat = has_rects or has_tris or has_media
+
+    def enter(ci, r):
+        """Ray indices r enter cluster ci: count and run its tests."""
+        m = r.numel()
+        work["entered"] += m
+        kind = kinds[ci]
+        if has_media and kind > 3.5:
+            if u_med is None:
+                return  # the G-buffer skips medium clusters
+            work["med"] += m * n_med[ci]
+            work["med_box"] += m * n_box[ci] if has_boxm else 0
+            work["med_rot"] += m * n_box[ci] if has_rotm else 0
+        elif flat and 0.5 < kind < 1.5:
+            work["rect"] += m * n_rect[ci]
+        elif flat and kind > 2.5:
+            work["tri"] += m * n_tri[ci]
+        else:  # spheres, or the mixed cluster's per-type tests
+            work["sphere"] += m * n_sph[ci]
+            if flat:
+                work["rect"] += m * n_rect[ci]
+                work["tri"] += m * n_tri[ci] if has_tris else 0
+            if time is not None:
+                work["motion"] += m * n_mov[ci]
+        cols = slice(ci * cluster, (ci + 1) * cluster)
+        bt, jc, *uv = brute_closest(
+            S[:, cols].contiguous(), org[r], dirn[r], t_min,
+            best_t[r], has_rects, has_tris, with_uv,
+            has_media=has_media,
+            u_med=None if u_med is None else u_med[r],
+            time=None if time is None else time[r],
+            has_boxm=has_boxm, has_rotm=has_rotm)
+        won = jc >= 0
+        best_t[r] = bt
+        col[r[won]] = jc[won] + ci * cluster
+        if with_uv:
+            bu[r[won]] = uv[0][won]
+            bv[r[won]] = uv[1][won]
+
     every = torch.arange(n, device=dev)
     n_super = int(n_super)
+    if warps is not None:
+        if block_boxes is None:  # two levels: the blocks are superclusters
+            block_boxes, block_b = supers, 1
+        _packet_walk(clusters, supers, n_super, block_boxes, block_b,
+                     super_, org, dirn, d_inv, t_min, best_t, warps,
+                     int(packet), enter, work)
+        return best_t, col, bu, bv, work
     if block_boxes is None:
         walk = [(None, range(n_super))]
     else:
@@ -444,43 +502,203 @@ def culled_closest(S, clusters, supers, n_super, org, dirn,
                 inside = _box_enter(clusters, ci, org[rays], d_inv[rays],
                                     t_min, best_t[rays])
                 r = rays[inside]
-                m = r.numel()
-                if m == 0:
-                    continue
-                work["entered"] += m
-                kind = kinds[ci]
-                if has_media and kind > 3.5:
-                    if u_med is None:
-                        continue  # the G-buffer skips medium clusters
-                    work["med"] += m * n_med[ci]
-                    work["med_box"] += m * n_box[ci] if has_boxm else 0
-                    work["med_rot"] += m * n_box[ci] if has_rotm else 0
-                elif flat and 0.5 < kind < 1.5:
-                    work["rect"] += m * n_rect[ci]
-                elif flat and kind > 2.5:
-                    work["tri"] += m * n_tri[ci]
-                else:  # spheres, or the mixed cluster's per-type tests
-                    work["sphere"] += m * n_sph[ci]
-                    if flat:
-                        work["rect"] += m * n_rect[ci]
-                        work["tri"] += m * n_tri[ci] if has_tris else 0
-                    if time is not None:
-                        work["motion"] += m * n_mov[ci]
-                cols = slice(ci * cluster, (ci + 1) * cluster)
-                bt, jc, *uv = brute_closest(
-                    S[:, cols].contiguous(), org[r], dirn[r], t_min,
-                    best_t[r], has_rects, has_tris, with_uv,
-                    has_media=has_media,
-                    u_med=None if u_med is None else u_med[r],
-                    time=None if time is None else time[r],
-                    has_boxm=has_boxm, has_rotm=has_rotm)
-                won = jc >= 0
-                best_t[r] = bt
-                col[r[won]] = jc[won] + ci * cluster
-                if with_uv:
-                    bu[r[won]] = uv[0][won]
-                    bv[r[won]] = uv[1][won]
+                if r.numel():
+                    enter(ci, r)
     return best_t, col, bu, bv, work
+
+
+# the packet test's levels (csrc/search.cuh PK_*): blocks, superclusters;
+# those the kernels' packet walk tests (search.cuh kPacket)
+PK_BLOCK, PK_SUPER = 1, 2
+PACKET = PK_BLOCK | PK_SUPER
+# the packet walk's counters (csrc/search.cuh HS_*, the ``hit_stats`` of
+# the counting entries): lanes with a ray and warps that walk; the exact
+# block, supercluster and cluster box tests; the (ray, cluster) and
+# (warp, cluster) entries; per packet level the boxes tested, passed and
+# used (some lane of the warp then passes its exact gate); the most
+# clusters one warp runs (a maximum: maxed into hit_stats, not added)
+HIT_STATS = ("rays", "warps", "block_tests", "super_tests", "cluster_tests",
+             "entered", "warp_clusters",
+             *(f"packet_{lv}_{k}" for lv in ("block", "super")
+               for k in ("tested", "passed", "used")), "warp_clusters_max")
+
+
+def _next_down(x):
+    return torch.nextafter(x, torch.full_like(x, -np.inf))
+
+
+def _next_up(x):
+    return torch.nextafter(x, torch.full_like(x, np.inf))
+
+
+def _sub_directed(a, b, up: bool):
+    """a - b rounded down (or ``up``) in f32, as __fsub_rd/__fsub_ru: the
+    nearest difference s and its exact error e (TwoSum), then one step
+    toward the true value where e says s passed it."""
+    nb = -b
+    s = a + nb
+    bb = s - a
+    e = (a - (s - bb)) + (nb - bb)
+    return torch.where(e > 0, _next_up(s), s) if up else \
+        torch.where(e < 0, _next_down(s), s)
+
+
+def _mul_directed(a, b, up: bool):
+    """a * b rounded down (or ``up``) in f32, as __fmul_rd/__fmul_ru: the
+    f64 product of two f32 is exact."""
+    p = a.double() * b.double()
+    s = p.float()
+    return torch.where(s.double() < p, _next_up(s), s) if up else \
+        torch.where(s.double() > p, _next_down(s), s)
+
+
+def make_packets(org, dirn, warps, n_warps: int) -> dict:
+    """search.cuh::make_packet for every warp: the rays of warp w (``warps``
+    i64[R]) -> {"lo", "hi": their origins' min and max, "ivlo", "ivhi":
+    their slab-test inverse directions' (1 / (d == 0 ? 1e-30 : d))
+    min and max, each f32[n_warps, 3]; "cull": bool[n_warps, 3], the
+    axes with one sign of 1/d and no d == 0 or 1/d = inf}."""
+    d_inv = 1.0 / torch.where(dirn == 0.0, 1e-30, dirn)
+    idx = warps[:, None].expand(-1, 3)
+    inf = torch.full((n_warps, 3), np.inf, dtype=torch.float32,
+                     device=org.device)
+    red = {k: base.scatter_reduce(0, idx, v, op) for k, base, v, op in (
+        ("lo", inf, org, "amin"), ("hi", -inf, org, "amax"),
+        ("ivlo", inf, d_inv, "amin"), ("ivhi", -inf, d_inv, "amax"))}
+    bad = torch.zeros((n_warps, 3), dtype=torch.int32, device=org.device)
+    bad = bad.scatter_reduce(
+        0, idx, ((dirn == 0.0) | torch.isinf(d_inv)).to(torch.int32), "amax")
+    red["cull"] = (bad == 0) & ((red["ivlo"] > 0.0) | (red["ivhi"] < 0.0))
+    return red
+
+
+def packet_pass(pk: dict, ws, box, first: int, count: int, t_min: float,
+                bt):
+    """search.cuh::packet_hit of the packets of warps ``ws`` (i64[W])
+    against boxes first .. first + count - 1 of ``box`` (f32[6 or 7, N])
+    under each warp's largest best_t ``bt`` (f32[W]) -> bool[W, count]:
+    the slab bounds rounded outward (``_sub_directed``,
+    ``_mul_directed``), so a box that a ray of the warp enters passes."""
+    tn = torch.full((ws.numel(), count), t_min, dtype=torch.float32,
+                    device=box.device)
+    tf = bt[:, None].expand(-1, count).clone()
+    for k in range(3):
+        blo = box[k, first:first + count][None, :]
+        bhi = box[k + 3, first:first + count][None, :]
+        lo, hi = pk["lo"][ws, k][:, None], pk["hi"][ws, k][:, None]
+        ivlo, ivhi = pk["ivlo"][ws, k][:, None], pk["ivhi"][ws, k][:, None]
+        pos = ivlo > 0.0
+        nn = torch.where(pos, _sub_directed(blo, hi, False),
+                         _sub_directed(bhi, lo, True))
+        ff = torch.where(pos, _sub_directed(bhi, lo, True),
+                         _sub_directed(blo, hi, False))
+        tnk = _mul_directed(nn, torch.where(nn >= 0.0, ivlo, ivhi), False)
+        tfk = _mul_directed(ff, torch.where(ff >= 0.0, ivhi, ivlo), True)
+        cull = pk["cull"][ws, k][:, None]
+        tn = torch.where(cull, torch.fmax(tn, tnk), tn)
+        tf = torch.where(cull, torch.fmin(tf, tfk), tf)
+    return tf > tn
+
+
+def _packet_walk(clusters, supers, n_super, block_boxes, block_b, super_,
+                 org, dirn, d_inv, t_min, best_t, warps, packet, enter,
+                 work):
+    """search.cuh::closest_hit_packet over all rays at once (the body of
+    ``culled_closest`` with ``warps``): blocks in chunks of 32, their
+    superclusters, their clusters, each box tested by the rays of the
+    warps whose packet test passed it (at the ``packet`` levels, where a
+    level has more than one box) and that passed their own gate above
+    it; ``enter`` runs an entered cluster, all its columns at once
+    (brute_closest: the least t, ties to the lower column), as the
+    kernel's per-lane loop or its tests spread over the warp give it.
+    Adds the exact tests to work["box"] and the HIT_STATS counts to
+    ``work``, as the kernel's counting entry counts them."""
+    if tuple(block_boxes.shape[:1]) != (6,) \
+            or block_boxes.shape[1] * block_b < n_super:
+        raise ValueError(f"block_boxes {list(block_boxes.shape)} do not "
+                         f"cover {n_super} superclusters")
+    dev = org.device
+    for k in HIT_STATS:
+        work.setdefault(k, 0)
+    if org.shape[0] == 0:
+        return
+    wid, wray = torch.unique(warps, return_inverse=True)  # warps with a ray
+    n_w = wid.numel()
+    pk = make_packets(org, dirn, wray, n_w) if packet else None
+    work["rays"] += org.shape[0]
+    work["warps"] += n_w
+
+    def warp_best(ws):
+        """The largest best_t of each warp of ws."""
+        m = torch.full((n_w,), -1.0, dtype=torch.float32, device=dev)
+        return m.scatter_reduce(0, wray, best_t, "amax")[ws]
+
+    def tested(level, count):
+        """Does the packet test run at this level, of ``count`` boxes?"""
+        return bool(packet & (1 << level)) and count > 1
+
+    def votes(level, ws, box, first, count):
+        """The packet test of warps ws (or every warp of ws where it does
+        not run) -> bool[len(ws), count]."""
+        if not tested(level, count):
+            return torch.ones((ws.numel(), count), dtype=torch.bool,
+                              device=dev)
+        p = packet_pass(pk, ws, box, first, count, t_min, warp_best(ws))
+        name = ("block", "super")[level]
+        work[f"packet_{name}_tested"] += ws.numel() * count
+        work[f"packet_{name}_passed"] += int(p.sum())
+        return p
+
+    def used(level, count, r):
+        """Count the warps some ray of r is in (they use the box)."""
+        nw = int(torch.unique(wray[r]).numel())
+        if tested(level, count):
+            work[("packet_block_used", "packet_super_used")[level]] += nw
+        return nw
+
+    def gate(rays, box, i, key):
+        """The rays of ``rays`` that enter box i (their exact tests)."""
+        work[key] += rays.numel()
+        work["box"] += rays.numel()
+        return rays[_box_enter(box, i, org[rays], d_inv[rays], t_min,
+                               best_t[rays])]
+
+    every_w = torch.arange(n_w, device=dev)
+    every = torch.arange(org.shape[0], device=dev)
+    runs = torch.zeros(n_w, dtype=torch.int64, device=dev)  # per warp
+    nb = -(-n_super // block_b)
+    for b0 in range(0, nb, 32):
+        n_b = min(32, nb - b0)
+        cb = votes(0, every_w, block_boxes, b0, n_b)
+        for k in range(cb.shape[1]):
+            b = b0 + k
+            on = torch.zeros(n_w, dtype=torch.bool, device=dev)
+            on[every_w[cb[:, k]]] = True
+            rb = every[on[wray]]
+            s0 = b * block_b
+            n_s = min(s0 + block_b, n_super) - s0
+            if n_s > 1:
+                rb = gate(rb, block_boxes, b, "block_tests")
+            if used(0, n_b, rb) == 0:
+                continue
+            wb = torch.unique(wray[rb])
+            cs = votes(1, wb, supers, s0, n_s)
+            for s in range(n_s):
+                on = torch.zeros(n_w, dtype=torch.bool, device=dev)
+                on[wb[cs[:, s]]] = True
+                rs = gate(rb[on[wray[rb]]], supers, s0 + s, "super_tests")
+                if used(1, n_s, rs) == 0:
+                    continue
+                c0 = (s0 + s) * super_
+                for c in range(super_):
+                    r = gate(rs, clusters, c0 + c, "cluster_tests")
+                    if r.numel():
+                        wr = torch.unique(wray[r])
+                        work["warp_clusters"] += int(wr.numel())
+                        runs[wr] += 1
+                        enter(c0 + c, r)
+    work["warp_clusters_max"] = max(work["warp_clusters_max"],
+                                    int(runs.max()))
 
 
 def search_work(S, clusters, supers, n_super, org, dirn, t_min: float = 1e-3,
@@ -490,7 +708,7 @@ def search_work(S, clusters, supers, n_super, org, dirn, t_min: float = 1e-3,
                 has_boxm: bool = False, has_rotm: bool = False,
                 cluster: int = CLUSTER, super_: int = SUPER,
                 group_boxes=None, group_g: int = STREAM_GROUP_G,
-                streamed: bool = False) -> dict:
+                streamed: bool = False, warps=None, packet: int = 0) -> dict:
     """Count the tests the kernel's culled search needs for rays (org,
     dirn): {"entered": the (ray, cluster) entries, clusters whose box a
     ray entered (the megakernel's cull statistic), "box": block,
@@ -508,14 +726,16 @@ def search_work(S, clusters, supers, n_super, org, dirn, t_min: float = 1e-3,
     boxes entered there) and "ray_pages" (the superclusters entered: the
     (ray, page) entries).  Within an entered cluster only the primitives
     count, not the padding columns the kernel's loop also runs over (r^2
-    = -1 spheres).  Runs on any device."""
+    = -1 spheres).  With ``warps`` it replays the packet walk
+    (closest_hit_packet, ``packet`` its levels) and adds its counters
+    (``HIT_STATS``).  Runs on any device."""
     return culled_closest(
         S, clusters, supers, n_super, org, dirn, t_min,
         block_boxes=block_boxes, block_b=block_b, has_rects=has_rects,
         has_tris=has_tris, has_media=has_media, u_med=u_med, time=time,
         has_boxm=has_boxm, has_rotm=has_rotm, cluster=cluster,
         super_=super_, group_boxes=group_boxes, group_g=group_g,
-        streamed=streamed)[-1]
+        streamed=streamed, warps=warps, packet=packet)[-1]
 
 
 def streamed_closest(tiles, block_boxes, clusters, supers, n_blocks,
@@ -594,21 +814,80 @@ def search_ops(work: dict) -> int:
     return sum(OPS[k] * v for k, v in work.items() if k in OPS)
 
 
+def check_hit_stats(hit_stats, device):
+    """Raise unless ``hit_stats`` is None or a contiguous int64[HIT_STATS]
+    on ``device``."""
+    if hit_stats is not None and (
+            not isinstance(hit_stats, torch.Tensor)
+            or hit_stats.dtype != torch.int64
+            or tuple(hit_stats.shape) != (len(HIT_STATS),)
+            or not hit_stats.is_contiguous() or hit_stats.device != device):
+        raise ValueError(f"hit_stats must be a contiguous int64"
+                         f"[{len(HIT_STATS)}] on {device} (HIT_STATS)")
+
+
+def check_block_boxes(block_boxes, supers, block_b: int = STREAM_BLOCK_B):
+    """Raise unless ``block_boxes`` is the contiguous f32[6,
+    tables.block_count(NSC)] of the tables (``tables.block_boxes``), on
+    their device."""
+    nbc = block_count(supers.shape[1], block_b)
+    if not isinstance(block_boxes, torch.Tensor) \
+            or block_boxes.dtype != torch.float32 \
+            or tuple(block_boxes.shape) != (6, nbc) \
+            or not block_boxes.is_contiguous() \
+            or block_boxes.device != supers.device:
+        raise ValueError(
+            f"block_boxes must be a contiguous f32[6, {nbc}] on "
+            f"{supers.device} (tables.block_boxes of the {supers.shape[1]} "
+            "superclusters)")
+
+
+def add_hit_stats(hit_stats, work: dict):
+    """Add the HIT_STATS counts of a walk's ``work`` to ``hit_stats`` (its
+    longest warp: the larger of the two), as the counting entries do."""
+    if hit_stats is not None:
+        new = torch.tensor([work[k] for k in HIT_STATS], dtype=torch.int64,
+                           device=hit_stats.device)
+        mx = HIT_STATS.index("warp_clusters_max")
+        top = torch.maximum(hit_stats[mx], new[mx])
+        hit_stats += new
+        hit_stats[mx] = top
+
+
 def closest_hit_plain(S, clusters, supers, n_super, n_alive, org, dirn,
                       t_min: float = 1e-3, *, has_rects: bool = False,
                       has_tris: bool = False, cluster: int = CLUSTER,
-                      super_: int = SUPER):
-    """Plain PyTorch closest hit (brute force over all columns): the same
-    (hit bool[R], t f32[R], col i32[R]) as the kernel; rays past n_alive
-    report (BIG, -1).  The culling tables are checked but not needed."""
+                      super_: int = SUPER, block_boxes=None, hit_stats=None):
+    """Plain PyTorch closest hit: the same (hit bool[R], t f32[R], col
+    i32[R]) as the kernel; rays past n_alive report (BIG, -1).  Without
+    ``block_boxes`` brute force over all columns (the culling tables are
+    checked but not needed); with them the kernel's walk
+    (``culled_closest`` with the warps of 32 consecutive rays and the
+    kernel's packet levels, ``PACKET``), whose counters
+    ``hit_stats`` (int64[HIT_STATS], added to) reads."""
     check_search_tables(S, clusters, supers, n_super, cluster, super_)
     _rays(org, dirn, S.device)
+    check_hit_stats(hit_stats, S.device)
+    if block_boxes is not None:
+        check_block_boxes(block_boxes, supers)
+    elif hit_stats is not None:
+        raise ValueError("hit_stats counts the walk: it needs block_boxes")
     closest_hit_plain.launches += 1
     n = org.shape[0]
     n_alive = max(0, min(int(n_alive), n))
     t = torch.full((n,), BIG, dtype=torch.float32, device=S.device)
     col = torch.full((n,), -1, dtype=torch.int32, device=S.device)
-    if n_alive:
+    if n_alive and block_boxes is not None:
+        bt, bc, _, _, work = culled_closest(
+            S, clusters, supers, n_super, org[:n_alive], dirn[:n_alive],
+            t_min, block_boxes=block_boxes, has_rects=has_rects,
+            has_tris=has_tris, cluster=cluster, super_=super_,
+            warps=torch.arange(n_alive, device=S.device) // 32,
+            packet=PACKET)
+        add_hit_stats(hit_stats, work)
+        t[:n_alive] = bt
+        col[:n_alive] = bc.to(torch.int32)
+    elif n_alive:
         bt, bc = brute_closest(S, org[:n_alive], dirn[:n_alive], t_min,
                                torch.full((n_alive,), BIG,
                                           dtype=torch.float32,
@@ -625,7 +904,7 @@ closest_hit_plain.launches = 0
 def closest_hit(S, clusters, supers, n_super, n_alive, org, dirn,
                 t_min: float = 1e-3, *, has_rects: bool = False,
                 has_tris: bool = False, cluster: int = CLUSTER,
-                super_: int = SUPER):
+                super_: int = SUPER, block_boxes=None, hit_stats=None):
     """Closest hit for a ray wavefront (live rays first).
 
     Returns (hit bool[R], t f32[R], col i32[R]); ``col`` indexes the
@@ -633,8 +912,12 @@ def closest_hit(S, clusters, supers, n_super, n_alive, org, dirn,
     ``prim_map``.  Rays at index >= ``n_alive`` are not searched and
     report (BIG, -1).  ``has_rects``/``has_tris`` are the scene's flags
     (tables.prim_flags): without them rect and triangle columns are not
-    tested as such.  CUDA tensors launch csrc/hit_kernel.cu; CPU tensors
-    run ``closest_hit_plain``.
+    tested as such.  ``block_boxes`` (``TorchTables.block_boxes``) are the
+    walk's third level, required on the card; ``hit_stats`` (int64
+    [HIT_STATS], added to) reads the walk's counters, through the
+    kernel's counting entry on the card.  CUDA tensors launch
+    csrc/hit_kernel.cu (a failed build or launch raises); CPU tensors run
+    ``closest_hit_plain``.
     """
     check_search_tables(S, clusters, supers, n_super, cluster, super_)
     _rays(org, dirn, S.device)
@@ -642,9 +925,15 @@ def closest_hit(S, clusters, supers, n_super, n_alive, org, dirn,
         return closest_hit_plain(S, clusters, supers, n_super, n_alive, org,
                                  dirn, t_min, has_rects=has_rects,
                                  has_tris=has_tris, cluster=cluster,
-                                 super_=super_)
+                                 super_=super_, block_boxes=block_boxes,
+                                 hit_stats=hit_stats)
     if S.device.type != "cuda":
         raise ValueError(f"closest_hit runs on cuda or cpu, not {S.device}")
+    if block_boxes is None:
+        raise ValueError("the closest-hit kernel needs block_boxes "
+                         "(TorchTables.block_boxes)")
+    check_block_boxes(block_boxes, supers)
+    check_hit_stats(hit_stats, S.device)
     n = org.shape[0]
     t = torch.empty((n,), dtype=torch.float32, device=S.device)
     col = torch.empty((n,), dtype=torch.int32, device=S.device)
@@ -653,9 +942,11 @@ def closest_hit(S, clusters, supers, n_super, n_alive, org, dirn,
         rc = lib.crt_closest_hit(
             S.data_ptr(), clusters.data_ptr(), supers.data_ptr(),
             S.shape[1], clusters.shape[1], supers.shape[1], int(n_super),
-            cluster, super_, org.data_ptr(), dirn.data_ptr(), n,
+            cluster, super_, block_boxes.data_ptr(), block_boxes.shape[1],
+            STREAM_BLOCK_B, org.data_ptr(), dirn.data_ptr(), n,
             max(0, min(int(n_alive), n)), float(t_min), int(has_rects),
-            int(has_tris), t.data_ptr(), col.data_ptr(),
+            int(has_tris), None if hit_stats is None else hit_stats.data_ptr(),
+            t.data_ptr(), col.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     build.check(lib, "crt_closest_hit", rc)
     closest_hit.launches += 1

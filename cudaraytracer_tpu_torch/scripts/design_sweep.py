@@ -20,7 +20,18 @@ streamed walk's (csrc/search.cuh::closest_hit_streamed): ``g8``,
 ``g32`` and ``no_groups`` (8 or 32 blocks per group box, or one group:
 ops/cuda/tables.py STREAM_GROUP_G; the walking unit, the page slots and
 pages against whole blocks were swept by edits of the code then, whose
-losing paths are gone: PERF.md, the streamed walk's findings).
+losing paths are gone: PERF.md, the streamed walk's findings).  The
+resident G-buffer's (csrc/gbuffer_kernel.cu) and the closest hit's
+(csrc/hit_kernel.cu) packet walk (search.cuh::closest_hit_packet, both
+kernels at once): ``walk_two_level`` (the parent's walk: every
+supercluster box, no packet test), ``walk_blocks`` (three levels, no
+packet test), ``walk_pk_block`` (the packet test at the block level
+alone) and ``spread<k>`` (a cluster's tests spread over the warp when at
+most k lanes enter it, 0 never); ``gb_lb<k>``/``hit_lb<k>`` (their timed
+entries bounded at k CTAs an SM, ``gb_lb0`` unbounded; the packet test
+at the cluster level, the packet made when first needed, 8x4
+pixel warps and staging a warp's rays in shared memory were swept by
+edits of the code then, whose paths are gone: PERF.md).
 ``committed`` is the package as it is, and ``--parent DIR`` adds the checkout at DIR (e.g. the parent commit's
 ``git archive``) as the variant ``parent``.  Each variant is copied into
 a temporary directory (the checkout is never edited), built, and its
@@ -35,7 +46,13 @@ sample base 8), set up as the render loop sets them up.  A streamed case
 spp, depth 12, and at 640x360, 2 spp, depth 4) times the streamed
 megakernel and G-buffer, holds them to the resident launch (pixels,
 rays, cluster entries, G-buffers) and reads the walk's counters where
-the variant has them (``stream_stats``).  The persistent grid follows
+the variant has them (``stream_stats``).  ``gbuffer/<scene>`` times the
+resident G-buffer at 1280x720, ``hit/<scene>/<rays>`` the closest hit on
+rays made once for every variant: ``uniform`` (2^20 rays uniform in a
+box and on the sphere, chip_smoke.py's) or ``bounce`` (the sorted bounce
+wavefront of a 1280x720 frame, ``scripts/bounce_rays.py``); each reads
+the packet walk's counters where the variant has them (``hit_stats``)
+and a digest of its output, which every variant must share.  The persistent grid follows
 each build's occupancy.  Prints one JSON line per timed run (or the
 error of a variant that does not build or run; the others go on) and a
 summary: each case's median ms per variant beside the registers and
@@ -70,9 +87,39 @@ STREAM_ENTRIES = (
     ("csrc/gbuffer_kernel.cu",
      "__launch_bounds__(kBlockX * kBlockY)\ngbuffer_kernel_streamed(",
      "__launch_bounds__(kBlockX * kBlockY, {})\ngbuffer_kernel_streamed("))
+# the packet walk's parts (csrc/search.cuh, shared by the G-buffer and
+# the closest hit): (file, text, replacement)
+_GB, _HIT, _SEARCH = ("csrc/gbuffer_kernel.cu", "csrc/hit_kernel.cu",
+                      "csrc/search.cuh")
+_PACKET = "constexpr unsigned kPacket = PK_BLOCK | PK_SUPER;"
+_NO_PACKET = (_SEARCH, _PACKET, "constexpr unsigned kPacket = 0u;")
 # a design part's edits: (text, replacement) in csrc/render_kernel.cu,
 # or (file under the package, text, replacement)
 EDITS = {
+    # the parent's walk: the blocks are the superclusters, no packet test
+    "walk_two_level": [_NO_PACKET, *(
+        (f, "const crt::BlockTables bt{boxes, nbc, block_b};",
+         "const crt::BlockTables bt{supers, nsc, 1};") for f in (_GB, _HIT))],
+    "walk_blocks": [_NO_PACKET],
+    "walk_pk_block": [(_SEARCH, _PACKET,
+                       "constexpr unsigned kPacket = PK_BLOCK;")],
+    # the most lanes of a cluster whose tests are spread over the warp
+    **{f"spread{k}": [(_SEARCH, "constexpr int kSpread = 16;",
+                       f"constexpr int kSpread = {k};")]
+       for k in (0, 8, 24, 32)},
+    # the resident G-buffer's and the closest hit's timed entries bounded
+    # at k CTAs an SM (gb_lb0: the G-buffer's unbounded)
+    **{f"gb_lb{k}": [(_GB, "__launch_bounds__(kBlockX * kBlockY,\n"
+                           "                                  kRects || "
+                           "kTris ? 6 : 12)",
+                      "__launch_bounds__(kBlockX * kBlockY"
+                      + (f", {k})" if k else ")"))]
+       for k in (0, 6, 8, 12)},
+    **{f"hit_lb{k}": [(_HIT, "__launch_bounds__(kThreads)\n"
+                             "closest_hit_kernel(",
+                       f"__launch_bounds__(kThreads, {k})\n"
+                       "closest_hit_kernel(")] for k in (2, 3, 4)},
+
     # blocks per group box: 8, 32, or one group of every block
     **{f"g{g}": [("ops/cuda/tables.py", "STREAM_GROUP_G = 16",
                   f"STREAM_GROUP_G = {g}")] for g in (8, 32)},
@@ -120,11 +167,13 @@ def edits_of(variant: str) -> list:
 # checks them against the resident launch and, where the copy has them,
 # reads the walk's counters (stream_stats)
 CHILD = r"""
-import inspect, json, os, pickle, re, sys, statistics, torch
+import hashlib, inspect, json, os, pickle, re, sys, statistics, torch
 from cudaraytracer_tpu_torch.models import scenes
 from cudaraytracer_tpu_torch.models.camera import make_camera_params
 from cudaraytracer_tpu_torch.ops.cuda import build
 from cudaraytracer_tpu_torch.ops.cuda import render_kernel as rk
+from cudaraytracer_tpu_torch.ops.cuda import hit_kernel as hk
+from cudaraytracer_tpu_torch.ops.cuda import gbuffer_kernel as gk
 from cudaraytracer_tpu_torch.ops.cuda.gbuffer_kernel import gbuffer
 from cudaraytracer_tpu_torch.ops.cuda.render_kernel import (
     FEATURES, render_sample, render_variant)
@@ -139,7 +188,8 @@ log = build.build()["log"]
 ptxas, entry = {}, None
 for ln in log.splitlines():
     m = re.search(r"Compiling entry function '_ZN\S*?"
-                  r"((?:render|gbuffer)_kernel(?:_media|_refill|_streamed)?)I"
+                  r"((?:render|gbuffer|closest_hit)_kernel"
+                  r"(?:_media|_refill|_streamed)?)I"
                   r"((?:L[bi]\d+E)+)E", ln)
     if m:
         entry = m.group(1) + "<" + ",".join(
@@ -150,7 +200,53 @@ for ln in log.splitlines():
         ptxas.setdefault(entry, {})["registers"] = int(m.group(1))
         entry = None
 sig = inspect.signature(render_sample).parameters
+gsig = inspect.signature(gbuffer).parameters
 dev, res = torch.device("cuda"), {}
+
+def digest(ts):
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+def walk_case(case):
+    # gbuffer/<scene> or hit/<scene>/<rays>: ms, digest, hit_stats
+    parts = case.split("/")
+    sc, cam = scenes.SCENES[parts[1]][0](), scenes.SCENES[parts[1]][1]()
+    tb, fl = kernel_inputs(sc, dev)
+    packet = "hit_stats" in gsig  # the packet walk: block boxes, counters
+    bb = dict(block_boxes=tb.block_boxes) if packet else {}
+    if parts[0] == "gbuffer":
+        w, h = 1280, 720
+        cv = torch.from_numpy(pack_camera_np(
+            cam, sc.background_start, sc.background_end, w, h,
+            1e-3)).to(dev)
+        a = (tb.S, tb.P, tb.clusters, tb.supers, tb.n_super, cv)
+        kw = dict(width=w, height=h,
+                  camera_model=scenes.camera_model_for(parts[1]), **fl, **bb)
+        fn = lambda **x: gbuffer(*a, **kw, **x)
+        kern = "gbuffer_kernel<" + ",".join(str(int(v)) for v in (
+            gk.gbuffer_variant(fl["has_rects"], fl["has_tris"],
+                               fl["has_vattrs"], "atlas" in fl,
+                               **{k: fl.get(k, False) for k, _, _ in FEATURES
+                                  if k != "has_nee"}))) + ">"
+    else:
+        o, d, n_alive = torch.load(os.path.join(
+            cache, f"rays_{parts[1]}_{parts[2]}.pt"))
+        o, d = o.to(dev), d.to(dev)
+        sf = {k: fl[k] for k in ("has_rects", "has_tris")}
+        fn = lambda **x: hk.closest_hit(tb.S, tb.clusters, tb.supers,
+                                        tb.n_super, n_alive, o, d, **sf,
+                                        **bb, **x)
+        kern = "closest_hit_kernel<%d,%d>" % (sf["has_rects"] or sf["has_tris"],
+                                              sf["has_tris"])
+    r = {"ms": ms(fn), "digest": digest(fn()), "instantiation": kern,
+         **ptxas.get(kern, {})}
+    if packet:
+        s = torch.zeros(len(hk.HIT_STATS), dtype=torch.int64, device=dev)
+        r["count_digest_equal"] = digest(fn(hit_stats=s)) == r["digest"]
+        r["hit_stats"] = dict(zip(hk.HIT_STATS, (int(v) for v in s.cpu())))
+    return r
 
 def ms(fn):
     fn()
@@ -180,6 +276,9 @@ def mesh_tables():
 for case in cases:
     parts = case.split("/")
     name = parts[0]
+    if name in ("gbuffer", "hit"):
+        res[case] = walk_case(case)
+        continue
     streamed = parts[-1] == "streamed" or name in ("mesh", "mesh_cli")
     w, h, spp, depth = (640, 360, 2, 4) if name == "mesh_cli" \
         else (1280, 720, 4, 12)
@@ -231,7 +330,8 @@ for case in cases:
     is_, ns, cs = render_sample(*sargs, with_stats=True,
                                 with_cull_stats=True, **skw)
     gr = gbuffer(*rargs[:6], **{k: v for k, v in gkw.items() if k not in (
-        "stream_b", "group_boxes")})
+        "stream_b", "group_boxes")}, **({"block_boxes": tb.block_boxes}
+                                        if "hit_stats" in gsig else {}))
     gs = gbuffer(*sargs[:6], **gkw)
     kern = "render_kernel_streamed" + key
     r = {"ms": ms(lambda: render_sample(*sargs, **skw)),
@@ -307,6 +407,17 @@ def main(argv=None):
         timeout=60).stdout.strip()
     runs: dict = {v: [] for v in variants}
     with tempfile.TemporaryDirectory() as tmp:
+        # the closest hit's rays, made once for every variant
+        for scene, kind in sorted({tuple(c.split("/")[1:3]) for c in cases
+                                   if c.startswith("hit/")}):
+            import torch
+
+            from .bounce_rays import bounce_wavefront, uniform_rays
+            rays = (bounce_wavefront if kind == "bounce" else uniform_rays)(
+                scene, torch.device("cuda"))
+            torch.save(tuple(v.cpu() if torch.is_tensor(v) else v
+                             for v in rays),
+                       os.path.join(tmp, f"rays_{scene}_{kind}.pt"))
         roots = {v: copy_of(v, tmp) for v in variants if v != "parent"}
         if args.parent:
             roots["parent"] = copy_of(
@@ -333,10 +444,15 @@ def main(argv=None):
                            "instantiation", "registers", "spill_store_bytes",
                            "gbuffer_ms", "pixels_differing", "rays_equal",
                            "cull_equal", "gbuffer_equal", "stream_stats",
-                           "gbuffer_stream_stats")
+                           "gbuffer_stream_stats", "digest",
+                           "count_digest_equal", "hit_stats")
                           if x in runs[v][0][c]}}
                    for c in cases} for v in variants if runs[v]}
-    print(json.dumps({"summary": summary, "nvidia_smi": smi}), flush=True)
+    # the packet walk's cases: every variant's output the same
+    agree = {c: len({r[c]["digest"] for v in variants for r in runs[v]}) == 1
+             for c in cases if c.startswith(("gbuffer/", "hit/"))}
+    print(json.dumps({"summary": summary, "outputs_agree": agree,
+                      "nvidia_smi": smi}), flush=True)
     if args.out:
         Path(args.out).write_text(json.dumps({"runs": runs,
                                               "summary": summary},

@@ -21,10 +21,16 @@ probe (every variant's CTA sums against ``expected``), and the streamed
 layout (the streamed launch against the resident one at 1280x720, 4
 spp, depth 12, with QMC, and NEE on book2_final: pixels, rays and
 cluster entries; and the group boxes against the exact union of their
-blocks' boxes).  "sound" is the unedited copy, checked on every
+blocks' boxes), and the packet walk of the resident G-buffer and the
+closest hit (the G-buffer at 1280x720 and the closest hit on the uniform
+rays, the sorted bounce wavefronts and the rays that graze block corners
+of ``scripts/bounce_rays.py``, each against its brute-force plain
+version, the grazing rays against the plain walk, and the walk's
+counters from the counting entries against the plain walk's).  "sound" is the unedited copy, checked on every
 scene, "sound_options" the same with every option on the NEE scenes,
 "sound_slice" the bands, the sharded frame and the probe,
-"sound_stream" the streamed layout, and "sound_sched" the refilling
+"sound_stream" the streamed layout, "sound_walk" the packet walk, and
+"sound_sched" the refilling
 kernel's ragged batches (the megakernel against its plain version at
 1277x719, and in a band of 333 rows at y0 101 with half its tiles
 masked, NEE on book2_final, QMC; a block of NaN of the output's size is
@@ -33,10 +39,11 @@ NaN, which counts as off).  Prints one JSON line per
 fault: pixels off by more than 1e-3, the relative change of the mean and
 of the ray count, G-buffer masks and pixels off by more than 1e-6,
 closest-hit masks and columns, band and sharded pixels off, probe CTAs
-off, streamed pixels, rays and entries off the resident launch, and
-"caught": whether chip_smoke.py's limits (more than 0.01% of pixels or
-1e-4 on mean or rays; any G-buffer mask or pixel; any closest-hit mask
-or column; any band, sharded, probe, streamed or group-box mismatch)
+off, streamed pixels, rays and entries off the resident launch, the
+packet walk's counters off the plain walk's, and "caught": whether
+chip_smoke.py's limits (more than 0.01% of pixels or 1e-4 on mean or
+rays; any G-buffer mask or pixel; any closest-hit mask or column; any
+band, sharded, probe, streamed, group-box or walk-counter mismatch)
 would fail the copy.  Needs a GPU and nvcc; the checkout is never edited.
 """
 
@@ -68,6 +75,10 @@ STREAM = ("rtow_final", "terrain_big", "book2_final")
 # the refilling kernel's ragged batches (media scenes): an odd image size
 # and a band with half its tiles masked
 SCHED = ("cornell_smoke", "book2_final")
+# the packet walk: the G-buffer's scenes, the closest hit's on those with
+# bounce, uniform or grazing rays
+WALK = ("rtow_final", "cornell_mesh_light", "terrain_big", "book2_final",
+        "default")
 
 # name -> ([(file under the package, text, replacement)], scenes[,
 #          render options])
@@ -250,13 +261,58 @@ FAULTS = {
         ("csrc/search.cuh", "    slot ^= 1;\n  }\n  return best_j;\n",
          "    slot ^= 1;\n  }\n  sg.stale = best_t;\n  return best_j;\n")],
         STREAM, {"stream": True}),
+    "sound_walk": ([], WALK, {"walk": True}),
+    # the packet interval rounded inward: tnear up, tfar down
+    "packet_rounded_wrong_way": ([
+        ("csrc/search.cuh",
+         "const float n = pos ? __fsub_rd(blo, pk.hi[k]) : "
+         "__fsub_ru(bhi, pk.lo[k]);",
+         "const float n = pos ? __fsub_ru(blo, pk.hi[k]) : "
+         "__fsub_rd(bhi, pk.lo[k]);"),
+        ("csrc/search.cuh",
+         "const float f = pos ? __fsub_ru(bhi, pk.lo[k]) : "
+         "__fsub_rd(blo, pk.hi[k]);",
+         "const float f = pos ? __fsub_rd(bhi, pk.lo[k]) : "
+         "__fsub_ru(blo, pk.hi[k]);"),
+        ("csrc/search.cuh", "tn = fmaxf(tn, __fmul_rd(",
+         "tn = fmaxf(tn, __fmul_ru("),
+        ("csrc/search.cuh", "tf = fminf(tf, __fmul_ru(",
+         "tf = fminf(tf, __fmul_rd(")], WALK, {"walk": True}),
+    # the packet's tfar one ulp short
+    "packet_shrunk_one_ulp": ([(
+        "csrc/search.cuh",
+        "tf = fminf(tf, __fmul_ru(f, f >= 0.0f ? pk.ivhi[k] : pk.ivlo[k]));",
+        "tf = fminf(tf, nextafterf(__fmul_ru(f, f >= 0.0f ? pk.ivhi[k] : "
+        "pk.ivlo[k]), -kBig));")], WALK, {"walk": True}),
+    # an axis whose rays' directions differ in sign culled on
+    "packet_mixed_sign_culled": ([(
+        "csrc/search.cuh",
+        "if (!((bad >> k) & 1u) && (pk.ivlo[k] > 0.0f || pk.ivhi[k] < 0.0f)) {",
+        "if (!((bad >> k) & 1u)) {")], WALK, {"walk": True}),
+    # the first candidate block of every 32 dropped
+    "packet_candidate_bit_dropped": ([(
+        "csrc/search.cuh", "best_t, 0,\n                        wc);",
+        "best_t, 0,\n                        wc) & ~1u;")],
+        WALK, {"walk": True}),
+    # half the spread pairs of a cluster never tested
+    "spread_pairs_skipped": ([(
+        "csrc/search.cuh",
+        "for (int q = static_cast<int>(lane); q < pairs; q += 32) {",
+        "for (int q = static_cast<int>(lane); q < pairs; q += 64) {")],
+        WALK, {"walk": True}),
+    # the last block never walked
+    "packet_block_skipped": ([(
+        "csrc/search.cuh", "const int n_b = min(nb - b0, 32);",
+        "const int n_b = min(nb - b0 - 1, 32);")], WALK, {"walk": True}),
 }
 
 CHECK = r'''
 import json, sys, numpy as np, torch
 from cudaraytracer_tpu_torch.models import scenes
 from cudaraytracer_tpu_torch.ops.cuda.gbuffer_kernel import gbuffer, gbuffer_plain
-from cudaraytracer_tpu_torch.ops.cuda.hit_kernel import closest_hit, closest_hit_plain
+from cudaraytracer_tpu_torch.ops.cuda.hit_kernel import (
+    HIT_STATS, closest_hit, closest_hit_plain)
+from cudaraytracer_tpu_torch.scripts import bounce_rays
 from cudaraytracer_tpu_torch.ops.cuda.render_kernel import mask_grid, render_sample, render_sample_plain
 from cudaraytracer_tpu_torch.ops.cuda.tables import (
     STREAM_GROUP_G as G, SceneTables, kernel_inputs, nee_inputs,
@@ -273,6 +329,16 @@ if opts.get("half_mask"):
     mk.update(tile_mask=torch.from_numpy(m.astype(np.int32)).to(dev),
               tile=(16, 128))
 slice_only = any(opts.get(k) for k in ("bands", "shard", "probe", "stream"))
+
+def stats_pair(fn, plain_fn):
+    """The counting entry's counters and the plain walk's: differing
+    counters (the walk's exact check)."""
+    ks = torch.zeros(len(HIT_STATS), dtype=torch.int64, device=dev)
+    ps = torch.zeros_like(ks)
+    fn(hit_stats=ks)
+    plain_fn(hit_stats=ps)
+    return int((ks != ps).sum())
+
 for name in json.loads(sys.argv[1]):
     sc, cam = scenes.SCENES[name][0](), scenes.SCENES[name][1]()
     model = scenes.camera_model_for(name)
@@ -314,6 +380,41 @@ for name in json.loads(sys.argv[1]):
                 "mean_rel": abs(float(ik.nan_to_num(1e9).mean())
                                 / float(ip.mean()) - 1),
                 "rays_rel": abs(int(nk) / int(np_) - 1)}
+        continue
+    if opts.get("walk"):
+        # the packet walk: the G-buffer, then the closest hit's ray sets,
+        # each against its brute-force plain version and the counters
+        # against the plain walk's
+        kw = dict(width=W, height=H, camera_model=model, **fl)
+        gk, gp = gbuffer(*a, **kw, **bb), gbuffer_plain(*a, **kw)
+        res[name + "/gbuffer"] = {
+            "masks": int(((gk.depth > 0) != (gp.depth > 0)).sum()),
+            "pixels": int(sum(((x - y).abs().reshape(H, W, -1) > 1e-6)
+                              .any(-1) for x, y in zip(gk, gp)).sum()),
+            "stats_off": stats_pair(
+                lambda **s: gbuffer(*a, **kw, **bb, **s),
+                lambda **s: gbuffer_plain(*a, **kw, **bb, **s))}
+        sets = [("grazing", bounce_rays.grazing_rays(tb.block_boxes, dev))]
+        if name in bounce_rays.SCENES:
+            sets.append(("bounce", bounce_rays.bounce_wavefront(name, dev)))
+        if name in bounce_rays.UNIFORM:
+            sets.append(("uniform", bounce_rays.uniform_rays(name, dev)))
+        t4 = (tb.S, tb.clusters, tb.supers, tb.n_super)
+        for tag, (o, d, na) in sets:
+            hk_, _, ck = closest_hit(*t4, na, o, d, **hit_fl, **bb)
+            # grazing rays against the plain walk (chip_smoke.py's
+            # hit_check: on a box's boundary culling may differ from
+            # brute force)
+            hp, _, cp = closest_hit_plain(*t4, na, o, d, **hit_fl,
+                                          **(bb if tag == "grazing" else {}))
+            res[f"{name}/{tag}/closest_hit"] = {
+                "masks": int((hk_ != hp).sum()),
+                "columns": int((ck != cp).sum()),
+                "stats_off": stats_pair(
+                    lambda **s: closest_hit(*t4, na, o, d, **hit_fl, **bb,
+                                            **s),
+                    lambda **s: closest_hit_plain(*t4, na, o, d, **hit_fl,
+                                                  **bb, **s))}
         continue
     if slice_only:
         kw = dict(width=W, height=H, camera_model=model, spp=4, rr_start=2,
@@ -373,7 +474,7 @@ for name in json.loads(sys.argv[1]):
             "mean_rel": abs(float(ik.mean()) / float(ip.mean()) - 1),
             "rays_rel": abs(int(nk) / int(np_) - 1)}
     kw = dict(width=W, height=H, camera_model=model, **fl)
-    gk, gp = gbuffer(*a, **kw), gbuffer_plain(*a, **kw)
+    gk, gp = gbuffer(*a, **kw, **bb), gbuffer_plain(*a, **kw)
     off = torch.zeros((H, W), dtype=torch.bool, device=dev)
     for x, y in zip(gk, gp):
         off |= ((x - y).abs().reshape(H, W, -1) > 1e-6).any(-1)
@@ -390,7 +491,7 @@ for name in json.loads(sys.argv[1]):
         d /= np.linalg.norm(d, axis=1, keepdims=True)
         o, d = (torch.from_numpy(v.astype(np.float32)).to(dev) for v in (o, d))
         hk, _, ck = closest_hit(tb.S, tb.clusters, tb.supers, tb.n_super, n,
-                                o, d, **hit_fl)
+                                o, d, **hit_fl, **bb)
         hp, _, cp = closest_hit_plain(tb.S, tb.clusters, tb.supers,
                                       tb.n_super, n, o, d, **hit_fl)
         res[name + "/closest_hit"] = {"masks": int((hk != hp).sum()),
@@ -417,9 +518,11 @@ def caught(res: dict) -> bool:
                 r["pixels"] > 1e-4 * 1280 * 720 or r["mean_rel"] > 1e-4
                 or r["rays_rel"] > 1e-4):
             return True
-        if key.endswith("/gbuffer") and (r["masks"] or r["pixels"]):
+        if key.endswith("/gbuffer") and (r["masks"] or r["pixels"]
+                                         or r.get("stats_off")):
             return True
-        if key.endswith("/closest_hit") and (r["masks"] or r["columns"]):
+        if key.endswith("/closest_hit") and (r["masks"] or r["columns"]
+                                             or r.get("stats_off")):
             return True
         if key.endswith("/bands") and (r["seam_pixels"]
                                        or r["plain_pixels"] > 1e-4 * 1280 * 180):

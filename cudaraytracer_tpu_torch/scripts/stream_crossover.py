@@ -151,7 +151,7 @@ def measure(n: int, shapes, device, mesh: str = "heightfield",
         s1 = _ms(lambda: render_sample(*stm, **skw, **kw), cuda)
         s2 = _ms(lambda: render_sample(*stm, **skw, **kw), cuda)
         r2 = _ms(lambda: render_sample(*res, **kw, **bb), cuda)
-        g_r = _ms(lambda: gbuffer(*res[:6], **gkw), cuda)
+        g_r = _ms(lambda: gbuffer(*res[:6], **gkw, **bb), cuda)
         g_s = _ms(lambda: gbuffer(*stm[:6], **skw, **gkw), cuda)
         row[f"{w}x{h}/{spp}spp/depth{depth}"] = {
             "rays": int(na), "resident_ms": [r1, r2], "streamed_ms": [s1, s2],

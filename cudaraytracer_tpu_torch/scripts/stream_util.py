@@ -176,16 +176,21 @@ class Case:
                     st.n_blocks, self.cv)
         self.skw = dict(stream_b=st.block_b, group_boxes=st.group_boxes)
 
+    def layout(self, streamed: bool):
+        """The tables and their keywords: streamed, or resident with the
+        block boxes the resident kernels need on the card."""
+        if streamed:
+            return self.stm, self.skw
+        return self.res, {"block_boxes": self.tb.block_boxes}
+
     def render(self, streamed: bool, **extra):
-        args = self.stm if streamed else self.res
-        lay = self.skw if streamed else {"block_boxes": self.tb.block_boxes}
+        args, lay = self.layout(streamed)
         return render_sample(*args, 7, self.depth, spp=self.spp, rr_start=2,
                              **self.kw, **self.opts, **lay, **extra)
 
     def gbuf(self, streamed: bool, **extra):
-        args = self.stm if streamed else self.res
-        return gbuffer(*args, **self.kw, **(self.skw if streamed else {}),
-                       **extra)
+        args, lay = self.layout(streamed)
+        return gbuffer(*args, **self.kw, **lay, **extra)
 
 
 def stats_of(fn, dev) -> dict:

@@ -248,8 +248,9 @@ class _CudaPipeline:
         return (tb.S, tb.P, tb.clusters, tb.supers, tb.n_super), kw
 
     def _blocks(self) -> dict:
-        """The megakernel's block boxes (its resident walk's third
-        level); the streamed layout passes its own among the tables."""
+        """The block boxes of the megakernel's and the G-buffer's resident
+        walks (their third level); the streamed layout passes its own
+        among the tables."""
         return {} if self.stream_b else {"block_boxes": self._tabs.block_boxes}
 
     def _cam_vec(self, cam) -> torch.Tensor:
@@ -294,7 +295,7 @@ class _CudaPipeline:
         tabs, layout = self._tables()
         return gbuffer(*tabs, self._cam_vec(cam), width=cfg.width,
                        height=cfg.height, camera_model=cfg.camera_model,
-                       **layout, **self._flags)
+                       **layout, **self._flags, **self._blocks())
 
 
 class RenderLayer(Layer):

@@ -158,3 +158,20 @@ def test_nee_instantiations_and_the_probe_flags():
                        match=r"moving spheres \(has_motion\) \+ "
                              r"next-event estimation \(has_nee\)"):
         rk.render_variant(has_noise=True, has_motion=True, has_nee=True)
+
+
+@pytest.mark.parametrize("variant", sorted(
+    __import__("cudaraytracer_tpu_torch.scripts.design_sweep",
+               fromlist=["EDITS"]).EDITS))
+def test_design_sweep_edits_find_their_text_once(variant):
+    """Each design part of scripts/design_sweep.py edits text that the
+    sources hold exactly once (the sweep raises otherwise, and only on
+    the card)."""
+    from pathlib import Path
+
+    from cudaraytracer_tpu_torch.scripts import design_sweep as ds
+
+    for edit in ds.edits_of(variant):
+        rel, old, _ = edit if len(edit) == 3 else ("csrc/render_kernel.cu",
+                                                   *edit)
+        assert Path(ds.PKG, rel).read_text().count(old) == 1, (rel, old)

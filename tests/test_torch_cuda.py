@@ -28,7 +28,12 @@ plain walk's; ``stream_stats`` is checked, and a scene class without a
 streamed instantiation raises.  The megakernel limits here are the ones
 it states and why; at 96x54 they allow no differing pixel.  The G-buffer kernel and
 its plain version do the same float operations: equal hit masks, and
-the buffers equal to 1e-6.
+the buffers equal to 1e-6.  The resident G-buffer and the closest hit
+walk a warp's rays together (the packet walk): in a ragged 97x55 frame
+and on sorted bounce wavefronts (an odd n_alive) they equal the
+brute-force plain versions, their counting entries the timed ones, and
+their counters (``hit_stats``) the plain walk's; the walk's arguments
+are checked.
 """
 
 import os
@@ -45,6 +50,7 @@ from cudaraytracer_tpu_torch.ops.cuda import (gbuffer_kernel, hit_kernel,
                                               render_kernel, stream_probe)
 from cudaraytracer_tpu_torch.ops.cuda import tables as ttab
 from cudaraytracer_tpu_torch.parallel import dryrun, tiling
+from cudaraytracer_tpu_torch.scripts import bounce_rays
 from cudaraytracer_tpu_torch.utils import mesh as tmesh
 
 pytestmark = pytest.mark.cuda
@@ -112,7 +118,8 @@ def test_closest_hit_kernel_matches_plain(cuda, name):
     o, d = torch.from_numpy(o).to(cuda), torch.from_numpy(d).to(cuda)
     p0 = hit_kernel.closest_hit_plain.launches
     hk, tk, ck = hit_kernel.closest_hit(tb.S, tb.clusters, tb.supers,
-                                        tb.n_super, n_alive, o, d, **flags)
+                                        tb.n_super, n_alive, o, d,
+                                        block_boxes=tb.block_boxes, **flags)
     torch.cuda.synchronize()
     assert hit_kernel.closest_hit_plain.launches == p0  # no fallback
     hp, tp, cp = hit_kernel.closest_hit_plain(tb.S, tb.clusters, tb.supers,
@@ -177,7 +184,8 @@ def test_gbuffer_kernel_matches_plain(cuda, name):
     kw = dict(width=w, height=h, camera_model=model, **flags)
     p0 = gbuffer_kernel.gbuffer_plain.launches
     gk = gbuffer_kernel.gbuffer(tb.S, tb.P, tb.clusters, tb.supers,
-                                tb.n_super, cv, **kw)
+                                tb.n_super, cv, block_boxes=tb.block_boxes,
+                                **kw)
     torch.cuda.synchronize()
     assert gbuffer_kernel.gbuffer_plain.launches == p0  # no fallback
     gp = gbuffer_kernel.gbuffer_plain(tb.S, tb.P, tb.clusters, tb.supers,
@@ -517,9 +525,9 @@ def test_streamed_kernels_match_plain(cuda, name):
 @pytest.mark.parametrize("name", ["rtow_final", "terrain_big",
                                   "book2_final"])
 def test_streamed_gbuffer_equals_resident(cuda, name):
-    res, stm, skw, kw, _ = stream_setup(name, cuda, 320, 180)
+    res, stm, skw, kw, bb = stream_setup(name, cuda, 320, 180)
     n0 = gbuffer_kernel.gbuffer.streamed_launches
-    a = gbuffer_kernel.gbuffer(*res, **kw)
+    a = gbuffer_kernel.gbuffer(*res, **kw, **bb)
     b = gbuffer_kernel.gbuffer(*stm, **kw, **skw)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert gbuffer_kernel.gbuffer.streamed_launches == n0 + 1
@@ -602,9 +610,21 @@ def test_streamed_heightfield_equals_resident(cuda, nee):
     gkw = {k: v for k, v in kw.items() if k in (
         "width", "height", "camera_model", "has_rects", "has_tris",
         "has_vattrs")}
-    g_r = gbuffer_kernel.gbuffer(*res, **gkw)
+    g_r = gbuffer_kernel.gbuffer(*res, **gkw, **bb)
     g_s = gbuffer_kernel.gbuffer(*stm, **gkw, **skw)
     assert all(torch.equal(x, y) for x, y in zip(g_r, g_s))
+
+
+def test_stream_tools_run_on_the_card(cuda):
+    """scripts/stream_util.py's case and scripts/stream_crossover.py's
+    size row run through on the card (every resident call with its block
+    boxes), both layouts equal."""
+    from cudaraytracer_tpu_torch.scripts import stream_crossover, stream_util
+
+    r = stream_util.run_case("rtow_final", cuda, 1, {})
+    assert r["equal"]["pixels_differing"] == 0 and r["gbuffer"]["equal"]
+    row = stream_crossover.measure(40, [(64, 36, 1, 2)], cuda)
+    assert row["64x36/1spp/depth2"]["gbuffer_resident_ms"] > 0
 
 
 def test_stream_stats_equal_the_plain_walk(cuda):
@@ -686,3 +706,103 @@ def test_stream_stats_checked(cuda):
                            for k, v in kw.items()},
             stream_b=skw["stream_b"], group_boxes=gb.cpu(),
             stream_stats=torch.zeros(n, dtype=torch.int64))
+
+
+# ------------------------------------------------------- the packet walk
+@pytest.mark.parametrize("name", ["rtow_final", "default", "book2_final",
+                                  "terrain", "cornell_mesh_light"])
+def test_packet_gbuffer_matches_plain_in_a_ragged_frame(cuda, name):
+    """The redesigned G-buffer (a warp's pixels walk together, the packet
+    test first) against its brute-force plain version in a ragged 97x55
+    frame, look_at and two_plane: masks equal, buffers within 1e-6; the
+    counting entry's output equals the timed one's, its counters the
+    plain walk's."""
+    scene, cam, model = scene_and_camera(name)
+    w, h = 97, 55
+    tb, flags = frame_setup(scene, cuda)
+    cv = torch.from_numpy(ttab.pack_camera_np(
+        cam, scene.background_start, scene.background_end, w, h,
+        1e-3)).to(cuda)
+    a = (tb.S, tb.P, tb.clusters, tb.supers, tb.n_super, cv)
+    kw = dict(width=w, height=h, camera_model=model, **flags)
+    bb = dict(block_boxes=tb.block_boxes)
+    gk = gbuffer_kernel.gbuffer(*a, **kw, **bb)
+    gp = gbuffer_kernel.gbuffer_plain(*a, **kw)
+    assert torch.equal(gk.depth > 0, gp.depth > 0)
+    for x, y in zip(gk, gp):
+        torch.testing.assert_close(x, y, rtol=0, atol=1e-6)
+    ks = torch.zeros(len(hit_kernel.HIT_STATS), dtype=torch.int64,
+                     device=cuda)
+    ps = torch.zeros_like(ks)
+    gc = gbuffer_kernel.gbuffer(*a, **kw, **bb, hit_stats=ks)
+    assert all(torch.equal(x, y) for x, y in zip(gk, gc))
+    gbuffer_kernel.gbuffer_plain(*a, **kw, **bb, hit_stats=ps)
+    assert torch.equal(ks, ps)
+    assert int(ks[hit_kernel.HIT_STATS.index("rays")]) == w * h
+
+
+@pytest.mark.parametrize("name", ["rtow_final", "cornell_mesh_light",
+                                  "terrain_big"])
+def test_packet_closest_hit_on_a_sorted_bounce_wavefront(cuda, name):
+    """The closest hit on a sorted bounce wavefront of a 97x55 frame (5,335
+    rays, not a multiple of 32; n_alive made odd) against brute force:
+    masks equal, t to rtol 1e-5, another column only on a t-tie, dead
+    rays (BIG, -1); the counters equal the plain walk's."""
+    o, d, na = bounce_rays.bounce_wavefront(name, cuda, 97, 55, seed=3)
+    na -= 1 - na % 2  # odd: neither a multiple of 32 nor of a packet
+    tb, flags = frame_setup(tscenes.SCENES[name][0](), cuda)
+    sf = {k: flags[k] for k in ("has_rects", "has_tris")}
+    t4 = (tb.S, tb.clusters, tb.supers, tb.n_super, na, o, d)
+    bb = dict(block_boxes=tb.block_boxes)
+    hk, tk, ck = hit_kernel.closest_hit(*t4, **sf, **bb)
+    hp, tp, cp = hit_kernel.closest_hit_plain(*t4, **sf)
+    assert torch.equal(hk, hp) and int(hk.sum()) > 0
+    torch.testing.assert_close(tk, tp, rtol=1e-5, atol=0)
+    diff = hk & (ck != cp)
+    torch.testing.assert_close(tk[diff], tp[diff], rtol=1e-6, atol=0)
+    assert (tk[na:] == ttab.BIG).all() and (ck[na:] == -1).all()
+    ks = torch.zeros(len(hit_kernel.HIT_STATS), dtype=torch.int64,
+                     device=cuda)
+    ps = torch.zeros_like(ks)
+    kc = hit_kernel.closest_hit(*t4, **sf, **bb, hit_stats=ks)
+    assert all(torch.equal(x, y) for x, y in zip((hk, tk, ck), kc))
+    hit_kernel.closest_hit_plain(*t4, **sf, **bb, hit_stats=ps)
+    assert torch.equal(ks, ps)
+    assert int(ks[hit_kernel.HIT_STATS.index("rays")]) == na
+
+
+def test_packet_walk_arguments_checked(cuda):
+    """The block boxes are required on the card, hit_stats must be an
+    int64[HIT_STATS] on the tables' device, and the streamed layout takes
+    neither."""
+    scene, cam, model = scene_and_camera("rtow_final")
+    tb, flags = frame_setup(scene, cuda)
+    cv = torch.zeros(38, device=cuda)
+    a = (tb.S, tb.P, tb.clusters, tb.supers, tb.n_super, cv)
+    kw = dict(width=8, height=8, camera_model=model, **flags)
+    n = len(hit_kernel.HIT_STATS)
+    o = torch.zeros((4, 3), device=cuda)
+    d = torch.tensor([[0.0, 0.0, 1.0]], device=cuda).repeat(4, 1)
+    t4 = (tb.S, tb.clusters, tb.supers, tb.n_super, 4, o, d)
+    with pytest.raises(ValueError, match="needs block_boxes"):
+        gbuffer_kernel.gbuffer(*a, **kw)
+    with pytest.raises(ValueError, match="needs block_boxes"):
+        hit_kernel.closest_hit(*t4)
+    for bad in (torch.zeros(n, dtype=torch.int32, device=cuda),
+                torch.zeros(n - 1, dtype=torch.int64, device=cuda),
+                torch.zeros(n, dtype=torch.int64)):
+        with pytest.raises(ValueError, match="hit_stats"):
+            gbuffer_kernel.gbuffer(*a, **kw, block_boxes=tb.block_boxes,
+                                   hit_stats=bad)
+        with pytest.raises(ValueError, match="hit_stats"):
+            hit_kernel.closest_hit(*t4, block_boxes=tb.block_boxes,
+                                   hit_stats=bad)
+    with pytest.raises(ValueError, match="block_boxes"):
+        hit_kernel.closest_hit(*t4, block_boxes=tb.block_boxes[:, :1])
+    _, stm, skw, skw_kw, _ = stream_setup("rtow_final", cuda, 16, 8)
+    gkw = {k: v for k, v in skw_kw.items() if k in (
+        "width", "height", "camera_model", "has_rects", "has_tris",
+        "has_vattrs")}
+    with pytest.raises(ValueError, match="resident layout's"):
+        gbuffer_kernel.gbuffer(*stm, **gkw, **skw, hit_stats=torch.zeros(
+            n, dtype=torch.int64, device=cuda))

@@ -25,7 +25,12 @@ payload read from the wrong page of its tile fails the tiles' columns
 against the resident tables; the streamed walk's sweep dropping a
 candidate block and a page read from the wrong offset of its tile fail
 the walk against the resident walks and brute force, and a group box
-shrunk by one ulp fails the exact union of its blocks.  (The card's
+shrunk by one ulp fails the exact union of its blocks.  The packet walk
+of the resident G-buffer and the closest hit: its packet test rounded
+inward, its tfar one ulp short and a mixed-sign axis culled on fail the
+packet test's conservativeness on corner-grazing packets and on
+packets whose directions differ in sign on one axis; a candidate block dropped and the last block skipped fail the
+walk against the two-level walk and brute force.  (The card's
 other streamed faults, a block dropped where one ray of a warp enters
 it, a page re-gated under a tighter or a stale best_t, are in the
 kernel's votes and gates, which the plain walk does not have.)
@@ -53,6 +58,7 @@ torch.set_num_threads(2)
 import test_torch_adaptive as adaptive_tests  # noqa: E402
 import test_torch_media as media  # noqa: E402
 import test_torch_noise as noise_tests  # noqa: E402
+import test_torch_packet as packet_tests  # noqa: E402
 import test_torch_parallel as parallel_tests  # noqa: E402
 import test_torch_qmc as qmc_tests  # noqa: E402
 import test_torch_render_media as render_media  # noqa: E402
@@ -198,6 +204,47 @@ FAULTS = {
         "    g[0:3] = np.nextafter(g[0:3], np.float32(BIG))\n    return g",
         lambda: walk_tests.test_group_boxes_are_the_union_of_their_blocks(
             "terrain_big", 16), ()),
+    # the packet interval rounded inward: tnear up, tfar down
+    "packet_rounded_wrong_way": (
+        hk, "packet_pass",
+        "        tnk = _mul_directed(nn, torch.where(nn >= 0.0, ivlo, ivhi), "
+        "False)\n"
+        "        tfk = _mul_directed(ff, torch.where(ff >= 0.0, ivhi, ivlo), "
+        "True)",
+        "        tnk = _mul_directed(nn, torch.where(nn >= 0.0, ivlo, ivhi), "
+        "True)\n"
+        "        tfk = _mul_directed(ff, torch.where(ff >= 0.0, ivhi, ivlo), "
+        "False)",
+        lambda: packet_tests.test_packet_test_passes_every_box_a_ray_enters(
+            "corners"), ()),
+    # the packet's tfar one ulp short
+    "packet_shrunk_one_ulp": (
+        hk, "packet_pass", "tf = torch.where(cull, torch.fmin(tf, tfk), tf)",
+        "tf = torch.where(cull, torch.fmin(tf, _next_down(tfk)), tf)",
+        lambda: packet_tests.test_packet_test_passes_every_box_a_ray_enters(
+            "corners"), ()),
+    # an axis whose rays' directions differ in sign culled on
+    "packet_mixed_sign_culled": (
+        hk, "make_packets",
+        'red["cull"] = (bad == 0) & ((red["ivlo"] > 0.0) | (red["ivhi"] < '
+        '0.0))',
+        'red["cull"] = bad == 0',
+        lambda: packet_tests.test_packet_test_passes_every_box_a_ray_enters(
+            "one_mixed_axis"), ()),
+    # the first candidate block of every 32 dropped
+    "packet_candidate_bit_dropped": (
+        hk, "_packet_walk", "for k in range(cb.shape[1]):",
+        "for k in range(1, cb.shape[1]):",
+        lambda: packet_tests.
+        test_packet_walks_equal_two_level_walk_and_brute_force(
+            "terrain_big"), ()),
+    # the last block never walked
+    "packet_block_skipped": (
+        hk, "_packet_walk", "n_b = min(32, nb - b0)",
+        "n_b = min(32, nb - b0 - 1)",
+        lambda: packet_tests.
+        test_packet_walks_equal_two_level_walk_and_brute_force(
+            "book2_final"), ()),
 }
 
 # the later faults' checks as readings (name, function)

@@ -288,6 +288,45 @@ def test_crossover_script_rehearses_on_cpu():
     assert shape["rays"] > 0 and shape["streamed_over_resident"] > 0
 
 
+def as_on_the_card(fn, calls):
+    """``fn`` holding its resident calls to the card's contract: the
+    resident kernels raise without block_boxes, the plain versions run
+    brute force."""
+    def call(*a, stream_b=0, block_boxes=None, **kw):
+        if not stream_b and block_boxes is None:
+            raise ValueError(f"{fn.__name__}: the resident kernel needs "
+                             "block_boxes")
+        calls.append((fn.__name__, bool(stream_b)))
+        return fn(*a, stream_b=stream_b, block_boxes=block_boxes, **kw)
+    return call
+
+
+@pytest.mark.parametrize("tool", ["stream_crossover", "stream_util"])
+def test_tools_pass_the_resident_block_boxes(tool, monkeypatch):
+    """The card's tools give every resident G-buffer and megakernel call
+    its block boxes (a missing one raises on the card only, where the
+    CPU's plain versions cannot see it): stream_crossover's size row and
+    every stream_util case call, both layouts, at a small frame."""
+    from cudaraytracer_tpu_torch.scripts import stream_crossover, stream_util
+
+    mod = {"stream_crossover": stream_crossover,
+           "stream_util": stream_util}[tool]
+    calls = []
+    for name in ("gbuffer", "render_sample"):
+        monkeypatch.setattr(mod, name,
+                            as_on_the_card(getattr(mod, name), calls))
+    if tool == "stream_crossover":
+        stream_crossover.measure(4, [(16, 8, 1, 2)], torch.device("cpu"))
+    else:
+        monkeypatch.setattr(stream_util, "MAIN", (16, 8, 1, 2))
+        c = stream_util.Case("rtow_final", torch.device("cpu"), {})
+        for streamed in (False, True):
+            c.render(streamed)
+            c.gbuf(streamed)
+    assert {(n, s) for n in ("gbuffer", "render_sample")
+            for s in (False, True)} <= set(calls)
+
+
 def test_dryrun_streamed_shard_on_cpu():
     out = dryrun.dryrun_multichip(4, "cpu")
     assert out["means"]["streamed"] == out["means"]["resident"]
