@@ -34,7 +34,21 @@ cases: a one-thread-per-pixel grid's from the plain version's per-pixel
 ray counts, and the refilling kernel's own in the media
 instantiations), and checks the refilling kernel's ragged batches
 (cornell_smoke ``--nee --qmc`` at 1277x719, and in a half-masked band
-of 333 rows; every output block NaN before the launch).  Then the paths of the earlier slices: row bands and the
+of 333 rows; every output block NaN before the launch).  Between the
+CLI paths and the timings, the XLA-path renderers
+(``scripts/xla_paths.py``): ``render --accel wavefront --denoise --aov``
+on rtow_final and terrain_big at 1280x720 must launch the closest hit
+and neither the megakernel nor the G-buffer kernel, ``--accel brute`` on
+the default scene and with ``--nee`` on cornell no kernel; one sample at
+depth 12 of rtow_final and terrain_big with the sort on and off must
+give the same image bit for bit; the closest hit on the sorted loop's
+own bounce-2 wavefront of terrain_big must equal its plain walk
+(columns, t to rtol 1e-5, counters); the wavefront's 16-spp mean at
+160x90 on rtow_final must agree with the megakernel's (channel means
+within 0.004, 10x10-pixel block means within 0.0055 on average); and the
+wavefront's ms per sample, its closest hit's launches and share, its
+sort and shading and the device's idle share, and the brute renderer's
+ms per sample are timed.  Then the paths of the earlier slices: row bands and the
 multi-device tiling on the one card (book2_final ``--nee --qmc`` and
 rtow_final at 1280x720, 4 spp: bands of 180 and 360 rows stitched
 against the whole-image launch bit for bit, a band against its plain
@@ -197,22 +211,23 @@ sys.path.insert(0, ROOT)
 
 W_MAIN, H_MAIN, DEPTH, RR, SPP_MAIN = 1280, 720, 12, 2, 4
 # registers / spill-store bytes of every instantiation before this slice's
-# kernel changes: the parent's build log (nvcc for sm_90a on an NVIDIA
-# H100 80GB HBM3 machine, read on the card): the template flags
-# are (rects, tris[, vattrs, images, features]); the probe's, its variant
+# kernel change (the box gates' compare, search.cuh): the parent's build
+# log (nvcc for sm_90a on an NVIDIA H100 80GB HBM3 machine, read on the
+# card): the template flags are (rects, tris[, vattrs, images,
+# features]); the probe's, its variant
 BASE_PTXAS = {
-    "closest_hit_kernel<0,0>": (40, 0), "closest_hit_kernel<1,0>": (36, 0),
-    "closest_hit_kernel<1,1>": (79, 0), "gbuffer_kernel<0,0,0,0,0>": (34, 0),
-    "gbuffer_kernel<0,0,0,0,1>": (40, 12),
-    "gbuffer_kernel<0,0,0,1,0>": (38, 0),
-    "gbuffer_kernel<1,0,0,0,0>": (36, 0),
-    "gbuffer_kernel<1,0,0,0,3>": (40, 12),
-    "gbuffer_kernel<1,0,0,1,0>": (38, 0),
-    "gbuffer_kernel<1,1,0,0,0>": (72, 0),
-    "gbuffer_kernel<1,1,0,1,0>": (72, 0),
-    "gbuffer_kernel<1,1,0,1,3>": (68, 0),
-    "gbuffer_kernel<1,1,1,0,0>": (72, 0),
-    "gbuffer_kernel<1,1,1,1,0>": (72, 0),
+    "closest_hit_kernel<0,0>": (48, 64), "closest_hit_kernel<1,0>": (48, 152),
+    "closest_hit_kernel<1,1>": (64, 64), "gbuffer_kernel<0,0,0,0,0>": (40, 24),
+    "gbuffer_kernel<0,0,0,0,1>": (40, 36),
+    "gbuffer_kernel<0,0,0,1,0>": (40, 24),
+    "gbuffer_kernel<1,0,0,0,0>": (71, 0),
+    "gbuffer_kernel<1,0,0,0,3>": (72, 0),
+    "gbuffer_kernel<1,0,0,1,0>": (71, 0),
+    "gbuffer_kernel<1,1,0,0,0>": (80, 0),
+    "gbuffer_kernel<1,1,0,1,0>": (80, 0),
+    "gbuffer_kernel<1,1,0,1,3>": (80, 0),
+    "gbuffer_kernel<1,1,1,0,0>": (80, 0),
+    "gbuffer_kernel<1,1,1,1,0>": (80, 0),
     "gbuffer_kernel_streamed<0,0,0,0,0>": (56, 0),
     "gbuffer_kernel_streamed<1,0,0,0,0>": (48, 0),
     "gbuffer_kernel_streamed<1,0,0,0,3>": (48, 0),
@@ -259,8 +274,8 @@ BASE_PTXAS = {
     "stream_probe_kernel<2>": (24, 0),
 }
 # the instantiations this slice redesigns (their BASE_PTXAS numbers are
-# the parent's, shown beside the new ones)
-REDESIGNED = ("gbuffer_kernel<", "closest_hit_kernel<")
+# the parent's, shown beside the new ones): none
+REDESIGNED = ()
 # megakernel against its plain version (see the module docstring)
 MEGA_DIFF_SHARE, MEGA_MEAN_RTOL, MEGA_RAYS_RTOL = 1e-4, 1e-4, 1e-4
 GBUF_ATOL = 1e-6
@@ -314,7 +329,7 @@ def main():
     from cudaraytracer_tpu_torch.scripts.stream_crossover import heightfield
     from cudaraytracer_tpu_torch.scripts.stream_util import (
         counted_bound, group_boxes_off)
-    from cudaraytracer_tpu_torch.scripts import bounce_rays
+    from cudaraytracer_tpu_torch.scripts import bounce_rays, xla_paths
     from cudaraytracer_tpu_torch.scripts.hit_util import readings, walk_bound
     from cudaraytracer_tpu_torch.viewer.app import tile_activity_plane
 
@@ -370,12 +385,11 @@ def main():
                                    for v in recorded.values()),
           "base_changed": sorted(k for k, v in recorded.items()
                                  if v["recorded"] != v["now"]),
-          # this slice changes the resident G-buffer and the closest hit
-          # alone: every other instantiation (megakernel, streamed
-          # entries, probe) keeps its registers and spills
+          # this slice changes the box gates' compare alone: every
+          # instantiation keeps its registers and spills
           "others_as_recorded": all(
               v["recorded"] == v["now"] for k, v in recorded.items()
-              if not k.startswith(REDESIGNED)),
+              if not (REDESIGNED and k.startswith(REDESIGNED))),
           "base_ptxas": recorded,
           "new_ptxas": {k: [v["registers"], v["spill_store_bytes"]]
                         for k, v in ptxas.items() if k not in BASE_PTXAS},
@@ -637,9 +651,9 @@ def main():
 
     # ---- 4. megakernel, kernel against plain ----
     def mega_check(su, w, h, seed, with_bound=False, util=False,
-                   time_plain=False, **opts):
-        """Kernel against plain at w x h, SPP_MAIN spp, with the render
-        options ``opts`` (Setup.options); raise on a miss.  The output's
+                   time_plain=False, depth=DEPTH, **opts):
+        """Kernel against plain at w x h, SPP_MAIN spp, ``depth``, with the
+        render options ``opts`` (Setup.options); raise on a miss.  The output's
         block is first filled with NaN and freed, so that a pixel the
         kernel never writes reads NaN (not finite: a miss).  With
         ``with_bound`` the plain run also tallies the work of the bound;
@@ -649,7 +663,7 @@ def main():
         plain run's time; with the work tally (which replays the search
         per iteration) it is ``plain_work_ms``, and ``time_plain`` times a
         plain run without it too."""
-        args = (*su.frame_args(w, h), seed, DEPTH)
+        args = (*su.frame_args(w, h), seed, depth)
         kw = dict(width=w, height=h, camera_model=su.model, spp=SPP_MAIN,
                   rr_start=RR, with_stats=True, **su.flags, **su.bb,
                   **su.options(**opts))
@@ -706,7 +720,7 @@ def main():
             shown["masked_tiles"] = int((opts["mask"] == 0).sum())
         emit({"phase": "megakernel_check", "scene": su.name, **su.tags,
               "options": shown,
-              "size": [w, h], "spp": SPP_MAIN, "depth": DEPTH,
+              "size": [w, h], "spp": SPP_MAIN, "depth": depth,
               "rr_start": RR, "seed": seed,
               "share_within_1e-3": 1.0 - differing / (w * h),
               "pixels_differing": differing,
@@ -940,6 +954,13 @@ def main():
         if changed < 0.1:
             raise AssertionError("the denoised image equals the raw mean")
 
+    # ---- 6b. the XLA-path renderers: render --accel wavefront (the
+    # closest hit's user path) and --accel brute, sort on and off, the
+    # closest hit on the loop's own bounce-2 wavefront, the wavefront's
+    # radiance against the megakernel's, and their times
+    # (scripts/xla_paths.py) ----
+    xla = xla_paths.run(dev, emit)
+
     # ---- 7. time and check the megakernel at the main-path shape ----
     timing = {}
     for su, spps, size in ((rtow, (1, SPP_MAIN), (W_MAIN, H_MAIN)),
@@ -1004,10 +1025,13 @@ def main():
     checks[f"book2_final/nee_qmc/{SPP_MAIN}spp"] = mega_check(
         book2, W_MAIN, H_MAIN, 7, with_bound=True, util=True,
         time_plain=True, **main_opts)
-    checks[f"book2_final/nee_qmc_half_mask/{SPP_MAIN}spp"] = mega_check(
-        book2, W_MAIN, H_MAIN, 7, with_bound=True, **main_opts,
-        mask=book2_mask)
-    mega_err = max(mega_err, *(c["max_abs_err"] for c in checks.values()))
+    # the half-masked launch against its plain version at depth 4, not 12:
+    # a check of the masked tiles, shortened to keep the script's time
+    # when the XLA-path phase came (its timing row has no bound)
+    mask_d4 = mega_check(book2, W_MAIN, H_MAIN, 7, depth=4, **main_opts,
+                         mask=book2_mask)
+    mega_err = max(mega_err, mask_d4["max_abs_err"],
+                   *(c["max_abs_err"] for c in checks.values()))
     for key, c in checks.items():
         timing[key].update(plain_ms=c["plain_ms"],
                            plain_work_ms=c["plain_work_ms"],
@@ -1607,8 +1631,8 @@ def main():
                       "cornell_smoke, bounce and book2_final at 1280x720; "
                       "NEE on cornell, cornell_mesh_light and smoke at "
                       "640x360; QMC on default and NEE+QMC on book2_final, "
-                      "unmasked and with half its tiles masked, at "
-                      "1280x720; rtow_big and mesh_demo at 1280x720; NEE "
+                      "unmasked and with half its tiles masked (depth 4), "
+                      "at 1280x720; rtow_big and mesh_demo at 1280x720; NEE "
                       "on mesh_smooth, a smooth OBJ, terrain, terrain_big "
                       "and bounce at 640x360; a band of 180 rows of "
                       "book2_final --nee --qmc and rtow_final at 1280x720; "
@@ -1635,14 +1659,28 @@ def main():
         {"name": "closest_hit", "route": "cuda",
          "source": "cudaraytracer_tpu_torch/csrc/hit_kernel.cu",
          "replaces": "cudaraytracer_tpu/ops/pallas/hit_kernel.py:37",
-         "launches": launches["closest_hit"], "on_main_path": False,
-         "max_abs_err": max(v["max_abs_err"] for v in hits.values()),
+         # its path: render --accel wavefront --scene rtow_final
+         # --denoise --aov (2 frames of one sample)
+         "launches": xla["paths"]["wavefront_rtow_final"]["launches"][
+             "closest_hit"],
+         "path": "render --accel wavefront --scene rtow_final --denoise "
+                 "--aov",
+         "launches_by_path": {
+             k: v["launches"]["closest_hit"]
+             for k, v in xla["paths"].items()},
+         "max_abs_err": max(xla["sort"]["loop_bounce2"]["max_abs_err_t"],
+                            *(v["max_abs_err"] for v in hits.values())),
          "tolerance": "columns equal except t-ties; t rtol 1e-5; dead rays "
                       "(BIG, -1); the walk's counters equal the plain "
                       "walk's; on 2^20 uniform rays (rtow_final, "
                       "cornell_mesh_light), the sorted bounce wavefronts of "
                       "1280x720 frames and rays grazing block corners "
-                      "(rtow_final, terrain_big, cornell_mesh_light)",
+                      "(rtow_final, terrain_big, cornell_mesh_light); "
+                      "columns equal to the plain walk's, t rtol 1e-5, on "
+                      "the wavefront renderer's own bounce-2 wavefront of "
+                      "terrain_big",
+         "loop_bounce2": xla["sort"]["loop_bounce2"],
+         "wavefront": xla["timing"],
          "ms": hits["terrain_big/bounce"]["ms"],
          "plain_ms": hits["terrain_big/bounce"]["plain_ms"],
          "bound_ms": hits["terrain_big/bounce"]["bound_ms"],

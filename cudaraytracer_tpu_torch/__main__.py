@@ -6,6 +6,8 @@
   python -m cudaraytracer_tpu_torch render --obj model.obj --obj-smooth
   python -m cudaraytracer_tpu_torch render --scene book2_final --nee --qmc \
       --adaptive --denoise --aov aov.npz
+  python -m cudaraytracer_tpu_torch render --accel wavefront --scene rtow_final
+  python -m cudaraytracer_tpu_torch render --accel brute --no-progressive
   python -m cudaraytracer_tpu_torch render --device cpu --width 64 --height 36 ...
 
 With no ``--scene`` it renders the default scene.  ``--obj PATH`` loads a
@@ -19,10 +21,16 @@ ends the render early once every tile has converged (``--adaptive-tau``,
 displayed image with the à-trous denoiser over the G-buffer (and the
 variance plane under ``--adaptive``); ``--aov PATH`` writes the G-buffer
 (``.npz``: raw arrays; any other path: a prefix for three PNGs).
-``--device`` defaults to ``cuda``; with no GPU the command fails with a
-clear error instead of falling back.  ``--device cpu`` runs the kernels'
-plain PyTorch versions.  The JAX package's ``serve`` and ``bench``
-subcommands wait for later ports.
+``--accel`` picks the render path: ``auto``/``cuda`` the megakernel,
+``wavefront`` the sorted-wavefront renderer (its hit step the closest-hit
+kernel; scenes with media raise), ``brute`` the brute renderer
+(``--block`` primitives per search block); ``bvh`` raises, not ported
+yet.  ``--no-progressive`` renders ``--spp`` samples a frame through the
+brute renderer (one frame by default).  ``--device`` defaults to
+``cuda``; with no GPU the command fails with a clear error instead of
+falling back.  ``--device cpu`` runs the kernels' plain PyTorch versions.
+The JAX package's ``serve`` and ``bench`` subcommands wait for later
+ports.
 """
 
 from __future__ import annotations
@@ -44,10 +52,12 @@ def cmd_render(cfg, args):
 
     app = Application(cfg)
     rl = app.setup_default_layers()
-    rtlog.rt_info("Rendering %d frame(s) of %d spp on %s ...",
-                  args.frames, cfg.progressive_spp, rl.device)
+    per_frame = (cfg.spp if not cfg.progressive else
+                 cfg.progressive_spp if rl.accel == "cuda" else 1)
+    rtlog.rt_info("Rendering %d frame(s) of %d spp on %s (accel %s) ...",
+                  args.frames, per_frame, rl.device, rl.accel)
     t0 = time.perf_counter()
-    if cfg.adaptive:
+    if cfg.adaptive and cfg.progressive and rl._pipeline is not None:
         # frames until every tile has converged or the frame budget is
         # spent, the tiles' activity read once per chunk of 8 frames
         done, frac = 0, 1.0
@@ -172,7 +182,7 @@ def main(argv=None):
         rtlog.rt_info("Registered OBJ scene %r from %s", args.scene, args.obj)
     cfg = config_mod.from_args(args)
     if args.frames is None:
-        args.frames = cfg.spp
+        args.frames = cfg.spp if cfg.progressive else 1
     return cmd_render(cfg, args)
 
 

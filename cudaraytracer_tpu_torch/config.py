@@ -4,8 +4,11 @@ Counterpart of ``cudaraytracer_tpu/config.py`` for the options the port
 implements, with the same defaults and flag names (the reference's
 constants: depth 12, seed 1984, a 1280x720 window; next-event
 estimation, QMC jitter and adaptive sampling off), plus ``device``
-(default ``cuda``).  The JAX package's accel, progressive, fence and
-debug options wait for the port of the code they configure.
+(default ``cuda``).  ``accel`` picks the render path: ``auto`` and
+``cuda`` the megakernel, ``brute`` and ``wavefront`` the XLA-path
+renderers (``models/renderer.py``, ``models/wavefront.py``), ``bvh``
+raises until the BVH path is ported.  The JAX package's fence and debug
+options wait for the port of the code they configure.
 """
 
 from __future__ import annotations
@@ -25,9 +28,14 @@ class RenderConfig:
     t_min: float = 0.001  # reference radiance loop t_min (Kernel.cu:40)
     scene: str = "default"
     camera_model: str = "two_plane"  # two_plane (reference parity) | look_at
+    accel: str = "auto"  # auto | cuda (the megakernel) | brute | wavefront
+    #                      | bvh (not ported yet: raises)
+    block: int = 64  # primitives per intersection block (brute force)
     rr_start: int = 2  # Russian-roulette start bounce (0 = off; unbiased)
     aperture: float = 0.0  # defocus-blur lens diameter (look_at camera)
     focus_dist: float = 10.0
+    progressive: bool = True  # progressive accumulation; False re-renders
+    #                           spp samples a frame (the brute renderer)
     progressive_spp: int = 4  # samples per progressive frame (one launch)
     denoise: bool = False  # display-time à-trous denoiser with G-buffer
     #                        edge stopping (ops/denoise.py); applied at
@@ -66,9 +74,16 @@ def add_arguments(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     # default None = resolve from the scene registry in from_args
     parser.add_argument("--camera-model", dest="camera_model",
                         choices=["two_plane", "look_at"], default=None)
+    parser.add_argument("--accel", default=d.accel,
+                        choices=["auto", "cuda", "brute", "wavefront", "bvh"],
+                        help="render path: auto/cuda the megakernel, brute "
+                             "and wavefront the XLA-path renderers")
+    parser.add_argument("--block", type=int, default=d.block)
     parser.add_argument("--rr-start", dest="rr_start", type=int, default=d.rr_start)
     parser.add_argument("--aperture", type=float, default=d.aperture)
     parser.add_argument("--focus-dist", dest="focus_dist", type=float, default=d.focus_dist)
+    parser.add_argument("--no-progressive", dest="progressive",
+                        action="store_false", default=d.progressive)
     parser.add_argument("--progressive-spp", dest="progressive_spp", type=int,
                         default=d.progressive_spp)
     parser.add_argument("--denoise", action="store_true", default=d.denoise)

@@ -117,6 +117,10 @@ __device__ __forceinline__ Ray make_ray(float ox, float oy, float oz,
 }
 
 // Does the ray enter box i of a [6 or 7, stride] table closer than best_t?
+// A slab interval that rounding collapsed to one point (tfar == tnear)
+// enters: a rect's box, RECT_PAD thick, is thinner than one ulp of t
+// from afar, and a ray that grazes it must still reach the rect, as it
+// does in brute force.
 __device__ __forceinline__ bool box_hit(const float* __restrict__ box,
                                         int stride, int i, const Ray& r,
                                         float t_min, float best_t) {
@@ -130,7 +134,7 @@ __device__ __forceinline__ bool box_hit(const float* __restrict__ box,
                             fmaxf(fminf(tz0, tz1), t_min));
   const float tfar = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
                            fminf(fmaxf(tz0, tz1), best_t));
-  return tfar > tnear;
+  return tfar >= tnear;
 }
 
 // kMotion: the centre at the path's shutter time, c + time * v.
@@ -951,7 +955,7 @@ __device__ __forceinline__ Packet make_packet(const Ray& r, bool ray) {
 // the 1/d that makes it least; its tfar (hi - o) / d, at most (hi - lo_o)
 // rounded up times the 1/d that makes it most; with 1/d < 0 the faces
 // swap.  Each bound is rounded outward, so it holds every lane's rounded
-// slab times: a box a lane enters passes.
+// slab times: a box a lane enters (tfar >= tnear) passes.
 __device__ __forceinline__ bool packet_hit(const float* __restrict__ box,
                                            int stride, int i,
                                            const Packet& pk, float t_min,
@@ -967,7 +971,7 @@ __device__ __forceinline__ bool packet_hit(const float* __restrict__ box,
     tn = fmaxf(tn, __fmul_rd(n, n >= 0.0f ? pk.ivlo[k] : pk.ivhi[k]));
     tf = fminf(tf, __fmul_ru(f, f >= 0.0f ? pk.ivhi[k] : pk.ivlo[k]));
   }
-  return tf > tn;
+  return tf >= tn;
 }
 
 // The first n bits (n <= 32).

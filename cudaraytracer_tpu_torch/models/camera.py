@@ -14,7 +14,8 @@ ray-generation models:
 generators turn it into torch tensors on the device of the jitter ``xi``
 they are given.  The megakernel does its own raygen from the packed
 camera vector (``ops/cuda/tables.py::pack_camera_np``); these functions
-are the per-ray reference for it and for the XLA-path port to come.
+are the per-ray reference for it and the raygen of the XLA-path
+renderers (``sample_rays`` draws their jitter and lens points).
 
 The host controller reproduces the reference fly camera
 (Camera.cpp:28-118): WASD/Space/Ctrl movement at SPEED=0.05 (x2 with
@@ -184,6 +185,30 @@ RAY_GENERATORS = {
     "two_plane": generate_rays_two_plane,
     "look_at": generate_rays_look_at,
 }
+
+
+def sample_rays(camera_model: str, cam: CameraParams, width: int,
+                height: int, pk: torch.Tensor | None, device=None):
+    """Primary rays of every pixel for one sample, as the JAX raygen with a
+    key gives them: the pixel jitter from slots SLOT_JX/SLOT_JY and (look_at)
+    the lens point from SLOT_LENS_R/SLOT_LENS_TH of iteration 0 of the
+    pixel keys ``pk`` i64[H*W] (``utils/rng.pixel_keys`` of the pixel ids,
+    row-major).  ``pk=None`` gives the pixel-centre pinhole rays of JAX's
+    ``key=None`` on ``device``.  Returns (org f32[R,3], dirn f32[R,3])."""
+    from ..utils import rng
+
+    if pk is None:
+        xi = torch.full((2, height, width), 0.5, dtype=torch.float32,
+                        device=device)
+        lens = None
+    else:
+        xi = torch.stack([rng.uniform(pk, 0, rng.SLOT_JX),
+                          rng.uniform(pk, 0, rng.SLOT_JY)]).reshape(
+                              2, height, width)
+        lens = rng.draw_in_unit_disk(pk, 0).reshape(height, width, 2)
+    if camera_model == "look_at":
+        return generate_rays_look_at(cam, width, height, xi, lens)
+    return RAY_GENERATORS[camera_model](cam, width, height, xi)
 
 
 class FlyCamera:

@@ -303,7 +303,8 @@ OPS = {"box": 25, "sphere": 27, "rect": 15, "tri": 40, "med": 40,
 
 
 def _box_enter(box, i, o, d_inv, t_min, best_t):
-    """search.cuh::box_hit of rays (o, 1/d) against box column i."""
+    """search.cuh::box_hit of rays (o, 1/d) against box column i: a slab
+    interval that rounding collapsed to one point (tfar == tnear) enters."""
     t = [(box[k, i] - o[:, k % 3]) * d_inv[:, k % 3] for k in range(6)]
     tnear = torch.maximum(
         torch.maximum(torch.minimum(t[0], t[3]), torch.minimum(t[1], t[4])),
@@ -311,7 +312,7 @@ def _box_enter(box, i, o, d_inv, t_min, best_t):
     tfar = torch.minimum(
         torch.minimum(torch.maximum(t[0], t[3]), torch.maximum(t[1], t[4])),
         torch.minimum(torch.maximum(t[2], t[5]), best_t))
-    return tfar > tnear
+    return tfar >= tnear
 
 
 def stream_sweep(group_boxes, block_boxes, n_blocks: int, org, d_inv,
@@ -597,7 +598,7 @@ def packet_pass(pk: dict, ws, box, first: int, count: int, t_min: float,
         cull = pk["cull"][ws, k][:, None]
         tn = torch.where(cull, torch.fmax(tn, tnk), tn)
         tf = torch.where(cull, torch.fmin(tf, tfk), tf)
-    return tf > tn
+    return tf >= tn
 
 
 def _packet_walk(clusters, supers, n_super, block_boxes, block_b, super_,

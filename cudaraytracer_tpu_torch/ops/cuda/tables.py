@@ -224,9 +224,10 @@ def pack_scene_tables(scene, with_uv: bool = False,
 
     n = len(idx)
     clusters = np.zeros((7, max(1, npad // cluster)), np.float32)
-    # degenerate point box at +BIG: _box_any's strict tfar > tnear rejects
-    # it for every ray (an INVERTED box would be re-sorted by the slab
-    # min/max and pass, running 16 wasted prim tests per wave)
+    # degenerate point box at +BIG: a unit ray's slab times there exceed
+    # best_t (or overflow), so every gate rejects it (an INVERTED box
+    # would be re-sorted by the slab min/max and pass, running 16 wasted
+    # prim tests per wave)
     clusters[0:6, :] = BIG
     supers = np.zeros((6, max(1, npad // span)), np.float32)
     supers[0:6, :] = BIG

@@ -16,10 +16,12 @@ scene through the cosine component).  The megakernel reads the packed
 table of ``pack_lights_np`` (f32[114]); ``sample_light_direction``,
 ``lights_pdf`` and ``nee_lambertian`` compute on that table what the
 kernel computes (``csrc/nee.cuh``), in its operation order: they are the
-plain version's NEE step.  Divisions keep a tensor on both sides (PyTorch
+plain version's NEE step, and with ``cosine_direction`` the brute
+renderer's (``models/renderer.py::trace``).  Divisions keep a tensor on both sides (PyTorch
 divides a CUDA tensor by a Python number as a product with its
 reciprocal, another rounding).  ``collect_lights`` is the in-graph table
-of the JAX package's XLA renderer, kept for its tests.
+of the JAX package's XLA renderer; ``light_table`` packs it for the
+brute renderer's NEE.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 
 from ..models.scene import DIFFUSE_LIGHT, TRIANGLE, XY_RECT, YZ_RECT
+from ..utils.vec import normalize
 
 MAX_LIGHTS = 8
 # Per-slot layout of the packed table (after the 2-float header
@@ -81,6 +84,30 @@ def collect_lights(scene, max_lights: int = MAX_LIGHTS):
             scene.edge1[lidx], scene.edge2[lidx], l_valid, l_valid.sum())
 
 
+def _pack_light(v: np.ndarray, s: int, t: int, c, sz, e1, e2):
+    """Write light slot ``s`` of the packed table ``v`` (module comment for
+    the layout): prim type ``t``, centre ``c``, size ``sz``, edges."""
+    b = 2 + LIGHT_SLOT_STRIDE * s
+    c = np.asarray(c, np.float64)
+    sz = np.asarray(sz, np.float64)
+    v[b + 1:b + 4] = c
+    if t == TRIANGLE:
+        v[b] = 2.0
+        v[b + 4:b + 7] = np.asarray(e1, np.float64)
+        v[b + 7:b + 10] = np.asarray(e2, np.float64)
+    elif t >= XY_RECT:
+        ka, aa, ba = int(_K_AXIS[t]), int(_A_AXIS[t]), int(_B_AXIS[t])
+        ea = int(_A_EXT_COL[t])
+        v[b + 4], v[b + 5], v[b + 6] = c[ka], c[aa], c[ba]
+        v[b + 7] = 0.5 * sz[ea]
+        v[b + 8] = 0.5 * sz[1 - ea]
+        v[b + 10], v[b + 11], v[b + 12] = float(ka), float(aa), float(ba)
+    else:
+        v[b] = 1.0
+        v[b + 9] = abs(float(sz[0]))
+    v[b + 13] = 1.0
+
+
 def pack_lights_np(scene) -> np.ndarray:
     """The megakernel's light table (f32[LIGHT_BLOCK_LEN]) of a host
     scene: the lights ``collect_lights`` finds, in slot order, with the
@@ -105,26 +132,23 @@ def pack_lights_np(scene) -> np.ndarray:
     idx = idx[:MAX_LIGHTS]
     v[0] = float(len(idx))
     for s, i in enumerate(idx):
-        b = 2 + LIGHT_SLOT_STRIDE * s
-        t = int(scene.prim_type[i])
-        c = np.asarray(scene.center[i], np.float64)
-        sz = np.asarray(scene.size[i], np.float64)
-        v[b + 1:b + 4] = c
-        if t == TRIANGLE:
-            v[b] = 2.0
-            v[b + 4:b + 7] = np.asarray(scene.edge1[i], np.float64)
-            v[b + 7:b + 10] = np.asarray(scene.edge2[i], np.float64)
-        elif t >= XY_RECT:
-            ka, aa, ba = int(_K_AXIS[t]), int(_A_AXIS[t]), int(_B_AXIS[t])
-            ea = int(_A_EXT_COL[t])
-            v[b + 4], v[b + 5], v[b + 6] = c[ka], c[aa], c[ba]
-            v[b + 7] = 0.5 * sz[ea]
-            v[b + 8] = 0.5 * sz[1 - ea]
-            v[b + 10], v[b + 11], v[b + 12] = float(ka), float(aa), float(ba)
-        else:
-            v[b] = 1.0
-            v[b + 9] = abs(float(sz[0]))
-        v[b + 13] = 1.0
+        _pack_light(v, s, int(scene.prim_type[i]), scene.center[i],
+                    scene.size[i], scene.edge1[i], scene.edge2[i])
+    return v
+
+
+def light_table(scene) -> np.ndarray:
+    """The packed light table (``pack_lights_np``'s layout) of the lights
+    ``collect_lights`` finds in a device scene (``Scene.device``): the
+    table of the brute renderer's NEE (``models/renderer.py::trace``)."""
+    l_type, l_center, l_size, l_e1, l_e2, l_valid, _ = (
+        x.detach().cpu().numpy() for x in collect_lights(scene))
+    v = np.zeros(LIGHT_BLOCK_LEN, np.float32)
+    slots = [s for s in range(MAX_LIGHTS) if l_valid[s] > 0.5]
+    v[0] = float(len(slots))
+    for s in slots:
+        _pack_light(v, s, int(l_type[s]), l_center[s], l_size[s], l_e1[s],
+                    l_e2[s])
     return v
 
 
@@ -139,6 +163,16 @@ def _unit(x, y, z):
 
 def _table(table, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(table, dtype=torch.float32, device=like.device)
+
+
+def cosine_direction(normal: torch.Tensor, unit: torch.Tensor) -> torch.Tensor:
+    """Unit directions f32[R,3] with density cos(theta)/pi about ``normal``
+    from supplied uniform unit vectors ``unit`` f32[R,3] (the true
+    lambertian: normal + unit, normalized; the normal itself where the
+    sum vanishes), the JAX package's ``cosine_direction``."""
+    d = normal + unit
+    n2 = (d * d).sum(-1, keepdim=True)
+    return normalize(torch.where(n2 < 1e-12, normal, d))
 
 
 def sample_light_direction(point: torch.Tensor, table, u_pick, u_a, u_b):

@@ -13,7 +13,7 @@ one card the same device may fill every place: the launches then run one
 after the other on it, as the places of a mesh would run side by side.
 
 The XLA renderer's ``render_sharded``/``ShardedRenderer`` (:67, :235)
-wait for the port of ``models/renderer.py``.
+are still to port, over ``models/renderer.py``.
 """
 
 from __future__ import annotations

@@ -6,10 +6,10 @@ will serve, uniform rays, and rays that graze box corners.
     org, dirn, n_alive = uniform_rays("cornell_mesh_light", device)
     org, dirn, n_alive = grazing_rays(tables.block_boxes, device)
 
-The wavefront renderer (JAX ``models/wavefront.py::
-render_wavefront_sample``, still to be ported) hands its hit step a
-bounce's rays compacted and sorted: live rays first, ordered by origin
-cell and direction octant (``models/wavefront.py::sort_keys``).  This
+The wavefront renderer (``models/wavefront.py::
+render_wavefront_sample``) hands its hit step a bounce's rays compacted
+and sorted: live rays first, ordered by origin cell and direction octant
+(``models/wavefront.py::sort_keys``).  This
 builds such a wavefront from one frame's G-buffer: the pixel-centre
 rays' first hits are the origins (o + depth * d, the G-buffer's own hit
 points), the directions are cosine-weighted about the front-facing

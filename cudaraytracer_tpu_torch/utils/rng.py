@@ -20,6 +20,15 @@ bits; each 32x32-bit product is split into 16-bit halves so no
 intermediate reaches 2^63.  Bits become floats with the mantissa trick of
 the JAX kernel's ``_u01``: ``(bits >> 9) | 0x3F800000`` read as float32,
 minus 1, which lies in [0, 1).
+
+The XLA-path renderers (``models/renderer.py``, ``models/wavefront.py``)
+draw through the same hash: a sample's key is ``frame_key(key, sample)``
+(the JAX package's ``frame_key``), a ray's key ``pixel_keys`` of its
+pixel id, and the bounce is the iteration ``it`` (JAX's ``bounce_key``),
+so a draw is keyed by (seed, sample, pixel, bounce, slot) and never by a
+ray's place in a wavefront.  ``draw_in_unit_sphere``,
+``draw_unit_vector`` and ``draw_in_unit_disk`` are the JAX package's
+``in_unit_sphere``, ``unit_vector`` and ``in_unit_disk`` on those keys.
 """
 
 from __future__ import annotations
@@ -146,3 +155,30 @@ def in_unit_sphere(u1: torch.Tensor, u2: torch.Tensor, u3: torch.Tensor):
     ux, uy, uz = unit_vector(u1, u2)
     scale = torch.exp(torch.log(torch.clamp(u3, min=1e-30)) * (1.0 / 3.0))
     return ux * scale, uy * scale, uz * scale
+
+
+def frame_key(key: int, frame: int) -> int:
+    """The key of one sample (progressive frame) of launch key ``key``."""
+    return key_for(key, frame)
+
+
+def draw_unit_vector(pk: torch.Tensor, it: int) -> torch.Tensor:
+    """Uniform unit vectors f32[R,3] from slots SLOT_SPH_Z, SLOT_SPH_PHI
+    of iteration ``it`` (the in-unit-sphere draw's direction)."""
+    return torch.stack(unit_vector(uniform(pk, it, SLOT_SPH_Z),
+                                   uniform(pk, it, SLOT_SPH_PHI)), -1)
+
+
+def draw_in_unit_sphere(pk: torch.Tensor, it: int) -> torch.Tensor:
+    """Uniform points f32[R,3] in the unit ball from slots SLOT_SPH_Z,
+    SLOT_SPH_PHI and SLOT_SPH_R of iteration ``it``."""
+    return torch.stack(in_unit_sphere(uniform(pk, it, SLOT_SPH_Z),
+                                      uniform(pk, it, SLOT_SPH_PHI),
+                                      uniform(pk, it, SLOT_SPH_R)), -1)
+
+
+def draw_in_unit_disk(pk: torch.Tensor, it: int) -> torch.Tensor:
+    """Uniform points f32[R,2] in the unit disk from slots SLOT_LENS_R,
+    SLOT_LENS_TH of iteration ``it`` (the thin lens's draw)."""
+    return torch.stack(unit_disk(uniform(pk, it, SLOT_LENS_R),
+                                 uniform(pk, it, SLOT_LENS_TH)), -1)

@@ -24,8 +24,18 @@ render path of the megakernel:
 
 The device is explicit (``cfg.device``, default ``cuda``).  A CUDA device
 that is not there raises; nothing falls back to the CPU, and a failed
-frame raises out of ``run``.  The server, checkpoints and the XLA-path
-renderers wait for later ports.
+frame raises out of ``run``.  The server and checkpoints wait for later
+ports.
+
+``cfg.accel`` picks the render path (JAX's ``RenderLayer`` dispatch):
+``auto``/``cuda`` the megakernel through ``_CudaPipeline``, ``wavefront``
+the sorted-wavefront renderer (``models/wavefront.py``, its hit step the
+closest-hit kernel), ``brute`` the brute renderer (``models/renderer.py``).
+The two XLA-path accels take their G-buffer from ``ops/gbuffer.py::
+primary_features``, as the JAX package does; ``--nee`` on ``wavefront``
+warns and renders the parity estimator; ``cfg.progressive = False``
+renders ``cfg.spp`` samples a frame through the brute ``Renderer``
+whatever the accel; ``bvh`` raises (not ported yet).
 """
 
 from __future__ import annotations
@@ -39,15 +49,18 @@ import torch
 from ..config import RenderConfig
 from ..models import scenes as scene_lib
 from ..models.camera import FlyCamera
+from ..models.renderer import Renderer
+from ..models.wavefront import WavefrontRenderer
 from ..ops.cuda.gbuffer_kernel import gbuffer, gbuffer_variant
 from ..ops.cuda.render_kernel import (FEATURES, mask_grid, render_sample,
                                       render_variant)
 from ..ops.cuda.tables import (kernel_inputs, mask_tile, nee_inputs,
                                pack_camera_np, stream_budget)
 from ..ops.denoise import atrous_denoise
-from ..ops.gbuffer import GBuffer
+from ..ops.gbuffer import GBuffer, gbuffer_step
 from ..ops.pack import to_rgba8, tonemap
 from ..utils import logging as rtlog
+from ..utils import rng
 from .metrics import Metrics
 
 
@@ -312,23 +325,31 @@ class RenderLayer(Layer):
         if scene is None and fly is None:
             # start the fly camera at the scene's registered pose
             self._pose_fly_at(make_cam_params())
+        # the render path: the megakernel ("cuda") or an XLA-path renderer
+        self.accel = "cuda" if cfg.accel in ("auto", "cuda") else cfg.accel
+        if self.accel == "bvh":
+            raise NotImplementedError(
+                "--accel bvh is not ported yet (ROADMAP Queue 1 item 7)")
+        if self.accel not in ("cuda", "brute", "wavefront"):
+            raise ValueError(f"unknown accel {cfg.accel!r}")
         self.metrics = Metrics()
         self.metrics.width, self.metrics.height = cfg.width, cfg.height
         self.metrics.backend = self.device.type
-        self.metrics.accel = "cuda" if self.device.type == "cuda" else "plain"
+        self.metrics.accel = (self.accel if self.accel != "cuda" else
+                              "cuda" if self.device.type == "cuda" else "plain")
         self._scene_version = -1
         self._cam_version = -1
         self._frame_index = 0
         self._spp_done = 0
         self._pipeline: _CudaPipeline | None = None
+        self._wavefront: WavefrontRenderer | None = None
+        self.renderer = self._make_renderer()
+        self._sd = None  # the scene on the device (the XLA-path accels)
+        self._key = rng.key_for(cfg.seed)
         self._gb_key = None
         self._gb: GBuffer | None = None
         self._accum = self._zeros_accum()
-        # samples per pixel under adaptive sampling (tiles stop at their
-        # own counts); None when every pixel has every sample
-        self._counts = (torch.zeros((cfg.height, cfg.width),
-                                    dtype=torch.float32, device=self.device)
-                        if cfg.adaptive else None)
+        self._make_counts()
 
     def _pose_fly_at(self, cam0):
         """Point the fly camera at a registered CameraParams pose."""
@@ -347,13 +368,34 @@ class RenderLayer(Layer):
         return torch.zeros((self.cfg.height, self.cfg.width, 3),
                            dtype=torch.float32, device=self.device)
 
+    def _make_counts(self):
+        """Samples per pixel under adaptive sampling (the megakernel's tile
+        mask; tiles stop at their own counts); None when every pixel has
+        every sample, as on the XLA-path accels."""
+        cfg = self.cfg
+        self._counts = (torch.zeros((cfg.height, cfg.width),
+                                    dtype=torch.float32, device=self.device)
+                        if cfg.adaptive and self.accel == "cuda" else None)
+
+    def _make_renderer(self) -> Renderer:
+        """The brute renderer of the brute accel and of non-progressive
+        frames, from cfg."""
+        cfg = self.cfg
+        return Renderer(cfg.width, cfg.height, camera_model=cfg.camera_model,
+                        t_min=cfg.t_min, block=cfg.block, nee=cfg.nee,
+                        nee_p=cfg.nee_p, device=self.device)
+
     # -------------------------------------------------------- lifecycle
     def on_attach(self, app: "Application"):
         self.app = app
         cfg = self.cfg
-        rtlog.rt_info("RenderLayer: %dx%d scene=%s device=%s camera=%s",
-                      cfg.width, cfg.height, cfg.scene, self.device,
-                      cfg.camera_model)
+        if cfg.nee and self.accel == "wavefront":
+            # the wavefront path has no estimator switch (JAX's neither)
+            rtlog.rt_warn("--nee: accel=wavefront renders the parity "
+                          "estimator")
+        rtlog.rt_info("RenderLayer: %dx%d scene=%s device=%s accel=%s "
+                      "camera=%s", cfg.width, cfg.height, cfg.scene,
+                      self.device, self.accel, cfg.camera_model)
         self._sync_scene()
 
     def on_detach(self):
@@ -362,7 +404,18 @@ class RenderLayer(Layer):
     # -------------------------------------------------------- state sync
     def _sync_scene(self):
         if self.scene.version != self._scene_version:
-            self._pipeline = _CudaPipeline(self.scene, self.cfg, self.device)
+            cfg = self.cfg
+            self._sd = self.scene.device(self.device)
+            if self.accel == "cuda":
+                self._pipeline = _CudaPipeline(self.scene, cfg, self.device)
+            elif self.accel == "wavefront":
+                if self._wavefront is None:
+                    self._wavefront = WavefrontRenderer(
+                        self.scene, cfg.width, cfg.height,
+                        camera_model=cfg.camera_model, t_min=cfg.t_min,
+                        device=self.device)
+                else:
+                    self._wavefront.update_scene(self.scene)
             self._scene_version = self.scene.version
             self.reset_accumulation()
         if self.fly.version != self._cam_version:
@@ -379,23 +432,62 @@ class RenderLayer(Layer):
             if self._pipeline is not None:
                 self._pipeline.reset_adaptive()
 
+    def resize(self, width: int, height: int):
+        """Viewport resize: every render path is rebuilt at the new shape
+        and the accumulation restarts."""
+        width, height = int(width), int(height)
+        cfg = self.cfg
+        if (width, height) == (cfg.width, cfg.height):
+            return
+        rtlog.rt_info("Resize %dx%d -> %dx%d", cfg.width, cfg.height, width,
+                      height)
+        cfg.width, cfg.height = width, height
+        self.metrics.width, self.metrics.height = width, height
+        self.renderer = self._make_renderer()
+        self._wavefront = None
+        self._accum = self._zeros_accum()
+        self._make_counts()
+        self._scene_version = -1  # the pipeline is rebuilt at the new shape
+        self._sync_scene()
+
     # -------------------------------------------------------- frame
     def on_update(self):
         self._sync_scene()
         cfg = self.cfg
         self.metrics.frame_start()
         cam = self.fly.params(aperture=cfg.aperture, focus_dist=cfg.focus_dist)
-        batch = max(1, int(cfg.progressive_spp))
-        self._accum = self._pipeline.accumulate(
-            cam, self._frame_index, cfg.max_depth, self._accum, self._counts,
-            spp=batch, sample_base=self._spp_done)
-        self._spp_done += batch
+        # the XLA-path renderers' frame key; the megakernel seeds in-kernel
+        fkey = rng.frame_key(self._key, self._frame_index)
+        if not cfg.progressive:
+            # spp samples through the brute renderer, whatever the accel
+            self._accum, rays = self.renderer.render(
+                self._sd, cam, fkey, spp=cfg.spp, max_depth=cfg.max_depth,
+                with_stats=True)
+            self._counts = None
+            self._spp_done = cfg.spp
+        else:
+            if self.accel == "wavefront":
+                batch = 1
+                self._accum += self._wavefront.render(
+                    cam, fkey, spp=1, max_depth=cfg.max_depth)
+            elif self.accel == "brute":
+                batch = 1
+                self._accum = self.renderer.accumulate(
+                    self._sd, cam, fkey, cfg.max_depth, self._accum,
+                    sample_offset=self._spp_done)
+            else:
+                batch = max(1, int(cfg.progressive_spp))
+                self._accum = self._pipeline.accumulate(
+                    cam, self._frame_index, cfg.max_depth, self._accum,
+                    self._counts, spp=batch, sample_base=self._spp_done)
+            self._spp_done += batch
+            # primary rays: every pixel's, or (adaptive) one per pixel as
+            # the bound the JAX pipeline counts
+            per_pixel = 1 if self._counts is not None else batch
+            rays = cfg.width * cfg.height * per_pixel
         self._frame_index += 1
         self.metrics.accumulated_spp = self._spp_done
-        # primary rays: every pixel's, or (adaptive) one per pixel as the
-        # bound the JAX pipeline counts
-        per_pixel = 1 if self._counts is not None else batch
-        self.metrics.frame_end(cfg.width * cfg.height * per_pixel)
+        self.metrics.frame_end(rays)
 
     # -------------------------------------------------------- output
     def _gbuffer(self) -> GBuffer:
@@ -408,16 +500,24 @@ class RenderLayer(Layer):
         if self._gb_key != key:
             cam = self.fly.params(aperture=cfg.aperture,
                                   focus_dist=cfg.focus_dist)
-            self._gb = self._pipeline.gbuffer(cam)
+            if self._pipeline is not None:
+                # the G-buffer kernel over the megakernel's tables
+                self._gb = self._pipeline.gbuffer(cam)
+            else:
+                # the XLA-path accels: the brute pixel-centre pass
+                self._gb = gbuffer_step(cfg.width, cfg.height,
+                                        cfg.camera_model, t_min=cfg.t_min,
+                                        block=cfg.block)(self._sd, cam)
             self._gb_key = key
         return self._gb
 
     def _denoised_mean(self) -> torch.Tensor:
         """Denoised mean LINEAR radiance f32[H,W,3] (render-oriented).  The
         accumulator is never touched, so toggling the denoiser is lossless."""
+        var = (self._pipeline.variance_plane()
+               if self._pipeline is not None else None)
         return atrous_denoise(self._accum / self._display_divisor(),
-                              self._gbuffer(),
-                              self._pipeline.variance_plane(),
+                              self._gbuffer(), var,
                               iterations=int(self.cfg.denoise_iters))
 
     def _display_oriented(self, img: np.ndarray) -> np.ndarray:

@@ -327,6 +327,138 @@ def test_closest_hit_walk_matches_pallas_on_a_bounce_wavefront(name):
     assert int(hs[hk.HIT_STATS.index("rays")]) == na
 
 
+# ------------------------------- grazing rays: the walk and brute force
+def gate_interval(box, i, o, d):
+    """(tnear, tfar) f32[R] of box i's slab test (search.cuh::box_hit)
+    under best_t = BIG."""
+    d_inv = 1.0 / torch.where(d == 0.0, 1e-30, d)
+    t = [(box[k, i] - o[:, k % 3]) * d_inv[:, k % 3] for k in range(6)]
+    tn = torch.maximum(torch.maximum(torch.minimum(t[0], t[3]),
+                                     torch.minimum(t[1], t[4])),
+                       torch.clamp(torch.minimum(t[2], t[5]), min=T_MIN))
+    tf = torch.minimum(torch.minimum(torch.maximum(t[0], t[3]),
+                                     torch.maximum(t[1], t[4])),
+                       torch.clamp(torch.maximum(t[2], t[5]), max=BIG))
+    return tn, tf
+
+
+def winner_gates(tb, col, o, d):
+    """The slab intervals of the block, supercluster and cluster boxes
+    that hold each ray's column ``col`` -> [(tnear, tfar)] * 3."""
+    ci = col // tb.cluster
+    si = ci // tb.super_
+    out = []
+    for box, i in ((tb.block_boxes, si // ttab.STREAM_BLOCK_B),
+                   (tb.supers, si), (tb.clusters, ci)):
+        tn = torch.empty(o.shape[0])
+        tf = torch.empty(o.shape[0])
+        for v in torch.unique(i).tolist():
+            m = i == v
+            tn[m], tf[m] = gate_interval(box, v, o[m], d[m])
+        out.append((tn, tf))
+    return out
+
+
+def rect_inside(S, j, o, d, fused: bool):
+    """The rect test of column j (search.cuh::rect_test, its in-bounds
+    half) replayed in f32 numpy, with o + t d rounded once (``fused``, as
+    XLA on the CPU contracts it) or twice (the port's)."""
+    f = np.float32
+    c = S[:, j].numpy()
+    k, a, b = (int(c[r] + 0.5) for r in (ttab.S_KAX, ttab.S_AAX,
+                                          ttab.S_BAX))
+    o, d = o.numpy(), d.numpy()
+    t = ((f(c[ttab.S_CK]) - o[:, k]) / d[:, k]).astype(f)
+    ok = np.ones(len(o), bool)
+    for ax, cc, hh in ((a, ttab.S_CA, ttab.S_HA), (b, ttab.S_CB, ttab.S_HB)):
+        if fused:
+            p = (o[:, ax].astype(np.float64)
+                 + t.astype(np.float64) * d[:, ax].astype(np.float64)).astype(f)
+        else:
+            p = (o[:, ax] + (t * d[:, ax]).astype(f)).astype(f)
+        ok &= np.abs((p - f(c[cc])).astype(f)) <= f(c[hh])
+    return ok
+
+
+# distinct rays (of 32 lanes each) of grazing_rays(block_boxes, n_warps)
+# on the default scene that the walk calls unlike brute force: a ray
+# through the ground rect's corner, whose x or z face is its box's face,
+# where the slab test rounds the ray out of the box by 1-2 ulps of t and
+# the rect test rounds its hit point onto the edge
+GRAZING_FACE_RAYS = {128: 0, 256: 4}
+
+
+@pytest.mark.parametrize("n_warps", [128, 256])
+def test_closest_hit_matches_brute_force_on_grazing_rays(n_warps):
+    """The default scene's rays through block corners (grazing_rays,
+    seed 7), tables packed by both packages and equal.  A slab interval
+    that rounding collapsed to one point enters the box (search.cuh::
+    box_hit, tfar >= tnear): the ground rect's box is 2e-4 thick, less
+    than one ulp of t at t ~ 2,000-3,800.  So the walk hits every ray
+    that brute force (brute_closest) hits on the rect, column 0, but the
+    recorded face rays, whose slab interval is inverted by at most 2
+    ulps of t.  JAX's brute force (intersect.hit_scene) and its
+    interpret-mode pallas_closest_hit differ from brute_closest only
+    where XLA's contracted o + t d rounds the rect's edge the other way,
+    and the walk differs from pallas_closest_hit only where JAX differs
+    from brute force or on the recorded face rays."""
+    from cudaraytracer_tpu.ops import intersect as jint
+
+    name = "default"
+    tb, fl = ttab.kernel_inputs(tscenes.SCENES[name][0](), "cpu")
+    jsc = jscenes.SCENES[name][0]()
+    jt = jrk.pack_scene_tables(jsc, force_numpy=True)
+    for x, y in ((tb.S, jt.S), (tb.clusters, jt.clusters),
+                 (tb.supers, jt.supers), (tb.prim_map, jt.prim_map)):
+        np.testing.assert_array_equal(x.numpy(), y)
+    sf = {k: fl[k] for k in ("has_rects", "has_tris")}
+    o, d, n = bounce_rays.grazing_rays(tb.block_boxes, "cpu", n_warps)
+    _, _, cp = hk.closest_hit(tb.S, tb.clusters, tb.supers, tb.n_super, n, o,
+                              d, block_boxes=tb.block_boxes, **sf)
+    cp = cp.long()
+    _, cb = hk.brute_closest(tb.S, o, d, T_MIN, torch.full((n,), BIG), **sf)
+    col0 = cb == 0
+    assert int(col0.sum()) >= 32 * 8  # rays graze the ground rect
+    # the walk equals brute force but on the recorded face rays
+    off = cp != cb
+    assert not (off & ~col0).any()
+    assert int(off.sum()) == 32 * GRAZING_FACE_RAYS[n_warps]
+    if off.any():
+        gates = winner_gates(tb, cb[off], o[off], d[off])
+        worst = torch.stack([(tn - tf) / (torch.nextafter(
+            tf, torch.tensor(np.inf)) - tf) for tn, tf in gates]).amax(0)
+        assert (worst > 0).all() and (worst <= 2.0).all()
+    # rays the strict gate (tfar > tnear) rejected: an interval collapsed
+    # to one point on their way to the rect
+    collapsed = torch.zeros(n, dtype=torch.bool)
+    for tn, tf in winner_gates(tb, cb.clamp(min=0), o, d):
+        collapsed |= col0 & (tn == tf)
+    assert int((collapsed & (cp == 0)).sum()) >= 32
+    # JAX's brute force: another rounding of the rect's edge
+    sd = jsc.device()
+    _, _, ij = (np.asarray(v) for v in jint.hit_scene(
+        jnp.asarray(o.numpy()), jnp.asarray(d.numpy()), sd.prim_type,
+        sd.center, sd.size, sd.active))
+    slot_b = np.where(cb.numpy() >= 0, jt.prim_map[cb.clamp(min=0).numpy()],
+                      -1)
+    jdiff = ij != slot_b
+    assert jdiff.any()
+    rect_j = jt.prim_map[0]
+    assert ((ij[jdiff] == rect_j) | (slot_b[jdiff] == rect_j)).all()
+    flips = rect_inside(tb.S, 0, o, d, True) != rect_inside(tb.S, 0, o, d,
+                                                             False)
+    assert flips[jdiff].all()
+    # JAX's walk (interpret mode): where it differs from the port's, it
+    # differs from brute force, or the ray is a recorded face ray
+    _, _, cj = (np.asarray(v) for v in pallas_closest_hit(
+        jnp.asarray(jt.S), jnp.asarray(jt.clusters), jnp.asarray(jt.supers),
+        jt.n_super, n, jnp.asarray(o.numpy()), jnp.asarray(d.numpy()),
+        interpret=True, **sf))
+    pdiff = cj != cp.numpy()
+    assert pdiff.any()
+    assert ((cj != cb.numpy()) | off.numpy())[pdiff].all()
+
+
 # ----------------------------------------------------- models/wavefront.py
 @pytest.mark.parametrize("name", ["rtow_final", "cornell_mesh_light",
                                   "book2_final"])
