@@ -48,12 +48,27 @@ own bounce-2 wavefront of terrain_big must equal its plain walk
 within 0.004, 10x10-pixel block means within 0.0055 on average); and the
 wavefront's ms per sample, its closest hit's launches and share, its
 sort and shading and the device's idle share, and the brute renderer's
-ms per sample are timed.  Then the paths of the earlier slices: row bands and the
+ms per sample are timed; ``render --accel bvh --denoise --aov`` on
+rtow_final at 1280x720 must launch the BVH kernel
+(``ops/cuda/bvh_kernel.py``) and no other kernel, and the BVH path's ms
+per sample, its kernel's launches and share and the device's idle share
+are timed on rtow_final and terrain_big.  Then the BVH path's parts
+(``scripts/bvh_paths.py``): ``native_build`` (right after the CUDA
+build: g++ builds the native library that every table packing below
+goes through), ``bvh_build`` (native and NumPy trees of rtow_final and
+terrain_big: nodes, seconds, every primitive in one leaf) and
+``bvh_check`` (the BVH kernel against its plain walk bit for bit, hit, t,
+slot and per-ray counters, on the sorted bounce wavefronts of rtow_final,
+every live ray, and terrain_big, its first 2^14, with its ms, nodes
+visited per ray and bound).  Then the paths of the earlier slices: row bands and the
 multi-device tiling on the one card (book2_final ``--nee --qmc`` and
 rtow_final at 1280x720, 4 spp: bands of 180 and 360 rows stitched
 against the whole-image launch bit for bit, a band against its plain
 version, ``parallel.render_sharded_sample`` over
-4 x 1 and 2 x 2 places on cuda:0 against its launches written out, and
+4 x 1 and 2 x 2 places on cuda:0 against its launches written out,
+``sharded_xla``: the brute renderer's ``parallel.render_sharded`` over 2
+x 2 and 4 x 1 places of cuda:0 at 320x180, 2 spp, stitched against
+``render_radiance``'s whole frame bit for bit, and
 ``parallel/dryrun.py``), the cull statistic on 16 scenes at 320x180
 (entries per ray, the kernel's count equal to the plain version's
 replay, the image unchanged) with its cost at 1280x720, and the staging
@@ -78,7 +93,10 @@ printed from a second launch through the counting entries, whose
 output must equal the timed entries' bit for bit, and those that are the
 rays' own equal to the plain walk's) and the streamed G-buffer against
 the resident one at 640x360; every streamed table's group boxes are
-held to the exact union of their blocks' boxes;
+held to the exact union of their blocks' boxes; ``pack_check`` (the
+native table packer against the NumPy packer bit for bit on every
+registered scene it routes, with and without uv rows, and both
+packers' host ms on terrain_big and on the mesh);
 ``streamed_timing`` times both layouts of both kernels at 1280x720 on
 terrain_big, book2_final and the mesh, with the walk's counters and the
 least time of the work they count (``scripts/stream_util.py::
@@ -115,7 +133,11 @@ QMC raygens this run's rays made).  The bytes count
 the tables, the outputs and, for image hits, three bytes per texel read
 (at most the atlas's used texels).  No single PyTorch call computes a
 closest hit, a path trace, a G-buffer or the probe's staged walk, so
-``library_ms`` is null for all of them.  The probe's bound is its
+``library_ms`` is null for all of them.  The BVH kernel's bound counts
+the tree and the primitive arrays read once, the rays in and (hit, t,
+slot) out, against the box test of every node the rays visit and the
+leaf tests by kind, from the kernel's own per-ray counters
+(``scripts/bvh_paths.py::work_bound``).  The probe's bound is its
 table's bytes over 3.35 TB/s: its 32 int32 adds per tile are nothing
 beside them.
 
@@ -185,7 +207,12 @@ Tolerances, and why:
   default on an H100 (PERF.md); the limit leaves one float32 rounding
   step of room on the unit-scale normal and albedo and nothing on a depth
   above 8.
-* bands, sharded frames, cull statistics and the probe: exact.  A band
+* the BVH kernel: exact.  It and its plain walk do the same float
+  operations in the same order (every dot and cross product written out
+  per component, ``-fmad=false``), so hit, t, slot and the per-ray
+  counters must be equal bit for bit.
+* bands, sharded frames (the megakernel's and the brute renderer's),
+  cull statistics and the probe: exact.  A band
   and the whole-image launch with the same stream do the same arithmetic
   on the same pixels, so their rows must be equal bit for bit, and so
   must a sharded frame and its launches summed in the same order; a band
@@ -329,7 +356,9 @@ def main():
     from cudaraytracer_tpu_torch.scripts.stream_crossover import heightfield
     from cudaraytracer_tpu_torch.scripts.stream_util import (
         counted_bound, group_boxes_off)
-    from cudaraytracer_tpu_torch.scripts import bounce_rays, xla_paths
+    from cudaraytracer_tpu_torch.scripts import (bounce_rays, bvh_paths,
+                                                 xla_paths)
+    from cudaraytracer_tpu_torch.models.renderer import render_radiance
     from cudaraytracer_tpu_torch.scripts.hit_util import readings, walk_bound
     from cudaraytracer_tpu_torch.viewer.app import tile_activity_plane
 
@@ -353,11 +382,12 @@ def main():
     ptxas, entry, spill = {}, None, 0
     for ln in info["log"].splitlines():  # nvcc -Xptxas=-v, per instantiation
         m = re.search(r"(render_kernel|closest_hit_kernel|gbuffer_kernel"
-                      r"|stream_probe_kernel)(?:_media|_refill)?(_streamed)?"
+                      r"|stream_probe_kernel|bvh_hit_kernel)"
+                      r"(?:_media|_refill)?(_streamed)?"
                       r"(_count)?I((?:L[bi]\d+E)+)E", ln)
         if "Compiling entry function" in ln and m:
             # template flags: rects, tris[, vattrs, images, feature bits];
-            # the probe's: its variant
+            # the probe's: its variant; the BVH kernel's: tris, counting
             flags = ",".join(re.findall(r"L[bi](\d+)E", m.group(4)))
             entry = f"{m.group(1)}{m.group(2) or ''}{m.group(3) or ''}" \
                 f"<{flags}>"
@@ -399,6 +429,10 @@ def main():
                   [ptxas.get(k.replace("_streamed", ""), {}).get(x)
                    for x in ("registers", "spill_store_bytes")]]
               for k, v in ptxas.items() if "_streamed" in k}})
+
+    # ---- 2b. the native C++ library (g++; the table packer every Setup
+    # below packs through, and the BVH builder) ----
+    native = bvh_paths.native_build(emit)
 
     class Setup:
         """A registered scene's tables, flags and camera on the card, set
@@ -643,9 +677,11 @@ def main():
     for su in (rtow, cml):
         hits[f"{su.name}/uniform"] = hit_check(
             su, "uniform", bounce_rays.uniform_rays(su.name, dev))
+    wavefronts = {}  # the bounce wavefronts, kept for the BVH kernel's check
     for su in (rtow, terrain_big, cml):
+        wavefronts[su.name] = bounce_rays.bounce_wavefront(su.name, dev)
         hits[f"{su.name}/bounce"] = hit_check(
-            su, "bounce", bounce_rays.bounce_wavefront(su.name, dev))
+            su, "bounce", wavefronts[su.name])
         hits[f"{su.name}/grazing"] = hit_check(
             su, "grazing", bounce_rays.grazing_rays(su.tb.block_boxes, dev))
 
@@ -960,6 +996,11 @@ def main():
     # radiance against the megakernel's, and their times
     # (scripts/xla_paths.py) ----
     xla = xla_paths.run(dev, emit)
+    # ---- 6c. the BVH path's builders and its kernel against the plain
+    # walk on the bounce wavefronts (scripts/bvh_paths.py) ----
+    bvh_built = bvh_paths.bvh_build(emit)
+    bvh_hits = bvh_paths.bvh_check(dev, emit, wavefronts)
+    del wavefronts
 
     # ---- 7. time and check the megakernel at the main-path shape ----
     timing = {}
@@ -1161,6 +1202,32 @@ def main():
         if any(seams.values()) or band_off > MEGA_DIFF_SHARE * W_MAIN * H_MAIN:
             raise AssertionError(f"{su.name}: bands do not stitch: {seams}, "
                                  f"band against plain {band_off}")
+    # the brute renderer over row bands x sample streams: 2 x 2 and 4 x 1
+    # places of cuda:0 at 320x180, 2 spp, depth 12, stitched against the
+    # whole frame (a band keys its rays by their global pixel ids, and the
+    # two streams' one-sample sums add as the whole frame's two samples)
+    sx_sd = rtow.scene.device(dev)
+    sx_kw = dict(width=320, height=180, camera_model=rtow.model)
+    sx_full = render_radiance(sx_sd, rtow.cam, 11, 2, DEPTH, **sx_kw)
+    sharded_xla = {}
+    for nr, ns in ((2, 2), (4, 1)):
+        t0 = time.perf_counter()
+        out = tiling.render_sharded(sx_sd, rtow.cam, 11, 2, DEPTH,
+                                    mesh=tiling.make_mesh(nr, ns, [dev] * (
+                                        nr * ns)), **sx_kw)
+        torch.cuda.synchronize()
+        sharded_xla[f"{nr}x{ns}"] = {
+            "seconds": time.perf_counter() - t0,
+            "pixels_off_full_frame": int((out != sx_full).any(2).sum()),
+            "max_abs_err": float((out - sx_full).abs().max()),
+            "mean": float(out.mean())}
+    emit({"phase": "sharded_xla", "scene": "rtow_final", "size": [320, 180],
+          "spp": 2, "depth": DEPTH, "by_mesh": sharded_xla})
+    if any(v["pixels_off_full_frame"] for v in sharded_xla.values()) \
+            or not torch.isfinite(sx_full).all() or sx_full.mean() <= 0:
+        raise AssertionError(f"sharded XLA frames differ from the whole "
+                             f"frame: {sharded_xla}")
+    del sx_sd, sx_full
     render_sample.streamed_launches = 0
     dry, dry_launches = launches_of(lambda: dryrun.dryrun_multichip(4, "cuda"))
     dry_launches["streamed"] = render_sample.streamed_launches
@@ -1481,6 +1548,9 @@ def main():
                               scenes.SCENES[rl.cfg.scene][1](), "look_at")
             del rl, pipe
     torch.cuda.empty_cache()
+    # ---- 13b. the native packer against the NumPy one, and both packers'
+    # host ms on terrain_big and on this mesh (scripts/bvh_paths.py) ----
+    packed = bvh_paths.pack_check(emit, hf_su.scene)
 
     # the path's kernels on its own mesh against their plain versions: 4
     # rows of 640x360 that lie on the mesh, 1 spp, depth 2, without and
@@ -1776,6 +1846,30 @@ def main():
                   "stream_stats": mesh_t["gbuffer"]["stream_stats"],
                   "timed": f"{W_MAIN}x{H_MAIN}"},
          "by_scene": stream_gbuf},
+        {"name": "bvh_closest_hit", "route": "cuda",
+         "source": "cudaraytracer_tpu_torch/csrc/bvh_kernel.cu",
+         "replaces": "cudaraytracer_tpu/ops/bvh_traverse.py:102",
+         # its path: render --accel bvh --scene rtow_final --denoise --aov
+         # (2 frames of one sample)
+         "launches": xla["paths"]["bvh_rtow_final"]["launches"]["bvh_hit"],
+         "path": "render --accel bvh --scene rtow_final --denoise --aov",
+         "max_abs_err": max(v["max_abs_err_t"] for v in bvh_hits.values()),
+         "tolerance": "bit for bit (hit, t, slot and the per-ray counters) "
+                      "against the plain lock-step walk on the sorted "
+                      "bounce wavefronts of 1280x720 frames: every live "
+                      "ray of rtow_final, the first 2^14 of terrain_big",
+         "ms": bvh_hits["rtow_final"]["ms"],
+         "plain_ms": bvh_hits["rtow_final"]["plain_ms"],
+         "bound_ms": bvh_hits["rtow_final"]["bound_ms"],
+         "bound_by": bvh_hits["rtow_final"]["bound_by"],
+         "library_ms": None,
+         "timed": "rtow_final: the sorted bounce wavefront of a "
+                  f"{W_MAIN}x{H_MAIN} frame",
+         "by_scene": bvh_hits, "builds": bvh_built,
+         "per_sample": {k: v for k, v in xla["timing"].items()
+                        if k.startswith("bvh/")},
+         "native": {"build": native, "pack_check": packed},
+         "sharded_xla": sharded_xla},
         *(probe_line(name, rows_, variant, replaces)
           for name, rows_, variant, replaces in (
               ("stream_probe", 1, "stream", "tools/stream_probe.py:57"),

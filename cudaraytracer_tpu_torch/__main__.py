@@ -8,6 +8,7 @@
       --adaptive --denoise --aov aov.npz
   python -m cudaraytracer_tpu_torch render --accel wavefront --scene rtow_final
   python -m cudaraytracer_tpu_torch render --accel brute --no-progressive
+  python -m cudaraytracer_tpu_torch render --accel bvh --scene rtow_final
   python -m cudaraytracer_tpu_torch render --device cpu --width 64 --height 36 ...
 
 With no ``--scene`` it renders the default scene.  ``--obj PATH`` loads a
@@ -24,8 +25,9 @@ variance plane under ``--adaptive``); ``--aov PATH`` writes the G-buffer
 ``--accel`` picks the render path: ``auto``/``cuda`` the megakernel,
 ``wavefront`` the sorted-wavefront renderer (its hit step the closest-hit
 kernel; scenes with media raise), ``brute`` the brute renderer
-(``--block`` primitives per search block); ``bvh`` raises, not ported
-yet.  ``--no-progressive`` renders ``--spp`` samples a frame through the
+(``--block`` primitives per search block), ``bvh`` the same renderer
+through the scene's BVH (built with the native C++ builder at every
+scene edit; its hit step the BVH kernel).  ``--no-progressive`` renders ``--spp`` samples a frame through the
 brute renderer (one frame by default).  ``--device`` defaults to
 ``cuda``; with no GPU the command fails with a clear error instead of
 falling back.  ``--device cpu`` runs the kernels' plain PyTorch versions.

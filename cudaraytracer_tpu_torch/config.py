@@ -5,9 +5,9 @@ implements, with the same defaults and flag names (the reference's
 constants: depth 12, seed 1984, a 1280x720 window; next-event
 estimation, QMC jitter and adaptive sampling off), plus ``device``
 (default ``cuda``).  ``accel`` picks the render path: ``auto`` and
-``cuda`` the megakernel, ``brute`` and ``wavefront`` the XLA-path
-renderers (``models/renderer.py``, ``models/wavefront.py``), ``bvh``
-raises until the BVH path is ported.  The JAX package's fence and debug
+``cuda`` the megakernel, ``brute``, ``bvh`` and ``wavefront`` the
+XLA-path renderers (``models/renderer.py``, brute force or through the
+scene's BVH, ``models/bvh.py``; ``models/wavefront.py``).  The JAX package's fence and debug
 options wait for the port of the code they configure.
 """
 
@@ -28,8 +28,8 @@ class RenderConfig:
     t_min: float = 0.001  # reference radiance loop t_min (Kernel.cu:40)
     scene: str = "default"
     camera_model: str = "two_plane"  # two_plane (reference parity) | look_at
-    accel: str = "auto"  # auto | cuda (the megakernel) | brute | wavefront
-    #                      | bvh (not ported yet: raises)
+    accel: str = "auto"  # auto | cuda (the megakernel) | brute | bvh
+    #                      | wavefront
     block: int = 64  # primitives per intersection block (brute force)
     rr_start: int = 2  # Russian-roulette start bounce (0 = off; unbiased)
     aperture: float = 0.0  # defocus-blur lens diameter (look_at camera)
@@ -76,8 +76,8 @@ def add_arguments(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
                         choices=["two_plane", "look_at"], default=None)
     parser.add_argument("--accel", default=d.accel,
                         choices=["auto", "cuda", "brute", "wavefront", "bvh"],
-                        help="render path: auto/cuda the megakernel, brute "
-                             "and wavefront the XLA-path renderers")
+                        help="render path: auto/cuda the megakernel, brute, "
+                             "bvh and wavefront the XLA-path renderers")
     parser.add_argument("--block", type=int, default=d.block)
     parser.add_argument("--rr-start", dest="rr_start", type=int, default=d.rr_start)
     parser.add_argument("--aperture", type=float, default=d.aperture)

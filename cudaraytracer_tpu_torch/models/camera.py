@@ -188,27 +188,36 @@ RAY_GENERATORS = {
 
 
 def sample_rays(camera_model: str, cam: CameraParams, width: int,
-                height: int, pk: torch.Tensor | None, device=None):
+                height: int, pk: torch.Tensor | None, device=None,
+                y0: int = 0, tile_h: int | None = None,
+                xi: torch.Tensor | None = None):
     """Primary rays of every pixel for one sample, as the JAX raygen with a
     key gives them: the pixel jitter from slots SLOT_JX/SLOT_JY and (look_at)
     the lens point from SLOT_LENS_R/SLOT_LENS_TH of iteration 0 of the
-    pixel keys ``pk`` i64[H*W] (``utils/rng.pixel_keys`` of the pixel ids,
-    row-major).  ``pk=None`` gives the pixel-centre pinhole rays of JAX's
-    ``key=None`` on ``device``.  Returns (org f32[R,3], dirn f32[R,3])."""
+    pixel keys ``pk`` i64[tile_h*W] (``utils/rng.pixel_keys`` of the pixel
+    ids, row-major) of the band of ``tile_h`` rows (default: the image)
+    starting at row ``y0``.  A given ``xi`` f32[2, tile_h, W] (the QMC
+    jitter) replaces the drawn one; the lens point is still drawn.
+    ``pk=None`` gives the pixel-centre pinhole rays of JAX's ``key=None``
+    on ``device``.  Returns (org f32[R,3], dirn f32[R,3])."""
     from ..utils import rng
 
-    if pk is None:
-        xi = torch.full((2, height, width), 0.5, dtype=torch.float32,
+    if tile_h is None:
+        tile_h = height
+    lens = None
+    if pk is None and xi is None:
+        xi = torch.full((2, tile_h, width), 0.5, dtype=torch.float32,
                         device=device)
-        lens = None
-    else:
-        xi = torch.stack([rng.uniform(pk, 0, rng.SLOT_JX),
-                          rng.uniform(pk, 0, rng.SLOT_JY)]).reshape(
-                              2, height, width)
-        lens = rng.draw_in_unit_disk(pk, 0).reshape(height, width, 2)
+    elif pk is not None:
+        if xi is None:
+            xi = torch.stack([rng.uniform(pk, 0, rng.SLOT_JX),
+                              rng.uniform(pk, 0, rng.SLOT_JY)]).reshape(
+                                  2, tile_h, width)
+        lens = rng.draw_in_unit_disk(pk, 0).reshape(tile_h, width, 2)
+    band = dict(y0=y0, tile_h=tile_h)
     if camera_model == "look_at":
-        return generate_rays_look_at(cam, width, height, xi, lens)
-    return RAY_GENERATORS[camera_model](cam, width, height, xi)
+        return generate_rays_look_at(cam, width, height, xi, lens, **band)
+    return RAY_GENERATORS[camera_model](cam, width, height, xi, **band)
 
 
 class FlyCamera:

@@ -9,9 +9,14 @@ Kernel.cu:30-80, over all pixels at once):
     dead rays masked, not removed;
   * each bounce's closest hit is ``ops/intersect.py::hit_scene``, brute
     force over every primitive in blocks of ``block``, with the media and
-    motion branches the scene needs;
+    motion branches the scene needs, or a ``hit_fn`` in its place (the
+    BVH's, ``models/bvh.py::make_bvh_hit_fn``, for ``--accel bvh``);
   * draws are counter-based (``utils/rng.py``): a sample's key, the ray's
-    pixel id, the bounce and a fixed slot per draw.
+    pixel id, the bounce and a fixed slot per draw.  A band of image rows
+    (``y0``, ``tile_h``) keys its rays by their pixel ids in the whole
+    image, so its draws are those of the same rows of the whole frame;
+  * ``qmc`` takes the pixel jitter from the R2 sequence (``ops/qmc.py``)
+    at the global sample index ``s + sample_offset``.
 
 Faithful to color(): a miss adds sky * throughput, a diffuse light adds
 its emission and ends the path, a failed scatter or the depth ends it
@@ -26,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import intersect, materials, sampling, textures
+from ..ops import qmc as qmcm
 from ..ops.pack import to_rgba8, tonemap
 from ..ops.sky import sky_color
 from ..utils import rng
@@ -33,15 +39,17 @@ from .camera import sample_rays
 
 
 def trace(scene, org, dirn, pk, max_depth: int, t_min: float = 0.001,
-          block: int = 64, with_stats: bool = False,
+          block: int = 64, hit_fn=None, with_stats: bool = False,
           rr_start: int = 0, nee: bool = False, nee_p: float = 0.5,
           lights=None):
     """Trace rays (org, dirn f32[R,3]) of ``scene`` (a ``SceneData``) to
     the end; ``pk`` i64[R] are the rays' pixel keys (``rng.pixel_keys``
     of the sample's key).  Returns radiance f32[R,3] (and the rays traced,
-    primary and bounces, with ``with_stats``).  ``lights`` is the packed
-    light table of ``nee`` (``sampling.light_table``, made from the scene
-    when None)."""
+    primary and bounces, with ``with_stats``).  ``hit_fn(org, dirn,
+    u_med=, time=) -> (hit, t, idx i64)`` replaces the brute search (the
+    medium draws and the shutter time are None where the scene has no
+    media or motion).  ``lights`` is the packed light table of ``nee``
+    (``sampling.light_table``, made from the scene when None)."""
     r = org.shape[0]
     tri_kw = (dict(edge1=scene.edge1, edge2=scene.edge2)
               if scene.has_triangles else {})
@@ -77,10 +85,13 @@ def trace(scene, org, dirn, pk, max_depth: int, t_min: float = 0.001,
         nrays += n_live
         u_med = (rng.uniform(pk, bounce, rng.SLOT_MED) if scene.has_media
                  else None)
-        hit, t, idx = intersect.hit_scene(
-            org, dirn, scene.prim_type, scene.center, scene.size,
-            scene.active, t_min=t_min, block=block, u_med=u_med, **med_kw,
-            **mot_kw, **tri_kw)
+        if hit_fn is None:
+            hit, t, idx = intersect.hit_scene(
+                org, dirn, scene.prim_type, scene.center, scene.size,
+                scene.active, t_min=t_min, block=block, u_med=u_med,
+                **med_kw, **mot_kw, **tri_kw)
+        else:
+            hit, t, idx = hit_fn(org, dirn, u_med=u_med, time=shutter)
         rec = intersect.make_hit_record(
             org, dirn, hit, t, idx, scene.prim_type, scene.center,
             scene.size, **rec_kw,
@@ -138,40 +149,64 @@ def trace(scene, org, dirn, pk, max_depth: int, t_min: float = 0.001,
 
 def render_radiance(scene, cam, key: int, spp: int, max_depth: int, *,
                     width: int, height: int, camera_model: str = "two_plane",
-                    t_min: float = 0.001, block: int = 64,
+                    t_min: float = 0.001, block: int = 64, hit_fn=None,
+                    y0: int = 0, tile_h: int | None = None,
                     sample_offset: int = 0, with_stats: bool = False,
                     rr_start: int = 0, nee: bool = False,
-                    nee_p: float = 0.5):
-    """Sum of ``spp`` radiance samples f32[H,W,3] (divide by spp to
-    display); sample s is keyed by ``rng.frame_key(key, s +
+                    nee_p: float = 0.5, qmc: bool = False):
+    """Sum of ``spp`` radiance samples f32[tile_h,W,3] (divide by spp to
+    display) of the band of ``tile_h`` rows (default: the image) from row
+    ``y0``; sample s is keyed by ``rng.frame_key(key, s +
     sample_offset)``, so progressive callers pass the samples already
-    accumulated.  With ``with_stats`` also the rays traced."""
+    accumulated and sample-parallel places disjoint offsets.  ``qmc``
+    takes the pixel jitter from ``qmc.qmc_jitter`` over the band's global
+    pixel coordinates at the same index ``s + sample_offset`` (JAX
+    models/renderer.py:262-290).  ``hit_fn`` is ``trace``'s.  With
+    ``with_stats`` also the rays traced."""
     dev = scene.center.device
-    pix = torch.arange(width * height, dtype=torch.int64, device=dev)
+    if tile_h is None:
+        tile_h = height
+    y0 = int(y0)
+    pix = torch.arange(y0 * width, (y0 + tile_h) * width, dtype=torch.int64,
+                       device=dev)
+    if qmc:
+        xg = torch.arange(width, dtype=torch.float32, device=dev)[None, :]
+        yg = (torch.arange(tile_h, dtype=torch.float32, device=dev)
+              + float(y0))[:, None]
+        xg, yg = torch.broadcast_tensors(xg, yg)
     lights = sampling.light_table(scene) if nee else None
-    acc = torch.zeros((height, width, 3), dtype=torch.float32, device=dev)
+    acc = torch.zeros((tile_h, width, 3), dtype=torch.float32, device=dev)
     total = 0
     for s in range(int(spp)):
-        pk = rng.pixel_keys(rng.frame_key(key, s + int(sample_offset)), pix)
-        org, dirn = sample_rays(camera_model, cam, width, height, pk)
+        m = s + int(sample_offset)
+        pk = rng.pixel_keys(rng.frame_key(key, m), pix)
+        xi = None
+        if qmc:
+            xi = torch.stack(qmcm.qmc_jitter(xg, yg, torch.tensor(
+                m, dtype=torch.int32, device=dev)))
+        org, dirn = sample_rays(camera_model, cam, width, height, pk,
+                                y0=y0, tile_h=tile_h, xi=xi)
         rad, n = trace(scene, org, dirn, pk, max_depth, t_min=t_min,
-                       block=block, with_stats=True,
+                       block=block, hit_fn=hit_fn, with_stats=True,
                        rr_start=rr_start, nee=nee, nee_p=nee_p,
                        lights=lights)
-        acc += rad.reshape(height, width, 3)
+        acc += rad.reshape(tile_h, width, 3)
         total += n
     return (acc, total) if with_stats else acc
 
 
 class Renderer:
-    """The brute frame renderer at a fixed (width, height) on one device:
-    scene edits, camera motion, spp and depth are arguments.  JAX's
-    ``accel='bvh'`` search is not ported yet (ROADMAP Queue 1 item 7)."""
+    """The XLA-path frame renderer at a fixed (width, height) on one
+    device: scene edits, camera motion, spp and depth are arguments.  Its
+    search is brute force, or the BVH given as ``bvh`` (a
+    ``models/bvh.py::BVHData`` of the scene, rebuilt per edit by the
+    caller; ``--accel bvh``).  ``nee`` and ``qmc`` are its estimator and
+    jitter switches, as JAX's (models/renderer.py:312-332)."""
 
     def __init__(self, width: int, height: int,
                  camera_model: str = "two_plane", t_min: float = 0.001,
                  block: int = 64, nee: bool = False, nee_p: float = 0.5,
-                 device="cuda"):
+                 qmc: bool = False, device="cuda"):
         self.width = int(width)
         self.height = int(height)
         self.camera_model = camera_model
@@ -179,31 +214,40 @@ class Renderer:
         self.block = block
         self.nee = bool(nee)
         self.nee_p = float(nee_p)
+        self.qmc = bool(qmc)
         self.device = torch.device(device)
 
     def render(self, scene, cam, key: int, spp: int = 36, max_depth: int = 12,
-               with_stats: bool = False, sample_offset: int = 0):
+               bvh=None, with_stats: bool = False, sample_offset: int = 0):
         """Radiance sum over ``spp`` samples, f32[H,W,3], of ``scene`` (a
-        ``SceneData``)."""
+        ``SceneData``), through ``bvh`` when given.  Under ``qmc``
+        ``sample_offset`` is the R2 index of the first sample."""
+        hit_fn = None
+        if bvh is not None:
+            from .bvh import make_bvh_hit_fn
+
+            hit_fn = make_bvh_hit_fn(bvh, scene, t_min=self.t_min)
         return render_radiance(
             scene, cam, key, spp, max_depth, width=self.width,
             height=self.height, camera_model=self.camera_model,
-            t_min=self.t_min, block=self.block, with_stats=with_stats,
-            nee=self.nee, nee_p=self.nee_p, sample_offset=sample_offset)
+            t_min=self.t_min, block=self.block, hit_fn=hit_fn,
+            with_stats=with_stats, nee=self.nee, nee_p=self.nee_p,
+            qmc=self.qmc, sample_offset=sample_offset)
 
     def render_rgba8(self, scene, cam, key: int, spp: int = 36,
-                     max_depth: int = 12) -> torch.Tensor:
+                     max_depth: int = 12, bvh=None) -> torch.Tensor:
         """A whole frame as display bytes uint8[H,W,4] (the analog of one
         LaunchKernel + RgbToInt frame, Kernel.cu:102-158)."""
         return to_rgba8(tonemap(self.render(scene, cam, key, spp,
-                                            max_depth), spp))
+                                            max_depth, bvh=bvh), spp))
 
     def accumulate(self, scene, cam, key: int, max_depth: int,
-                   accum: torch.Tensor, sample_offset: int = 0):
+                   accum: torch.Tensor, bvh=None, sample_offset: int = 0):
         """One progressive 1-spp sample added into ``accum`` f32[H,W,3]
-        (in place); ``sample_offset`` is the samples already in it."""
+        (in place); ``sample_offset`` is the samples already in it (under
+        ``qmc`` the R2 sequence advances across frames)."""
         return accum.add_(self.render(scene, cam, key, 1, max_depth,
-                                      sample_offset=sample_offset))
+                                      bvh=bvh, sample_offset=sample_offset))
 
     def zeros_accum(self) -> torch.Tensor:
         return torch.zeros((self.height, self.width, 3), dtype=torch.float32,

@@ -31,11 +31,12 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "cudaraytracer_tpu_torch"
 SOURCES = ("rng.cuh", "stage.cuh", "search.cuh", "surface.cuh", "nee.cuh",
            "qmc.cuh", "variants.cuh", "hit_kernel.cu", "render_kernel.cu",
-           "render_stream.cu", "gbuffer_kernel.cu", "stream_probe.cu")
+           "render_stream.cu", "gbuffer_kernel.cu", "stream_probe.cu",
+           "bvh_kernel.cu")
 # render_stream.cu is render_kernel.cu's streamed entry: a unit of its own
 # that compiles beside the resident one
 CU_FILES = ("hit_kernel.cu", "render_kernel.cu", "render_stream.cu",
-            "gbuffer_kernel.cu", "stream_probe.cu")
+            "gbuffer_kernel.cu", "stream_probe.cu", "bvh_kernel.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC",
@@ -73,6 +74,11 @@ SIGNATURES = {
         _f, _i, _i, _i, _i, _i, _p, _p, _i, _i, _i, _p, _i, _i, _p, _p, _p,
         _p, _p, _p],
     "crt_stream_probe": [_p, _i, _i, _i, _i, _i, _p, _p],
+    # (node_min, node_max, node_prim, node_skip, n_nodes, prim_type,
+    # center, size, edge1, edge2, org, dirn, n_rays, t_min, t_max, stats,
+    # hit, t, prim, stream)
+    "crt_bvh_closest_hit": [_p, _p, _p, _p, _i, _p, _p, _p, _p, _p, _p, _p,
+                            _i, _f, _f, _p, _p, _p, _p, _p],
 }
 
 

@@ -13,7 +13,10 @@ table, ``mask_tile``, the adaptive mask's tiles as the JAX pipeline
 picks them, and the streamed layout of the tables
 (``pack_stream_tiles``, ``stream_tables_to_torch``) with its route on
 the card (``streams_on_card``: the tables against a share of the
-card's L2, ``stream_budget``).  The native C++ packer waits for a later port.
+card's L2, ``stream_budget``).  Active scenes without media or motion
+pack through the native C++ packer (``native/pack_native.py``, a copy of
+the JAX package's ``table_packer.cpp``), bit-identical to the NumPy
+packer.
 """
 
 from __future__ import annotations
@@ -189,19 +192,80 @@ def _image_mean_albedo(scene, tex_t, tex_id, albedo):
 
 
 def pack_scene_tables(scene, with_uv: bool = False,
+                      force_numpy: bool = False,
                       cluster: int = CLUSTER,
                       super_: int = SUPER,
                       with_vattrs: bool | None = None) -> SceneTables:
-    """Pack the ACTIVE primitives into kernel tables (NumPy).
+    """Pack the ACTIVE primitives into kernel tables.
 
     Morton-ordered and padded to a multiple of CLUSTER*SUPER, keyed on the
     scene's capacity so edits never change table shapes.  ``with_uv=True``
     adds the rect half-extent rows and the triangles' uv rows for
     in-kernel UV computation (image-texture scenes, ``has_images``).
     ``with_vattrs`` defaults to the scene's own ``has_vertex_attrs``, as
-    in the JAX package.  Mirrors ``_pack_scene_tables_numpy`` of the JAX
-    package line for line.
+    in the JAX package.
+
+    The route is the JAX package's (render_kernel.py:321-370): a scene
+    with active primitives and neither media nor moving spheres packs
+    through the native C++ packer (``native/pack_native.py``, built at
+    first use; a failed build raises), which runs on every interactive
+    edit; the empty scene, media and motion scenes, and
+    ``force_numpy=True`` take ``pack_scene_tables_numpy``.  Both give the
+    same tables bit for bit.
     """
+    if with_vattrs is None:
+        with_vattrs = bool(scene.has_vertex_attrs)
+    idx = scene.active_indices()
+    if (force_numpy or not len(idx)
+            or bool((scene.mat_type[idx] == 4).any())  # ISOTROPIC
+            or bool((scene.velocity[idx] != 0).any())):
+        return pack_scene_tables_numpy(scene, with_uv, cluster, super_,
+                                       with_vattrs)
+    return _pack_scene_tables_native(scene, idx, with_uv, cluster, super_,
+                                     with_vattrs)
+
+
+def _pack_scene_tables_native(scene, idx, with_uv: bool, cluster: int,
+                              super_: int, with_vattrs: bool) -> SceneTables:
+    """The native packer's tables of the active slots ``idx`` (a scene
+    without media or motion), with the block boxes the NumPy packer adds."""
+    from ...models.bvh import primitive_aabbs
+    from ...native import pack_native
+
+    n = len(idx)
+    bmin0, bmax0 = primitive_aabbs(scene, idx)
+    mparam = np.choose(scene.mat_type[idx].astype(np.int64),
+                       [np.zeros(n), scene.fuzz[idx], scene.ior[idx],
+                        scene.light[idx]])
+    tex_t = scene.tex_type[idx].astype(np.int64)
+    tex_id = _valid_tex_ids(scene, scene.tex_id[idx], tex_t)
+    albedo = scene.albedo[idx]
+    if with_uv:
+        albedo = _image_mean_albedo(scene, tex_t, tex_id, albedo)
+    vattr_kw = {}
+    if with_vattrs:
+        vattr_kw = dict(uv0=scene.uv0[idx], uv1=scene.uv1[idx],
+                        uv2=scene.uv2[idx], vn0=scene.vnorm0[idx],
+                        vn1=scene.vnorm1[idx], vn2=scene.vnorm2[idx])
+    S, P, clusters, supers, n_super, prim_map = pack_native.pack(
+        scene.center[idx], scene.size[idx], scene.edge1[idx],
+        scene.edge2[idx], scene.prim_type[idx], scene.mat_type[idx],
+        mparam, scene.tex_type[idx], tex_id, albedo, scene.albedo2[idx],
+        bmin0, bmax0, idx, _npad_for(scene, cluster, super_), cluster,
+        super_, p_rows_for(with_uv, with_vattrs), with_uv=with_uv,
+        with_vattrs=with_vattrs, **vattr_kw)
+    return SceneTables(S, P, clusters, supers, n_super, prim_map, cluster,
+                       super_, vattrs=with_vattrs, motion=False,
+                       block_boxes=block_boxes(supers, n_super, block_count(
+                           supers.shape[1])))
+
+
+def pack_scene_tables_numpy(scene, with_uv: bool = False,
+                            cluster: int = CLUSTER, super_: int = SUPER,
+                            with_vattrs: bool | None = None) -> SceneTables:
+    """The NumPy packer: mirrors ``_pack_scene_tables_numpy`` of the JAX
+    package line for line (the route of the empty scene and of media and
+    motion scenes, and the native packer's reference)."""
     from ...models.bvh import primitive_aabbs
 
     if with_vattrs is None:

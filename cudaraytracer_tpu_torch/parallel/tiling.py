@@ -1,8 +1,8 @@
 """Multi-device rendering: image rows in bands, samples in streams.
 
-Port of the megakernel half of ``cudaraytracer_tpu/parallel/tiling.py``:
-``make_mesh`` (:52) and ``render_sharded_pallas`` (:122) as
-``render_sharded_sample``.  A ``Mesh`` is a rows x samples grid of torch
+Port of ``cudaraytracer_tpu/parallel/tiling.py``: ``make_mesh`` (:52),
+``render_sharded_pallas`` (:122) as ``render_sharded_sample``, and the
+XLA renderer's ``render_sharded`` (:67) and ``ShardedRenderer`` (:235).  A ``Mesh`` is a rows x samples grid of torch
 devices.  Each place renders one band of image rows with one sample
 stream through ``ops/cuda/render_kernel.py::render_sample`` (the
 megakernel on a CUDA device, its plain version on the CPU); the streams
@@ -11,17 +11,20 @@ samples axis) and the bands are stitched on the caller's device.  The
 scene tables and the camera are small and copied to every device.  On
 one card the same device may fill every place: the launches then run one
 after the other on it, as the places of a mesh would run side by side.
-
-The XLA renderer's ``render_sharded``/``ShardedRenderer`` (:67, :235)
-are still to port, over ``models/renderer.py``.
+``render_sharded`` does the same with the brute renderer
+(``models/renderer.py::render_radiance``): each place renders its band
+with its own slice of the sample indices, and the scene goes to every
+device.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
 
+from ..models.renderer import render_radiance
 from ..ops.cuda.render_kernel import render_sample
 
 # render_sample's arguments that render_sharded_sample sets per place
@@ -143,3 +146,93 @@ def render_sharded_sample(tables, n_super, cam_vec, seed, max_depth, *,
             acc = acc + outs[ri, si].to(acc.device)
         bands.append(acc.to(home))
     return torch.cat(bands, 0)
+
+
+def _scene_on(scene, dev):
+    """A ``SceneData`` with every tensor moved to ``dev``."""
+    return dataclasses.replace(scene, **{
+        f.name: getattr(scene, f.name).to(dev)
+        for f in dataclasses.fields(scene)
+        if isinstance(getattr(scene, f.name), torch.Tensor)})
+
+
+def render_sharded(scene, cam, key: int, spp: int, max_depth: int, *,
+                   width: int, height: int, mesh: Mesh,
+                   camera_model: str = "two_plane", t_min: float = 0.001,
+                   block: int = 64) -> torch.Tensor:
+    """One frame of the brute renderer over the mesh -> f32[height, width,
+    3], the radiance SUM over ``spp`` samples (divide to display), as
+    ``render_radiance``, on the device of ``scene`` (a ``SceneData``).
+
+    Place (ri, si) renders the band of rows ri * tile_h .. (ri + 1) *
+    tile_h - 1 (tile_h = height / n_rows) with the samples si * local_spp
+    .. (si + 1) * local_spp - 1 (local_spp = spp / n_samples), as
+    ``render_radiance(y0=, tile_h=, sample_offset=)``; the streams of a
+    band are summed on the band's first device (JAX's ``psum``) and the
+    bands stitched on the scene's device.  A band keys its rays by their
+    pixel ids in the whole image, so with one sample stream the stitched
+    frame equals ``render_radiance``'s bit for bit.  Raises
+    ``ValueError`` unless the rows divide the height and the samples the
+    spp."""
+    n_rows, n_samp = mesh.shape["rows"], mesh.shape["samples"]
+    if height % n_rows:
+        raise ValueError(f"height {height} not divisible by rows axis "
+                         f"{n_rows}")
+    if spp % n_samp:
+        raise ValueError(f"spp {spp} not divisible by samples axis "
+                         f"{n_samp}")
+    tile_h, local_spp = height // n_rows, spp // n_samp
+    home = scene.center.device
+    copies = {}
+    outs = {}
+    for ri in range(n_rows):
+        for si in range(n_samp):
+            dev = mesh.devices[ri][si]
+            if dev not in copies:
+                copies[dev] = _scene_on(scene, dev)
+            outs[ri, si] = render_radiance(
+                copies[dev], cam, key, local_spp, max_depth, width=width,
+                height=height, camera_model=camera_model, t_min=t_min,
+                block=block, y0=ri * tile_h, tile_h=tile_h,
+                sample_offset=si * local_spp)
+    bands = []
+    for ri in range(n_rows):
+        acc = outs[ri, 0]
+        for si in range(1, n_samp):
+            acc = acc + outs[ri, si].to(acc.device)
+        bands.append(acc.to(home))
+    return torch.cat(bands, 0)
+
+
+class ShardedRenderer:
+    """The brute frame renderer over a mesh (the scaling analog of
+    ``models/renderer.py::Renderer``; JAX tiling.py:235-270).  The default
+    mesh puts the bands on every CUDA device, ``n_samples_axis`` streams
+    each; pass ``mesh`` (``make_mesh(..., devices=["cpu"] * n)``) for
+    another."""
+
+    def __init__(self, width: int, height: int, mesh: Mesh | None = None,
+                 n_samples_axis: int = 1, camera_model: str = "two_plane",
+                 t_min: float = 0.001, block: int = 64):
+        self.width = int(width)
+        self.height = int(height)
+        self.mesh = mesh if mesh is not None else make_mesh(
+            n_samples=n_samples_axis)
+        self.camera_model = camera_model
+        self.t_min = t_min
+        self.block = block
+
+    def render(self, scene, cam, key: int, spp: int = 36,
+               max_depth: int = 12) -> torch.Tensor:
+        """Radiance sum over ``spp`` samples, f32[H,W,3], on the device of
+        the mesh's first place (``replicate`` the scene there first)."""
+        return render_sharded(
+            scene, cam, key, spp, max_depth, width=self.width,
+            height=self.height, mesh=self.mesh,
+            camera_model=self.camera_model, t_min=self.t_min,
+            block=self.block)
+
+    def replicate(self, scene):
+        """The ``SceneData`` on the mesh's first device (the bands copy it
+        to their own devices once per frame)."""
+        return _scene_on(scene, self.mesh.devices[0][0])

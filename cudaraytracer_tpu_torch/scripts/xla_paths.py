@@ -1,5 +1,6 @@
 """The XLA-path renderers on one GPU: ``render --accel wavefront`` (the
-closest-hit kernel's user path) and ``render --accel brute``.
+closest-hit kernel's user path), ``render --accel bvh`` (the BVH
+kernel's) and ``render --accel brute``.
 
     python -m cudaraytracer_tpu_torch.scripts.xla_paths [--out F.json]
 
@@ -7,10 +8,12 @@ closest-hit kernel's user path) and ``render --accel brute``.
 
 * the CLI paths at 1280x720 with ``--denoise --aov``: ``--accel
   wavefront`` on rtow_final and terrain_big (triangles, vertex normals,
-  image textures), ``--accel brute`` on the default scene and with
-  ``--nee`` on cornell; the launch counts are set to 0 before each and
-  read after: the wavefront must launch the closest hit and neither the
-  megakernel nor the G-buffer kernel, the brute renderer no kernel;
+  image textures), ``--accel bvh`` on rtow_final, ``--accel brute`` on
+  the default scene and with ``--nee`` on cornell; the launch counts are
+  set to 0 before each and read after: the wavefront must launch the
+  closest hit and no other kernel, the BVH path the BVH kernel
+  (``ops/cuda/bvh_kernel.py``) and no other, the brute renderer no
+  kernel;
 * sort on and off: one sample at depth 12 of rtow_final and terrain_big
   at 1280x720, bit-identical images;
 * the kernel inside the loop: the live wavefront of bounce 2 of the
@@ -30,7 +33,11 @@ closest-hit kernel's user path) and ``render --accel brute``.
   (``torch.profiler``: the device's own events' time in one sample over
   the same sample's time without the profiler; the idle time is mostly the
   host's read of the live count once per bounce and the launches after
-  it); the brute renderer's ms per sample on the default scene.
+  it); the BVH path's (``Renderer.render(bvh=)``) on rtow_final and
+  terrain_big, with its kernel's launches, its kernel's share of the
+  sample (the kernel's device time in the profiled sample over the
+  sample's time) and the device's idle share; the brute renderer's ms
+  per sample on the default scene.
 
 Any miss raises.  Needs a GPU and nvcc.
 """
@@ -74,12 +81,14 @@ def _cuda_ms(fn, reps: int) -> float:
 
 
 def _counted():
+    from ..ops.bvh_traverse import bvh_closest_hit_plain
+    from ..ops.cuda.bvh_kernel import bvh_hit
     from ..ops.cuda.gbuffer_kernel import gbuffer, gbuffer_plain
     from ..ops.cuda.hit_kernel import closest_hit, closest_hit_plain
     from ..ops.cuda.render_kernel import render_sample, render_sample_plain
 
     return (render_sample, render_sample_plain, gbuffer, gbuffer_plain,
-            closest_hit, closest_hit_plain)
+            closest_hit, closest_hit_plain, bvh_hit, bvh_closest_hit_plain)
 
 
 def cli_paths(tmp: str, emit, device: str = "cuda") -> dict:
@@ -94,6 +103,8 @@ def cli_paths(tmp: str, emit, device: str = "cuda") -> dict:
                                       "rtow_final"], 2),
             ("wavefront_terrain_big", ["--accel", "wavefront", "--scene",
                                        "terrain_big"], 2),
+            ("bvh_rtow_final", ["--accel", "bvh", "--scene", "rtow_final"],
+             2),
             ("brute_default", ["--accel", "brute"], 2),
             ("brute_cornell_nee", ["--accel", "brute", "--scene", "cornell",
                                    "--nee"], 2)):
@@ -120,13 +131,15 @@ def cli_paths(tmp: str, emit, device: str = "cuda") -> dict:
                "png_mean": float(arr.mean()),
                "aov_hit_share": float((aov["depth"] > 0).mean())}
         emit({"phase": "xla_path", **rec})
-        # the closest hit's launches (its plain version's on the CPU)
-        hit = "closest_hit" if rl.device.type == "cuda" else \
-            "closest_hit_plain"
-        wave = args[1] == "wavefront"
-        others = {k: v for k, v in launches.items() if k != hit}
-        if (wave and launches[hit] <= 0) or any(others.values()) \
-                or (not wave and launches[hit]):
+        # the path's kernel: the closest hit's launches on the wavefront,
+        # the BVH kernel's on the BVH path (their plain versions' on the
+        # CPU), none on the brute path
+        card = rl.device.type == "cuda"
+        want = {"wavefront": "closest_hit" if card else "closest_hit_plain",
+                "bvh": "bvh_hit" if card else "bvh_closest_hit_plain"}.get(
+                    args[1])
+        if (want and launches[want] <= 0) or any(
+                v for k, v in launches.items() if k != want):
             raise AssertionError(f"{tag}: wrong kernels launched {launches}")
         if size != (W, H) or not 10.0 < arr.mean() < 245.0:
             raise AssertionError(f"{tag}: bad PNG {size} mean {arr.mean()}")
@@ -275,11 +288,13 @@ def radiance_check(dev, emit) -> dict:
     return rec
 
 
-def _busy_ms(fn, sample_ms: float) -> tuple:
+def _busy_ms(fn, sample_ms: float, kernel: str | None = None) -> tuple:
     """(wall ms, device busy ms) of one ``fn()`` under torch.profiler: the
     self time of the device's own events in ``key_averages`` (kernels,
     copies, sets) summed, not that of the host operations that launched
-    them, which would count each kernel twice.  ``sample_ms`` is the time
+    them, which would count each kernel twice; with ``kernel`` also the
+    device ms of the events whose name contains it (a third value).
+    ``sample_ms`` is the time
     of the same work without the profiler: no busy time, or one above it,
     is a fault of the measurement and raises."""
     from torch.autograd import DeviceType
@@ -292,12 +307,19 @@ def _busy_ms(fn, sample_ms: float) -> tuple:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3
+    dev_events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev_events) / 1e3
     if not 0.0 < busy <= sample_ms:
         raise AssertionError(f"device busy {busy} ms of a {sample_ms} ms "
                              "sample")
-    return wall, busy
+    if kernel is None:
+        return wall, busy
+    own = sum(e.self_device_time_total for e in dev_events
+              if kernel in e.key) / 1e3
+    if own <= 0.0:
+        raise AssertionError(f"no device time of {kernel} in the sample")
+    return wall, busy, own
 
 
 def timings(dev, emit) -> dict:
@@ -357,6 +379,7 @@ def timings(dev, emit) -> dict:
                                     if "hit" in phases else None)
         emit({"phase": "xla_timing", "renderer": "wavefront", **rec})
         out[f"wavefront/{name}"] = rec
+    out.update(bvh_timings(dev, emit))
     name = "default"
     scene, cam = scenes.SCENES[name][0](), scenes.SCENES[name][1]()
     r = rd.Renderer(W, H, camera_model=scenes.camera_model_for(name),
@@ -371,6 +394,58 @@ def timings(dev, emit) -> dict:
            "device_busy_ms": busy, "device_idle_share": 1.0 - busy / ms}
     emit({"phase": "xla_timing", "renderer": "brute", **rec})
     out[f"brute/{name}"] = rec
+    return out
+
+
+def bvh_timings(dev, emit) -> dict:
+    """ms per sample of the BVH path (the brute renderer through the
+    tree) at 1280x720, depth 12, on rtow_final and terrain_big, with its
+    kernel's launches and share and the device's idle share."""
+    from ..models import bvh as bvhm
+    from ..models import renderer as rd
+    from ..models import scenes
+    from ..ops.cuda import bvh_kernel
+    from ..utils import rng
+
+    out = {}
+    for name in ("rtow_final", "terrain_big"):
+        scene, cam = scenes.SCENES[name][0](), scenes.SCENES[name][1]()
+        r = rd.Renderer(W, H, camera_model=scenes.camera_model_for(name),
+                        device=dev)
+        sd = scene.device(dev)
+        t0 = time.perf_counter()
+        b = bvhm.build_bvh(scene, device=dev)
+        build_s = time.perf_counter() - t0
+
+        def one(s, _r=r, _sd=sd, _cam=cam, _b=b):
+            return _r.render(_sd, _cam, rng.frame_key(rng.key_for(3), s), 1,
+                             DEPTH, bvh=_b, with_stats=True)
+
+        one(0)  # warm-up
+        ms, launches, rays = [], [], []
+        for s in range(1, 6):
+            n0 = bvh_kernel.bvh_hit.launches
+            a = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            a.record()
+            _, n = one(s)
+            e.record()
+            e.synchronize()
+            ms.append(a.elapsed_time(e))
+            launches.append(bvh_kernel.bvh_hit.launches - n0)
+            rays.append(n)
+        wall, busy, kern = _busy_ms(lambda: one(1), ms[0],
+                                    kernel="bvh_hit_kernel")
+        rec = {"scene": name, "size": [W, H], "depth": DEPTH,
+               "nodes": b.n_nodes, "build_s": build_s,
+               "ms_per_sample": statistics.median(ms), "ms_all": ms,
+               "bvh_launches_per_sample": statistics.median(launches),
+               "rays_per_sample": statistics.median(rays),
+               "profiled_wall_ms": wall, "device_busy_ms": busy,
+               "device_idle_share": 1.0 - busy / ms[0],
+               "bvh_kernel_ms": kern, "bvh_kernel_share": kern / ms[0]}
+        emit({"phase": "xla_timing", "renderer": "bvh", **rec})
+        out[f"bvh/{name}"] = rec
     return out
 
 

@@ -30,12 +30,17 @@ ports.
 ``cfg.accel`` picks the render path (JAX's ``RenderLayer`` dispatch):
 ``auto``/``cuda`` the megakernel through ``_CudaPipeline``, ``wavefront``
 the sorted-wavefront renderer (``models/wavefront.py``, its hit step the
-closest-hit kernel), ``brute`` the brute renderer (``models/renderer.py``).
-The two XLA-path accels take their G-buffer from ``ops/gbuffer.py::
-primary_features``, as the JAX package does; ``--nee`` on ``wavefront``
-warns and renders the parity estimator; ``cfg.progressive = False``
-renders ``cfg.spp`` samples a frame through the brute ``Renderer``
-whatever the accel; ``bvh`` raises (not ported yet).
+closest-hit kernel), ``brute`` the brute renderer (``models/renderer.py``)
+and ``bvh`` the same renderer through the scene's BVH
+(``models/bvh.py``, built on the device at every scene edit; its hit
+step the BVH kernel, ``ops/cuda/bvh_kernel.py``).  The XLA-path accels
+take their G-buffer from ``ops/gbuffer.py::primary_features``, as the
+JAX package does; ``--nee`` and ``--qmc`` reach the brute and BVH
+renderers; ``--nee`` on ``wavefront`` warns and renders the parity
+estimator; ``cfg.progressive = False`` renders ``cfg.spp`` samples a
+frame through the ``Renderer`` (through the BVH under ``bvh``) whatever
+the accel.  Unlike JAX's, the megakernel accel does not fall back to
+the BVH when it cannot run: it raises.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ import torch
 
 from ..config import RenderConfig
 from ..models import scenes as scene_lib
+from ..models.bvh import build_bvh
 from ..models.camera import FlyCamera
 from ..models.renderer import Renderer
 from ..models.wavefront import WavefrontRenderer
@@ -327,10 +333,7 @@ class RenderLayer(Layer):
             self._pose_fly_at(make_cam_params())
         # the render path: the megakernel ("cuda") or an XLA-path renderer
         self.accel = "cuda" if cfg.accel in ("auto", "cuda") else cfg.accel
-        if self.accel == "bvh":
-            raise NotImplementedError(
-                "--accel bvh is not ported yet (ROADMAP Queue 1 item 7)")
-        if self.accel not in ("cuda", "brute", "wavefront"):
+        if self.accel not in ("cuda", "brute", "wavefront", "bvh"):
             raise ValueError(f"unknown accel {cfg.accel!r}")
         self.metrics = Metrics()
         self.metrics.width, self.metrics.height = cfg.width, cfg.height
@@ -343,6 +346,7 @@ class RenderLayer(Layer):
         self._spp_done = 0
         self._pipeline: _CudaPipeline | None = None
         self._wavefront: WavefrontRenderer | None = None
+        self._bvh = None  # the scene's BVH under accel bvh
         self.renderer = self._make_renderer()
         self._sd = None  # the scene on the device (the XLA-path accels)
         self._key = rng.key_for(cfg.seed)
@@ -378,12 +382,13 @@ class RenderLayer(Layer):
                         if cfg.adaptive and self.accel == "cuda" else None)
 
     def _make_renderer(self) -> Renderer:
-        """The brute renderer of the brute accel and of non-progressive
-        frames, from cfg."""
+        """The XLA-path renderer of the brute and bvh accels and of
+        non-progressive frames, from cfg (its estimator and jitter
+        switches too)."""
         cfg = self.cfg
         return Renderer(cfg.width, cfg.height, camera_model=cfg.camera_model,
                         t_min=cfg.t_min, block=cfg.block, nee=cfg.nee,
-                        nee_p=cfg.nee_p, device=self.device)
+                        nee_p=cfg.nee_p, qmc=cfg.qmc, device=self.device)
 
     # -------------------------------------------------------- lifecycle
     def on_attach(self, app: "Application"):
@@ -408,6 +413,10 @@ class RenderLayer(Layer):
             self._sd = self.scene.device(self.device)
             if self.accel == "cuda":
                 self._pipeline = _CudaPipeline(self.scene, cfg, self.device)
+            elif self.accel == "bvh":
+                # rebuilt on every edit (the reference rebuilds its BVH on
+                # every geometry drag, CudaLayer.cpp:491-556)
+                self._bvh = build_bvh(self.scene, device=self.device)
             elif self.accel == "wavefront":
                 if self._wavefront is None:
                     self._wavefront = WavefrontRenderer(
@@ -462,7 +471,7 @@ class RenderLayer(Layer):
             # spp samples through the brute renderer, whatever the accel
             self._accum, rays = self.renderer.render(
                 self._sd, cam, fkey, spp=cfg.spp, max_depth=cfg.max_depth,
-                with_stats=True)
+                bvh=self._bvh, with_stats=True)
             self._counts = None
             self._spp_done = cfg.spp
         else:
@@ -470,11 +479,11 @@ class RenderLayer(Layer):
                 batch = 1
                 self._accum += self._wavefront.render(
                     cam, fkey, spp=1, max_depth=cfg.max_depth)
-            elif self.accel == "brute":
+            elif self.accel in ("brute", "bvh"):
                 batch = 1
                 self._accum = self.renderer.accumulate(
                     self._sd, cam, fkey, cfg.max_depth, self._accum,
-                    sample_offset=self._spp_done)
+                    bvh=self._bvh, sample_offset=self._spp_done)
             else:
                 batch = max(1, int(cfg.progressive_spp))
                 self._accum = self._pipeline.accumulate(

@@ -21,6 +21,17 @@ megakernel's row bands on the CPU, against the JAX package.
   and 0.019 at worst (at 96 spp per pixel the block mean reached 0.0152:
   too near the limit).
 * ``parallel/dryrun.py`` passes on 4 and 2 CPU places.
+* The XLA renderer's ``render_sharded``: with one sample stream (4 x 1
+  places) the stitched frame equals ``render_radiance`` bit for bit (a
+  band keys its rays by their global pixel ids); on 2 x 2 places with 4
+  spp it equals it to f32 summation rounding (rtol 1e-6, atol 1e-6: the
+  streams' sums are added in another order); its misaligned height
+  raises JAX's ``ValueError``, an spp the samples do not divide raises
+  too; ``ShardedRenderer`` renders; and its radiance holds statistically
+  to JAX's ``render_radiance`` (default scene at 24x16, depth 4, 2 x 2
+  places of 8 spp against JAX's 16 spp: the limits of
+  tests/test_torch_renderer.py, channel means within 0.05 and 8x12
+  block means within 0.06 on average).
 """
 
 import jax
@@ -31,17 +42,20 @@ import torch
 torch.set_num_threads(2)
 
 from cudaraytracer_tpu.models import scene as jscene  # noqa: E402
+from cudaraytracer_tpu.models import scenes as jscenes  # noqa: E402
 from cudaraytracer_tpu.models.camera import make_camera_params as jcam  # noqa: E402
 from cudaraytracer_tpu.models.renderer import render_radiance  # noqa: E402
 from cudaraytracer_tpu.parallel import tiling as jtiling  # noqa: E402
 from cudaraytracer_tpu.utils import rng as jrng  # noqa: E402
 
 from cudaraytracer_tpu_torch.models import scene as tscene  # noqa: E402
+from cudaraytracer_tpu_torch.models import renderer as trend  # noqa: E402
 from cudaraytracer_tpu_torch.models import scenes as tscenes  # noqa: E402
 from cudaraytracer_tpu_torch.models.camera import make_camera_params as tcam  # noqa: E402
 from cudaraytracer_tpu_torch.ops.cuda import render_kernel as rk  # noqa: E402
 from cudaraytracer_tpu_torch.ops.cuda import tables as ttab  # noqa: E402
 from cudaraytracer_tpu_torch.parallel import dryrun, tiling  # noqa: E402
+from cudaraytracer_tpu_torch.utils import rng as trng  # noqa: E402
 
 from test_torch_render_kernel import (BLOCK_MAX, BLOCK_MEAN, CHAN_ATOL,  # noqa: E402
                                       block_errors, sphere_room)
@@ -232,3 +246,61 @@ def test_dryrun_on_cpu_places(n_devices):
     res = dryrun.dryrun_multichip(n_devices, "cpu")
     assert (res["rows"], res["samples"]) == (n_devices // 2, 2)
     assert all(np.isfinite(v) and v > 0 for v in res["means"].values())
+
+
+def xla_case(name="default", w=24, h=16):
+    scene = tscenes.SCENES[name][0]()
+    return (scene.device("cpu"), tscenes.SCENES[name][1](),
+            dict(width=w, height=h,
+                 camera_model=tscenes.camera_model_for(name)))
+
+
+@pytest.mark.parametrize("name", ["default", "rtow_final"])
+def test_render_sharded_one_stream_equals_render_radiance(name):
+    sd, cam, kw = xla_case(name)
+    full = trend.render_radiance(sd, cam, trng.key_for(5), 2, 4, **kw)
+    out = tiling.render_sharded(sd, cam, trng.key_for(5), 2, 4,
+                                mesh=tiling.make_mesh(4, 1, CPU8[:4]), **kw)
+    assert out.shape == full.shape == (16, 24, 3)
+    assert torch.equal(out, full) and float(full.mean()) > 0
+
+
+def test_render_sharded_two_streams_to_summation_rounding():
+    sd, cam, kw = xla_case()
+    full = trend.render_radiance(sd, cam, trng.key_for(5), 4, 4, **kw)
+    out = tiling.render_sharded(sd, cam, trng.key_for(5), 4, 4,
+                                mesh=tiling.make_mesh(2, 2, CPU8[:4]), **kw)
+    torch.testing.assert_close(out, full, rtol=1e-6, atol=1e-6)
+
+
+def test_render_sharded_misaligned_raises():
+    jmesh = jtiling.make_mesh(3, 1, jax.devices("cpu")[:3])
+    with pytest.raises(ValueError) as want:
+        jtiling.render_sharded(None, None, None, 1, 1, width=8, height=16,
+                               mesh=jmesh)
+    with pytest.raises(ValueError) as got:
+        tiling.render_sharded(None, None, 0, 1, 1, width=8, height=16,
+                              mesh=tiling.make_mesh(3, 1, CPU8[:3]))
+    assert str(got.value) == str(want.value)
+    sd, cam, kw = xla_case()
+    with pytest.raises(ValueError, match="spp 3 not divisible"):
+        tiling.render_sharded(sd, cam, 0, 3, 1,
+                              mesh=tiling.make_mesh(2, 2, CPU8[:4]), **kw)
+
+
+def test_sharded_renderer_renders_and_matches_jax_statistically():
+    sd, cam, kw = xla_case()
+    r = tiling.ShardedRenderer(kw["width"], kw["height"],
+                               mesh=tiling.make_mesh(2, 2, CPU8[:4]),
+                               camera_model=kw["camera_model"])
+    img = r.render(r.replicate(sd), cam, trng.key_for(1984), spp=16,
+                   max_depth=4).numpy() / 16
+    ref = np.asarray(render_radiance(
+        jscenes.SCENES["default"][0]().device(),
+        jscenes.SCENES["default"][1](), jrng.base_key(), 16, 4,
+        **kw)) / 16
+    assert np.isfinite(img).all()
+    assert np.abs(img.mean((0, 1)) - ref.mean((0, 1))).max() < 0.05
+    bg = ref.reshape(8, 2, 12, 2, 3).mean((1, 3))
+    bo = img.reshape(8, 2, 12, 2, 3).mean((1, 3))
+    assert np.abs(bg - bo).mean() < 0.06

@@ -11,24 +11,42 @@ XLA-path accels of the render loop and CLI, on the CPU.
   (``closest_hit_plain.launches`` > 0), no megakernel or G-buffer kernel
   launch on either; their G-buffer is ``primary_features``;
   ``--no-progressive`` renders spp samples through the brute renderer;
-  ``--accel bvh`` and media on the wavefront raise; ``--nee`` on the
-  wavefront warns.
+  media on the wavefront raise; ``--nee`` on the wavefront warns.
+* QMC reaches the brute renderer: with ``qmc=True`` the primary rays of
+  sample s of ``render_radiance`` (with ``sample_offset`` and in a band
+  ``y0 > 0``) equal JAX's raygen with ``xi = qmc_jitter`` at the global
+  pixel coordinates and index s + sample_offset (both camera models,
+  pinhole; atol 1e-5 on directions and origins of unit scale, rtol
+  1e-5), and ``RenderLayer(accel="brute", qmc=True)`` renders a frame
+  that differs from the ``qmc=False`` one.
+* ``--accel bvh``: ``render --accel bvh`` renders every registered scene
+  at 16x10 through the plain BVH walk (``bvh_closest_hit_plain``), no
+  megakernel or G-buffer kernel, with ``--denoise --aov`` (the brute
+  G-buffer); its frame equals the brute accel's on the default scene
+  within 1e-4 (the same draws, the same closest hits) and its block
+  means match them; the tree is rebuilt after an edit.
 """
 
+import dataclasses
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 torch.set_num_threads(2)
 
+from cudaraytracer_tpu.models import camera as jcamera  # noqa: E402
 from cudaraytracer_tpu.models import scenes as jscenes  # noqa: E402
 from cudaraytracer_tpu.models.renderer import render_radiance  # noqa: E402
+from cudaraytracer_tpu.ops import qmc as jqmc  # noqa: E402
 from cudaraytracer_tpu.utils import rng as jrng  # noqa: E402
 
 from cudaraytracer_tpu_torch import __main__ as cli  # noqa: E402
 from cudaraytracer_tpu_torch.config import RenderConfig  # noqa: E402
 from cudaraytracer_tpu_torch.models import renderer as trend  # noqa: E402
 from cudaraytracer_tpu_torch.models import scenes as tscenes  # noqa: E402
+from cudaraytracer_tpu_torch.ops import bvh_traverse as tbt  # noqa: E402
 from cudaraytracer_tpu_torch.ops import gbuffer as tgb  # noqa: E402
 from cudaraytracer_tpu_torch.ops.cuda import gbuffer_kernel as gk  # noqa: E402
 from cudaraytracer_tpu_torch.ops.cuda import hit_kernel as hk  # noqa: E402
@@ -143,8 +161,9 @@ def test_cli_no_progressive_renders_spp_through_the_brute_renderer(tmp_path):
 
 
 def test_accel_errors_and_the_nee_warning(tmp_path, caplog):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        RenderLayer(RenderConfig(device="cpu", accel="bvh"))
+    rl = run_main(tmp_path, "--accel", "bvh", "--frames", "1")
+    assert rl.accel == "bvh" and rl._bvh is not None and rl._spp_done == 1
+    assert rl.metrics.accel == "bvh"
     with pytest.raises(ValueError, match="constant-density media"):
         run_main(tmp_path, "--accel", "wavefront", "--scene", "book2_final")
     from cudaraytracer_tpu_torch.utils import logging as rtlog
@@ -174,3 +193,104 @@ def test_resize_rebuilds_the_xla_paths():
     app.run(max_frames=1)
     assert rl._wavefront.width == 12 and rl.framebuffer_rgba8().shape == (
         8, 12, 4)
+
+
+@pytest.mark.parametrize("name", ["default", "rtow_final"])
+def test_qmc_primary_rays_match_jax(name, monkeypatch):
+    """Band rows 6..13 of 20, samples 0 and 1 at offset 5: the rays
+    ``trace`` receives against JAX's raygen with the R2 jitter."""
+    w, h, y0, th, off = 12, 20, 6, 8, 5
+    model = tscenes.camera_model_for(name)
+    # pinhole: the lens point is drawn from each package's own generator
+    cam = dataclasses.replace(tscenes.SCENES[name][1](),
+                              aperture=np.float32(0.0))
+    seen = []
+    monkeypatch.setattr(trend, "trace", lambda sc, o, d, pk, *a, **k: (
+        seen.append((o.clone(), d.clone())), (torch.zeros_like(o), 0))[1])
+    trend.render_radiance(tscenes.SCENES[name][0]().device("cpu"), cam,
+                          trng.key_for(2), 2, 3, width=w, height=h,
+                          camera_model=model, y0=y0, tile_h=th,
+                          sample_offset=off, qmc=True)
+    assert len(seen) == 2
+    xg = jnp.broadcast_to(jnp.arange(w, dtype=jnp.float32)[None, :], (th, w))
+    yg = jnp.broadcast_to((jnp.arange(th, dtype=jnp.float32)
+                           + float(y0))[:, None], (th, w))
+    jcam = dataclasses.replace(jscenes.SCENES[name][1](),
+                               aperture=np.float32(0.0))
+    for s, (o, d) in enumerate(seen):
+        xi = jnp.stack(jqmc.qmc_jitter(xg, yg, jnp.int32(s + off)))
+        jo, jd = jcamera.RAY_GENERATORS[model](
+            jcam, w, h, jrng.base_key(0), y0=y0, tile_h=th, xi=xi)
+        np.testing.assert_allclose(o.numpy(), np.asarray(jo), rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_allclose(d.numpy(), np.asarray(jd), rtol=1e-5,
+                                   atol=1e-5)
+    assert not torch.equal(seen[0][1], seen[1][1])
+
+
+def test_render_layer_qmc_reaches_the_brute_renderer():
+    frames = {}
+    for qmc in (False, True):
+        cfg = RenderConfig(device="cpu", accel="brute", qmc=qmc, width=16,
+                           height=10, max_depth=3)
+        from cudaraytracer_tpu_torch.viewer.app import Application
+
+        app = Application(cfg)
+        rl = app.setup_default_layers()
+        assert rl.renderer.qmc is qmc
+        app.run(max_frames=2)
+        frames[qmc] = rl._accum.clone()
+        assert torch.isfinite(frames[qmc]).all() and rl._spp_done == 2
+    assert not torch.equal(frames[False], frames[True])
+
+
+@pytest.mark.parametrize("name", list(tscenes.SCENES))
+def test_cli_bvh_renders_every_scene(tmp_path, name):
+    before = kernel_counts()
+    hit0 = tbt.bvh_closest_hit_plain.launches
+    aov = tmp_path / "aov.npz"
+    rl = cli.main(["render", "--device", "cpu", "--accel", "bvh", "--scene",
+                   name, "--width", "16", "--height", "10", "--frames", "1",
+                   "--max-depth", "4", "--denoise", "--aov", str(aov),
+                   "-o", str(tmp_path / "out.png")])
+    assert rl.accel == "bvh" and rl._pipeline is None
+    assert rl._bvh.n_nodes > 0 and rl._spp_done == 1
+    assert tbt.bvh_closest_hit_plain.launches > hit0
+    assert kernel_counts() == before
+    assert np.isfinite(rl.radiance_mean()).all()
+    with np.load(aov) as z:
+        assert (z["depth"] > 0).any()
+
+
+def test_bvh_accel_matches_brute(tmp_path):
+    """The same draws and the same closest hits: the frames agree to
+    float rounding, and their block means (JAX's
+    test_renderer_with_bvh_matches_brute_statistically)."""
+    imgs = {}
+    for accel in ("brute", "bvh"):
+        cfg = RenderConfig(device="cpu", accel=accel, width=W, height=H,
+                           max_depth=4, nee=True, scene="cornell",
+                           camera_model="look_at")
+        from cudaraytracer_tpu_torch.viewer.app import Application
+
+        app = Application(cfg)
+        rl = app.setup_default_layers()
+        app.run(max_frames=2)
+        imgs[accel] = rl._accum.numpy() / 2
+    stat_close(imgs["bvh"], imgs["brute"])
+    np.testing.assert_allclose(imgs["bvh"], imgs["brute"], rtol=1e-3,
+                               atol=1e-4)
+
+
+def test_bvh_is_rebuilt_after_an_edit():
+    cfg = RenderConfig(device="cpu", accel="bvh", width=8, height=6,
+                       max_depth=2)
+    from cudaraytracer_tpu_torch.viewer.app import Application
+
+    app = Application(cfg)
+    rl = app.setup_default_layers()
+    app.run(max_frames=1)
+    n0 = rl._bvh.n_nodes
+    rl.scene.delete(int(rl.scene.active_indices()[0]))
+    app.run(max_frames=1)
+    assert rl._bvh.n_nodes == n0 - 2 and rl._spp_done == 1
