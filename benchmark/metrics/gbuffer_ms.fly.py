@@ -1,0 +1,9 @@
+"""gbuffer_ms.fly: device ms per G-buffer launch (``gbuffer_kernel*`` in
+the device trace of the traced frames)."""
+
+from benchmark import devtrace
+
+
+def read(rec):
+    k = devtrace.kernel_stats(rec["device_trace"], "gbuffer_kernel")
+    return None if k is None else k[1] / k[0] * 1e3
