@@ -10,6 +10,7 @@
   python -m cudaraytracer_tpu_torch render --accel brute --no-progressive
   python -m cudaraytracer_tpu_torch render --accel bvh --scene rtow_final
   python -m cudaraytracer_tpu_torch render --device cpu --width 64 --height 36 ...
+  python -m cudaraytracer_tpu_torch render --trace-out trace.json
 
 With no ``--scene`` it renders the default scene.  ``--obj PATH`` loads a
 Wavefront OBJ model, normalizes it onto the checkered ground and renders
@@ -31,6 +32,8 @@ scene edit; its hit step the BVH kernel).  ``--no-progressive`` renders ``--spp`
 brute renderer (one frame by default).  ``--device`` defaults to
 ``cuda``; with no GPU the command fails with a clear error instead of
 falling back.  ``--device cpu`` runs the kernels' plain PyTorch versions.
+``--trace-out PATH`` writes, at exit, the render loop's host spans and
+counters (``utils/trace.py``) as a Chrome-trace JSON file.
 The JAX package's ``serve`` and ``bench`` subcommands wait for later
 ports.
 """
@@ -147,6 +150,10 @@ def main(argv=None):
     p_render.add_argument("--aov", default=None, metavar="PATH",
                           help="also write the G-buffer: PATH.npz = raw "
                                "arrays, else PNGs PATH_{normal,albedo,depth}")
+    p_render.add_argument("--trace-out", dest="trace_out", default=None,
+                          metavar="PATH",
+                          help="at exit, write the host spans and counters "
+                               "as a Chrome-trace JSON file")
     p_render.add_argument("--obj", default=None, metavar="PATH",
                           help="render a Wavefront OBJ model: loads it, "
                                "normalizes it onto the checkered ground and "
@@ -185,7 +192,15 @@ def main(argv=None):
     cfg = config_mod.from_args(args)
     if args.frames is None:
         args.frames = cfg.spp if cfg.progressive else 1
-    return cmd_render(cfg, args)
+    try:
+        return cmd_render(cfg, args)
+    finally:
+        if args.trace_out:
+            from .utils import trace
+
+            trace.RECORDER.export_chrome(args.trace_out)
+            rtlog.rt_info("Wrote %s (host spans and counters)",
+                          args.trace_out)
 
 
 if __name__ == "__main__":

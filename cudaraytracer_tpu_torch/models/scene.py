@@ -20,6 +20,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils import trace
+
+_SCENE_DEVICE = trace.span("crt.scene_device")
+
 # Primitive types (ops/intersect.py in the JAX package).
 SPHERE = 0
 XY_RECT = 1
@@ -584,28 +588,29 @@ class Scene:
     # ------------------------------------------------------------- device
     def device(self, device) -> SceneData:
         """Snapshot the host mirror into torch tensors on ``device``."""
-        def put(x):
-            return torch.from_numpy(np.ascontiguousarray(x)).to(device)
-
-        kw = {name: put(getattr(self, name)) for name, _, _ in _PRIM_FIELDS}
-        return SceneData(
-            atlas=put(self.atlas),
-            tex_hw=put(self.tex_hw),
-            background_start=put(self.background_start),
-            background_end=put(self.background_end),
-            has_triangles=self.num_triangles > 0,
-            has_vertex_attrs=self.has_vertex_attrs,
-            has_media=bool(
-                (self.mat_type[self.active] == ISOTROPIC).any()),
-            has_motion=bool(
-                (np.abs(self.velocity[self.active]) > 0).any()),
-            has_box_media=bool(
-                (self.prim_type[self.active] == BOX).any()),
-            has_rot_media=bool(
-                (self.edge2[self.active &
-                            (self.prim_type == BOX), 0] != 0).any()),
-            **kw,
-        )
+        with _SCENE_DEVICE:
+            names = [name for name, _, _ in _PRIM_FIELDS]
+            *prims, atlas, tex_hw, bg_start, bg_end = trace.upload(
+                device, *(getattr(self, name) for name in names), self.atlas,
+                self.tex_hw, self.background_start, self.background_end)
+            return SceneData(
+                atlas=atlas,
+                tex_hw=tex_hw,
+                background_start=bg_start,
+                background_end=bg_end,
+                has_triangles=self.num_triangles > 0,
+                has_vertex_attrs=self.has_vertex_attrs,
+                has_media=bool(
+                    (self.mat_type[self.active] == ISOTROPIC).any()),
+                has_motion=bool(
+                    (np.abs(self.velocity[self.active]) > 0).any()),
+                has_box_media=bool(
+                    (self.prim_type[self.active] == BOX).any()),
+                has_rot_media=bool(
+                    (self.edge2[self.active &
+                                (self.prim_type == BOX), 0] != 0).any()),
+                **dict(zip(names, prims)),
+            )
 
     # ------------------------------------------------------------- persistence
     def to_doc(self, embed_atlas: bool = False) -> dict:

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
 from .aabb import aabb_hit, inv_direction
 from .intersect import (BIG, SPHERE, TRI_DET_EPS, TRIANGLE, YZ_RECT,
                         _rect_axes)
@@ -194,6 +195,7 @@ def bvh_closest_hit_plain(org, dirn, bvh, prim_type, center, size,
 
 
 bvh_closest_hit_plain.launches = 0
+trace.register("bvh_closest_hit_plain.launches", bvh_closest_hit_plain)
 
 
 def bvh_closest_hit(org, dirn, bvh, prim_type, center, size,

@@ -27,6 +27,11 @@ import subprocess
 import time
 from pathlib import Path
 
+from ...utils import trace
+
+_NVCC = trace.span("crt.nvcc")
+_LOAD_LIBRARY = trace.span("crt.load_library")
+
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "cudaraytracer_tpu_torch"
 SOURCES = ("rng.cuh", "stage.cuh", "search.cuh", "surface.cuh", "nee.cuh",
@@ -147,6 +152,14 @@ def build() -> dict:
         return {"path": lib, "seconds": 0.0,
                 "log": log.read_text() if log.is_file() else ""}
     nvcc = find_nvcc()
+    with _NVCC:
+        return _compile(nvcc, out_dir, lib, log)
+
+
+def _compile(nvcc: str, out_dir: Path, lib: Path, log: Path) -> dict:
+    """Compile and link the library into ``lib`` with ``nvcc``, its
+    output into ``log`` (``build``'s result)."""
+    trace.RECORDER.count("nvcc_builds")
     out_dir.mkdir(parents=True, exist_ok=True)
     tag = f"{os.getpid()}.tmp"
     tmp = out_dir / f".{LIB_NAME}.{tag}"
@@ -180,13 +193,14 @@ def build() -> dict:
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build if needed, load once per process, declare the C signatures."""
-    lib = ctypes.CDLL(str(build()["path"]))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib.crt_error_string.argtypes = [ctypes.c_int]
-    lib.crt_error_string.restype = ctypes.c_char_p
+    with _LOAD_LIBRARY:
+        lib = ctypes.CDLL(str(build()["path"]))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.crt_error_string.argtypes = [ctypes.c_int]
+        lib.crt_error_string.restype = ctypes.c_char_p
     return lib
 
 

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from ...utils import trace
 from ..bvh_traverse import STATS, check_bvh_inputs
 from ..intersect import BIG
 from . import build
@@ -65,4 +66,5 @@ def bvh_hit(org, dirn, bvh, prim_type, center, size, t_min: float = 0.001,
 
 
 bvh_hit.launches = 0
+trace.register("bvh_hit.launches", bvh_hit)
 

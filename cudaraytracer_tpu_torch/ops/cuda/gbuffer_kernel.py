@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import torch
 
+from ...utils import trace
 from ..gbuffer import GBuffer
 from . import build
 from .hit_kernel import (PACKET, add_hit_stats, brute_closest,
@@ -231,6 +232,7 @@ def gbuffer_plain(S, P, clusters, supers, n_super, cam_vec, *, width: int,
 
 
 gbuffer_plain.launches = 0
+trace.register("gbuffer_plain.launches", gbuffer_plain)
 
 
 def gbuffer(S, P, clusters, supers, n_super, cam_vec, *, width: int,
@@ -316,3 +318,5 @@ def gbuffer(S, P, clusters, supers, n_super, cam_vec, *, width: int,
 
 gbuffer.launches = 0
 gbuffer.streamed_launches = 0
+trace.register("gbuffer.launches", gbuffer)
+trace.register("gbuffer.streamed_launches", gbuffer, "streamed_launches")

@@ -28,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ...utils import trace
 from . import build
 from .tables import (BIG, CLUSTER, STREAM_BLOCK_B, STREAM_GROUP_G, SUPER,
                      S_AAX, S_BAX, S_CA, S_CB, S_CK, S_CX, S_CY, S_CZ, S_D1,
@@ -900,6 +901,7 @@ def closest_hit_plain(S, clusters, supers, n_super, n_alive, org, dirn,
 
 
 closest_hit_plain.launches = 0
+trace.register("closest_hit_plain.launches", closest_hit_plain)
 
 
 def closest_hit(S, clusters, supers, n_super, n_alive, org, dirn,
@@ -955,3 +957,4 @@ def closest_hit(S, clusters, supers, n_super, n_alive, org, dirn,
 
 
 closest_hit.launches = 0
+trace.register("closest_hit.launches", closest_hit)

@@ -72,7 +72,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ...utils import rng
+from ...utils import rng, trace
 from .. import qmc, sampling
 from ..textures import sample_texture
 from . import build
@@ -977,6 +977,7 @@ def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
 
 
 render_sample_plain.launches = 0
+trace.register("render_sample_plain.launches", render_sample_plain)
 
 
 def table_args(S, P, clusters, supers, n_super, stream_b, cluster,
@@ -1152,3 +1153,6 @@ def render_sample(S, P, clusters, supers, n_super, cam_vec, seed, max_depth,
 
 render_sample.launches = 0
 render_sample.streamed_launches = 0
+trace.register("render_sample.launches", render_sample)
+trace.register("render_sample.streamed_launches", render_sample,
+               "streamed_launches")

@@ -26,6 +26,12 @@ import typing as _t
 import numpy as np
 import torch
 
+from ...utils import trace
+
+_PACK_TABLES = trace.span("crt.pack_tables")
+_UPLOAD = trace.span("crt.upload")
+_PACK_LIGHTS = trace.span("crt.pack_lights")
+
 # ----------------------------------------------------------------- tables
 # Search table S: f32[16, NP] — one column per primitive (Morton-sorted).
 # Rows 13-15 hold the triangle's second edge (spare for other types).
@@ -603,13 +609,11 @@ class TorchTables(_t.NamedTuple):
 def tables_to_torch(t: SceneTables, device) -> TorchTables:
     """Upload packed tables to ``device`` (kilobytes to megabytes per
     scene edit)."""
-    def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-    return TorchTables(put(t.S), put(t.P), put(t.clusters), put(t.supers),
-                       int(t.n_super), put(t.prim_map), int(t.cluster),
-                       int(t.super_), bool(t.vattrs), bool(t.motion),
-                       put(t.block_boxes))
+    S, P, clusters, supers, prim_map, boxes = trace.upload(
+        device, t.S, t.P, t.clusters, t.supers, t.prim_map, t.block_boxes)
+    return TorchTables(S, P, clusters, supers, int(t.n_super), prim_map,
+                       int(t.cluster), int(t.super_), bool(t.vattrs),
+                       bool(t.motion), boxes)
 
 
 def has_images(scene) -> bool:
@@ -624,9 +628,9 @@ def atlas_to_torch(scene, device) -> tuple[torch.Tensor, torch.Tensor]:
     width) per slot, i32[S,2], on ``device``: what the kernels' image
     branch reads.  Upload once per scene edit (3 MiB for the default
     4 x 512 x 512 atlas)."""
-    return (torch.from_numpy(np.ascontiguousarray(scene.atlas)).to(device),
-            torch.from_numpy(np.ascontiguousarray(
-                scene.tex_hw, dtype=np.int32)).to(device))
+    atlas, tex_hw = trace.upload(device, scene.atlas,
+                                 np.asarray(scene.tex_hw, np.int32))
+    return atlas, tex_hw
 
 
 def prim_flags(scene) -> tuple[bool, bool]:
@@ -663,18 +667,22 @@ def kernel_inputs(scene, device, budget: int | None = None) -> tuple:
     velocity rows the packer finds, and ``kernel_flags``.  The tables
     are ``TorchTables``, or, when ``budget`` is given and they outgrow it
     (``streams_on_card``), ``TorchStreamTables`` (``pack_stream_tiles``,
-    passed with ``stream_b=block_b``)."""
-    images = has_images(scene)
-    packed = pack_scene_tables(scene, with_uv=images)
-    if budget is not None and streams_on_card(packed, budget):
-        t = stream_tables_to_torch(pack_stream_tiles(packed), device,
-                                   table_bytes(packed))
-    else:
-        t = tables_to_torch(packed, device)
-    flags = dict(kernel_flags(scene), has_vattrs=t.vattrs)
-    if images:
-        flags.update(zip(("atlas", "tex_hw"), atlas_to_torch(scene, device)))
-    return t, flags
+    passed with ``stream_b=block_b``).  The uploads are one span,
+    ``crt.upload``."""
+    with _PACK_TABLES:
+        images = has_images(scene)
+        packed = pack_scene_tables(scene, with_uv=images)
+        streamed = budget is not None and streams_on_card(packed, budget)
+        tiles = pack_stream_tiles(packed) if streamed else None
+        flags = kernel_flags(scene)
+        with _UPLOAD:
+            t = (stream_tables_to_torch(tiles, device, table_bytes(packed))
+                 if streamed else tables_to_torch(packed, device))
+            if images:
+                flags.update(zip(("atlas", "tex_hw"),
+                                 atlas_to_torch(scene, device)))
+        flags["has_vattrs"] = t.vattrs
+        return t, flags
 
 
 def nee_inputs(scene, device) -> dict:
@@ -683,8 +691,9 @@ def nee_inputs(scene, device) -> dict:
     scene edit, as the render loop does)."""
     from ..sampling import pack_lights_np
 
-    return dict(has_nee=True,
-                lights=torch.from_numpy(pack_lights_np(scene)).to(device))
+    with _PACK_LIGHTS:
+        return dict(has_nee=True,
+                    lights=trace.upload(device, pack_lights_np(scene))[0])
 
 
 # The adaptive mask's tiles follow the JAX pipeline (viewer/app.py
@@ -885,14 +894,13 @@ def stream_tables_to_torch(st: StreamTables, device,
     (``group_boxes``: passed as ``render_sample``'s and ``gbuffer``'s
     ``group_boxes``); ``resident_bytes`` records the resident layout's
     size (the route's reason)."""
-    def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
+    tiles, boxes, clusters, supers, prim_map, groups = trace.upload(
+        device, st.tiles, st.block_boxes, st.clusters, st.supers,
+        st.prim_map, group_boxes(st.block_boxes, st.n_blocks))
     return TorchStreamTables(
-        put(st.tiles), put(st.block_boxes), put(st.clusters), put(st.supers),
-        int(st.n_blocks), put(st.prim_map), int(st.cluster), int(st.super_),
-        int(st.block_b), bool(st.vattrs), bool(st.motion),
-        int(resident_bytes), put(group_boxes(st.block_boxes, st.n_blocks)))
+        tiles, boxes, clusters, supers, int(st.n_blocks), prim_map,
+        int(st.cluster), int(st.super_), int(st.block_b), bool(st.vattrs),
+        bool(st.motion), int(resident_bytes), groups)
 
 
 def tile_columns(tiles: torch.Tensor, rows: slice, block_b: int,

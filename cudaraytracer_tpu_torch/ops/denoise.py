@@ -17,7 +17,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils import trace
 from .gbuffer import GBuffer
+
+_DENOISE = trace.span("crt.denoise")
 
 # 5x5 B3-spline weights (outer product of [1,4,6,4,1]/16)
 _H1D = (1.0 / 16.0, 4.0 / 16.0, 6.0 / 16.0, 4.0 / 16.0, 1.0 / 16.0)
@@ -63,40 +66,43 @@ def atrous_denoise(color: torch.Tensor, gb: GBuffer,
     The sky (normal 0, depth 0) is its own region; luminance is re-derived
     from the filtered image after each pass.
     """
-    lum = _luminance(color)
-    lscale = (sigma_lum * torch.sqrt(torch.clamp(variance, min=0.0)) + _EPS
-              if variance is not None else None)
-    n_p, a_p, z_p = gb.normal, gb.albedo, gb.depth
-    sky_p = torch.sum(torch.abs(n_p), dim=-1) < _EPS
-    out = color
-    for it in range(iterations):
-        s = 1 << it
-        c_taps = _taps(out, s)
-        n_taps = _taps(n_p, s)
-        a_taps = _taps(a_p, s)
-        z_taps = _taps(z_p, s)
-        l_taps = _taps(lum, s)
-        wsum = torch.zeros_like(lum)
-        csum = torch.zeros_like(color)
-        for k in range(25):
-            hk = _H1D[k // 5] * _H1D[k % 5]
-            ndot = torch.clamp(torch.sum(n_p * n_taps[k], dim=-1), min=0.0)
-            both_sky = sky_p & (torch.sum(torch.abs(n_taps[k]), dim=-1) < _EPS)
-            w_n = torch.where(both_sky, 1.0, ndot ** sigma_normal)
-            zq = z_taps[k]
-            w_z = torch.exp(-torch.abs(z_p - zq)
-                            / (sigma_depth * torch.maximum(z_p, zq) + _EPS))
-            da = a_p - a_taps[k]
-            w_a = torch.exp(-torch.sum(da * da, dim=-1)
-                            / (sigma_albedo * sigma_albedo))
-            dl = torch.abs(lum - l_taps[k])
-            if lscale is not None:
-                w_l = torch.exp(-dl / lscale)
-            else:
-                w_l = torch.exp(-(dl * dl) / (sigma_lum * sigma_lum))
-            wgt = hk * w_n * w_z * w_a * w_l
-            wsum = wsum + wgt
-            csum = csum + wgt[..., None] * c_taps[k]
-        out = csum / torch.clamp(wsum, min=_EPS)[..., None]
-        lum = _luminance(out)
-    return out
+    with _DENOISE:
+        lum = _luminance(color)
+        lscale = (sigma_lum * torch.sqrt(torch.clamp(variance, min=0.0)) + _EPS
+                  if variance is not None else None)
+        n_p, a_p, z_p = gb.normal, gb.albedo, gb.depth
+        sky_p = torch.sum(torch.abs(n_p), dim=-1) < _EPS
+        out = color
+        for it in range(iterations):
+            s = 1 << it
+            c_taps = _taps(out, s)
+            n_taps = _taps(n_p, s)
+            a_taps = _taps(a_p, s)
+            z_taps = _taps(z_p, s)
+            l_taps = _taps(lum, s)
+            wsum = torch.zeros_like(lum)
+            csum = torch.zeros_like(color)
+            for k in range(25):
+                hk = _H1D[k // 5] * _H1D[k % 5]
+                ndot = torch.clamp(torch.sum(n_p * n_taps[k], dim=-1), min=0.0)
+                both_sky = sky_p & (
+                    torch.sum(torch.abs(n_taps[k]), dim=-1) < _EPS)
+                w_n = torch.where(both_sky, 1.0, ndot ** sigma_normal)
+                zq = z_taps[k]
+                w_z = torch.exp(-torch.abs(z_p - zq)
+                                / (sigma_depth * torch.maximum(z_p, zq)
+                                   + _EPS))
+                da = a_p - a_taps[k]
+                w_a = torch.exp(-torch.sum(da * da, dim=-1)
+                                / (sigma_albedo * sigma_albedo))
+                dl = torch.abs(lum - l_taps[k])
+                if lscale is not None:
+                    w_l = torch.exp(-dl / lscale)
+                else:
+                    w_l = torch.exp(-(dl * dl) / (sigma_lum * sigma_lum))
+                wgt = hk * w_n * w_z * w_a * w_l
+                wsum = wsum + wgt
+                csum = csum + wgt[..., None] * c_taps[k]
+            out = csum / torch.clamp(wsum, min=_EPS)[..., None]
+            lum = _luminance(out)
+        return out

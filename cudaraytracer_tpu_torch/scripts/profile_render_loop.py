@@ -8,17 +8,24 @@ Drives ``RenderLayer.on_update`` (one megakernel launch of
 ``progressive_spp`` samples per frame, as ``render`` does) with
 ``--denoise`` on (and the render options asked for; ``--warmup``
 frames before the measured ones, so that under ``--adaptive`` tiles can
-have converged), and reports, as one JSON line:
+have converged), and reports, as one JSON line, host times from the
+port's span recorder (``utils/trace.py``) and device times from
+torch.profiler:
 
-* ``frame_ms_synced``: host-clock ms per frame with a synchronize after
-  each (median, quartiles); ``frame_ms_pipelined``: ms per frame of
-  ``--frames`` frames back to back, one synchronize at the end;
+* ``frame_ms_synced``: the frame period (from one ``crt.update`` start
+  to the next) with a synchronize after each frame (median, quartiles);
+  ``frame_ms_pipelined``: the mean period of ``--frames`` frames back to
+  back, one synchronize at the end;
+* ``host``: the recorder's summary of the pipelined frames (by span:
+  count, total, mean, p95 and self ms, bytes moved);
 * ``profile``: torch.profiler over ``--frames`` pipelined frames: device
   time by kernel name, the device's busy and idle share of the window
   (the union of kernel intervals over the span from the first to the last
-  event);
+  event; the spans' mirrored ranges are not device work);
 * ``display``: the denoised display step (``framebuffer_rgba8`` with the
-  G-buffer cached): host-clock ms synced, and its device time by kernel;
+  G-buffer cached): its ``crt.display`` ms (the span ends with the RGBA8
+  on the host), the recorder's summary of its parts, and its device time
+  by kernel;
 * ``active_fraction``: the share of tiles still rendering at the end
   (1.0 without ``--adaptive``).
 
@@ -32,7 +39,6 @@ import argparse
 import json
 import statistics
 import subprocess
-import time
 
 
 def _device_breakdown(prof, top: int = 8) -> dict:
@@ -40,7 +46,8 @@ def _device_breakdown(prof, top: int = 8) -> dict:
     from torch.autograd import DeviceType
 
     events = list(prof.events())
-    kern = [e for e in events if e.device_type == DeviceType.CUDA]
+    kern = [e for e in events if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
     if not kern:
         return {"device_events": 0, "note": "no device events: not measured"}
     by_name: dict = {}
@@ -71,6 +78,7 @@ def main(argv=None):
 
     from ..config import RenderConfig
     from ..models.scenes import camera_model_for
+    from ..utils import trace
     from ..viewer.app import Application
 
     ap = argparse.ArgumentParser()
@@ -93,22 +101,21 @@ def main(argv=None):
                        height=args.height, denoise=True, device="cuda",
                        camera_model=camera_model_for(args.scene),
                        nee=args.nee, qmc=args.qmc, adaptive=args.adaptive)
+    rec = trace.RECORDER
     app = Application(cfg)
     rl = app.setup_default_layers()
     app.run(max_frames=args.warmup)
     rl.framebuffer_rgba8()  # builds the G-buffer once (cached after)
     torch.cuda.synchronize()
 
-    synced = []
+    synced0 = rec.mark()
     for _ in range(args.frames):
-        t0 = time.perf_counter()
         app.run(max_frames=1)
         torch.cuda.synchronize()
-        synced.append((time.perf_counter() - t0) * 1e3)
-    t0 = time.perf_counter()
+    piped0 = rec.mark()
     app.run(max_frames=args.frames)
     torch.cuda.synchronize()
-    pipelined = (time.perf_counter() - t0) * 1e3 / args.frames
+    piped1 = rec.mark()
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -116,16 +123,19 @@ def main(argv=None):
         torch.cuda.synchronize()
     loop = _device_breakdown(prof)
 
-    disp = []
+    disp0 = rec.mark()
     for _ in range(5):
-        t0 = time.perf_counter()
         rl.framebuffer_rgba8()
-        torch.cuda.synchronize()
-        disp.append((time.perf_counter() - t0) * 1e3)
+    disp1 = rec.mark()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         rl.framebuffer_rgba8()
         torch.cuda.synchronize()
+    layer = rl.trace_id
+    synced = rec.frame_periods_ms(layer, synced0, piped0)
+    pipelined = statistics.mean(rec.frame_periods_ms(layer, piped0, piped1))
+    disp = [r.ms for r in rec.spans("crt.display", layer=layer,
+                                    since=disp0, until=disp1)]
     q = statistics.quantiles(synced, n=4)
     print(json.dumps({
         "scene": args.scene, "size": [args.width, args.height],
@@ -134,8 +144,12 @@ def main(argv=None):
         "spp_per_frame": cfg.progressive_spp, "frames": args.frames,
         "frame_ms_synced": {"median": statistics.median(synced),
                             "q1": q[0], "q3": q[2], "max": max(synced)},
-        "frame_ms_pipelined": pipelined, "profile": loop,
+        "frame_ms_pipelined": pipelined,
+        "host": rec.summary(layer=layer, since=piped0, until=piped1),
+        "profile": loop,
         "display": {"ms_synced_median": statistics.median(disp),
+                    "host": rec.summary(layer=layer, since=disp0,
+                                        until=disp1),
                     "profile": _device_breakdown(prof)},
         "active_fraction": rl._pipeline.active_fraction(),
         "nvidia_smi": smi}), flush=True)

@@ -2,15 +2,15 @@
 
 Counterpart of ``cudaraytracer_tpu/viewer/metrics.py`` (the reference
 Metrics panel, CudaLayer.cpp:451-468: image size, ms/frame and FPS with
-ImGui-style smoothing, plus Mrays/s and accumulated spp).  Times are host
-wall-clock between ``frame_start`` and ``frame_end``; the caller decides
-whether the device was synchronised inside that window.  The JAX
-package's profiler hooks wait for the port of the tracing layer.
+ImGui-style smoothing, plus Mrays/s and accumulated spp).  A frame's time
+is the recorder's frame period (``utils/trace.py``): from one
+``crt.update`` start to the next, which holds whatever the loop does
+between two frames (the display, its wait for the device), not only the
+time ``on_update`` takes to queue its work.  The JAX package's profiler
+hooks are the CLI's ``render --trace-out`` here.
 """
 
 from __future__ import annotations
-
-import time
 
 
 class Metrics:
@@ -25,20 +25,20 @@ class Metrics:
         self.build_mode = "release"
         self.backend = ""
         self.accel = ""
-        self._last = None
+        self._last_start_ns = None
 
-    def frame_start(self):
-        self._last = time.perf_counter()
-
-    def frame_end(self, rays: float = 0.0):
-        if self._last is None:
-            return
-        dt = (time.perf_counter() - self._last) * 1000.0
-        # exponential smoothing like ImGui's io.Framerate
-        if self.frames == 0:
-            self.ms_per_frame = dt
-        else:
-            self.ms_per_frame += (dt - self.ms_per_frame) * self.smoothing
+    def frame(self, start_ns: int, rays: float = 0.0):
+        """A frame that started at ``start_ns`` (its ``crt.update`` span's
+        start) and traced ``rays`` primary rays; the period since the
+        previous frame's start enters ms/frame."""
+        if self._last_start_ns is not None:
+            dt = (start_ns - self._last_start_ns) * 1e-6
+            # exponential smoothing like ImGui's io.Framerate
+            if self.frames == 1:
+                self.ms_per_frame = dt
+            else:
+                self.ms_per_frame += (dt - self.ms_per_frame) * self.smoothing
+        self._last_start_ns = start_ns
         self.frames += 1
         self.rays_last_frame = rays
 

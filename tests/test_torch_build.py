@@ -1,7 +1,7 @@
 """The port's kernel build (ops/cuda/build.py), driven with stand-in nvcc
 scripts on the CPU: a missing or failing compiler raises, a build is
-keyed by the hash of the sources, and a CUDA error code from a launch
-raises."""
+keyed by the hash of the sources and recorded as a span, and a CUDA error
+code from a launch raises."""
 
 import os
 import stat
@@ -70,6 +70,21 @@ def test_build_is_keyed_by_source_hash(isolated, monkeypatch):
     assert edited["path"] != first["path"]
     assert "-fmad=false" in build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+def test_a_build_is_a_span_and_a_count(isolated, monkeypatch):
+    from cudaraytracer_tpu_torch.utils import trace
+
+    monkeypatch.setenv("CUDA_HOME", fake_nvcc(
+        isolated, 'while [ "$1" != "-o" ]; do shift; done; shift; '
+                 'echo obj > "$1"'))
+    builds = trace.RECORDER.counters.get("nvcc_builds", 0)
+    mark = trace.RECORDER.mark()
+    build.build()
+    build.build()  # reused: no compile
+    spans = trace.RECORDER.spans("crt.nvcc", since=mark)
+    assert len(spans) == 1 and spans[0].ms > 0.0
+    assert trace.RECORDER.counters["nvcc_builds"] == builds + 1
 
 
 def test_launch_error_code_raises():
