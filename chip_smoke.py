@@ -25,8 +25,12 @@ triangles; ``--obj`` on an OBJ model written to a temporary directory,
 with ``--obj-smooth``; ``--scene rtow_final``; no ``--scene``, the
 default scene; and ``--nee`` on mesh_smooth, terrain, terrain_big,
 bounce and a smooth OBJ, which the last NEE instantiations serve) with
-the launch counts set to 0 before each and read after it, and times
-every kernel and the denoiser at the main-path shapes, the megakernel on
+the launch counts set to 0 before each and read after it (each PNG one
+denoised display: four launches of the denoise kernel), checks the
+denoise kernel (``csrc/denoise_kernel.cu``) against its plain version
+bit for bit on a book2_final frame and its G-buffer (1 and 4 passes,
+with and without a variance plane), and times every kernel at the
+main-path shapes, the denoise kernel beside its bound, the megakernel on
 every scene without options, with QMC, with a random half of its tiles
 masked and, where an instantiation serves it, with NEE, with the lane
 and CTA utilisation of its path loop (``scripts/megakernel_util.py``'s
@@ -350,7 +354,10 @@ def main():
         stream_tables_to_torch, table_bytes)
     from cudaraytracer_tpu_torch.scripts.megakernel_util import (
         one_pixel_per_thread)
-    from cudaraytracer_tpu_torch.ops.denoise import atrous_denoise
+    from cudaraytracer_tpu_torch.ops.cuda import denoise_kernel
+    from cudaraytracer_tpu_torch.ops.cuda.denoise_kernel import denoise
+    from cudaraytracer_tpu_torch.ops.denoise import (atrous_denoise,
+                                                     atrous_denoise_plain)
     from cudaraytracer_tpu_torch.parallel import dryrun, tiling
     from cudaraytracer_tpu_torch.scripts import stream_probe as probe_script
     from cudaraytracer_tpu_torch.scripts.stream_crossover import heightfield
@@ -382,7 +389,7 @@ def main():
     ptxas, entry, spill = {}, None, 0
     for ln in info["log"].splitlines():  # nvcc -Xptxas=-v, per instantiation
         m = re.search(r"(render_kernel|closest_hit_kernel|gbuffer_kernel"
-                      r"|stream_probe_kernel|bvh_hit_kernel)"
+                      r"|stream_probe_kernel|bvh_hit_kernel|denoise_pass)"
                       r"(?:_media|_refill)?(_streamed)?"
                       r"(_count)?I((?:L[bi]\d+E)+)E", ln)
         if "Compiling entry function" in ln and m:
@@ -877,14 +884,16 @@ def main():
                     **bd}
 
     _, gb_rtow = gbuf_check(rtow)
-    gb_default_buf, gb_default = gbuf_check(default)
+    _, gb_default = gbuf_check(default)
+    gb_book2_buf, gb_book2 = gbuf_check(book2)
     gb_new = {su.name: gbuf_check(su)[1]
               for su in (terrain, rimage, terrain_big, marble, smoke, csmoke,
-                         bounce, book2)}
+                         bounce)}
+    gb_new[book2.name] = gb_book2
 
     # ---- 6. the CLI paths, counts set to 0 before, read after ----
     counted = (render_sample, render_sample_plain, gbuffer, gbuffer_plain,
-               closest_hit, closest_hit_plain)
+               closest_hit, closest_hit_plain, denoise)
     frames = 8
 
     def cli_path(tag, scene_args, tmp, n_frames=frames):
@@ -927,6 +936,8 @@ def main():
         if (launches["render_sample"] != run
                 or not least <= run <= n_frames
                 or launches["gbuffer"] != 1
+                # one denoised display (the PNG), one launch a pass
+                or launches["denoise"] != 4
                 or launches["render_sample_plain"]
                 or launches["gbuffer_plain"] or launches["streamed"]):
             raise AssertionError(f"{tag} did not run on the kernels: "
@@ -976,7 +987,7 @@ def main():
         by_path["obj_nee"], _ = cli_path(
             "obj_nee", ["--obj", obj, "--obj-smooth", "--nee"], tmp,
             n_frames=2)
-        by_path["default"], den = cli_path("default", [], tmp)
+        by_path["default"], den_png = cli_path("default", [], tmp)
         # the raw mean of the same frames: the denoiser must change it
         raw_png = os.path.join(tmp, "raw.png")
         cli.main(["render", "--width", str(W_MAIN), "--height", str(H_MAIN),
@@ -985,7 +996,7 @@ def main():
 
         with Image.open(raw_png) as im:
             raw = np.asarray(im.convert("RGB"))
-        changed = float(np.abs(den.astype(np.int16) - raw).mean())
+        changed = float(np.abs(den_png.astype(np.int16) - raw).mean())
         emit({"phase": "denoise_changes_display", "mean_abs_u8_diff": changed})
         if changed < 0.1:
             raise AssertionError("the denoised image equals the raw mean")
@@ -1113,19 +1124,42 @@ def main():
         raise AssertionError(f"ragged batches: {sched}")
     mega_err = max(mega_err, sched["cornell_smoke/nee_qmc"]["max_abs_err"])
 
-    # ---- 8. the denoiser (plain PyTorch; no kernel) ----
-    color = render_sample(*default.frame_args(W_MAIN, H_MAIN), 7, DEPTH,
+    # ---- 8. the denoiser's kernel against its plain version, on a
+    # book2_final frame and its G-buffer, with and without a variance
+    # plane: bit for bit ----
+    color = render_sample(*book2.frame_args(W_MAIN, H_MAIN), 7, DEPTH,
                           width=W_MAIN, height=H_MAIN,
-                          camera_model=default.model, spp=SPP_MAIN,
-                          rr_start=RR, **default.flags,
-                          **default.bb) / SPP_MAIN
-    den_ms = cuda_ms(lambda: atrous_denoise(color, gb_default_buf,
-                                            iterations=4), 10)
-    out = atrous_denoise(color, gb_default_buf, iterations=4)
-    if not bool(torch.isfinite(out).all()):
-        raise AssertionError("the denoiser's output is not finite")
-    emit({"phase": "denoise_timing", "shape": [W_MAIN, H_MAIN],
-          "iterations": 4, "ms": den_ms, "nvidia_smi": smi})
+                          camera_model=book2.model, spp=SPP_MAIN,
+                          rr_start=RR, **book2.flags, **book2.bb) / SPP_MAIN
+    var_plane = torch.rand((H_MAIN, W_MAIN), device=dev, generator=(
+        torch.Generator(device=dev).manual_seed(15))) * 0.5
+    den = {}
+    for tag, var in (("plain", None), ("variance", var_plane)):
+        for iters in (1, 4):
+            n0 = denoise.launches
+            out = atrous_denoise(color, gb_book2_buf, var,
+                                 iterations=iters)
+            ref = atrous_denoise_plain(color, gb_book2_buf, var,
+                                       iterations=iters)
+            torch.cuda.synchronize()
+            den[f"{tag}/{iters}"] = {
+                "equal": bool(torch.equal(out, ref)),
+                "pixels_differing": int((out != ref).any(-1).sum()),
+                "launches": denoise.launches - n0}
+        ops, nbytes = denoise_kernel.work(W_MAIN, H_MAIN, 4, var is not None)
+        den[tag] = {
+            "ms": cuda_ms(lambda: atrous_denoise(color, gb_book2_buf, var,
+                                                 iterations=4), 20),
+            "plain_ms": cuda_ms(lambda: atrous_denoise_plain(
+                color, gb_book2_buf, var, iterations=4), 3),
+            **bound(nbytes, ops)}
+    emit({"phase": "denoise_check", "scene": "book2_final",
+          "shape": [W_MAIN, H_MAIN], "iterations": 4, **den,
+          "nvidia_smi": smi})
+    if not all(v["equal"] and v["launches"] == int(k.split("/")[1])
+               for k, v in den.items() if "/" in k):
+        raise AssertionError(f"the denoise kernel disagrees with its plain "
+                             f"version: {den}")
 
     # ---- 9. row bands and the multi-device tiling on cuda:0 ----
     def launches_of(fn_run, fns=counted):
@@ -1538,7 +1572,11 @@ def main():
             if (run["stream_b"] <= 0 or run["table_bytes"] < 2 * l2
                     or launches["render_sample_streamed"] != frames_p
                     or launches["gbuffer_streamed"] != 1
-                    or any(launches[fn.__name__] for fn in counted)
+                    or any(launches[fn.__name__] for fn in counted
+                           if fn is not denoise)
+                    # one denoised PNG under --denoise: a launch a pass
+                    or launches["denoise"] != (4 if "--denoise" in extra
+                                               else 0)
                     or size != (w_p, h_p) or not 10.0 < arr.mean() < 245.0
                     or aov_hit < 0.05):
                 raise AssertionError(f"the streamed path misbehaves: {run}")
@@ -1870,6 +1908,22 @@ def main():
                         if k.startswith("bvh/")},
          "native": {"build": native, "pack_check": packed},
          "sharded_xla": sharded_xla},
+        {"name": "denoise", "route": "cuda",
+         "source": "cudaraytracer_tpu_torch/csrc/denoise_kernel.cu",
+         "replaces": "none: cudaraytracer_tpu/ops/denoise.py::"
+                     "atrous_denoise is XLA",
+         "launches": launches["denoise"],
+         "launches_by_path": {k: v["denoise"] for k, v in by_path.items()},
+         "max_abs_err": 0.0 if all(
+             v["equal"] for k, v in den.items() if "/" in k) else None,
+         "tolerance": "bit for bit against the plain version on a "
+                      f"book2_final frame at {W_MAIN}x{H_MAIN}, 1 and 4 "
+                      "passes, with and without a variance plane",
+         "ms": den["plain"]["ms"], "plain_ms": den["plain"]["plain_ms"],
+         "bound_ms": den["plain"]["bound_ms"],
+         "bound_by": den["plain"]["bound_by"], "library_ms": None,
+         "timed": f"book2_final {W_MAIN}x{H_MAIN}, 4 passes",
+         "variance": den["variance"]},
         *(probe_line(name, rows_, variant, replaces)
           for name, rows_, variant, replaces in (
               ("stream_probe", 1, "stream", "tools/stream_probe.py:57"),

@@ -37,11 +37,12 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "cudaraytracer_tpu_
 SOURCES = ("rng.cuh", "stage.cuh", "search.cuh", "surface.cuh", "nee.cuh",
            "qmc.cuh", "variants.cuh", "hit_kernel.cu", "render_kernel.cu",
            "render_stream.cu", "gbuffer_kernel.cu", "stream_probe.cu",
-           "bvh_kernel.cu")
+           "bvh_kernel.cu", "denoise_kernel.cu")
 # render_stream.cu is render_kernel.cu's streamed entry: a unit of its own
 # that compiles beside the resident one
 CU_FILES = ("hit_kernel.cu", "render_kernel.cu", "render_stream.cu",
-            "gbuffer_kernel.cu", "stream_probe.cu", "bvh_kernel.cu")
+            "gbuffer_kernel.cu", "stream_probe.cu", "bvh_kernel.cu",
+            "denoise_kernel.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC",
@@ -84,6 +85,11 @@ SIGNATURES = {
     # hit, t, prim, stream)
     "crt_bvh_closest_hit": [_p, _p, _p, _p, _i, _p, _p, _p, _p, _p, _p, _p,
                             _i, _f, _f, _p, _p, _p, _p, _p],
+    # (color, normal, albedo, depth, variance, width, height, iterations,
+    # the luminance weights, eps, sigma_normal, sigma_depth,
+    # 1/sigma_albedo^2, 1/sigma_lum^2, sigma_lum, feat, cl, out, stream)
+    "crt_denoise": [_p, _p, _p, _p, _p, _i, _i, _i, _f, _f, _f, _f, _f, _f,
+                    _f, _f, _f, _p, _p, _p, _p],
 }
 
 
