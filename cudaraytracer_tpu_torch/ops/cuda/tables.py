@@ -668,15 +668,22 @@ def kernel_inputs(scene, device, budget: int | None = None) -> tuple:
     are ``TorchTables``, or, when ``budget`` is given and they outgrow it
     (``streams_on_card``), ``TorchStreamTables`` (``pack_stream_tiles``,
     passed with ``stream_b=block_b``).  The uploads are one span,
-    ``crt.upload``."""
+    ``crt.upload``.  The route's counters, set at each build:
+    ``route.table_bytes`` (``table_bytes``, what ``streams_on_card``
+    compares), ``route.budget_bytes`` (``budget``, only where given) and
+    ``route.streamed`` (0 or 1)."""
     with _PACK_TABLES:
         images = has_images(scene)
         packed = pack_scene_tables(scene, with_uv=images)
+        nbytes = table_bytes(packed)
         streamed = budget is not None and streams_on_card(packed, budget)
+        trace.RECORDER.set("route.table_bytes", nbytes)
+        trace.RECORDER.set("route.budget_bytes", budget)
+        trace.RECORDER.set("route.streamed", int(streamed))
         tiles = pack_stream_tiles(packed) if streamed else None
         flags = kernel_flags(scene)
         with _UPLOAD:
-            t = (stream_tables_to_torch(tiles, device, table_bytes(packed))
+            t = (stream_tables_to_torch(tiles, device, nbytes)
                  if streamed else tables_to_torch(packed, device))
             if images:
                 flags.update(zip(("atlas", "tex_hw"),

@@ -27,7 +27,8 @@ trace's timeline.  Whether the profiler records is read by
 costs about 0.1 us; a ``record_function`` costs about 7 us even with the
 profiler off, so it is entered only then).
 
-Counters are named integers (``count``, ``moved``); the kernels' launch
+Counters are named integers (``count``, ``moved``, and ``set`` for a
+level such as the latest table build's bytes); the kernels' launch
 counters stay the attributes their wrappers keep, and are read through
 ``register``.  ``summary`` gives spans by name (count, total, mean, p95,
 self time and bytes), ``frame_periods_ms`` the time from one
@@ -168,6 +169,14 @@ class Recorder:
 
     def count(self, name: str, n: int = 1):
         self.counters[name] = self.counters.get(name, 0) + n
+
+    def set(self, name: str, value: int | None):
+        """The counter ``name`` set to ``value``: a level, not a sum (the
+        latest build's).  None removes it."""
+        if value is None:
+            self.counters.pop(name, None)
+        else:
+            self.counters[name] = int(value)
 
     def moved(self, counter: str, nbytes: int):
         """``nbytes`` copied between host and device: added to the counter
