@@ -30,7 +30,10 @@ from .scene import ISOTROPIC, Scene
 _AABBS = trace.span("crt.aabbs")
 
 RECT_PAD = 1e-4
-_K_AXIS = {1: 2, 2: 1, 3: 0}
+# rect type -> (width, height, plane-normal) axes: xy: width->x,
+# height->y; xz: width->x, height->z; yz: height->y, width->z
+# (Hittable.cuh:279-293)
+_RECT_AXES = {1: (0, 1, 2), 2: (0, 2, 1), 3: (2, 1, 0)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,54 +52,68 @@ class BVHData:
 
 
 def primitive_aabbs(scene: Scene, idx: np.ndarray):
-    """AABBs for primitives ``idx`` (host, NumPy)."""
+    """AABBs for primitives ``idx`` (host, NumPy): one array expression a
+    primitive type, with the float32 (and, for rotated boxes, float64)
+    operations of the JAX package's loop over the rows, so the boxes are
+    bit for bit its."""
     with _AABBS:
         c = scene.center[idx]
         s = scene.size[idx]
         t = scene.prim_type[idx]
         bmin = np.empty_like(c)
         bmax = np.empty_like(c)
-        for row, (pt, cc, ss) in enumerate(zip(t, c, s)):
-            if pt == 0:  # sphere
-                r = abs(ss[0])
-                bmin[row] = cc - r
-                bmax[row] = cc + r
-                vel = scene.velocity[idx[row]]
-                if (vel != 0).any():
-                    # moving sphere (motion blur): the box covers the whole
-                    # shutter sweep [c, c + v] so BVH nodes and megakernel
-                    # cluster gates never cull a moved position
-                    bmin[row] = np.minimum(bmin[row], cc + vel - r)
-                    bmax[row] = np.maximum(bmax[row], cc + vel + r)
-            elif pt == 5:  # medium BOX: half-extents ride the edge1 row
-                he = np.abs(scene.edge1[idx[row]])
-                yawv = float(scene.edge2[idx[row], 0])
-                if yawv:
-                    # yaw-rotated box: the world AABB of the rotated extents
-                    # (|c|/|s| sweep — conservative superset for culling)
-                    cy, sy = abs(np.cos(yawv)), abs(np.sin(yawv))
-                    he = np.array([cy * he[0] + sy * he[2], he[1],
-                                   sy * he[0] + cy * he[2]], np.float32)
-                bmin[row] = cc - he
-                bmax[row] = cc + he
-            elif pt == 4:
-                # triangle: hull of v0, v0+e1, v0+e2 (+ flat-axis pad)
-                i = idx[row]
-                pts = np.stack([cc, cc + scene.edge1[i], cc + scene.edge2[i]])
-                bmin[row] = pts.min(axis=0) - RECT_PAD
-                bmax[row] = pts.max(axis=0) + RECT_PAD
-            else:
-                half = np.zeros(3, np.float32)
-                k = _K_AXIS[int(pt)]
-                if pt == 1:  # xy: width->x, height->y
-                    half[0], half[1] = ss[0] / 2, ss[1] / 2
-                elif pt == 2:  # xz: width->x, height->z
-                    half[0], half[2] = ss[0] / 2, ss[1] / 2
-                else:  # yz: height->y, width->z (Hittable.cuh:279-293)
-                    half[1], half[2] = ss[1] / 2, ss[0] / 2
-                half[k] = RECT_PAD
-                bmin[row] = cc - half
-                bmax[row] = cc + half
+
+        sph = t == 0
+        if sph.any():
+            cs = c[sph]
+            r = np.abs(s[sph, :1])
+            lo, hi = cs - r, cs + r
+            vel = scene.velocity[idx[sph]]
+            mov = (vel != 0).any(axis=1)
+            if mov.any():
+                # moving sphere (motion blur): the box covers the whole
+                # shutter sweep [c, c + v] so BVH nodes and megakernel
+                # cluster gates never cull a moved position
+                cv = cs[mov] + vel[mov]
+                lo[mov] = np.minimum(lo[mov], cv - r[mov])
+                hi[mov] = np.maximum(hi[mov], cv + r[mov])
+            bmin[sph], bmax[sph] = lo, hi
+
+        box = t == 5
+        if box.any():  # medium BOX: half-extents ride the edge1 row
+            he = np.abs(scene.edge1[idx[box]])
+            yaw = scene.edge2[idx[box], 0].astype(np.float64)
+            rot = yaw != 0
+            if rot.any():
+                # yaw-rotated box: the world AABB of the rotated extents
+                # (|c|/|s| sweep — conservative superset for culling),
+                # summed in float64 and rounded to float32 once
+                cy, sy = np.abs(np.cos(yaw[rot])), np.abs(np.sin(yaw[rot]))
+                h = he[rot].astype(np.float64)
+                he[rot] = np.stack([cy * h[:, 0] + sy * h[:, 2], h[:, 1],
+                                    sy * h[:, 0] + cy * h[:, 2]], axis=1)
+            bmin[box] = c[box] - he
+            bmax[box] = c[box] + he
+
+        tri = t == 4
+        if tri.any():  # triangle: hull of v0, v0+e1, v0+e2 (+ flat-axis pad)
+            v0 = c[tri]
+            v1 = v0 + scene.edge1[idx[tri]]
+            v2 = v0 + scene.edge2[idx[tri]]
+            bmin[tri] = np.minimum(np.minimum(v0, v1), v2) - RECT_PAD
+            bmax[tri] = np.maximum(np.maximum(v0, v1), v2) + RECT_PAD
+
+        rect = ~(sph | box | tri)
+        if rect.any():
+            rt = t[rect]
+            w2, h2 = s[rect, 0] / 2, s[rect, 1] / 2
+            half = np.zeros((len(rt), 3), np.float32)
+            for pt in np.unique(rt):  # + a flat pad on the plane's normal
+                wa, ha, ka = _RECT_AXES[int(pt)]
+                m = rt == pt
+                half[m, wa], half[m, ha], half[m, ka] = w2[m], h2[m], RECT_PAD
+            bmin[rect] = c[rect] - half
+            bmax[rect] = c[rect] + half
         return bmin, bmax
 
 

@@ -182,18 +182,16 @@ def _image_mean_albedo(scene, tex_t, tex_id, albedo):
     (the JAX megakernel shades its third and later image hits with it).
     Kept so the tables stay bit-identical to the JAX package's: the CUDA
     kernels sample the atlas at every image hit and never read this
-    albedo.  The per-slot mean is memoized: one pass per distinct slot."""
+    albedo.  One mean per distinct slot."""
     albedo = np.array(albedo, np.float32)
-    slot_mean: dict = {}
-    for row, (tt, tid) in enumerate(zip(tex_t, tex_id)):
-        if tt == 2 and 0 <= tid < scene.atlas.shape[0]:
-            h, w = scene.tex_hw[tid]
-            if h > 0 and w > 0:
-                if tid not in slot_mean:
-                    slot_mean[tid] = (
-                        scene.atlas[tid, :h, :w].astype(np.float32) / 255.0
-                    ).mean((0, 1))
-                albedo[row] = slot_mean[tid]
+    slots = scene.atlas.shape[0]
+    img = (tex_t == 2) & (tex_id >= 0) & (tex_id < slots)
+    hw = scene.tex_hw[np.where(img, tex_id, 0)]
+    img &= (hw[:, 0] > 0) & (hw[:, 1] > 0)
+    for tid in np.unique(tex_id[img]):
+        h, w = scene.tex_hw[tid]
+        albedo[img & (tex_id == tid)] = (
+            scene.atlas[tid, :h, :w].astype(np.float32) / 255.0).mean((0, 1))
     return albedo
 
 
@@ -269,9 +267,10 @@ def _pack_scene_tables_native(scene, idx, with_uv: bool, cluster: int,
 def pack_scene_tables_numpy(scene, with_uv: bool = False,
                             cluster: int = CLUSTER, super_: int = SUPER,
                             with_vattrs: bool | None = None) -> SceneTables:
-    """The NumPy packer: mirrors ``_pack_scene_tables_numpy`` of the JAX
-    package line for line (the route of the empty scene and of media and
-    motion scenes, and the native packer's reference)."""
+    """The NumPy packer: the tables of ``_pack_scene_tables_numpy`` of
+    the JAX package bit for bit, in whole-array operations where it loops
+    over clusters (the route of the empty scene and of media and motion
+    scenes, and the native packer's reference)."""
     from ...models.bvh import primitive_aabbs
 
     if with_vattrs is None:
@@ -336,14 +335,13 @@ def pack_scene_tables_numpy(scene, with_uv: bool = False,
             order[~big[order] & is_tri[order]],
             order[is_med[order]],
         ]
-        cols: list[int] = []  # position in `idx`, or -1 for alignment padding
-        for seg in segs:
-            cols.extend(int(v) for v in seg)
-            while len(cols) % cluster:
-                cols.append(-1)
-        ncols = len(cols)
+        # position in `idx`, or -1 for alignment padding: each segment
+        # padded to a cluster multiple
+        cols_arr = np.concatenate([
+            part for seg in segs
+            for part in (seg, np.full(-len(seg) % cluster, -1, np.int64))])
+        ncols = len(cols_arr)
         assert ncols <= npad, (ncols, npad)
-        cols_arr = np.asarray(cols, np.int64)
         real = cols_arr >= 0
         rsel = cols_arr[real]  # positions in idx-space
         rdst = np.nonzero(real)[0]  # destination columns
@@ -509,34 +507,31 @@ def pack_scene_tables_numpy(scene, with_uv: bool = False,
                     P[ub_ + 2, td], P[ub_ + 3, td] = (u1 - u0).T
                     P[ub_ + 4, td], P[ub_ + 5, td] = (u2 - u0).T
 
-        bmin = bmin0[rsel]
-        bmax = bmax0[rsel]
-        col_of = np.full(ncols, -1, np.int64)
-        col_of[rdst] = np.arange(len(rdst))
         nc_used = ncols // cluster
         n_super = max(1, (ncols + span - 1) // span)
-        for ci in range(nc_used):
-            members = [col_of[k] for k in range(ci * cluster, (ci + 1) * cluster)
-                       if col_of[k] >= 0]
-            if not members:
-                continue
-            clusters[0:3, ci] = bmin[members].min(0)
-            clusters[3:6, ci] = bmax[members].max(0)
-            # kind row: 0 all spheres, 1 all rects, 3 all triangles,
-            # 4 all MEDIA (segment-segregated, never mixed), 2 mixed
-            kinds = set(
-                0 if int(v) == 0 else (
-                    3 if int(v) == 4 else (4 if int(v) == 5 else 1))
-                for v in t[members]
-            )
-            clusters[6, ci] = float(kinds.pop()) if len(kinds) == 1 else 2.0
-        for si in range(n_super):
-            members = [col_of[k] for k in range(si * span, min(ncols, (si + 1) * span))
-                       if col_of[k] >= 0]
-            if not members:
-                continue
-            supers[0:3, si] = bmin[members].min(0)
-            supers[3:6, si] = bmax[members].max(0)
+        # cluster and supercluster boxes over the columns' boxes, padding
+        # columns neutral (+inf in the min, -inf in the max): min and max
+        # are exact, so a box keeps its members' bits.  Every group up to
+        # ncols has a member (a segment pads less than a cluster); the
+        # groups past it keep their BIG point boxes
+        cmin = np.full((n_super * span, 3), np.inf, np.float32)
+        cmax = np.full((n_super * span, 3), -np.inf, np.float32)
+        cmin[rdst], cmax[rdst] = bmin0[rsel], bmax0[rsel]
+        for table, size, groups in ((clusters, cluster, nc_used),
+                                    (supers, span, n_super)):
+            n = size * groups
+            table[0:3, :groups] = cmin[:n].reshape(groups, size, 3).min(1).T
+            table[3:6, :groups] = cmax[:n].reshape(groups, size, 3).max(1).T
+        # kind row: 0 all spheres, 1 all rects, 3 all triangles, 4 all
+        # MEDIA (segment-segregated, never mixed), 2 mixed: whether the
+        # members' least and greatest codes agree
+        code = np.choose(t, [0, 1, 1, 1, 3, 4])
+        klo = np.full(ncols, 4, np.int64)
+        khi = np.zeros(ncols, np.int64)
+        klo[rdst] = khi[rdst] = code
+        klo = klo.reshape(nc_used, cluster).min(1)
+        khi = khi.reshape(nc_used, cluster).max(1)
+        clusters[6, :nc_used] = np.where(klo == khi, klo, 2)
 
     return SceneTables(S, P, clusters, supers, n_super, prim_map,
                        cluster, super_, vattrs=with_vattrs,

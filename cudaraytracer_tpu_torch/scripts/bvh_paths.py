@@ -148,7 +148,7 @@ def pack_check(emit, mesh_scene=None) -> dict:
             raise AssertionError(f"{name}: native and NumPy tables differ")
         timing[name] = {"prims": int(sc.num_active), "native_ms": n_ms,
                         "numpy_ms": p_ms, "reps": reps}
-    # the boxes both packers start with, alone (a Python loop per primitive)
+    # the boxes both packers start with, alone
     sc = cases[0][1]
     _, timing["terrain_big"]["primitive_aabbs_ms"] = _host_ms(
         lambda: primitive_aabbs(sc, sc.active_indices()), 3)

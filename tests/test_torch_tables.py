@@ -16,21 +16,13 @@ from cudaraytracer_tpu_torch.models import scenes as tscenes  # noqa: E402
 from cudaraytracer_tpu_torch.ops.cuda import tables as ttab  # noqa: E402
 
 
-@pytest.mark.parametrize("name", ["rtow_final", "rtow_big", "default",
-                                  "cornell", "cornell_mesh_light",
-                                  "cornell_smoke", "bounce", "marble",
-                                  "mesh_demo", "mesh_smooth", "terrain",
-                                  "rtow_image", "mirror_room", "smoke",
-                                  "book2_final"])
-def test_tables_bit_identical(name):
-    scene = tscenes.SCENES[name][0]()
-    with_uv = ttab.has_images(scene)
-    ref = jrk.pack_scene_tables(jscenes.SCENES[name][0](), with_uv=with_uv,
-                                force_numpy=True)
-    ours = ttab.pack_scene_tables(scene, with_uv=with_uv)
-    assert ours.vattrs == scene.has_vertex_attrs
-    assert ours.P.shape[0] == ttab.p_rows_for(with_uv, ours.vattrs,
-                                              ours.motion)
+TABLE_SCENES = ["rtow_final", "rtow_big", "default", "cornell",
+                "cornell_mesh_light", "cornell_smoke", "bounce", "marble",
+                "mesh_demo", "mesh_smooth", "terrain", "rtow_image",
+                "mirror_room", "smoke", "book2_final"]
+
+
+def assert_same_tables(ours, ref):
     for f in ("S", "P", "clusters", "supers", "prim_map"):
         a, b = getattr(ours, f), getattr(ref, f)
         assert a.dtype == b.dtype, f
@@ -38,6 +30,58 @@ def test_tables_bit_identical(name):
     assert ours.n_super == ref.n_super
     assert (ours.cluster, ours.super_, ours.vattrs, ours.motion) == \
         (ref.cluster, ref.super_, ref.vattrs, ref.motion)
+
+
+@pytest.mark.parametrize("name,force_numpy", [
+    pytest.param(n, f, id=n + ("-numpy" if f else ""))
+    for f in (False, True) for n in TABLE_SCENES])
+def test_tables_bit_identical(name, force_numpy):
+    """The scene's own route (native without media or motion) and, with
+    ``force_numpy``, the NumPy packer on every scene."""
+    scene = tscenes.SCENES[name][0]()
+    with_uv = ttab.has_images(scene)
+    ref = jrk.pack_scene_tables(jscenes.SCENES[name][0](), with_uv=with_uv,
+                                force_numpy=True)
+    ours = ttab.pack_scene_tables(scene, with_uv=with_uv,
+                                  force_numpy=force_numpy)
+    assert ours.vattrs == scene.has_vertex_attrs
+    assert ours.P.shape[0] == ttab.p_rows_for(with_uv, ours.vattrs,
+                                              ours.motion)
+    assert_same_tables(ours, ref)
+
+
+def drag_and_delete(scene):
+    """A viewer session's edits: a ground sphere large enough to share
+    the big primitives' clusters with rects or triangles (kind 2), a
+    noise sphere whose marble scale rides tex_id 0 (its albedo stays),
+    an image sphere on an empty atlas slot; every third primitive
+    dragged, every fifth deleted (non-contiguous active slots, partly
+    filled clusters)."""
+    scene.add_sphere((0.0, -1000.0, 0.0), 999.0)
+    scene.add_sphere((0.2, 0.4, -0.1), 0.15, tex_type=3, tex_id=0)
+    scene.add_sphere((-0.2, 0.4, 0.1), 0.15, tex_type=2, tex_id=1)
+    idx = scene.active_indices()
+    for i in idx[::3]:
+        scene.update(int(i), center=scene.center[i] + np.float32(0.03))
+    for i in idx[1::5]:
+        scene.delete(int(i))
+    return scene
+
+
+@pytest.mark.parametrize("force_numpy", [False, True])
+@pytest.mark.parametrize("name", ["book2_final", "cornell_smoke", "bounce",
+                                  "mesh_smooth", "rtow_image"])
+def test_tables_bit_identical_after_edits(name, force_numpy):
+    scene = drag_and_delete(tscenes.SCENES[name][0]())
+    ref_scene = drag_and_delete(jscenes.SCENES[name][0]())
+    idx = scene.active_indices()
+    np.testing.assert_array_equal(idx, ref_scene.active_indices())
+    assert (np.diff(idx) > 1).any()
+    with_uv = ttab.has_images(scene)
+    assert_same_tables(
+        ttab.pack_scene_tables(scene, with_uv=with_uv,
+                               force_numpy=force_numpy),
+        jrk.pack_scene_tables(ref_scene, with_uv=with_uv, force_numpy=True))
 
 
 def test_layout_constants_match_jax():
