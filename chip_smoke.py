@@ -924,7 +924,7 @@ def main():
             aov = {k: z[k] for k in z.files}
         emit({"phase": "main_path", "path": tag, "args": scene_args,
               "size": list(size), "frames": n_frames, "frames_run": run,
-              "active_fraction": rl._pipeline.active_fraction(),
+              "active_fraction": rl.pipeline.active_fraction(),
               "spp_done": rl._spp_done, "denoise": True,
               "seconds": round(seconds, 3), "launches": launches,
               "png_mean": float(arr.mean()),
@@ -1559,7 +1559,7 @@ def main():
                 size, arr = im.size, np.asarray(im.convert("RGB"))
             with np.load(npz) as z:
                 aov_hit = float((z["depth"] > 0).mean())
-            pipe = rl._pipeline
+            pipe = rl.pipeline
             run = {"args": ["--obj-smooth", *extra], "cli_s": cli_s,
                    "frames": frames_p, "stream_b": pipe.stream_b,
                    "table_bytes": pipe._tabs.table_bytes,

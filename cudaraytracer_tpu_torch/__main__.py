@@ -23,13 +23,12 @@ ends the render early once every tile has converged (``--adaptive-tau``,
 displayed image with the à-trous denoiser over the G-buffer (and the
 variance plane under ``--adaptive``); ``--aov PATH`` writes the G-buffer
 (``.npz``: raw arrays; any other path: a prefix for three PNGs).
-``--accel`` picks the render path: ``auto``/``cuda`` the megakernel,
-``wavefront`` the sorted-wavefront renderer (its hit step the closest-hit
-kernel; scenes with media raise), ``brute`` the brute renderer
+``--accel`` picks the render path (``viewer/app.py::make_pipeline``):
+``auto``/``cuda`` the megakernel, ``wavefront`` the sorted-wavefront
+renderer (scenes with media raise), ``brute`` the brute renderer
 (``--block`` primitives per search block), ``bvh`` the same renderer
-through the scene's BVH (built with the native C++ builder at every
-scene edit; its hit step the BVH kernel).  ``--no-progressive`` renders ``--spp`` samples a frame through the
-brute renderer (one frame by default).  ``--device`` defaults to
+through the scene's BVH.  ``--no-progressive`` renders ``--spp`` samples
+a frame through the brute renderer (one frame by default).  ``--device`` defaults to
 ``cuda``; with no GPU the command fails with a clear error instead of
 falling back.  ``--device cpu`` runs the kernels' plain PyTorch versions.
 ``--trace-out PATH`` writes, at exit, the render loop's host spans and
@@ -51,18 +50,17 @@ def cmd_render(cfg, args):
     """Render ``args.frames`` progressive frames (under ``--adaptive``
     until every tile has converged, at most that many) and write the
     outputs; returns the render layer (its state: ``_frame_index``
-    frames run, the pipeline's ``active_fraction``)."""
+    frames run, its pipeline's ``active_fraction``)."""
     from .utils.image import save_png
     from .viewer.app import Application
 
     app = Application(cfg)
     rl = app.setup_default_layers()
-    per_frame = (cfg.spp if not cfg.progressive else
-                 cfg.progressive_spp if rl.accel == "cuda" else 1)
+    per_frame = rl.pipeline.progressive_spp if cfg.progressive else cfg.spp
     rtlog.rt_info("Rendering %d frame(s) of %d spp on %s (accel %s) ...",
-                  args.frames, per_frame, rl.device, rl.accel)
+                  args.frames, per_frame, rl.device, rl.metrics.accel)
     t0 = time.perf_counter()
-    if cfg.adaptive and cfg.progressive and rl._pipeline is not None:
+    if cfg.progressive and rl.pipeline.adaptive:
         # frames until every tile has converged or the frame budget is
         # spent, the tiles' activity read once per chunk of 8 frames
         done, frac = 0, 1.0
@@ -70,7 +68,7 @@ def cmd_render(cfg, args):
             chunk = min(8, args.frames - done)
             app.run(max_frames=chunk)
             done += chunk
-            frac = rl._pipeline.active_fraction()
+            frac = rl.pipeline.active_fraction()
             if frac == 0.0:
                 break
         dt = time.perf_counter() - t0

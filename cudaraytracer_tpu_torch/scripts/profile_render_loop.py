@@ -151,7 +151,7 @@ def main(argv=None):
                     "host": rec.summary(layer=layer, since=disp0,
                                         until=disp1),
                     "profile": _device_breakdown(prof)},
-        "active_fraction": rl._pipeline.active_fraction(),
+        "active_fraction": rl.pipeline.active_fraction(),
         "nvidia_smi": smi}), flush=True)
     app.close()
 

@@ -126,7 +126,7 @@ def cli_paths(tmp: str, emit, device: str = "cuda") -> dict:
         with np.load(npz) as z:
             aov = {k: z[k] for k in z.files}
         rec = {"path": tag, "args": args, "frames": frames,
-               "accel": rl.accel, "spp_done": rl._spp_done,
+               "accel": rl.metrics.accel, "spp_done": rl._spp_done,
                "seconds": seconds, "launches": launches,
                "png_mean": float(arr.mean()),
                "aov_hit_share": float((aov["depth"] > 0).mean())}

@@ -330,7 +330,7 @@ def test_adaptive_display_divisor_is_the_count_plane():
                     adaptive_tau=0.2, progressive_spp=1, nee=True, qmc=True)
     app = Application(cfg)
     rl = app.setup_default_layers()
-    pipe = rl._pipeline
+    pipe = rl.pipeline
     assert pipe._tile == (16, 256) and pipe._grid == (2, 1)
     app.run(max_frames=6)
     counts = rl._counts

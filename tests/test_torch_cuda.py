@@ -556,7 +556,7 @@ def test_pipeline_streams_beyond_the_budget_on_the_card(cuda, monkeypatch):
     a = app.Application(cfg)
     rl = a.setup_default_layers()
     a.run(max_frames=2)
-    assert rl._pipeline.stream_b == ttab.STREAM_BLOCK_B
+    assert rl.pipeline.stream_b == ttab.STREAM_BLOCK_B
     assert np.isfinite(rl.framebuffer_rgba8()).all()
     a.close()
     assert render_kernel.render_sample.streamed_launches == s0 + 2
@@ -845,5 +845,5 @@ def test_cli_bvh_launches_the_bvh_kernel(cuda, tmp_path):
     rl = cli.main(["render", "--accel", "bvh", "--scene", "bounce",
                    "--width", "64", "--height", "36", "--frames", "2",
                    "--denoise", "-o", str(tmp_path / "b.png")])
-    assert rl.accel == "bvh" and bvh_kernel.bvh_hit.launches > n0
+    assert rl.metrics.accel == "bvh" and bvh_kernel.bvh_hit.launches > n0
     assert np.isfinite(rl.radiance_mean()).all()

@@ -129,7 +129,7 @@ def test_cli_xla_accels_denoise_aov(tmp_path, accel):
     hit0 = hk.closest_hit_plain.launches
     aov = tmp_path / "aov.npz"
     rl = run_main(tmp_path, "--accel", accel, "--denoise", "--aov", str(aov))
-    assert rl.accel == accel and rl._pipeline is None
+    assert rl.metrics.accel == accel and rl.pipeline.accel == accel
     assert rl._spp_done == 2 and (tmp_path / "out.png").exists()
     # the wavefront's hit step is the closest hit; the megakernel and the
     # G-buffer kernel never launch on these accels
@@ -138,8 +138,8 @@ def test_cli_xla_accels_denoise_aov(tmp_path, accel):
     assert kernel_counts() == before
     # the G-buffer is primary_features of the pixel-centre rays
     cfg = rl.cfg
-    gb = tgb.primary_features(rl._sd, rl.fly.params(), width=32, height=18,
-                              camera_model=cfg.camera_model)
+    gb = tgb.primary_features(rl.pipeline.sd, rl.fly.params(), width=32,
+                              height=18, camera_model=cfg.camera_model)
     with np.load(aov) as z:
         np.testing.assert_array_equal(z["depth"],
                                       rl._display_oriented(gb.depth.numpy()))
@@ -155,14 +155,14 @@ def test_cli_no_progressive_renders_spp_through_the_brute_renderer(tmp_path):
     assert rl._frame_index == 1 and rl._spp_done == 3
     assert kernel_counts() == before  # the megakernel accel did not launch
     ref = trend.Renderer(16, 10, device="cpu").render(
-        rl._sd, rl.fly.params(), trng.frame_key(rl._key, 0), spp=3,
-        max_depth=12)
+        rl.scene.device("cpu"), rl.fly.params(),
+        trng.frame_key(trng.key_for(rl.cfg.seed), 0), spp=3, max_depth=12)
     assert torch.equal(rl._accum, ref)
 
 
 def test_accel_errors_and_the_nee_warning(tmp_path, caplog):
     rl = run_main(tmp_path, "--accel", "bvh", "--frames", "1")
-    assert rl.accel == "bvh" and rl._bvh is not None and rl._spp_done == 1
+    assert rl.pipeline.bvh is not None and rl._spp_done == 1
     assert rl.metrics.accel == "bvh"
     with pytest.raises(ValueError, match="constant-density media"):
         run_main(tmp_path, "--accel", "wavefront", "--scene", "book2_final")
@@ -191,8 +191,9 @@ def test_resize_rebuilds_the_xla_paths():
     rl.resize(12, 8)
     assert rl._accum.shape == (8, 12, 3) and rl._spp_done == 0
     app.run(max_frames=1)
-    assert rl._wavefront.width == 12 and rl.framebuffer_rgba8().shape == (
-        8, 12, 4)
+    assert rl.pipeline.wavefront.width == 12
+    assert rl.pipeline.renderer.width == 12
+    assert rl.framebuffer_rgba8().shape == (8, 12, 4)
 
 
 @pytest.mark.parametrize("name", ["default", "rtow_final"])
@@ -237,7 +238,7 @@ def test_render_layer_qmc_reaches_the_brute_renderer():
 
         app = Application(cfg)
         rl = app.setup_default_layers()
-        assert rl.renderer.qmc is qmc
+        assert rl.pipeline.renderer.qmc is qmc
         app.run(max_frames=2)
         frames[qmc] = rl._accum.clone()
         assert torch.isfinite(frames[qmc]).all() and rl._spp_done == 2
@@ -253,8 +254,8 @@ def test_cli_bvh_renders_every_scene(tmp_path, name):
                    name, "--width", "16", "--height", "10", "--frames", "1",
                    "--max-depth", "4", "--denoise", "--aov", str(aov),
                    "-o", str(tmp_path / "out.png")])
-    assert rl.accel == "bvh" and rl._pipeline is None
-    assert rl._bvh.n_nodes > 0 and rl._spp_done == 1
+    assert rl.metrics.accel == "bvh" and rl.pipeline.accel == "bvh"
+    assert rl.pipeline.bvh.n_nodes > 0 and rl._spp_done == 1
     assert tbt.bvh_closest_hit_plain.launches > hit0
     assert kernel_counts() == before
     assert np.isfinite(rl.radiance_mean()).all()
@@ -290,7 +291,10 @@ def test_bvh_is_rebuilt_after_an_edit():
     app = Application(cfg)
     rl = app.setup_default_layers()
     app.run(max_frames=1)
-    n0 = rl._bvh.n_nodes
+    pipe = rl.pipeline
+    n0 = pipe.bvh.n_nodes
     rl.scene.delete(int(rl.scene.active_indices()[0]))
     app.run(max_frames=1)
-    assert rl._bvh.n_nodes == n0 - 2 and rl._spp_done == 1
+    # the same pipeline, its BVH built anew
+    assert rl.pipeline is pipe
+    assert pipe.bvh.n_nodes == n0 - 2 and rl._spp_done == 1

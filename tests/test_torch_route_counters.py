@@ -64,7 +64,7 @@ def test_each_build_sets_them_not_adds(monkeypatch):
     assert first["route.budget_bytes"] == 10 ** 9
     assert first["route.streamed"] == 0
     assert first["route.table_bytes"] == \
-        tables.table_bytes(rl._pipeline._tabs)
+        tables.table_bytes(rl.pipeline._tabs)
     rebuilds = REC.read_counters()["rebuilds"]
     rl.scene.update(int(rl.scene.active_indices()[-1]),
                     center=(0.0, 5.0, 0.0))

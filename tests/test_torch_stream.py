@@ -222,7 +222,7 @@ def test_pipeline_streams_beyond_the_budget(monkeypatch, budget, streams):
         a = app.Application(cfg)
         rl = a.setup_default_layers()
         assert a.run(max_frames=2) == 2
-        out[b] = (rl._pipeline.stream_b, rl.radiance_mean(),
+        out[b] = (rl.pipeline.stream_b, rl.radiance_mean(),
                   rl._gbuffer().depth)
         a.close()
     assert out[budget][0] == (ttab.STREAM_BLOCK_B if streams else 0)
@@ -252,7 +252,7 @@ def test_pipeline_streams_obj_models(monkeypatch, tmp_path, smooth, nee):
             a = app.Application(cfg)
             rl = a.setup_default_layers()
             assert a.run(max_frames=1) == 1
-            out[b] = (rl._pipeline.stream_b, rl.radiance_mean())
+            out[b] = (rl.pipeline.stream_b, rl.radiance_mean())
             a.close()
     finally:
         tscenes.SCENES.pop(name)

@@ -90,9 +90,9 @@ def test_an_edit_records_its_rebuild_and_the_no_op_check_nothing():
     assert rl._frame_index == 2  # the edit belongs to the next frame, 2
     assert (sync.parent, sync.frame) == (-1, 2)
     kids = children(rl, sync)
-    assert names(kids) == ["crt.scene_device", "crt.pack_tables",
-                           "crt.pack_lights"]
-    pack = kids[1]
+    # the megakernel reads no scene snapshot: the rebuild takes none
+    assert names(kids) == ["crt.pack_tables", "crt.pack_lights"]
+    pack = kids[0]
     assert names(children(rl, pack)) == ["crt.aabbs", "crt.upload"]
     # the rebuild's bytes are its children's, and the counter's growth
     assert sync.nbytes == sum(r.nbytes for r in kids) > 0
@@ -103,6 +103,32 @@ def test_an_edit_records_its_rebuild_and_the_no_op_check_nothing():
     app.run(max_frames=1)  # its sync_scene is the no-op check
     assert names(REC.spans(layer=rl.trace_id, since=mark)) == [
         "crt.update", "crt.camera", "crt.launch"]
+
+
+@pytest.mark.parametrize("scene,accel,progressive", [
+    ("book2_final", "cuda", True), ("rtow_final", "brute", True),
+    ("rtow_final", "bvh", True), ("rtow_final", "wavefront", True),
+    ("rtow_final", "cuda", False)])
+def test_only_the_paths_that_read_the_scene_snapshot_take_it(
+        scene, accel, progressive):
+    """``Scene.device`` (``crt.scene_device``) runs where its snapshot is
+    read: on the XLA paths' rebuilds and in a non-progressive frame, never
+    in a progressive megakernel frame or rebuild.  The edit cell's
+    book2_final rebuild under --nee uploads the tables and the lights."""
+    app, rl = make_layer(scene=scene, accel=accel, progressive=progressive,
+                         nee=True, spp=2)
+    app.run(max_frames=1)
+    i = int(rl.scene.active_indices()[1])
+    rl.scene.update(i, center=np.asarray(rl.scene.center[i]) + 0.01)
+    first = REC.mark()
+    rl._sync_scene()
+    sync, = REC.spans("crt.sync_scene", layer=rl.trace_id, since=first)
+    app.run(max_frames=1)
+    took = names(REC.spans(layer=rl.trace_id, since=first))
+    reads = accel != "cuda" or not progressive
+    assert ("crt.scene_device" in took) is reads
+    if scene == "book2_final":
+        assert sync.nbytes == 4_131_296
 
 
 def test_self_time_is_the_duration_less_the_children(monkeypatch):
