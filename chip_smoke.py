@@ -36,7 +36,9 @@ masked and, where an instantiation serves it, with NEE, with the lane
 and CTA utilisation of its path loop (``scripts/megakernel_util.py``'s
 cases: a one-thread-per-pixel grid's from the plain version's per-pixel
 ray counts, and the refilling kernel's own in the media
-instantiations), and checks the refilling kernel's ragged batches
+instantiations) and the tree walk's box and primitive tests a ray on
+terrain_big and rtow_final (the plain replay, phase ``tree_walk``),
+and checks the refilling kernel's ragged batches
 (cornell_smoke ``--nee --qmc`` at 1277x719, and in a half-masked band
 of 333 rows; every output block NaN before the launch).  Between the
 CLI paths and the timings, the XLA-path renderers
@@ -241,11 +243,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 W_MAIN, H_MAIN, DEPTH, RR, SPP_MAIN = 1280, 720, 12, 2, 4
-# registers / spill-store bytes of every instantiation before this slice's
-# kernel change (the box gates' compare, search.cuh): the parent's build
-# log (nvcc for sm_90a on an NVIDIA H100 80GB HBM3 machine, read on the
-# card): the template flags are (rects, tris[, vattrs, images,
-# features]); the probe's, its variant
+# registers / spill-store bytes of every instantiation, as the build log
+# reads them (nvcc for sm_90a on an NVIDIA H100 80GB HBM3 machine,
+# read on the card); the megakernel's instantiations without the media
+# bit are those of the tree walk, launch-bounded at six CTAs an SM (the
+# two-level walk's before, unbounded, in PERF.md): the template flags
+# are (rects, tris[, vattrs, images, features]); the probe's, its
+# variant
 BASE_PTXAS = {
     "closest_hit_kernel<0,0>": (48, 64), "closest_hit_kernel<1,0>": (48, 152),
     "closest_hit_kernel<1,1>": (64, 64), "gbuffer_kernel<0,0,0,0,0>": (40, 24),
@@ -266,30 +270,30 @@ BASE_PTXAS = {
     "gbuffer_kernel_streamed<1,1,0,1,3>": (56, 0),
     "gbuffer_kernel_streamed<1,1,1,0,0>": (56, 0),
     "gbuffer_kernel_streamed<1,1,1,1,0>": (56, 0),
-    "render_kernel<0,0,0,0,0>": (56, 40),
-    "render_kernel<0,0,0,0,16>": (72, 8),
-    "render_kernel<0,0,0,0,1>": (72, 56),
-    "render_kernel<0,0,0,0,48>": (80, 24),
-    "render_kernel<0,0,0,1,0>": (56, 40),
-    "render_kernel<1,0,0,0,0>": (80, 36),
+    "render_kernel<0,0,0,0,0>": (72, 0),
+    "render_kernel<0,0,0,0,16>": (80, 0),
+    "render_kernel<0,0,0,0,1>": (80, 4),
+    "render_kernel<0,0,0,0,48>": (80, 16),
+    "render_kernel<0,0,0,1,0>": (72, 0),
+    "render_kernel<1,0,0,0,0>": (80, 12),
     "render_kernel<1,0,0,0,15>": (80, 24),
     "render_kernel<1,0,0,0,31>": (80, 40),
-    "render_kernel<1,0,0,0,32>": (96, 0),
+    "render_kernel<1,0,0,0,32>": (80, 110),
     "render_kernel<1,0,0,0,39>": (80, 8),
     "render_kernel<1,0,0,0,47>": (80, 16),
     "render_kernel<1,0,0,0,63>": (80, 24),
     "render_kernel<1,0,0,0,7>": (80, 24),
-    "render_kernel<1,0,0,1,0>": (72, 122),
-    "render_kernel<1,0,0,1,32>": (96, 4),
-    "render_kernel<1,1,0,0,0>": (113, 0),
-    "render_kernel<1,1,0,0,32>": (114, 0),
-    "render_kernel<1,1,0,1,0>": (119, 0),
+    "render_kernel<1,0,0,1,0>": (72, 0),
+    "render_kernel<1,0,0,1,32>": (76, 0),
+    "render_kernel<1,1,0,0,0>": (80, 110),
+    "render_kernel<1,1,0,0,32>": (80, 158),
+    "render_kernel<1,1,0,1,0>": (80, 0),
     "render_kernel<1,1,0,1,23>": (128, 0),
     "render_kernel<1,1,0,1,55>": (128, 0),
-    "render_kernel<1,1,1,0,0>": (118, 0),
-    "render_kernel<1,1,1,0,32>": (115, 0),
-    "render_kernel<1,1,1,1,0>": (119, 0),
-    "render_kernel<1,1,1,1,32>": (118, 0),
+    "render_kernel<1,1,1,0,0>": (80, 134),
+    "render_kernel<1,1,1,0,32>": (80, 158),
+    "render_kernel<1,1,1,1,0>": (80, 0),
+    "render_kernel<1,1,1,1,32>": (80, 0),
     "render_kernel_streamed<0,0,0,0,0>": (110, 0),
     "render_kernel_streamed<1,0,0,0,0>": (114, 0),
     "render_kernel_streamed<1,0,0,0,63>": (118, 0),
@@ -466,8 +470,10 @@ def main():
             self.tags["has_images"] = self.atlas_bytes > 0
             tb = self.tb
             self.tabs = (tb.S, tb.clusters, tb.supers, tb.n_super)
-            # the resident megakernel's block boxes
+            # the resident walks' block boxes, and the megakernel's walk:
+            # the block boxes and, where it does not refill, the tree
             self.bb = {"block_boxes": tb.block_boxes}
+            self.rk = dict(self.bb, tree=tb.tree)
             self.table_bytes = 4 * (tb.S.numel() + tb.P.numel()
                                     + tb.clusters.numel()
                                     + tb.supers.numel() + 38)
@@ -708,7 +714,7 @@ def main():
         plain run without it too."""
         args = (*su.frame_args(w, h), seed, depth)
         kw = dict(width=w, height=h, camera_model=su.model, spp=SPP_MAIN,
-                  rr_start=RR, with_stats=True, **su.flags, **su.bb,
+                  rr_start=RR, with_stats=True, **su.flags, **su.rk,
                   **su.options(**opts))
         torch.full((h, w, 3), float("nan"), device=dev)  # freed at once
         sched = torch.zeros(2, dtype=torch.int64, device=dev)
@@ -816,7 +822,7 @@ def main():
         args = (*su.frame_args(W_MAIN, H_MAIN), 7, DEPTH)
         kw = dict(width=W_MAIN, height=H_MAIN, camera_model=su.model,
                   spp=SPP_MAIN, rr_start=RR, with_stats=True, **su.flags,
-                  **su.bb)
+                  **su.rk)
         full, n_full = render_sample(*args, **kw, **su.options(**opts))
         part, n_part = render_sample(*args, **kw,
                                      **su.options(**opts, mask=mask))
@@ -1033,7 +1039,7 @@ def main():
         for s in spps:
             args = (*su.frame_args(*size), 7, DEPTH)
             kw = dict(width=size[0], height=size[1], camera_model=su.model,
-                      spp=s, rr_start=RR, **su.flags, **su.bb)
+                      spp=s, rr_start=RR, **su.flags, **su.rk)
             _, nr = render_sample(*args, **kw, with_stats=True)
             ms = cuda_ms(lambda: render_sample(*args, **kw), 10)
             timing[f"{su.name}/{s}spp"] = {
@@ -1059,7 +1065,7 @@ def main():
     for su, tag, opts in runs:
         args = (*su.frame_args(W_MAIN, H_MAIN), 7, DEPTH)
         kw = dict(width=W_MAIN, height=H_MAIN, camera_model=su.model,
-                  spp=SPP_MAIN, rr_start=RR, **su.flags, **su.bb,
+                  spp=SPP_MAIN, rr_start=RR, **su.flags, **su.rk,
                   **su.options(**opts))
         _, nr = render_sample(*args, **kw, with_stats=True)
         ms = cuda_ms(lambda: render_sample(*args, **kw), 10)
@@ -1094,6 +1100,20 @@ def main():
           "rr_start": RR, "megakernel": timing, "nvidia_smi": smi})
     emit({"phase": "utilisation", "shape": [W_MAIN, H_MAIN], "depth": DEPTH,
           "spp": SPP_MAIN, "by_case": util, "nvidia_smi": smi})
+    # the tree walk's engagement (the plain replay of its walk: node and
+    # leaf box tests, primitive tests a ray) beside the kernel's time
+    tree_walk = {}
+    for key in (f"terrain_big/{SPP_MAIN}spp", f"rtow_final/{SPP_MAIN}spp"):
+        wk = checks[key]["work"]
+        rays = wk["hit"] + wk["miss"] + wk.get("medium", 0)
+        tree_walk[key] = {
+            "ms": timing[key]["ms"], "rays": rays,
+            "box_tests_per_ray": wk["box"] / rays,
+            "prim_tests_per_ray": sum(wk.get(k, 0) for k in (
+                "sphere", "rect", "tri")) / rays,
+            "entered_per_ray": wk["entered"] / rays}
+    emit({"phase": "tree_walk", "shape": [W_MAIN, H_MAIN], "depth": DEPTH,
+          "spp": SPP_MAIN, "by_case": tree_walk, "nvidia_smi": smi})
 
     # ---- 7b. the refilling kernel's ragged batches: 1277x719 (a ragged
     # batch closes every batch row and the bottom row), cornell_smoke
@@ -1111,7 +1131,7 @@ def main():
     kw = dict(width=w_r, height=h_r, camera_model=csmoke.model,
               spp=SPP_MAIN, rr_start=RR, with_stats=True,
               with_cull_stats=True, y0=101, band_h=333, tile_mask=band_mask,
-              tile=csmoke.tile, **csmoke.flags, **csmoke.bb)
+              tile=csmoke.tile, **csmoke.flags, **csmoke.rk)
     torch.full((333, w_r, 3), float("nan"), device=dev)  # freed at once
     ik, nk, ck = render_sample(*args, **kw)
     ip, np_, cp = render_sample_plain(*args, **kw)
@@ -1130,7 +1150,7 @@ def main():
     color = render_sample(*book2.frame_args(W_MAIN, H_MAIN), 7, DEPTH,
                           width=W_MAIN, height=H_MAIN,
                           camera_model=book2.model, spp=SPP_MAIN,
-                          rr_start=RR, **book2.flags, **book2.bb) / SPP_MAIN
+                          rr_start=RR, **book2.flags, **book2.rk) / SPP_MAIN
     var_plane = torch.rand((H_MAIN, W_MAIN), device=dev, generator=(
         torch.Generator(device=dev).manual_seed(15))) * 0.5
     den = {}
@@ -1175,7 +1195,7 @@ def main():
     for su, opts in ((book2, main_opts), (rtow, {})):
         args = (*su.frame_args(W_MAIN, H_MAIN), 7, DEPTH)
         kw = dict(width=W_MAIN, height=H_MAIN, camera_model=su.model,
-                  spp=SPP_MAIN, rr_start=RR, **su.flags, **su.bb,
+                  spp=SPP_MAIN, rr_start=RR, **su.flags, **su.rk,
                   **su.options(**opts))
         base = kw.pop("sample_base", 0)
         full = render_sample(*args, stream=5, sample_base=base, **kw)
@@ -1280,7 +1300,7 @@ def main():
         w, h = 320, 180
         args = (*su.frame_args(w, h), 7, DEPTH)
         kw = dict(width=w, height=h, camera_model=su.model, spp=1,
-                  rr_start=RR, with_stats=True, **su.flags, **su.bb)
+                  rr_start=RR, with_stats=True, **su.flags, **su.rk)
         img_k, rays_k, cull_k = render_sample(*args, with_cull_stats=True,
                                               **kw)
         img_n, _ = render_sample(*args, **kw)
@@ -1305,7 +1325,7 @@ def main():
     for su in (book2, terrain_big):
         args = (*su.frame_args(W_MAIN, H_MAIN), 7, DEPTH)
         kw = dict(width=W_MAIN, height=H_MAIN, camera_model=su.model,
-                  spp=SPP_MAIN, rr_start=RR, **su.flags, **su.bb)
+                  spp=SPP_MAIN, rr_start=RR, **su.flags, **su.rk)
         cull_ms[su.name] = {
             "ms": cuda_ms(lambda: render_sample(*args, **kw), 10),
             "ms_with_cull_stats": cuda_ms(lambda: render_sample(
@@ -1483,7 +1503,7 @@ def main():
                   with_cull_stats=True, **su.flags, **su.options(**opts),
                   **band)
         ir, nr, cr = render_sample(*su.frame_args(W_MAIN, H_MAIN), 7, DEPTH,
-                                   **kw, **su.bb)
+                                   **kw, **su.rk)
         is_, ns, cs = render_sample(*sargs, 7, DEPTH, **kw, **skw)
         res = {"scene": su.name, "case": tag, "size": [W_MAIN, H_MAIN],
                "spp": SPP_MAIN, "depth": DEPTH,
@@ -1629,16 +1649,16 @@ def main():
         kw = dict(width=w, height=h, camera_model=su.model, spp=spp_t,
                   rr_start=RR, **su.flags, **su.options(**opts))
         rargs = (*su.frame_args(w, h), 7, depth_t)
-        ir, nr = render_sample(*rargs, with_stats=True, **kw, **su.bb)
+        ir, nr = render_sample(*rargs, with_stats=True, **kw, **su.rk)
         is_, ns = render_sample(*sargs, 7, depth_t, with_stats=True, **kw,
                                 **skw)
         # parent-child order: resident, streamed, streamed, resident
-        ms_r1 = cuda_ms(lambda: render_sample(*rargs, **kw, **su.bb), 5)
+        ms_r1 = cuda_ms(lambda: render_sample(*rargs, **kw, **su.rk), 5)
         ms_s1 = cuda_ms(lambda: render_sample(*sargs, 7, depth_t, **kw,
                                               **skw), 5)
         ms_s2 = cuda_ms(lambda: render_sample(*sargs, 7, depth_t, **kw,
                                               **skw), 5)
-        ms_r2 = cuda_ms(lambda: render_sample(*rargs, **kw, **su.bb), 5)
+        ms_r2 = cuda_ms(lambda: render_sample(*rargs, **kw, **su.rk), 5)
         kst = torch.zeros(len(STREAM_STATS), dtype=torch.int64, device=dev)
         _, _, ce = render_sample(*sargs, 7, depth_t, with_stats=True,
                                  with_cull_stats=True, stream_stats=kst,

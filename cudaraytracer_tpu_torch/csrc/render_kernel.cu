@@ -62,7 +62,9 @@
 // Paths end at different depths, so the lanes of a warp diverge.  Design:
 // one thread per pixel runs the per-lane state machine of the TPU
 // kernel's bounce_body (trace_pixel), each thread looping independently
-// (a finished lane stops; there is no whole-tile wave).  Materials take a
+// (a finished lane stops; there is no whole-tile wave) and searches with
+// the tree walk (search.cuh::closest_hit_tree, over the tree of a
+// kernel argument of its own, crt::TreeTables).  Materials take a
 // branch each, so the dielectric's 1/ior and its infinities never touch
 // other lanes.  A warp runs as long as its longest lane, and in the media
 // instantiations (refills), whose path lengths spread most, that left
@@ -253,7 +255,8 @@ struct Refill {
 // pixel to trace: a lane whose pixel is done writes the pixel's sum to
 // `out` (f32[band_h, width, 3]) and takes another (rf->take), restarting
 // the pixel's state, its iteration index (the draws' counter) too; the
-// search is the three-level walk over the block boxes bt.
+// search is the three-level walk over the block boxes bt.  Otherwise
+// the search is the tree walk over tr.
 template <bool kRects, bool kTris, bool kVattrs, bool kImages, int kFeat,
           bool kStream = false, bool kRefill = false>
 __device__ unsigned long long trace_pixel(const Params& p,
@@ -263,7 +266,9 @@ __device__ unsigned long long trace_pixel(const Params& p,
                                           unsigned& entered,
                                           StreamCtx* sc = nullptr,
                                           bool has_px = true,
-                                          Refill* rf = nullptr) {
+                                          Refill* rf = nullptr,
+                                          const crt::TreeTables* tr =
+                                              nullptr) {
   // the winner's barycentrics feed the smooth normal and a triangle's uv
   constexpr bool kUV = kVattrs || (kTris && kImages);
   constexpr int vn_base = crt::vn_base_for(kImages);
@@ -381,8 +386,8 @@ __device__ unsigned long long trace_pixel(const Params& p,
           p.tb, rf->sd->bt, ray, t_min, best_t, bc, u_med, time,
           &n_entered);
     } else {
-      j = crt::closest_hit<kRects, kTris, kUV, kSurf>(
-          p.tb, ray, t_min, best_t, bc, u_med, time, &n_entered);
+      j = crt::closest_hit_tree<kRects, kTris, kUV, kSurf>(
+          p.tb, *tr, ray, t_min, best_t, bc, u_med, time, &n_entered);
     }
 
     bool cont = false;
@@ -578,12 +583,13 @@ __device__ __forceinline__ void block_add(unsigned long long v,
   __syncthreads();  // warp_sums is reused by the next call
 }
 
-// The launch's pixels: the body of both resident kernel entries below.
+// The launch's pixels (the one-thread-a-pixel kernel's body), searched
+// through the tree tr.
 template <bool kRects, bool kTris, bool kVattrs, bool kImages, int kFeat>
 __device__ __forceinline__ void render_pixels(
     const Params& p, float* __restrict__ out,
     unsigned long long* __restrict__ nrays_out, const crt::Atlas& atlas,
-    const Opts& o) {
+    const Opts& o, const crt::TreeTables& tr) {
   const int x = blockIdx.x * kBlockX + threadIdx.x;
   const int yb = blockIdx.y * kBlockY + threadIdx.y;  // row in the band
   unsigned long long rays = 0;
@@ -592,7 +598,8 @@ __device__ __forceinline__ void render_pixels(
     float* px_out = out + 3 * (static_cast<size_t>(yb) * p.width + x);
     if (tile_active(o, x, yb)) {
       rays = trace_pixel<kRects, kTris, kVattrs, kImages, kFeat>(
-          p, atlas, o, x, o.y0 + yb, px_out, entered);
+          p, atlas, o, x, o.y0 + yb, px_out, entered, nullptr, true,
+          nullptr, &tr);
     } else {  // a converged tile: nothing traced
       px_out[0] = 0.0f;
       px_out[1] = 0.0f;
@@ -603,13 +610,20 @@ __device__ __forceinline__ void render_pixels(
   if (o.cull != nullptr) block_add(entered, o.cull);
 }
 
+// The tree rides a kernel argument of its own, after Opts (a larger
+// Params or Opts changes the code of the instantiations that never read
+// it).  Bounded at six CTAs an SM (80 registers): with the tree walk,
+// the allocator left free gave the triangle instantiations 72 registers
+// and 158 bytes of spills, and the bound ran 2-10% faster on terrain_big,
+// rtow_final, cornell, cornell_mesh_light and mesh_smooth (five CTAs:
+// 1-7% on four of them; PERF.md).
 template <bool kRects, bool kTris, bool kVattrs, bool kImages, int kFeat>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 6)
 render_kernel(Params p, float* __restrict__ out,
               unsigned long long* __restrict__ nrays_out, crt::Atlas atlas,
-              Opts o) {
+              Opts o, crt::TreeTables tr) {
   render_pixels<kRects, kTris, kVattrs, kImages, kFeat>(p, out, nrays_out,
-                                                        atlas, o);
+                                                        atlas, o, tr);
 }
 
 // The refilling kernel's pixels (refills): a persistent grid of CTAs of
@@ -663,7 +677,8 @@ render_kernel_refill(Params p, float* __restrict__ out,
 // smoke that ran 2-4% faster than five blocks (96 registers), as the
 // one-thread-per-pixel grid's media instantiations ran 10.7% faster with
 // five blocks than with the allocator left free; a bound on the other
-// instantiations slowed them (PERF.md).
+// instantiations slowed their two-level walk (PERF.md; the tree walk's
+// entry, render_kernel, has its own).
 template <bool kRects, bool kTris, bool kVattrs, bool kImages, int kFeat>
 __global__ void __launch_bounds__(kThreads, 6)
 render_kernel_media(Params p, float* __restrict__ out,
@@ -679,8 +694,9 @@ render_kernel_media(Params p, float* __restrict__ out,
 // batches need; *rc gets the error of the occupancy query or the launch.
 template <bool R, bool T, bool V, bool I, int F>
 bool launch_if(const int (&want)[5], const Params& p, const crt::Atlas& atlas,
-               const Opts& o, const Sched& sd, float* out,
-               unsigned long long* nrays, cudaStream_t st, int* rc) {
+               const Opts& o, const Sched& sd, const crt::TreeTables& tr,
+               float* out, unsigned long long* nrays, cudaStream_t st,
+               int* rc) {
   if (want[0] != R || want[1] != T || want[2] != V || want[3] != I ||
       want[4] != F) {
     return false;
@@ -718,7 +734,7 @@ bool launch_if(const int (&want)[5], const Params& p, const crt::Atlas& atlas,
     const dim3 grid((p.width + kBlockX - 1) / kBlockX,
                     (o.band_h + kBlockY - 1) / kBlockY);
     render_kernel<R, T, V, I, F><<<grid, block, 0, st>>>(p, out, nrays,
-                                                        atlas, o);
+                                                        atlas, o, tr);
     *rc = static_cast<int>(cudaGetLastError());
   }
   return true;
@@ -851,7 +867,7 @@ bool launch_streamed_if(const int (&want)[5], const Params& p,
 // superclusters each: tables.block_boxes) and ``next`` (u64[1], zeroed by
 // the caller: the batch counter), and add their lane and CTA slots to
 // ``sched_slots`` (u64[2]) when it is not null; the others read none of
-// them.
+// them, and read ``tree`` (f32[7, tree_m], tables.tree_nodes) instead.
 // Returns the error of the occupancy query or the launch.
 extern "C" int crt_render_sample(const float* S, const float* P,
                                  const float* clusters, const float* supers,
@@ -872,10 +888,12 @@ extern "C" int crt_render_sample(const float* S, const float* P,
                                  const float* blocks, int nbc, int block_b,
                                  unsigned long long* next,
                                  unsigned long long* sched_slots,
+                                 const float* tree, int tree_m,
                                  float* out, unsigned long long* nrays,
                                  void* stream) {
   if (width <= 0 || band_h <= 0) return 0;
-  if (block_b <= 0 || nbc * block_b < n_super) {
+  if (block_b <= 0 || nbc * block_b < n_super || tree_m < 0 ||
+      cluster < crt::kLeaf || cluster % crt::kLeaf != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int batches_x = (width + kBatchX - 1) / kBatchX;
@@ -902,14 +920,15 @@ extern "C" int crt_render_sample(const float* S, const float* P,
   const crt::Atlas at{atlas, tex_hw, slots, ah, aw};
   const Opts o{lights, mask, cull, tile_h, tile_w, tiles_x, qmc,
                sample_base, nee_p, y0, band_h};
+  const crt::TreeTables tr{tree, tree_m};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int want[5] = {has_rects != 0, has_tris != 0, has_vattrs != 0,
                        has_images != 0, features};
   int rc = 0;
   // one launch_if per instantiation of variants.cuh, in its order
-#define CRT_LAUNCH(R, T, V, I, F)                                           \
-  || launch_if<R != 0, T != 0, V != 0, I != 0, F>(want, p, at, o, sd, out,  \
-                                                  nrays, st, &rc)
+#define CRT_LAUNCH(R, T, V, I, F)                                          \
+  || launch_if<R != 0, T != 0, V != 0, I != 0, F>(want, p, at, o, sd, tr, \
+                                                  out, nrays, st, &rc)
   const bool launched = false CRT_RENDER_VARIANTS(CRT_LAUNCH);
 #undef CRT_LAUNCH
   if (!launched) return static_cast<int>(cudaErrorNotSupported);

@@ -1,7 +1,11 @@
-// Closest-hit search over the packed scene tables: two culling levels
-// (closest_hit), three (closest_hit_blocks, the megakernel's), the
+// Closest-hit search over the packed scene tables: the tree walk
+// (closest_hit_tree, the megakernel's where it does not refill), three
+// culling levels (closest_hit_blocks, the refilling megakernel's), the
 // streamed walk (closest_hit_streamed) or the packet walk
 // (closest_hit_packet: the resident G-buffer's and the closest hit's).
+// Each gives the answer of the two-level walk: every supercluster box,
+// the cluster boxes of those the ray enters, then every primitive of an
+// entered cluster in column order (hit_kernel.py::culled_closest).
 //
 // Replaces the search of the JAX megakernel,
 // cudaraytracer_tpu/ops/pallas/render_kernel.py::hierarchical_search
@@ -19,7 +23,7 @@
 // carry_uv does (:1569) for vertex attributes and image textures on
 // triangles.
 //
-// closest_hit<kRects, kTris, kUV, kFeat> mirrors the static flags
+// The walks' <kRects, kTris, kUV, kFeat> mirror the static flags
 // has_rects/has_tris and, in kFeat (F_* below), has_media/has_boxm/
 // has_rotm/has_motion.  Without rects, triangles or media, every cluster
 // runs the sphere loop, as the sphere-only branch always did (a medium
@@ -337,29 +341,28 @@ __device__ __forceinline__ void dual_test(const float* __restrict__ S, int np,
   }
 }
 
-// The primitive tests of entered cluster ci, whose columns start at
-// column j0 of S (row stride np, read through L), dispatched on the
-// cluster's kind; updates best_t, best_j (to the column) and bc.
+// The primitive tests of columns j0 .. j_end - 1 of S (row stride np,
+// read through L), dispatched on their cluster's kind; updates best_t,
+// best_j (to the column) and bc.
 template <bool kRects, bool kTris, bool kUV, int kFeat, class L = Ldg>
-__device__ __forceinline__ void cluster_tests(const SearchTables& tb, int ci,
-                                              const float* __restrict__ S,
-                                              int np, int j0, const Ray& r,
-                                              float t_min, float u_med,
-                                              float time, float& best_t,
-                                              int& best_j, Bary& bc) {
+__device__ __forceinline__ void range_tests(float kind,
+                                            const float* __restrict__ S,
+                                            int np, int j0, int j_end,
+                                            const Ray& r, float t_min,
+                                            float u_med, float time,
+                                            float& best_t, int& best_j,
+                                            Bary& bc) {
   constexpr bool kMotion = (kFeat & F_MOTION) != 0;
   constexpr bool kMedTest = (kFeat & F_MEDIA) != 0;
   constexpr bool kMedia = kMedTest || (kFeat & F_SKIP_MEDIA) != 0;
   constexpr bool kBox = (kFeat & F_BOXM) != 0;
   constexpr bool kRot = (kFeat & F_ROTM) != 0;
-  const int j_end = j0 + tb.cluster;
   if constexpr (!(kRects || kTris || kMedia)) {
     for (int j = j0; j < j_end; ++j) {
       sphere_test<kMotion, L>(S, np, j, r, t_min, time, best_t, best_j);
     }
     return;
   }
-  const float kind = __ldg(tb.clusters + 6 * tb.nc + ci);
   if (kind < 0.5f) {
     for (int j = j0; j < j_end; ++j) {
       sphere_test<kMotion, L>(S, np, j, r, t_min, time, best_t, best_j);
@@ -387,30 +390,120 @@ __device__ __forceinline__ void cluster_tests(const SearchTables& tb, int ci,
   }
 }
 
-// Closest hit in (t_min, best_t); updates best_t (and with kUV the
-// winner's barycentrics bc), returns the column or -1.  u_med is the
-// iteration's medium uniform (F_MEDIA), time the path's shutter time
-// (F_MOTION); neither is read without its flag.  `entered`, when given,
-// gets one added per cluster whose box the ray enters (the megakernel's
-// cull statistic; a local of the inlined caller, so a register).
+// The primitive tests of entered cluster ci, whose columns start at
+// column j0 of S (row stride np, read through L), dispatched on the
+// cluster's kind; updates best_t, best_j (to the column) and bc.
+template <bool kRects, bool kTris, bool kUV, int kFeat, class L = Ldg>
+__device__ __forceinline__ void cluster_tests(const SearchTables& tb, int ci,
+                                              const float* __restrict__ S,
+                                              int np, int j0, const Ray& r,
+                                              float t_min, float u_med,
+                                              float time, float& best_t,
+                                              int& best_j, Bary& bc) {
+  constexpr bool kMedia = (kFeat & (F_MEDIA | F_SKIP_MEDIA)) != 0;
+  const float kind = (kRects || kTris || kMedia)
+                         ? __ldg(tb.clusters + 6 * tb.nc + ci)
+                         : 0.0f;
+  range_tests<kRects, kTris, kUV, kFeat, L>(kind, S, np, j0, j0 + tb.cluster,
+                                            r, t_min, u_med, time, best_t,
+                                            best_j, bc);
+}
+
+// ------------------------------------------------------- the tree walk
+// The megakernel's walk where it does not refill (render_kernel.cu: every
+// scene without media): one stackless loop over a tree of the tables,
+// as bvh_kernel.cu walks its tree.  Each thread carries one node index;
+// an interior node whose box the ray enters closer than best_t leads to
+// the next node (its first child), a node it misses to its skip link,
+// and a leaf to the next node, after the leaf's primitive tests when
+// the ray enters it; the index past the last node ends the walk.
+//
+// The tree (ops/cuda/tables.py::tree_nodes, f32[7, M] in pre-order: rows
+// 0-5 the box, row 6 the link) holds, from the root: unions of four
+// nodes down to the blocks of four superclusters, the superclusters and
+// clusters with their tables' boxes, and leaves of kLeaf consecutive
+// columns of a cluster (7 of a 28-column cluster), padded.  Nodes
+// without a primitive are left out, and so is a node of the levels from
+// the superclusters up with one child, whose box is the child's.
+//
+// What bounds it on the card: instruction issue.  The two-level walk
+// tests every supercluster box for every ray and all 28 columns of an
+// entered cluster: on terrain_big ~200 box and ~140 triangle tests a
+// bounce ray; the tree takes ~95 and ~17 (hit_kernel.py::search_work).
+// One loop body and one node index a thread, rather than nested loops
+// over the levels (a nested block loop ran 2-45% slower in the
+// megakernel: it serialises the union of a warp's entered blocks and
+// keeps more loop state live beside the shading).
+//
+// Same answers as the two-level walk, bit for bit.  The children of a
+// node are in ascending order, so the pre-order visits the clusters and,
+// inside a cluster, the columns in table order, and ties break alike.
+// Every level down to the clusters is the exact min/max union of its
+// members, and the slab times of a box are monotone in its faces
+// (rounding is monotone), so a ray that enters a cluster's box under
+// best_t enters every ancestor's under the same best_t: the walk enters
+// the clusters the two-level walk enters, in its order, and `entered`
+// counts them alike.  A leaf's box is a part of its cluster's, so it is
+// padded: by m = 2^-16 S (tables.TREE_MARGIN), S the largest coordinate
+// of a used cluster box.  Why that is enough: let a test of the leaf
+// report a hit at t in (t_min, best_t), and x = o + t d (exact).  The
+// reported x lies outside its primitive's box by at most e on each axis
+// (the test's rounding; u = 2^-24, R a bound on |o|): a triangle's or a
+// rect's plane and barycentric values are dot products of magnitude
+// ~(|o| + |x| + |v0|), so e <= 16 u (R + 2 S), and the vertex hull carries
+// RECT_PAD besides; a sphere's discriminant cancels terms of |o - c|^2,
+// so near its silhouette e <= 6 u |o - c|^2 / r.  The slab test computes
+// each face's time with 3 roundings, off by at most 3.1 u |f - o_k| / |d_k|
+// from the exact one, while a face moved out by m - e moves it by
+// (m - e) / |d_k| beyond t.  So if m >= e + 3.1 u (|o_k| + |f| + m), every
+// computed near time is at most t and every far time at least t, and as
+// t_min < t < best_t the gate passes (an axis with d_k = 0 has an exact
+// sign on each side, and passes too).  With R <= 8 S that needs m >=
+// 188 u S < 256 u S = m for triangles and rects, and for spheres
+// |o - c|^2 <= 32 S r.  A ray beyond those bounds that grazes a
+// primitive within its rounding may miss a padded leaf where the two-
+// level walk kept the hit: the corner case between brute force and
+// every culled walk (box_hit), which the tests hold on grazing sets.
+// The levels above a leaf stay exact: a leaf's pad is only a gate below
+// its entered cluster, and box_hit itself is not loosened.
+
+// Columns of a leaf (tables.TREE_LEAF).
+constexpr int kLeaf = 4;
+
+// The tree of the walk: f32[7, m] (tables.tree_nodes).
+struct TreeTables {
+  const float* nodes;
+  int m;
+};
+
+// Closest hit in (t_min, best_t) through the tree tr; updates best_t (and
+// with kUV the winner's barycentrics bc), returns the column or -1.
+// u_med is the iteration's medium uniform (F_MEDIA), time the path's
+// shutter time (F_MOTION); neither is read without its flag.  `entered`,
+// when given, gets one added per cluster whose box the ray enters (the
+// megakernel's cull statistic; a local of the inlined caller, so a
+// register).
 template <bool kRects, bool kTris, bool kUV, int kFeat = 0>
-__device__ __forceinline__ int closest_hit(const SearchTables& tb,
-                                           const Ray& r, float t_min,
-                                           float& best_t, Bary& bc,
-                                           float u_med = 0.0f,
-                                           float time = 0.0f,
-                                           unsigned* entered = nullptr) {
+__device__ __forceinline__ int closest_hit_tree(
+    const SearchTables& tb, const TreeTables& tr, const Ray& r, float t_min,
+    float& best_t, Bary& bc, float u_med = 0.0f, float time = 0.0f,
+    unsigned* entered = nullptr) {
   int best_j = -1;
-  for (int si = 0; si < tb.n_super; ++si) {
-    if (!box_hit(tb.supers, tb.nsc, si, r, t_min, best_t)) continue;
-    const int c_end = (si + 1) * tb.super_;
-    for (int ci = si * tb.super_; ci < c_end; ++ci) {
-      if (!box_hit(tb.clusters, tb.nc, ci, r, t_min, best_t)) continue;
-      if (entered != nullptr) ++*entered;
-      cluster_tests<kRects, kTris, kUV, kFeat>(tb, ci, tb.S, tb.np,
-                                               ci * tb.cluster, r, t_min,
-                                               u_med, time, best_t, best_j,
-                                               bc);
+  for (int n = 0; n < tr.m;) {
+    const bool in = box_hit(tr.nodes, tr.m, n, r, t_min, best_t);
+    const int v = static_cast<int>(__ldg(tr.nodes + 6 * tr.m + n));
+    if (v < 0) {  // a leaf: -1 - (8 * its first column + its kind)
+      if (in) {
+        const int code = -1 - v;
+        const int j0 = code >> 3;
+        range_tests<kRects, kTris, kUV, kFeat>(
+            static_cast<float>(code & 7), tb.S, tb.np, j0, j0 + kLeaf, r,
+            t_min, u_med, time, best_t, best_j, bc);
+      }
+      ++n;
+    } else {  // 2 * skip + (1 for a cluster)
+      if (in && (v & 1) && entered != nullptr) ++*entered;
+      n = in ? n + 1 : v >> 1;
     }
   }
   return best_j;
@@ -423,11 +516,11 @@ __device__ __forceinline__ int closest_hit(const SearchTables& tb,
 // superclusters' boxes, and a supercluster's the union of its clusters'
 // (ops/cuda/tables.py::block_boxes; min and max are exact), so a ray that
 // enters a cluster's box closer than best_t enters its supercluster's and
-// its block's too: the walk enters the clusters closest_hit enters, in
-// the same ascending order, and gives the same hit, barycentrics and
-// cull count, with one box test per block where closest_hit tests
-// block_b supercluster boxes.  A block of one supercluster has that
-// supercluster's box, so it is not tested twice.
+// its block's too: the walk enters the clusters the two-level walk
+// enters, in the same ascending order, and gives the same hit,
+// barycentrics and cull count, with one box test per block where the
+// two-level walk tests block_b supercluster boxes.  A block of one
+// supercluster has that supercluster's box, so it is not tested twice.
 
 // The block boxes of the walk: f32[6, nbc] (tables.block_boxes).
 struct BlockTables {
@@ -435,8 +528,8 @@ struct BlockTables {
   int nbc, block_b;
 };
 
-// The three-level closest hit: closest_hit's arguments and result, with
-// the block boxes bt.
+// The three-level closest hit: closest_hit_tree's arguments and result,
+// with the block boxes bt.
 template <bool kRects, bool kTris, bool kUV, int kFeat = 0>
 __device__ __forceinline__ int closest_hit_blocks(
     const SearchTables& tb, const BlockTables& bt, const Ray& r,
@@ -748,8 +841,8 @@ __device__ __forceinline__ void wait_slot(Stage& sg, int slot) {
   sg.phase ^= 1u << slot;
 }
 
-// The streamed closest hit: as closest_hit (the same gates, tests, order
-// and cull count), over the staged pages.  Returns the winner's column
+// The streamed closest hit: as the two-level walk (the same gates, tests,
+// order and cull count), over the staged pages.  Returns the winner's column
 // in the resident layout (supercluster si's columns si*span ..), or -1.
 template <bool kRects, bool kTris, bool kUV, int kFeat = 0>
 __device__ __forceinline__ int closest_hit_streamed(
@@ -832,8 +925,8 @@ __device__ __forceinline__ const float* stream_payload(const SearchTables& tb,
 // bounds every lane's slab times from below (tnear) and above (tfar)
 // with directed rounding (__fsub_rd, __fmul_ru, ...), so it passes every
 // box that some lane's exact f32 test enters under its best_t, which
-// only falls: the walk enters the clusters closest_hit enters, in the
-// same order, and gives the same hit, barycentrics and ties bit for bit.
+// only falls: the walk enters the clusters the two-level walk enters, in
+// the same order, and gives the same hit, barycentrics and ties bit for bit.
 // An axis on which the rays' directions differ in sign, or where some d
 // is 0 or 1/d is infinite, is not culled on.  A level of one box (a lone
 // block, a block of one supercluster) gets no packet test: the rays' own
@@ -841,7 +934,7 @@ __device__ __forceinline__ const float* stream_payload(const SearchTables& tb,
 // tile any() gate and camera-distance sort (gbuffer_kernel.py:148-181)
 // served the TPU's vector unit; the packet test is the card's tile gate.
 // With BlockTables {supers, nsc, 1} the blocks are the superclusters
-// (closest_hit's two levels).
+// (the two-level walk).
 //
 // A cluster that at most kSpread of the warp's lanes enter has its
 // (ray, primitive) tests spread over all 32 lanes (spread_tests): an

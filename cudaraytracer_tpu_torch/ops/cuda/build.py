@@ -61,7 +61,7 @@ SIGNATURES = {
                           ctypes.c_uint32, _i, _i, _i, _i, _i, _i, _f, _f,
                           _i, _i, _i, _i, _i, _p, _p, _i, _i, _i,
                           _p, _f, _i, _i, _p, _i, _i, _i, _i, _i, _p,
-                          _p, _i, _i, _p, _p, _p, _p, _p],
+                          _p, _i, _i, _p, _p, _p, _i, _p, _p, _p],
     "crt_gbuffer": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p, _i, _i, _i,
                     _f, _f, _i, _i, _i, _i, _i, _p, _p, _i, _i, _i, _p, _i,
                     _i, _p, _p, _p, _p, _p],

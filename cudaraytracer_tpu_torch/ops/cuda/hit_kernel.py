@@ -17,8 +17,9 @@ G-buffer: with ``has_media`` it runs the constant-medium test on medium
 columns (given the iteration's medium uniforms; without them they never
 hit) and with a ``time`` per ray it moves spheres to their shutter-time
 centres, as csrc/search.cuh does.  ``culled_closest`` walks the
-kernels' culled traversal (two levels, or three with the block boxes
-of the megakernel's walk) and ``search_work`` counts with it the box and
+kernels' culled traversal (two levels, three with the block boxes of the
+refilling megakernel's walk, or the tree of the other megakernel
+instantiations' walk) and ``search_work`` counts with it the box and
 primitive tests a set of rays needs: the operation count behind each
 kernel's bound (``OPS``).
 """
@@ -33,7 +34,7 @@ from . import build
 from .tables import (BIG, CLUSTER, STREAM_BLOCK_B, STREAM_GROUP_G, SUPER,
                      S_AAX, S_BAX, S_CA, S_CB, S_CK, S_CX, S_CY, S_CZ, S_D1,
                      S_D2, S_DENS, S_DN, S_HA, S_HB, S_KAX, S_PTYPE, S_R2,
-                     S_VX, S_VY, S_VZ, block_count)
+                     S_VX, S_VY, S_VZ, TREE_LEAF, block_count)
 
 # rays per brute-force chunk: chunk * NP stays near 2^24 elements on the
 # CPU and 2^26 on a GPU (a few GB of temporaries)
@@ -359,9 +360,9 @@ def culled_closest(S, clusters, supers, n_super, org, dirn,
                    cluster: int = CLUSTER, super_: int = SUPER,
                    group_boxes=None, group_g: int = STREAM_GROUP_G,
                    streamed: bool = False, warps=None,
-                   packet: int = 0) -> tuple:
+                   packet: int = 0, tree=None) -> tuple:
     """csrc/search.cuh's culled walk on tensors, all rays at once in
-    table order with each ray's running best_t: ``closest_hit`` (every
+    table order with each ray's running best_t: the two-level walk (every
     supercluster box, then the cluster boxes of those entered) or, with
     ``block_boxes`` (f32[6, >= ceil(n_super / block_b)], tables.
     block_boxes), ``closest_hit_blocks`` (a block's box first, then its
@@ -381,7 +382,9 @@ def culled_closest(S, clusters, supers, n_super, org, dirn,
     ``PK_SUPER``) a box is tested by a ray only where the packet test of
     its warp (``packet_pass``) passed it, a level of more than one box;
     without ``block_boxes`` the blocks are the superclusters (two
-    levels).
+    levels).  With ``tree`` (f32[7, M], ``tables.tree_nodes``) it is
+    ``closest_hit_tree``, the walk of the megakernel where it does not
+    refill (``tree_walk``).
     Returns (best_t, col, bu, bv, work): the closest hit as
     ``brute_closest`` gives it (col -1 on a miss; bu, bv the winner's
     barycentrics with ``with_uv``, else 0) and the tests counted as
@@ -403,10 +406,11 @@ def culled_closest(S, clusters, supers, n_super, org, dirn,
     med = ptype > 4.5
     moving = sph & ((S[S_VX] != 0.0) | (S[S_VY] != 0.0) | (S[S_VZ] != 0.0))
 
-    def per_cluster(mask):
-        return mask.reshape(-1, cluster).sum(1).tolist()
+    def prefix(mask):
+        """Columns of each type before column j: the counts of a range."""
+        return [0] + torch.cumsum(mask.to(torch.int64), 0).tolist()
 
-    n_sph, n_rect, n_tri, n_med, n_box, n_mov = (per_cluster(m) for m in (
+    n_sph, n_rect, n_tri, n_med, n_box, n_mov = (prefix(m) for m in (
         sph, (ptype > 0.5) & (ptype < 3.5), (ptype > 3.5) & (ptype < 4.5),
         med, med & (S[S_HA] > 0.0), moving))
     work = {"entered": 0, "box": 0, "sphere": 0, "rect": 0, "tri": 0}
@@ -418,31 +422,32 @@ def culled_closest(S, clusters, supers, n_super, org, dirn,
         work["motion"] = 0
     flat = has_rects or has_tris or has_media
 
-    def enter(ci, r):
-        """Ray indices r enter cluster ci: count and run its tests."""
+    def run(j0, j1, kind, r):
+        """Ray indices r test columns j0 .. j1 - 1, dispatched on their
+        cluster's kind: count and run the tests."""
         m = r.numel()
-        work["entered"] += m
-        kind = kinds[ci]
+
+        def cnt(c):
+            return m * (c[j1] - c[j0])
         if has_media and kind > 3.5:
             if u_med is None:
                 return  # the G-buffer skips medium clusters
-            work["med"] += m * n_med[ci]
-            work["med_box"] += m * n_box[ci] if has_boxm else 0
-            work["med_rot"] += m * n_box[ci] if has_rotm else 0
+            work["med"] += cnt(n_med)
+            work["med_box"] += cnt(n_box) if has_boxm else 0
+            work["med_rot"] += cnt(n_box) if has_rotm else 0
         elif flat and 0.5 < kind < 1.5:
-            work["rect"] += m * n_rect[ci]
+            work["rect"] += cnt(n_rect)
         elif flat and kind > 2.5:
-            work["tri"] += m * n_tri[ci]
+            work["tri"] += cnt(n_tri)
         else:  # spheres, or the mixed cluster's per-type tests
-            work["sphere"] += m * n_sph[ci]
+            work["sphere"] += cnt(n_sph)
             if flat:
-                work["rect"] += m * n_rect[ci]
-                work["tri"] += m * n_tri[ci] if has_tris else 0
+                work["rect"] += cnt(n_rect)
+                work["tri"] += cnt(n_tri) if has_tris else 0
             if time is not None:
-                work["motion"] += m * n_mov[ci]
-        cols = slice(ci * cluster, (ci + 1) * cluster)
+                work["motion"] += cnt(n_mov)
         bt, jc, *uv = brute_closest(
-            S[:, cols].contiguous(), org[r], dirn[r], t_min,
+            S[:, j0:j1].contiguous(), org[r], dirn[r], t_min,
             best_t[r], has_rects, has_tris, with_uv,
             has_media=has_media,
             u_med=None if u_med is None else u_med[r],
@@ -450,13 +455,21 @@ def culled_closest(S, clusters, supers, n_super, org, dirn,
             has_boxm=has_boxm, has_rotm=has_rotm)
         won = jc >= 0
         best_t[r] = bt
-        col[r[won]] = jc[won] + ci * cluster
+        col[r[won]] = jc[won] + j0
         if with_uv:
             bu[r[won]] = uv[0][won]
             bv[r[won]] = uv[1][won]
 
+    def enter(ci, r):
+        """Ray indices r enter cluster ci: count and run its tests."""
+        work["entered"] += r.numel()
+        run(ci * cluster, (ci + 1) * cluster, kinds[ci], r)
+
     every = torch.arange(n, device=dev)
     n_super = int(n_super)
+    if tree is not None:
+        tree_walk(tree, org, d_inv, t_min, best_t, run, work)
+        return best_t, col, bu, bv, work
     if warps is not None:
         if block_boxes is None:  # two levels: the blocks are superclusters
             block_boxes, block_b = supers, 1
@@ -507,6 +520,46 @@ def culled_closest(S, clusters, supers, n_super, org, dirn,
                 if r.numel():
                     enter(ci, r)
     return best_t, col, bu, bv, work
+
+
+def tree_walk(tree, org, d_inv, t_min: float, best_t, run, work: dict):
+    """search.cuh::closest_hit_tree over all rays at once (the body of
+    ``culled_closest`` with ``tree``): each ray keeps its node, and the
+    nodes are taken in pre-order, each for the rays that stand at it, so
+    every ray visits its nodes in its own order with its own running
+    best_t.  A ray that enters a node's box (``tree``, f32[7, M],
+    ``tables.tree_nodes``) goes on to the next node, one that misses it
+    to the node's skip link; at a leaf both go on, and those that enter
+    it test its TREE_LEAF columns (``run``: first column, end, the
+    cluster's kind, the rays).  Adds the node and leaf box tests to
+    work["box"] and the cluster nodes the rays enter to
+    work["entered"]."""
+    m = int(tree.shape[1])
+    if tuple(tree.shape[:1]) != (7,):
+        raise ValueError(f"tree must be f32[7, M], got {list(tree.shape)}")
+    links = [int(v) for v in tree[6].tolist()]
+    at = torch.zeros(org.shape[0], dtype=torch.int64, device=org.device)
+    while True:
+        left = at[at < m]
+        if left.numel() == 0:
+            return
+        node = int(left.min())
+        r = torch.nonzero(at == node).squeeze(1)
+        work["box"] += r.numel()
+        inside = _box_enter(tree, node, org[r], d_inv[r], t_min, best_t[r])
+        v = links[node]
+        if v < 0:  # a leaf: its columns, then the next node
+            ri = r[inside]
+            if ri.numel():
+                code = -1 - v
+                j0 = code >> 3
+                run(j0, j0 + TREE_LEAF, float(code & 7), ri)
+            at[r] = node + 1
+            continue
+        if v & 1:  # a cluster
+            work["entered"] += int(inside.sum())
+        at[r[inside]] = node + 1
+        at[r[~inside]] = v >> 1
 
 
 # the packet test's levels (csrc/search.cuh PK_*): blocks, superclusters;
@@ -710,7 +763,8 @@ def search_work(S, clusters, supers, n_super, org, dirn, t_min: float = 1e-3,
                 has_boxm: bool = False, has_rotm: bool = False,
                 cluster: int = CLUSTER, super_: int = SUPER,
                 group_boxes=None, group_g: int = STREAM_GROUP_G,
-                streamed: bool = False, warps=None, packet: int = 0) -> dict:
+                streamed: bool = False, warps=None, packet: int = 0,
+                tree=None) -> dict:
     """Count the tests the kernel's culled search needs for rays (org,
     dirn): {"entered": the (ray, cluster) entries, clusters whose box a
     ray entered (the megakernel's cull statistic), "box": block,
@@ -718,8 +772,8 @@ def search_work(S, clusters, supers, n_super, org, dirn, t_min: float = 1e-3,
     primitive tests, "med_box"/"med_rot": tests of box media (the box
     chord) and of yawed box media (the rotation), "motion": tests of
     moving spheres (the centre at the path's time)}.  It replays the walk
-    (``culled_closest``: csrc/search.cuh::closest_hit, or with
-    ``block_boxes`` closest_hit_blocks, or with ``streamed`` too
+    (``culled_closest``: the two-level walk, or with ``block_boxes``
+    csrc/search.cuh::closest_hit_blocks, or with ``streamed`` too
     closest_hit_streamed) cluster by cluster over all rays at once, so a
     cluster counts for a ray only where the kernel would enter it; every
     walk enters the same clusters, those with more levels test fewer
@@ -730,14 +784,16 @@ def search_work(S, clusters, supers, n_super, org, dirn, t_min: float = 1e-3,
     count, not the padding columns the kernel's loop also runs over (r^2
     = -1 spheres).  With ``warps`` it replays the packet walk
     (closest_hit_packet, ``packet`` its levels) and adds its counters
-    (``HIT_STATS``).  Runs on any device."""
+    (``HIT_STATS``).  With ``tree`` it replays closest_hit_tree: "box"
+    counts its node and leaf box tests, and the primitive tests are those
+    of the leaves entered.  Runs on any device."""
     return culled_closest(
         S, clusters, supers, n_super, org, dirn, t_min,
         block_boxes=block_boxes, block_b=block_b, has_rects=has_rects,
         has_tris=has_tris, has_media=has_media, u_med=u_med, time=time,
         has_boxm=has_boxm, has_rotm=has_rotm, cluster=cluster,
         super_=super_, group_boxes=group_boxes, group_g=group_g,
-        streamed=streamed, warps=warps, packet=packet)[-1]
+        streamed=streamed, warps=warps, packet=packet, tree=tree)[-1]
 
 
 def streamed_closest(tiles, block_boxes, clusters, supers, n_blocks,

@@ -42,12 +42,14 @@ change the table layout or its meaning) whose rects/noise/media/boxm
 flags include the scene's (their branches are inert on columns without
 the feature); any other combination raises ``NotImplementedError``.
 
-* CUDA tensors launch ``csrc/render_kernel.cu``, one thread per pixel;
-  the media instantiations (``refills``) run a persistent grid whose
-  warps take batches of 32 band pixels (``batch_pixels``) and refill a
-  lane with the batch's next pixel when its pixel is done, searching
-  with the three-level walk over the block boxes (``block_boxes``,
-  required on the card).
+* CUDA tensors launch ``csrc/render_kernel.cu``, one thread per pixel,
+  searching with the tree walk over ``tree`` (``tables.tree_nodes``,
+  required on the card; its launches count in
+  ``render_sample.tree_launches`` too); the media instantiations
+  (``refills``) run a persistent grid whose warps take batches of 32
+  band pixels (``batch_pixels``) and refill a lane with the batch's next
+  pixel when its pixel is done, searching with the three-level walk over
+  the block boxes (``block_boxes``, required on the card).
 * CPU tensors run ``render_sample_plain``: the same per-lane state machine
   over whole-image tensors in lockstep iterations, with the brute-force
   search of ``hit_kernel.brute_closest`` and the same random draws
@@ -371,7 +373,8 @@ def mask_grid(width: int, height: int, tile) -> tuple:
 def _check(S, P, clusters, supers, n_super, cam_vec, max_depth, width,
            height, camera_model, spp, rr_start, cluster, super_, atlas,
            tex_hw, has_vattrs, has_tris, has_motion, has_nee, lights,
-           sample_base, tile_mask, tile, y0, band_h, stream_b, block_boxes):
+           sample_base, tile_mask, tile, y0, band_h, stream_b, block_boxes,
+           tree=None):
     check_frame_args(S, P, clusters, supers, n_super, cam_vec, width, height,
                      camera_model, cluster, super_, atlas, tex_hw,
                      has_vattrs, has_tris, has_motion, has_nee, lights,
@@ -390,6 +393,13 @@ def _check(S, P, clusters, supers, n_super, cam_vec, max_depth, width,
                 f"block_boxes must be a contiguous f32[6, {nbc}] on "
                 f"{S.device} (tables.block_boxes of the {supers.shape[1]} "
                 "superclusters)")
+    if tree is not None and (
+            stream_b or not isinstance(tree, torch.Tensor)
+            or tree.dtype != torch.float32 or tree.dim() != 2
+            or tree.shape[0] != 7 or not tree.is_contiguous()
+            or tree.device != S.device):
+        raise ValueError(f"tree must be a contiguous f32[7, M] on {S.device} "
+                         "(tables.tree_nodes of the resident tables)")
     # the band: band_h None means the rows from y0 to the image's end
     y0 = int(y0)
     band_h = height - y0 if band_h is None else int(band_h)
@@ -634,7 +644,8 @@ def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
                         cluster: int = CLUSTER, super_: int = SUPER,
                         block_boxes=None, sched_stats=None,
                         group_boxes=None, stream_stats=None,
-                        work: dict | None = None, pixel_rays=None):
+                        work: dict | None = None, pixel_rays=None,
+                        tree=None):
     """Plain PyTorch version of the megakernel (see the module docstring).
     Same arguments and results as ``render_sample``; runs on any device
     and takes any combination of the flags.  ``with_cull_stats`` replays
@@ -646,8 +657,11 @@ def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
     page and column (``tables.tile_columns``).  With ``block_boxes`` and
     ``has_media`` the replayed search is the refilling kernel's
     three-level walk (``search_work`` then counts its block-box tests; it
-    enters the same clusters as the two-level one).  ``sched_stats`` and ``stream_stats`` are the kernels' own readings of
-    their scheduler and walk and raise here.
+    enters the same clusters as the two-level one), and with ``tree``
+    and without media the tree walk of the kernel that does not refill
+    (``search_work`` then counts its node and leaf tests and the leaves'
+    primitive tests).  ``sched_stats`` and ``stream_stats`` are the
+    kernels' own readings of their scheduler and walk and raise here.
 
     ``work``: a dict to which the run adds what the kernel's work is
     counted from: "raygen", "miss", surface "hit" and "medium" hit lanes,
@@ -664,7 +678,7 @@ def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
                         width, height, camera_model, spp, rr_start, cluster,
                         super_, atlas, tex_hw, has_vattrs, has_tris,
                         has_motion, has_nee, lights, sample_base, tile_mask,
-                        tile, y0, band_h, stream_b, block_boxes)
+                        tile, y0, band_h, stream_b, block_boxes, tree)
     if sched_stats is not None:
         raise ValueError("sched_stats reads the refilling kernel's "
                          "scheduler: the plain version has none")
@@ -790,7 +804,9 @@ def render_sample_plain(S, P, clusters, supers, n_super, cam_vec, seed,
                              group_boxes=group_boxes,
                              streamed=bool(stream_b), has_rects=has_rects,
                              has_tris=has_tris, u_med=u_med, time=time,
-                             cluster=cluster, super_=super_, **med_kw)
+                             cluster=cluster, super_=super_,
+                             tree=None if has_media or stream_b else tree,
+                             **med_kw)
             if not stream_b:
                 entered += sw["entered"]
         if work is not None:
@@ -1018,7 +1034,7 @@ def render_sample(S, P, clusters, supers, n_super, cam_vec, seed, max_depth,
                   band_h: int | None = None, with_cull_stats: bool = False,
                   stream_b: int = 0, cluster: int = CLUSTER,
                   super_: int = SUPER, block_boxes=None, sched_stats=None,
-                  group_boxes=None, stream_stats=None):
+                  group_boxes=None, stream_stats=None, tree=None):
     """``spp`` samples per pixel of the megakernel -> f32[band_h, width, 3]
     radiance SUM (divide by spp to display) of the image rows y0 .. y0 +
     band_h - 1 (the whole image by default), plus the int64 ray count (a
@@ -1063,7 +1079,11 @@ def render_sample(S, P, clusters, supers, n_super, cam_vec, seed, max_depth,
     resident kernel also takes ``block_boxes`` (``TorchTables.
     block_boxes``, ``tables.block_boxes``:
     the third culling level of the refilling kernel's walk; required on
-    the card), and in the refilling instantiations ``sched_stats``, an
+    the card), and ``tree`` (``TorchTables.tree``, ``tables.tree_nodes``:
+    the tree walk's, required on the card by the instantiations that do
+    not refill, whose launches also count in
+    ``render_sample.tree_launches``), and in the refilling
+    instantiations ``sched_stats``, an
     int64[2] tensor on the card, gets the lane and CTA slots added (the
     iterations each warp ran times 32, and each CTA's longest warp's
     times 128: the rays over them are the lane and CTA utilisation,
@@ -1080,7 +1100,7 @@ def render_sample(S, P, clusters, supers, n_super, cam_vec, seed, max_depth,
                         width, height, camera_model, spp, rr_start, cluster,
                         super_, atlas, tex_hw, has_vattrs, has_tris,
                         has_motion, has_nee, lights, sample_base, tile_mask,
-                        tile, y0, band_h, stream_b, block_boxes)
+                        tile, y0, band_h, stream_b, block_boxes, tree)
     feat = dict(has_noise=has_noise, has_media=has_media, has_boxm=has_boxm,
                 has_rotm=has_rotm, has_motion=has_motion, has_nee=has_nee)
     if S.device.type == "cpu":
@@ -1094,7 +1114,8 @@ def render_sample(S, P, clusters, supers, n_super, cam_vec, seed, max_depth,
             tile=tile, y0=y0, band_h=band_h, with_cull_stats=with_cull_stats,
             stream_b=stream_b, cluster=cluster, super_=super_,
             block_boxes=block_boxes, sched_stats=sched_stats,
-            group_boxes=group_boxes, stream_stats=stream_stats, **feat)
+            group_boxes=group_boxes, stream_stats=stream_stats, tree=tree,
+            **feat)
     if S.device.type != "cuda":
         raise ValueError(f"render_sample runs on cuda or cpu, not {S.device}")
     check_stream_extras(S, n_super, stream_b, group_boxes, stream_stats, True)
@@ -1104,6 +1125,10 @@ def render_sample(S, P, clusters, supers, n_super, cam_vec, seed, max_depth,
     if not stream_b and block_boxes is None:
         raise ValueError("the resident kernel needs block_boxes "
                          "(TorchTables.block_boxes)")
+    walks_tree = not stream_b and not refills(variant)
+    if walks_tree and tree is None:
+        raise ValueError("the resident kernel that does not refill needs "
+                         "tree (TorchTables.tree)")
     if sched_stats is not None and (
             stream_b or not refills(variant)
             or not isinstance(sched_stats, torch.Tensor)
@@ -1138,7 +1163,9 @@ def render_sample(S, P, clusters, supers, n_super, cam_vec, seed, max_depth,
             *(sx if stream_b else (
                 block_boxes.data_ptr(), block_boxes.shape[1], STREAM_BLOCK_B,
                 counts[2:].data_ptr(),
-                None if sched_stats is None else sched_stats.data_ptr())),
+                None if sched_stats is None else sched_stats.data_ptr(),
+                tree.data_ptr() if walks_tree and tree.numel() else None,
+                tree.shape[1] if walks_tree else 0)),
             out.data_ptr(), counts.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     build.check(lib, entry, rc)
@@ -1146,6 +1173,7 @@ def render_sample(S, P, clusters, supers, n_super, cam_vec, seed, max_depth,
         render_sample.streamed_launches += 1
     else:
         render_sample.launches += 1
+        render_sample.tree_launches += walks_tree
     stats = [c for c, on in zip(counts[:2], (with_stats, with_cull_stats))
              if on]
     return (out, *stats) if stats else out
@@ -1153,6 +1181,9 @@ def render_sample(S, P, clusters, supers, n_super, cam_vec, seed, max_depth,
 
 render_sample.launches = 0
 render_sample.streamed_launches = 0
+render_sample.tree_launches = 0
 trace.register("render_sample.launches", render_sample)
+trace.register("render_sample.tree_launches", render_sample,
+               "tree_launches")
 trace.register("render_sample.streamed_launches", render_sample,
                "streamed_launches")

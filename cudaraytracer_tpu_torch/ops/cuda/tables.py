@@ -10,7 +10,8 @@ the tables on a device, and the scene's static kernel flags
 ``kernel_inputs``, which sets up tables, flags and atlas for the kernels
 as the render loop does, ``nee_inputs``, the megakernel's NEE light
 table, ``mask_tile``, the adaptive mask's tiles as the JAX pipeline
-picks them, and the streamed layout of the tables
+picks them, ``tree_nodes``, the tree of the megakernel's walk where it
+does not refill, and the streamed layout of the tables
 (``pack_stream_tiles``, ``stream_tables_to_torch``) with its route on
 the card (``streams_on_card``: the tables against a share of the
 card's L2, ``stream_budget``).  Active scenes without media or motion
@@ -144,6 +145,8 @@ class SceneTables(_t.NamedTuple):
     motion: bool = False  # P has velocity rows (pass has_motion=)
     # f32[6, block_count(NSC)] block AABBs of the resident walk (block_boxes)
     block_boxes: "np.ndarray | None" = None
+    # f32[7, M] the non-refilling walk's tree (tree_nodes); None with media
+    tree: "np.ndarray | None" = None
 
 
 def _npad_for(scene, cluster: int = CLUSTER, super_: int = SUPER) -> int:
@@ -261,7 +264,9 @@ def _pack_scene_tables_native(scene, idx, with_uv: bool, cluster: int,
     return SceneTables(S, P, clusters, supers, n_super, prim_map, cluster,
                        super_, vattrs=with_vattrs, motion=False,
                        block_boxes=block_boxes(supers, n_super, block_count(
-                           supers.shape[1])))
+                           supers.shape[1])),
+                       tree=tree_nodes(prim_map, idx, bmin0, bmax0, clusters,
+                                       supers, n_super, cluster, super_))
 
 
 def pack_scene_tables_numpy(scene, with_uv: bool = False,
@@ -533,10 +538,19 @@ def pack_scene_tables_numpy(scene, with_uv: bool = False,
         khi = khi.reshape(nc_used, cluster).max(1)
         clusters[6, :nc_used] = np.where(klo == khi, klo, 2)
 
+    # the tree of the walk that does not refill: none with media (their
+    # instantiations refill lanes and walk the block boxes)
+    tree = None
+    if not (n and bool((scene.mat_type[idx] == 4).any())):
+        if not n:
+            bmin0 = bmax0 = np.zeros((0, 3), np.float32)
+        tree = tree_nodes(prim_map, idx, bmin0, bmax0, clusters, supers,
+                          n_super, cluster, super_)
     return SceneTables(S, P, clusters, supers, n_super, prim_map,
                        cluster, super_, vattrs=with_vattrs,
                        motion=has_motion, block_boxes=block_boxes(
-                           supers, n_super, block_count(supers.shape[1])))
+                           supers, n_super, block_count(supers.shape[1])),
+                       tree=tree)
 
 
 def pack_camera_np(cam, background_start, background_end,
@@ -599,16 +613,19 @@ class TorchTables(_t.NamedTuple):
     motion: bool = False  # P has the velocity rows (has_motion)
     # f32[6, block_count(NSC)]: render_sample's block_boxes
     block_boxes: torch.Tensor | None = None
+    # f32[7, M]: render_sample's tree (tree_nodes), None with media
+    tree: torch.Tensor | None = None
 
 
 def tables_to_torch(t: SceneTables, device) -> TorchTables:
     """Upload packed tables to ``device`` (kilobytes to megabytes per
     scene edit)."""
-    S, P, clusters, supers, prim_map, boxes = trace.upload(
-        device, t.S, t.P, t.clusters, t.supers, t.prim_map, t.block_boxes)
+    S, P, clusters, supers, prim_map, boxes, *tree = trace.upload(
+        device, t.S, t.P, t.clusters, t.supers, t.prim_map, t.block_boxes,
+        *(() if t.tree is None else (t.tree,)))
     return TorchTables(S, P, clusters, supers, int(t.n_super), prim_map,
                        int(t.cluster), int(t.super_), bool(t.vattrs),
-                       bool(t.motion), boxes)
+                       bool(t.motion), boxes, tree[0] if tree else None)
 
 
 def has_images(scene) -> bool:
@@ -817,6 +834,138 @@ def group_boxes(boxes, n_blocks: int,
     boxes = np.asarray(boxes)[:, :int(n_blocks)]
     n_used = int(np.count_nonzero(boxes[0] < BIG))
     return block_boxes(boxes, n_used, -(-int(n_blocks) // group_g), group_g)
+
+
+# The tree of the megakernel's walk where it does not refill
+# (csrc/search.cuh::closest_hit_tree): leaves of TREE_LEAF consecutive
+# columns, TREE_FAN children a node above the superclusters, a leaf box
+# padded by TREE_MARGIN times the scene's magnitude (search.cuh states
+# why that covers the primitive tests' rounding).
+TREE_LEAF = 4
+TREE_FAN = 4
+TREE_MARGIN = 2.0 ** -16
+
+
+def _unions(lo, hi, used, fan: int):
+    """The boxes of the parents of ``fan`` consecutive boxes each (lo, hi
+    f32[n, 3], the used ones ``used``): exact min and max over the used
+    children -> (lo, hi, used children count)."""
+    n = -(-len(lo) // fan)
+    pad = n * fan - len(lo)
+    inf = np.float32(np.inf)
+    lo = np.concatenate([np.where(used[:, None], lo, inf),
+                         np.full((pad, 3), inf, np.float32)])
+    hi = np.concatenate([np.where(used[:, None], hi, -inf),
+                         np.full((pad, 3), -inf, np.float32)])
+    count = np.concatenate([used, np.zeros(pad, bool)]).reshape(n, fan)
+    return (lo.reshape(n, fan, 3).min(1), hi.reshape(n, fan, 3).max(1),
+            count.sum(1))
+
+
+def tree_nodes(prim_map, idx, bmin, bmax, clusters, supers, n_super: int,
+               cluster: int = CLUSTER,
+               super_: int = SUPER) -> np.ndarray | None:
+    """The non-refilling walk's tree in pre-order, f32[7, M]: rows 0-5 a
+    node's box, row 6 its link.
+
+    Levels, from the leaves: groups of TREE_LEAF consecutive columns
+    (the primitives' boxes ``bmin``/``bmax`` of the active slots ``idx``,
+    ascending, through ``prim_map``; their union padded outward by
+    TREE_MARGIN times the largest coordinate of a used cluster box), the
+    clusters and the used superclusters (their tables' boxes), then
+    TREE_FAN superclusters (the blocks of ``block_boxes``) and TREE_FAN
+    nodes of each level up to one root (exact unions).  A node without a
+    primitive is left out, and so is one of the superclusters or above
+    with a single child (its box is the child's), which takes its place.
+    Children are in ascending order, so the pre-order visits the clusters
+    and columns in table order.
+
+    The link (integers, exact in f32): a leaf's is -1 - (8 * its first
+    column + its cluster's kind), and the walk goes on to the next node;
+    another node's is 2 * skip + (1 for a cluster), skip the pre-order
+    index past its subtree (M past the last node), where the walk goes
+    when the ray misses the box.  None where the links would pass 2^24
+    (over 2M columns: tables that stream on the card)."""
+    g = cluster // TREE_LEAF
+    if cluster % TREE_LEAF or g > 8:
+        raise ValueError(f"cluster {cluster} is not 1-8 leaves of "
+                         f"{TREE_LEAF} columns")
+    n_super = int(n_super)
+    n_c = n_super * super_
+    f32, inf = np.float32, np.float32(np.inf)
+    # the columns' boxes, +inf/-inf (neutral) on padding columns
+    slot = np.asarray(prim_map[:n_c * cluster], np.int64)
+    real = slot >= 0
+    at = np.searchsorted(np.asarray(idx), slot[real])
+    clo = np.full((n_c * cluster, 3), inf, f32)
+    chi = np.full((n_c * cluster, 3), -inf, f32)
+    clo[real], chi[real] = np.asarray(bmin, f32)[at], np.asarray(bmax, f32)[at]
+    n_g = n_c * g
+    glo = clo.reshape(n_g, TREE_LEAF, 3).min(1)
+    ghi = chi.reshape(n_g, TREE_LEAF, 3).max(1)
+    g_used = real.reshape(n_g, TREE_LEAF).any(1)
+    c_used = np.asarray(clusters[0, :n_c]) < BIG
+    cbox = np.asarray(clusters[0:6, :n_c], f32).T
+    scale = float(np.abs(cbox[c_used]).max()) if c_used.any() else 0.0
+    margin = f32(TREE_MARGIN * scale)
+    glo, ghi = glo - margin, ghi + margin
+    # the levels from the leaves: (lo, hi, emitted, fan to the parent)
+    sbox = np.asarray(supers[0:6, :n_super], f32).T
+    s_kids = c_used.reshape(n_super, super_).sum(1)
+    levels = [(glo, ghi, g_used, g), (cbox[:, :3], cbox[:, 3:], c_used,
+                                      super_),
+              (sbox[:, :3], sbox[:, 3:], s_kids >= 2, TREE_FAN)]
+    lo, hi, used = sbox[:, :3], sbox[:, 3:], s_kids >= 1
+    while len(lo) > 1:
+        lo, hi, kids = _unions(lo, hi, used, TREE_FAN)
+        used = kids >= 1
+        levels.append((lo, hi, kids >= 2, TREE_FAN))
+    top = len(levels) - 1
+    # each node's index at every level above it (its ancestors'), and -1
+    # below: sorted lexicographically from the top, the pre-order
+    keys, boxes, links, nodes = [], [], [], []
+    for lv, (lo, hi, emit, _) in enumerate(levels):
+        i = np.nonzero(emit)[0]
+        anc, k = [], i
+        for a in range(top + 1):
+            if a < lv:
+                anc.append(np.full(len(i), -1, np.int64))
+                continue
+            anc.append(k)
+            k = k // levels[a][3]
+        keys.append(np.stack(anc))
+        boxes.append(np.concatenate([lo[i], hi[i]], 1))
+        nodes.append((lv, i))
+    key = np.concatenate(keys, 1)
+    order = np.lexsort(key)
+    m = key.shape[1]
+    if 8 * n_c * cluster + 8 >= 1 << 24 or 2 * m + 2 >= 1 << 24:
+        return None  # links past f32's integers: such tables stream
+    pos = np.empty(m, np.int64)
+    pos[order] = np.arange(m)
+    # the nodes of a subtree: those whose ancestor at its level it is
+    size = np.zeros(m, np.int64)
+    first = 0
+    for lv, i in nodes:
+        below = key[lv] >= 0
+        count = np.bincount(key[lv][below], minlength=len(levels[lv][0]))
+        size[first:first + len(i)] = count[i]
+        first += len(i)
+    skip = pos + size
+    first = 0
+    for lv, i in nodes:
+        sl = slice(first, first + len(i))
+        if lv == 0:
+            kind = np.asarray(clusters[6], np.int64)[i // g]
+            j0 = (i // g) * cluster + (i % g) * TREE_LEAF
+            links.append(-1 - (8 * j0 + kind))
+        else:
+            links.append(2 * skip[sl] + (lv == 1))
+        first += len(i)
+    out = np.empty((7, m), f32)
+    out[0:6] = np.concatenate(boxes).T[:, order]
+    out[6] = np.concatenate(links)[order]
+    return out
 
 
 def stream_rows(p_rows: int) -> int:

@@ -97,7 +97,7 @@ def render_sharded_sample(tables, n_super, cam_vec, seed, max_depth, *,
     ``render_sample``'s other keywords (camera model, Russian roulette,
     the scene's static flags, the atlas, NEE with its light table, QMC,
     cluster sizes, ``stream_b`` with the streamed ``group_boxes``, or the
-    resident ``block_boxes``), the same at every place.  Band ``ri`` is
+    resident ``block_boxes`` and ``tree``), the same at every place.  Band ``ri`` is
     the image rows ri * band_h .. (ri + 1) * band_h - 1 with band_h =
     height / n_rows; the places are ``band_launches``.
 

@@ -2,16 +2,16 @@
 speed, on one GPU.
 
     python -m cudaraytracer_tpu_torch.scripts.design_sweep
-        [--variants committed,no_refill,refill_all,two_level,media6]
+        [--variants committed,refill_all,leaf7,media6]
         [--parent DIR] [--cases book2_final/nee_qmc,terrain_big,default]
         [--reps 10] [--out F.json]
 
 A variant is this package with edits to its sources that take one
 design part out or change it (``EDITS``; joined with "+" they combine).
-The resident megakernel's (csrc/render_kernel.cu): ``no_refill`` (no
-instantiation refills lanes: the one-thread-per-pixel grid everywhere),
-``refill_all`` (every instantiation does), ``two_level`` (the refilling
-kernel searches with search.cuh::closest_hit, without the block level),
+The resident megakernel's (csrc/render_kernel.cu): ``refill_all`` (every
+instantiation refills lanes; the media ones pack no tree, so the
+one-thread-per-pixel grid cannot serve them), ``leaf7`` (the tree walk's
+leaves of 7 columns in place of 4: tables.TREE_LEAF, search.cuh kLeaf),
 ``bound<k>`` (the resident entries launch-bounded to k CTAs of 128
 threads per SM) and ``media<k>`` (the refilling media entry alone);
 ``sbound<k>`` and ``gbound<k>``, the streamed megakernel's and
@@ -75,7 +75,7 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parents[1]
 CASES = ("book2_final/nee_qmc", "terrain_big", "default", "rtow_final",
          "cornell_smoke")
-ENTRIES = ("__launch_bounds__(kThreads)\nrender_kernel(",
+ENTRIES = ("__launch_bounds__(kThreads, 6)\nrender_kernel(",
            "__launch_bounds__(kThreads)\nrender_kernel_refill(",
            "__launch_bounds__(kThreads, 6)\nrender_kernel_media(")
 # the streamed entries' launch bounds: the megakernel's, the G-buffer's
@@ -125,15 +125,11 @@ EDITS = {
                   f"STREAM_GROUP_G = {g}")] for g in (8, 32)},
     "no_groups": [("ops/cuda/tables.py", "STREAM_GROUP_G = 16",
                    "STREAM_GROUP_G = 1 << 20")],
-    "no_refill": [("  return (feat & crt::F_MEDIA) != 0;",
-                   "  return feat < 0;")],
     "refill_all": [("  return (feat & crt::F_MEDIA) != 0;",
                     "  return feat >= 0;")],
-    "two_level": [(
-        "j = crt::closest_hit_blocks<kRects, kTris, kUV, kSurf>(\n"
-        "          p.tb, rf->sd->bt, ray,",
-        "j = crt::closest_hit<kRects, kTris, kUV, kSurf>(\n"
-        "          p.tb, ray,")],
+    "leaf7": [("ops/cuda/tables.py", "TREE_LEAF = 4", "TREE_LEAF = 7"),
+              (_SEARCH, "constexpr int kLeaf = 4;",
+               "constexpr int kLeaf = 7;")],
 }
 
 
@@ -302,6 +298,8 @@ for case in cases:
         kw.update(nee_inputs(sc, dev), has_qmc=True, sample_base=8)
     rkw = dict(kw, block_boxes=tb.block_boxes) \
         if "block_boxes" in sig else dict(kw)
+    if "tree" in sig:
+        rkw["tree"] = tb.tree
     rargs = (tb.S, tb.P, tb.clusters, tb.supers, tb.n_super, cv, 7, depth)
     variant = render_variant(fl["has_rects"], fl["has_tris"],
                              fl["has_vattrs"], "atlas" in fl,
@@ -388,7 +386,7 @@ def run(root: str, cases, reps: int, cache: str) -> dict:
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--variants",
-                    default="committed,no_refill,refill_all,two_level")
+                    default="committed,refill_all,leaf7")
     ap.add_argument("--parent", default=None,
                     help="root of another checkout, timed as 'parent'")
     ap.add_argument("--cases", default=",".join(CASES))

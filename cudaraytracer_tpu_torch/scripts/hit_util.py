@@ -13,7 +13,7 @@ the walk's counters (``hit_stats``, csrc/search.cuh HS_*) through the
 counting entry, whose output must equal the timed launch's bit for bit
 and whose counters the plain walk's (``hit_kernel.culled_closest`` with
 the kernel's warps), and replays the parent's walk on the same rays
-(closest_hit's two levels, every supercluster box for every ray, no
+(the two-level walk: every supercluster box for every ray, no
 packet test: the plain walk without block boxes or packet levels) for
 its counters.  Per ray it reports the box tests by level and the
 clusters entered; per warp the clusters run (some lane enters them),
@@ -158,8 +158,8 @@ def gbuffer_rays(cam_vec, w, h, kw) -> tuple:
 
 
 def parent_walk(tb, fl, org, dirn, t_min, warps) -> dict:
-    """The parent's walk's HIT_STATS counts on these rays: closest_hit's
-    two levels, no packet test, the rays grouped in the kernel's warps."""
+    """The parent's walk's HIT_STATS counts on these rays: the two-level
+    walk, no packet test, the rays grouped in the kernel's warps."""
     work = hk.search_work(
         tb.S, tb.clusters, tb.supers, tb.n_super, org, dirn, float(t_min),
         has_rects=fl["has_rects"], has_tris=fl["has_tris"],

@@ -88,7 +88,7 @@ def run_case(case: str, width: int, height: int, spp: int, depth: int,
     args = (tb.S, tb.P, tb.clusters, tb.supers, tb.n_super, cv, 7, depth)
     kw = dict(width=width, height=height,
               camera_model=scenes.camera_model_for(name), spp=spp,
-              rr_start=2, block_boxes=tb.block_boxes, **flags)
+              rr_start=2, block_boxes=tb.block_boxes, tree=tb.tree, **flags)
     if opts == "nee_qmc":
         kw.update(nee_inputs(sc, dev), has_qmc=True, sample_base=8)
     elif opts:

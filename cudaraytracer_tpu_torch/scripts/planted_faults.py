@@ -348,7 +348,8 @@ for name in json.loads(sys.argv[1]):
     cv = torch.from_numpy(pack_camera_np(cam, sc.background_start,
                                          sc.background_end, W, H, 1e-3)).to(dev)
     a = (tb.S, tb.P, tb.clusters, tb.supers, tb.n_super, cv)
-    bb = dict(block_boxes=tb.block_boxes)  # the resident kernel's
+    bb = dict(block_boxes=tb.block_boxes)  # the resident walks'
+    rk = dict(bb, tree=tb.tree)  # the megakernel's: and its tree
     if opts.get("sched"):
         # 1277 x 719: a ragged batch at the right edge of every batch row
         # and at the bottom; then a band of 333 rows at y0 101 with half
@@ -365,7 +366,7 @@ for name in json.loads(sys.argv[1]):
                 y0=101, band_h=333, tile=(16, 128), tile_mask=torch.from_numpy(
                     m2.astype(np.int32)).to(dev)))):
             kw = dict(width=w2, height=h2, camera_model=model, spp=4,
-                      rr_start=2, with_stats=True, **fl, **bb,
+                      rr_start=2, with_stats=True, **fl, **rk,
                       **nee_inputs(sc, dev), has_qmc=True, sample_base=8,
                       **extra)
             if name != "book2_final":
@@ -426,7 +427,7 @@ for name in json.loads(sys.argv[1]):
             if name != "book2_final":  # NEE on the lit scene only
                 kw.pop("has_nee"), kw.pop("lights")
             ir, nr, cr = render_sample(*a, 7, 12, with_stats=True,
-                                       with_cull_stats=True, **kw, **bb)
+                                       with_cull_stats=True, **kw, **rk)
             is_, ns, cs = render_sample(
                 st.tiles, st.block_boxes, st.clusters, st.supers,
                 st.n_blocks, cv, 7, 12, stream_b=st.block_b,
@@ -442,9 +443,9 @@ for name in json.loads(sys.argv[1]):
                 "entries_off": int(cs) - int(cr), "group_boxes_off": g_off}
         if opts.get("bands"):
             full = render_sample(*a, 7, 12, stream=3, sample_base=8, **kw,
-                                 **bb)
+                                 **rk)
             bands = [render_sample(*a, 7, 12, stream=3, sample_base=8,
-                                   y0=180 * i, band_h=180, **kw, **bb)
+                                   y0=180 * i, band_h=180, **kw, **rk)
                      for i in range(4)]
             plain = render_sample_plain(*a, 7, 12, stream=3, sample_base=8,
                                         y0=180, band_h=180, **kw)
@@ -456,17 +457,17 @@ for name in json.loads(sys.argv[1]):
             from cudaraytracer_tpu_torch.parallel import tiling
             out = tiling.render_sharded_sample(
                 a[:4], a[4], a[5], 7, 12, mesh=tiling.make_mesh(
-                    2, 2, [dev] * 4), sample_base=8, **kw, **bb)
+                    2, 2, [dev] * 4), sample_base=8, **kw, **rk)
             want = torch.cat([sum(render_sample(
                 *a, 7, 12, y0=360 * ri, band_h=360, stream=2 * ri + si,
-                sample_base=8 + 4 * si, **kw, **bb) for si in range(2))
+                sample_base=8 + 4 * si, **kw, **rk) for si in range(2))
                 for ri in range(2)])
             res[name + "/shard"] = {"pixels": int((out != want).any(2).sum())}
         continue
     if name != "rtow_final":
         kw = dict(width=W, height=H, camera_model=model, spp=4, rr_start=2,
                   with_stats=True, **fl, **nee, **mk)
-        ik, nk = render_sample(*a, 7, 12, **kw, **bb)
+        ik, nk = render_sample(*a, 7, 12, **kw, **rk)
         ip, np_ = render_sample_plain(*a, 7, 12, **kw)
         e = (ik - ip).abs().amax(2)
         res[name + "/megakernel"] = {

@@ -142,15 +142,16 @@ def measure(n: int, shapes, device, mesh: str = "heightfield",
         stm = (st.tiles, st.block_boxes, st.clusters, st.supers,
                st.n_blocks, cv, 7, depth)
         bb = dict(block_boxes=tb.block_boxes)
-        a, na = render_sample(*res, with_stats=True, **kw, **bb)
+        walk = dict(bb, tree=tb.tree)
+        a, na = render_sample(*res, with_stats=True, **kw, **walk)
         skw = dict(stream_b=st.block_b, group_boxes=st.group_boxes)
         b, nb = render_sample(*stm, with_stats=True, **skw, **kw)
         if not torch.equal(a, b) or int(na) != int(nb):
             raise AssertionError(f"streamed != resident at n={n}")
-        r1 = _ms(lambda: render_sample(*res, **kw, **bb), cuda)
+        r1 = _ms(lambda: render_sample(*res, **kw, **walk), cuda)
         s1 = _ms(lambda: render_sample(*stm, **skw, **kw), cuda)
         s2 = _ms(lambda: render_sample(*stm, **skw, **kw), cuda)
-        r2 = _ms(lambda: render_sample(*res, **kw, **bb), cuda)
+        r2 = _ms(lambda: render_sample(*res, **kw, **walk), cuda)
         g_r = _ms(lambda: gbuffer(*res[:6], **gkw, **bb), cuda)
         g_s = _ms(lambda: gbuffer(*stm[:6], **skw, **gkw), cuda)
         row[f"{w}x{h}/{spp}spp/depth{depth}"] = {

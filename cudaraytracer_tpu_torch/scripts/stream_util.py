@@ -185,6 +185,8 @@ class Case:
 
     def render(self, streamed: bool, **extra):
         args, lay = self.layout(streamed)
+        if not streamed:  # and the resident megakernel's tree
+            lay = dict(lay, tree=self.tb.tree)
         return render_sample(*args, 7, self.depth, spp=self.spp, rr_start=2,
                              **self.kw, **self.opts, **lay, **extra)
 

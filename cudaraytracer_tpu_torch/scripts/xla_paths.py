@@ -270,7 +270,7 @@ def radiance_check(dev, emit) -> dict:
     img_m = (render_sample(tb.S, tb.P, tb.clusters, tb.supers, tb.n_super,
                            cv, 7, DEPTH, width=w, height=h,
                            camera_model="look_at", spp=RAD_SPP, rr_start=2,
-                           block_boxes=tb.block_boxes, **fl)
+                           block_boxes=tb.block_boxes, tree=tb.tree, **fl)
              / RAD_SPP).cpu().numpy()
     mean_err = float(np.abs(img_w.mean((0, 1)) - img_m.mean((0, 1))).max())
     bw = img_w.reshape(h // 10, 10, w // 10, 10, 3).mean((1, 3))

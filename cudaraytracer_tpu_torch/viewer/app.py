@@ -275,6 +275,12 @@ class _CudaPipeline:
         among the tables."""
         return {} if self.stream_b else {"block_boxes": self._tabs.block_boxes}
 
+    def _walk(self) -> dict:
+        """The megakernel's walk: the block boxes and, where it does not
+        refill, the tree (``tables.tree_nodes``; None with media)."""
+        return {} if self.stream_b else {
+            "block_boxes": self._tabs.block_boxes, "tree": self._tabs.tree}
+
     def _cam_vec(self, cam) -> torch.Tensor:
         cfg = self._cfg
         with _CAMERA:
@@ -303,7 +309,7 @@ class _CudaPipeline:
                 sample_base=sample_base,
                 tile_mask=self._mask if self.adaptive else None,
                 tile=self._tile, **layout, **self._flags, **self._nee,
-                **self._blocks())
+                **self._walk())
         if self.adaptive:
             n = tile_activity_plane(self._mask, self._grid, *self._tile)[
                 :cfg.height, :cfg.width] * float(spp)

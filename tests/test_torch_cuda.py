@@ -33,7 +33,9 @@ walk a warp's rays together (the packet walk): in a ragged 97x55 frame
 and on sorted bounce wavefronts (an odd n_alive) they equal the
 brute-force plain versions, their counting entries the timed ones, and
 their counters (``hit_stats``) the plain walk's; the walk's arguments
-are checked.
+are checked.  The megakernel's tree walk gives the plain version's
+accumulation bit for bit at 1280x720, and its cluster entries equal the
+plain replay of the walk; the refilling (media) launches walk no tree.
 """
 
 import os
@@ -156,7 +158,8 @@ def test_megakernel_matches_plain(cuda, model):
         cam, scene.background_start, scene.background_end, w, h,
         1e-3)).to(cuda)
     kw = dict(width=w, height=h, camera_model=model, spp=spp, rr_start=2,
-              with_stats=True, block_boxes=tb.block_boxes, **flags)
+              with_stats=True, block_boxes=tb.block_boxes, tree=tb.tree,
+              **flags)
     p0 = render_kernel.render_sample_plain.launches
     img_k, n_k = render_kernel.render_sample(
         tb.S, tb.P, tb.clusters, tb.supers, tb.n_super, cv, 11, 8, **kw)
@@ -213,7 +216,8 @@ def option_check(cuda, name, w=96, h=54, spp=2, **opts):
         cam, scene.background_start, scene.background_end, w, h,
         1e-3)).to(cuda)
     kw = dict(width=w, height=h, camera_model=model, spp=spp, rr_start=2,
-              with_stats=True, block_boxes=tb.block_boxes, **flags, **opts)
+              with_stats=True, block_boxes=tb.block_boxes, tree=tb.tree,
+              **flags, **opts)
     a = (tb.S, tb.P, tb.clusters, tb.supers, tb.n_super, cv, 11, 8)
     p0 = render_kernel.render_sample_plain.launches
     img_k, n_k = render_kernel.render_sample(*a, **kw)
@@ -298,7 +302,8 @@ def frame_args(name, dev, w, h):
     return ((tb.S, tb.P, tb.clusters, tb.supers, tb.n_super, cv),
             dict(width=w, height=h, camera_model=model, rr_start=2,
                  has_qmc=True, sample_base=3, cluster=tb.cluster,
-                 super_=tb.super_, block_boxes=tb.block_boxes, **flags))
+                 super_=tb.super_, block_boxes=tb.block_boxes, tree=tb.tree,
+                 **flags))
 
 
 @pytest.mark.parametrize("bands", [2, 4])
@@ -398,6 +403,45 @@ def test_megakernel_full_frame(cuda, name):
     frame_check(cuda, name, 1280, 720, spp=1, depth=4)
 
 
+@pytest.mark.parametrize("name", ["terrain_big", "rtow_final",
+                                  "cornell_mesh_light"])
+@pytest.mark.parametrize("nee", [False, True])
+def test_tree_walk_frames_equal_the_plain_version(cuda, name, nee):
+    """The tree walk (search.cuh::closest_hit_tree) at 1280x720, 1 spp,
+    depth 4, with and without NEE: the kernel's accumulation equals the
+    plain version's bit for bit, its (ray, cluster) entries the plain
+    replay of the tree walk, and the launch counts in
+    render_sample.tree_launches."""
+    a, kw = frame_args(name, cuda, 1280, 720)
+    if not nee:
+        kw.pop("has_nee"), kw.pop("lights")
+    kw.update(spp=1, with_stats=True, with_cull_stats=True)
+    n0 = render_kernel.render_sample.tree_launches
+    ik, nk, ck = render_kernel.render_sample(*a, 11, 4, **kw)
+    assert render_kernel.render_sample.tree_launches == n0 + 1
+    ip, np_, cp = render_kernel.render_sample_plain(*a, 11, 4, **kw)
+    assert torch.equal(ik, ip)
+    assert int(nk) == int(np_) and 0 < int(ck) == int(cp)
+
+
+def test_refilling_launches_walk_no_tree(cuda):
+    """book2_final (media: the refilling kernel) packs no tree and its
+    launches do not count in render_sample.tree_launches; a launch that
+    walks the tree needs one."""
+    a, kw = frame_args("book2_final", cuda, 64, 32)
+    assert kw["tree"] is None
+    n0, t0 = (render_kernel.render_sample.launches,
+              render_kernel.render_sample.tree_launches)
+    render_kernel.render_sample(*a, 7, 2, **kw)
+    assert render_kernel.render_sample.launches == n0 + 1
+    assert render_kernel.render_sample.tree_launches == t0
+    a, kw = frame_args("terrain", cuda, 64, 32)
+    kw.pop("tree")
+    with pytest.raises(ValueError, match="needs tree"):
+        render_kernel.render_sample(*a, 7, 2, **kw)
+    assert render_kernel.render_sample.tree_launches == t0
+
+
 @pytest.mark.parametrize("name,nee", [
     ("default", True), ("rtow_final", False), ("cornell_smoke", True),
     ("smoke", False), ("bounce", True), ("terrain", True),
@@ -460,7 +504,8 @@ def test_stream_probe_rejects_unaligned_tiles(cuda):
 
 def stream_setup(name, dev, w, h, nee=False, block_b=ttab.STREAM_BLOCK_B):
     """A scene's resident and streamed frame arguments, the streamed
-    keyword, the shared keywords and the resident kernel's block boxes."""
+    keyword, the shared keywords and the resident megakernel's walk (its
+    block boxes and tree; the G-buffer takes the block boxes alone)."""
     scene, cam = tscenes.SCENES[name][0](), tscenes.SCENES[name][1]()
     tb, kw = frame_setup(scene, dev)
     if nee:
@@ -475,7 +520,7 @@ def stream_setup(name, dev, w, h, nee=False, block_b=ttab.STREAM_BLOCK_B):
     return ((tb.S, tb.P, tb.clusters, tb.supers, tb.n_super, cv),
             (st.tiles, st.block_boxes, st.clusters, st.supers, st.n_blocks,
              cv), dict(stream_b=block_b, group_boxes=st.group_boxes), kw,
-            dict(block_boxes=tb.block_boxes))
+            dict(block_boxes=tb.block_boxes, tree=tb.tree))
 
 
 @pytest.mark.parametrize("name,nee,block_b", [
@@ -527,7 +572,7 @@ def test_streamed_kernels_match_plain(cuda, name):
 def test_streamed_gbuffer_equals_resident(cuda, name):
     res, stm, skw, kw, bb = stream_setup(name, cuda, 320, 180)
     n0 = gbuffer_kernel.gbuffer.streamed_launches
-    a = gbuffer_kernel.gbuffer(*res, **kw, **bb)
+    a = gbuffer_kernel.gbuffer(*res, **kw, block_boxes=bb["block_boxes"])
     b = gbuffer_kernel.gbuffer(*stm, **kw, **skw)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert gbuffer_kernel.gbuffer.streamed_launches == n0 + 1
@@ -583,7 +628,7 @@ def heightfield_setup(dev, w, h, n=120, nee=False):
     return ((tb.S, tb.P, tb.clusters, tb.supers, tb.n_super, cv),
             (st.tiles, st.block_boxes, st.clusters, st.supers, st.n_blocks,
              cv), dict(stream_b=st.block_b, group_boxes=st.group_boxes), kw,
-            dict(block_boxes=tb.block_boxes))
+            dict(block_boxes=tb.block_boxes, tree=tb.tree))
 
 
 @pytest.mark.parametrize("nee", [False, True])
@@ -610,7 +655,7 @@ def test_streamed_heightfield_equals_resident(cuda, nee):
     gkw = {k: v for k, v in kw.items() if k in (
         "width", "height", "camera_model", "has_rects", "has_tris",
         "has_vattrs")}
-    g_r = gbuffer_kernel.gbuffer(*res, **gkw, **bb)
+    g_r = gbuffer_kernel.gbuffer(*res, **gkw, block_boxes=bb["block_boxes"])
     g_s = gbuffer_kernel.gbuffer(*stm, **gkw, **skw)
     assert all(torch.equal(x, y) for x, y in zip(g_r, g_s))
 

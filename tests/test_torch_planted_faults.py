@@ -30,7 +30,10 @@ of the resident G-buffer and the closest hit: its packet test rounded
 inward, its tfar one ulp short and a mixed-sign axis culled on fail the
 packet test's conservativeness on corner-grazing packets and on
 packets whose directions differ in sign on one axis; a candidate block dropped and the last block skipped fail the
-walk against the two-level walk and brute force.  (The card's
+walk against the two-level walk and brute force.  The megakernel's tree
+walk: its leaf boxes left unpadded fail the walk against the two-level
+walk on rays that graze sphere poles, and a missed node's skip taken one
+node too far fails it on rays from inside the scene.  (The card's
 other streamed faults, a block dropped where one ray of a warp enters
 it, a page re-gated under a tighter or a stale best_t, are in the
 kernel's votes and gates, which the plain walk does not have.)
@@ -66,6 +69,7 @@ import test_torch_sampling as sampling_tests  # noqa: E402
 import test_torch_stream as stream_tests  # noqa: E402
 import test_torch_stream_probe as probe_tests  # noqa: E402
 import test_torch_stream_walk as walk_tests  # noqa: E402
+import test_torch_tree_walk as tree_tests  # noqa: E402
 
 from cudaraytracer_tpu_torch.ops import noise as tnoise  # noqa: E402
 from cudaraytracer_tpu_torch.ops import sampling as tsampling  # noqa: E402
@@ -245,6 +249,18 @@ FAULTS = {
         lambda: packet_tests.
         test_packet_walks_equal_two_level_walk_and_brute_force(
             "book2_final"), ()),
+    # the tree's leaf boxes not padded
+    "tree_leaf_unpadded": (
+        ttab, "tree_nodes", "margin = f32(TREE_MARGIN * scale)",
+        "margin = f32(0.0)",
+        lambda: tree_tests.test_tree_walk_equals_two_level(
+            "rtow_final", "grazing"), ()),
+    # a missed node's skip one node too far
+    "tree_skip_one_past": (
+        hk, "tree_walk", "at[r[~inside]] = v >> 1",
+        "at[r[~inside]] = (v >> 1) + 1",
+        lambda: tree_tests.test_tree_walk_equals_two_level(
+            "terrain", "inside"), ()),
 }
 
 # the later faults' checks as readings (name, function)
