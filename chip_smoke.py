@@ -88,7 +88,7 @@ all-feature probe with NEE and book2_final, and against the resident
 kernels bit for bit (pixels, rays, cluster entries) at 1280x720 on
 rtow_final, terrain_big and book2_final ``--nee --qmc`` (unmasked, half
 masked, a band); ``streamed_path`` writes a 1,036,800-triangle
-heightfield OBJ (``scripts/stream_crossover.py``) whose tables are
+heightfield OBJ (``models/scenes.py::heightfield``) whose tables are
 twice the card's L2 and renders it through ``render --obj ...
 --obj-smooth --denoise`` and ``render --obj ... --obj-smooth --nee`` at
 640x360: the streamed launch counts must be above 0 and the resident
@@ -364,7 +364,7 @@ def main():
                                                      atrous_denoise_plain)
     from cudaraytracer_tpu_torch.parallel import dryrun, tiling
     from cudaraytracer_tpu_torch.scripts import stream_probe as probe_script
-    from cudaraytracer_tpu_torch.scripts.stream_crossover import heightfield
+    from cudaraytracer_tpu_torch.models.scenes import heightfield
     from cudaraytracer_tpu_torch.scripts.stream_util import (
         counted_bound, group_boxes_off)
     from cudaraytracer_tpu_torch.scripts import (bounce_rays, bvh_paths,
@@ -1552,7 +1552,7 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         obj = os.path.join(tmp, "heightfield.obj")
         t0 = time.perf_counter()
-        mesh.save_obj(obj, *heightfield(hf_n))  # scripts/stream_crossover
+        mesh.save_obj(obj, *heightfield(hf_n))  # models/scenes.py
         path["obj_write_s"] = time.perf_counter() - t0
         for tag, extra, frames_p in (("smooth", ["--denoise"], 2),
                                      ("smooth_nee", ["--nee"], 1)):

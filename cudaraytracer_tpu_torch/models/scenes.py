@@ -6,7 +6,9 @@ arrays).  ``rtow_final`` is the main path: the "Ray Tracing in One
 Weekend" final scene (~488 spheres, checkered ground).  The mesh and
 image-texture scenes (``rtow_image``, ``mirror_room``, ``mesh_demo``,
 ``mesh_smooth``, ``terrain``, ``terrain_big``), OBJ import
-(``register_obj_scene``), the noise, media and motion scenes (``marble``,
+(``register_obj_scene``), the heightfield models set up as it sets up a
+model (``heightfield_scene``; ``heightfield_460k``, the streamed
+layout's workload), the noise, media and motion scenes (``marble``,
 ``smoke``, ``cornell_smoke``, ``bounce``), ``book2_final`` (every feature
 of the scene model in one render) and the unregistered
 ``all_feature_probe_scene`` are here.
@@ -487,19 +489,73 @@ def register_obj_scene(path, name: str | None = None, *,
         scene.add_mesh(v, m.faces, **attrs, **mat_kw)
         return scene
 
-    def make_cam(**kw):
-        return make_camera_params(
-            origin=(0.0, 0.9, 2.6), forward=(0.0, -0.22, -1.0),
-            fov_deg=50.0, **kw,
-        )
-
     if name is None:
         stem = os.path.splitext(os.path.basename(
             getattr(path, "name", None) or str(path)))[0]
         name = f"obj:{stem}"
-    SCENES[name] = (make_scene, make_cam)
+    SCENES[name] = (make_scene, obj_camera)
     CAMERA_MODELS[name] = "look_at"
     return name
+
+
+def obj_camera(**kw):
+    """The model viewer's pose of an OBJ model (``register_obj_scene``) and
+    of the heightfield models."""
+    return make_camera_params(
+        origin=(0.0, 0.9, 2.6), forward=(0.0, -0.22, -1.0), fov_deg=50.0,
+        **kw,
+    )
+
+
+def heightfield(n: int) -> tuple[np.ndarray, np.ndarray]:
+    """A heightfield of 2 n^2 triangles over [-1, 1]^2 (f32 vertices,
+    i64 faces), its heights a seeded wave plus noise."""
+    xs = np.linspace(-1.0, 1.0, n + 1, dtype=np.float32)
+    gx, gz = np.meshgrid(xs, xs)
+    gy = (0.15 * np.sin(4.0 * gx) * np.cos(3.0 * gz)
+          + 0.02 * np.random.RandomState(3).rand(*gx.shape)).astype(
+              np.float32)
+    v = np.stack([gx, gy, gz], -1).reshape(-1, 3)
+    i = (np.arange(n)[:, None] * (n + 1) + np.arange(n)[None, :]).ravel()
+    f = np.concatenate([np.stack([i, i + n + 1, i + 1], 1),
+                        np.stack([i + 1, i + n + 1, i + n + 2], 1)])
+    return v, f
+
+
+def heightfield_scene(n: int, smooth: bool = True,
+                      mesh: str = "heightfield") -> Scene:
+    """The heightfield (or a torus of n x n quads, ``mesh="torus"``) as
+    ``register_obj_scene(smooth=smooth)`` sets up a model: spanning
+    [-1, 1] (the torus centred and scaled to it), rested on the ground
+    rect at y = -0.5, the default lambertian albedo."""
+    if mesh == "torus":
+        from ..utils import mesh as meshlib
+
+        v, f = meshlib.torus(segments=n, sides=n)
+        v = (v * np.float32(2.0 / float(np.ptp(v, 0).max()))).astype(
+            np.float32)
+    elif mesh == "heightfield":
+        v, f = heightfield(n)
+    else:
+        raise ValueError(f"mesh {mesh!r}: heightfield or torus")
+    v[:, 1] -= v[:, 1].min() + 0.5
+    scene = Scene(capacity=len(f) + 16)
+    scene.add_xz_rect((0.0, -0.5, 0.0), 60.0, 60.0, tex_type=CHECKER,
+                      albedo=(0.2, 0.3, 0.1), albedo2=(0.9, 0.9, 0.9))
+    scene.add_mesh(v, f, smooth=smooth, albedo=(0.75, 0.73, 0.70))
+    return scene
+
+
+def heightfield_460k_scene(seed: int = 0, n: int = 480) -> Scene:
+    """The streamed route's workload: the smooth heightfield at 2 x 480^2
+    = 460,800 triangles on the checkered ground, lit by the sky.  Its
+    48.5 MB of resident tables (0.93 of an H100's L2) are past the card's
+    streaming budget (``ops/cuda/tables.py::stream_budget``), so both
+    kernels run their streamed entries.  ``seed`` is unused (the
+    heightfield's noise has a seed of its own), as in
+    ``terrain_big_scene``."""
+    del seed
+    return heightfield_scene(n)
 
 
 def marble_scene(capacity: int = 16) -> Scene:
@@ -756,6 +812,7 @@ SCENES = {
     "cornell_smoke": (cornell_smoke_scene, cornell_smoke_camera),
     "bounce": (bounce_scene, bounce_camera),
     "book2_final": (book2_final_scene, book2_final_camera),
+    "heightfield_460k": (heightfield_460k_scene, obj_camera),
 }
 
 # Each registered camera was authored for one projection model; rendering
@@ -778,6 +835,7 @@ CAMERA_MODELS = {
     "terrain": "look_at",
     "terrain_big": "look_at",
     "book2_final": "look_at",
+    "heightfield_460k": "look_at",
 }
 
 

@@ -30,6 +30,7 @@ import torch
 from ...utils import trace
 
 _PACK_TABLES = trace.span("crt.pack_tables")
+_PACK_STREAM = trace.span("crt.pack_stream")
 _UPLOAD = trace.span("crt.upload")
 _PACK_LIGHTS = trace.span("crt.pack_lights")
 
@@ -679,11 +680,14 @@ def kernel_inputs(scene, device, budget: int | None = None) -> tuple:
     velocity rows the packer finds, and ``kernel_flags``.  The tables
     are ``TorchTables``, or, when ``budget`` is given and they outgrow it
     (``streams_on_card``), ``TorchStreamTables`` (``pack_stream_tiles``,
-    passed with ``stream_b=block_b``).  The uploads are one span,
-    ``crt.upload``.  The route's counters, set at each build:
-    ``route.table_bytes`` (``table_bytes``, what ``streams_on_card``
-    compares), ``route.budget_bytes`` (``budget``, only where given) and
-    ``route.streamed`` (0 or 1)."""
+    passed with ``stream_b=block_b``; the re-tiling is the span
+    ``crt.pack_stream``).  The uploads are one span, ``crt.upload``.  The
+    route's counters, set at each build: ``route.table_bytes``
+    (``table_bytes``, what ``streams_on_card`` compares),
+    ``route.budget_bytes`` (``budget``, only where given),
+    ``route.streamed`` (0 or 1), ``route.stream_blocks`` (the streamed
+    layout's used blocks) and ``route.stream_bytes`` (``stream_bytes``,
+    the streamed tables on the device), both 0 for resident tables."""
     with _PACK_TABLES:
         images = has_images(scene)
         packed = pack_scene_tables(scene, with_uv=images)
@@ -692,7 +696,10 @@ def kernel_inputs(scene, device, budget: int | None = None) -> tuple:
         trace.RECORDER.set("route.table_bytes", nbytes)
         trace.RECORDER.set("route.budget_bytes", budget)
         trace.RECORDER.set("route.streamed", int(streamed))
-        tiles = pack_stream_tiles(packed) if streamed else None
+        tiles = None
+        if streamed:
+            with _PACK_STREAM:
+                tiles = pack_stream_tiles(packed)
         flags = kernel_flags(scene)
         with _UPLOAD:
             t = (stream_tables_to_torch(tiles, device, nbytes)
@@ -700,6 +707,10 @@ def kernel_inputs(scene, device, budget: int | None = None) -> tuple:
             if images:
                 flags.update(zip(("atlas", "tex_hw"),
                                  atlas_to_torch(scene, device)))
+        trace.RECORDER.set("route.stream_blocks",
+                           t.n_blocks if streamed else 0)
+        trace.RECORDER.set("route.stream_bytes",
+                           stream_bytes(t) if streamed else 0)
         flags["has_vattrs"] = t.vattrs
         return t, flags
 
@@ -1072,6 +1083,14 @@ def table_bytes(t) -> int:
     and supercluster tables (NumPy or torch)."""
     return 4 * sum(int(np.prod(tuple(a.shape)))
                    for a in (t.S, t.P, t.clusters, t.supers))
+
+
+def stream_bytes(t: TorchStreamTables) -> int:
+    """Bytes of the streamed tables on the device: the tiles, the block,
+    cluster and supercluster tables, the column map and the group
+    boxes."""
+    return sum(a.nbytes for a in (t.tiles, t.block_boxes, t.clusters,
+                                  t.supers, t.prim_map, t.group_boxes))
 
 
 # The share of the card's L2 beyond which the tables stream.  Measured on

@@ -7,7 +7,8 @@ layout starts to pay on the card.
 
 For each size n, a mesh of 2 n^2 triangles on the checkered ground, set
 up as ``render --obj --obj-smooth`` sets up an OBJ model: a smooth
-heightfield (``heightfield_scene``) or, with ``--mesh torus``, a torus
+heightfield (``models/scenes.py::heightfield_scene``, whose n = 480 is
+the registered ``heightfield_460k``) or, with ``--mesh torus``, a torus
 of n x n quads (``utils/mesh.py::torus``, normalized as
 ``register_obj_scene`` normalizes a file); ``--flat`` drops the vertex
 normals (``render --obj`` without ``--obj-smooth``), ``--nee`` adds
@@ -35,12 +36,10 @@ import statistics
 import subprocess
 import time
 
-import numpy as np
 import torch
 
 from ..models.camera import make_camera_params
-from ..models.scene import CHECKER, Scene
-from ..utils import mesh as meshlib
+from ..models.scenes import heightfield_scene
 from ..ops.cuda.gbuffer_kernel import gbuffer
 from ..ops.cuda.render_kernel import render_sample
 from ..ops.cuda.tables import (kernel_flags, nee_inputs, pack_camera_np,
@@ -48,46 +47,11 @@ from ..ops.cuda.tables import (kernel_flags, nee_inputs, pack_camera_np,
                                stream_tables_to_torch, table_bytes,
                                tables_to_torch)
 
-# the camera register_obj_scene gives an OBJ model
+# the camera register_obj_scene gives an OBJ model (models/scenes.py::
+# obj_camera) as make_camera_params keywords: design_sweep's child
+# imports it from here in older checkouts too
 CAMERA = dict(origin=(0.0, 0.9, 2.6), forward=(0.0, -0.22, -1.0),
               fov_deg=50.0)
-
-
-def heightfield(n: int) -> tuple[np.ndarray, np.ndarray]:
-    """A heightfield of 2 n^2 triangles over [-1, 1]^2 (f32 vertices,
-    i64 faces), its heights a seeded wave plus noise."""
-    xs = np.linspace(-1.0, 1.0, n + 1, dtype=np.float32)
-    gx, gz = np.meshgrid(xs, xs)
-    gy = (0.15 * np.sin(4.0 * gx) * np.cos(3.0 * gz)
-          + 0.02 * np.random.RandomState(3).rand(*gx.shape)).astype(
-              np.float32)
-    v = np.stack([gx, gy, gz], -1).reshape(-1, 3)
-    i = (np.arange(n)[:, None] * (n + 1) + np.arange(n)[None, :]).ravel()
-    f = np.concatenate([np.stack([i, i + n + 1, i + 1], 1),
-                        np.stack([i + 1, i + n + 1, i + n + 2], 1)])
-    return v, f
-
-
-def heightfield_scene(n: int, smooth: bool = True,
-                      mesh: str = "heightfield") -> Scene:
-    """The heightfield (or a torus of n x n quads, ``mesh="torus"``) as
-    ``register_obj_scene(smooth=smooth)`` sets up a model: spanning
-    [-1, 1] (the torus centred and scaled to it), rested on the ground
-    rect at y = -0.5, the default lambertian albedo."""
-    if mesh == "torus":
-        v, f = meshlib.torus(segments=n, sides=n)
-        v = (v * np.float32(2.0 / float(np.ptp(v, 0).max()))).astype(
-            np.float32)
-    elif mesh == "heightfield":
-        v, f = heightfield(n)
-    else:
-        raise ValueError(f"mesh {mesh!r}: heightfield or torus")
-    v[:, 1] -= v[:, 1].min() + 0.5
-    scene = Scene(capacity=len(f) + 16)
-    scene.add_xz_rect((0.0, -0.5, 0.0), 60.0, 60.0, tex_type=CHECKER,
-                      albedo=(0.2, 0.3, 0.1), albedo2=(0.9, 0.9, 0.9))
-    scene.add_mesh(v, f, smooth=smooth, albedo=(0.75, 0.73, 0.70))
-    return scene
 
 
 def _ms(fn, cuda: bool, reps: int = 5) -> float:

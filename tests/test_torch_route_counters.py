@@ -1,7 +1,10 @@
 """The table route's counters (``ops/cuda/tables.py::kernel_inputs``):
-``route.table_bytes``, ``route.budget_bytes`` and ``route.streamed``, set
-at each table build from the bytes ``streams_on_card`` compares, the
-budget where one is given, and the layout taken."""
+``route.table_bytes``, ``route.budget_bytes``, ``route.streamed``,
+``route.stream_blocks`` and ``route.stream_bytes``, set at each table
+build from the bytes ``streams_on_card`` compares, the budget where one
+is given, the layout taken and the streamed layout's blocks and device
+bytes (0 for resident tables); and the span ``crt.pack_stream`` around
+the streamed layout's re-tiling."""
 
 import pytest
 import torch
@@ -15,7 +18,8 @@ from cudaraytracer_tpu_torch.utils import trace  # noqa: E402
 from cudaraytracer_tpu_torch.viewer import app  # noqa: E402
 
 REC = trace.RECORDER
-ROUTE = ("route.table_bytes", "route.budget_bytes", "route.streamed")
+ROUTE = ("route.table_bytes", "route.budget_bytes", "route.streamed",
+         "route.stream_blocks", "route.stream_bytes")
 
 
 @pytest.fixture(scope="module")
@@ -39,6 +43,35 @@ def test_counters_read_bytes_budget_and_layout(terrain, side):
     # the streamed layout keeps the resident layout's bytes it replaced
     assert (tabs.table_bytes if streamed
             else tables.table_bytes(tabs)) == nbytes
+    if streamed:
+        st = tables.pack_stream_tiles(
+            tables.pack_scene_tables(scene, with_uv=True))
+        assert c["route.stream_blocks"] == st.n_blocks == tabs.n_blocks >= 2
+        groups = tables.group_boxes(st.block_boxes, st.n_blocks)
+        want = sum(a.nbytes for a in (st.tiles, st.block_boxes,
+                                      st.clusters, st.supers, st.prim_map,
+                                      groups))
+        assert c["route.stream_bytes"] == tables.stream_bytes(tabs) == want
+    else:
+        assert c["route.stream_blocks"] == c["route.stream_bytes"] == 0
+
+
+@pytest.mark.parametrize("side", ["below", "above"])
+def test_pack_stream_span_only_when_streamed(terrain, side):
+    """One ``crt.pack_stream`` inside ``crt.pack_tables`` for a streamed
+    build, none for a resident one."""
+    scene, nbytes = terrain
+    REC.clear()
+    tables.kernel_inputs(scene, "cpu", nbytes - 1 if side == "below"
+                         else nbytes)
+    spans = {r.name: r for r in REC.records()}
+    assert "crt.pack_tables" in spans
+    if side == "below":
+        inner = spans["crt.pack_stream"]
+        assert inner.parent == spans["crt.pack_tables"].id
+        assert REC.summary()["crt.pack_stream"]["count"] == 1
+    else:
+        assert "crt.pack_stream" not in spans
 
 
 def test_no_budget_counts_no_budget(terrain):
@@ -48,6 +81,7 @@ def test_no_budget_counts_no_budget(terrain):
     c = REC.read_counters()
     assert "route.budget_bytes" not in c
     assert (c["route.table_bytes"], c["route.streamed"]) == (nbytes, 0)
+    assert (c["route.stream_blocks"], c["route.stream_bytes"]) == (0, 0)
 
 
 def test_each_build_sets_them_not_adds(monkeypatch):
