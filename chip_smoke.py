@@ -91,8 +91,9 @@ masked, a band); ``streamed_path`` writes a 1,036,800-triangle
 heightfield OBJ (``models/scenes.py::heightfield``) whose tables are
 twice the card's L2 and renders it through ``render --obj ...
 --obj-smooth --denoise`` and ``render --obj ... --obj-smooth --nee`` at
-640x360: the streamed launch counts must be above 0 and the resident
-ones 0; then the kernels of that path on that mesh against their plain
+640x360 with the render loop's budget forced to 1 byte (at the card's
+own budget such a mesh stays resident and walks the tree): the
+streamed launch counts must be above 0 and the resident ones 0; then the kernels of that path on that mesh against their plain
 versions (the megakernel without and with NEE in a band of 4 of its
 rows, the G-buffer at 32x18; the walk's counters, ``stream_stats``,
 printed from a second launch through the counting entries, whose
@@ -106,8 +107,9 @@ packers' host ms on terrain_big and on the mesh);
 ``streamed_timing`` times both layouts of both kernels at 1280x720 on
 terrain_big, book2_final and the mesh, with the walk's counters and the
 least time of the work they count (``scripts/stream_util.py::
-counted_bound``; the sweep over table sizes behind the route's budget,
-``tables.STREAM_L2_SHARE``, is ``scripts/stream_crossover.py``, the
+counted_bound``; the sweep over table sizes behind the route's budgets,
+``tables.STREAM_L2_SHARE`` and ``MEDIA_L2_SHARE``, is
+``scripts/stream_crossover.py``, the
 design parts' readings ``scripts/design_sweep.py``).  Every phase prints
 one JSON line, with the seconds since the start (``t_s``); any failure
 raises and the script exits non-zero.  The last lines
@@ -340,6 +342,7 @@ def main():
     import torch
 
     from cudaraytracer_tpu_torch import __main__ as cli
+    from cudaraytracer_tpu_torch.viewer import app
     from cudaraytracer_tpu_torch.models import scenes
     from cudaraytracer_tpu_torch.utils import mesh
     from cudaraytracer_tpu_torch.ops.cuda import build
@@ -355,7 +358,7 @@ def main():
     from cudaraytracer_tpu_torch.ops.cuda.tables import (
         BIG, kernel_inputs, mask_tile, nee_inputs, pack_camera_np,
         STREAM_GROUP_G, SceneTables, pack_stream_tiles, stream_budget,
-        stream_tables_to_torch, table_bytes)
+        stream_tables_to_torch, streams_on_card, table_bytes)
     from cudaraytracer_tpu_torch.scripts.megakernel_util import (
         one_pixel_per_thread)
     from cudaraytracer_tpu_torch.ops.cuda import denoise_kernel
@@ -1544,11 +1547,15 @@ def main():
           "gbuffer": stream_gbuf, "nvidia_smi": smi})
 
     # ---- 13. the streamed path: a mesh beyond the card's L2, via the CLI
-    # (smooth, without and with --nee: the flag sets of render --obj)
+    # (smooth, without and with --nee: the flag sets of render --obj),
+    # the streamed layout forced by a budget of 1 byte
     hf_n = 720  # 1,036,800 triangles
     w_p, h_p = 640, 360
     path = {"triangles": 2 * hf_n * hf_n, "size": [w_p, h_p], "depth": 4,
-            "spp_per_frame": 2, "budget_bytes": budget, "l2_bytes": l2}
+            "spp_per_frame": 2, "budget_bytes": 1,
+            "card_budget_bytes": budget, "l2_bytes": l2}
+    card_budget = app.stream_budget
+    app.stream_budget = lambda dev: 1
     with tempfile.TemporaryDirectory() as tmp:
         obj = os.path.join(tmp, "heightfield.obj")
         t0 = time.perf_counter()
@@ -1605,6 +1612,7 @@ def main():
                 hf_su = Setup("heightfield", rl.scene,
                               scenes.SCENES[rl.cfg.scene][1](), "look_at")
             del rl, pipe
+    app.stream_budget = card_budget
     torch.cuda.empty_cache()
     # ---- 13b. the native packer against the NumPy one, and both packers'
     # host ms on terrain_big and on this mesh (scripts/bvh_paths.py) ----
@@ -1675,7 +1683,7 @@ def main():
             "size": [w, h], "spp": spp_t, "depth": depth_t,
             "table_bytes": table_bytes(su.tb),
             "l2_share": table_bytes(su.tb) / l2,
-            "streams_on_card": table_bytes(su.tb) > budget,
+            "streams_on_card": streams_on_card(su.tb, budget),
             "blocks": su.st.n_blocks,
             "groups": int(su.st.group_boxes.shape[1]),
             "resident_ms": [ms_r1, ms_r2], "streamed_ms": [ms_s1, ms_s2],

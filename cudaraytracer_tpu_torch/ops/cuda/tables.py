@@ -14,10 +14,10 @@ picks them, ``tree_nodes``, the tree of the megakernel's walk where it
 does not refill, and the streamed layout of the tables
 (``pack_stream_tiles``, ``stream_tables_to_torch``) with its route on
 the card (``streams_on_card``: the tables against a share of the
-card's L2, ``stream_budget``).  Active scenes without media or motion
-pack through the native C++ packer (``native/pack_native.py``, a copy of
-the JAX package's ``table_packer.cpp``), bit-identical to the NumPy
-packer.
+card's L2, ``stream_budget``, larger where they carry the tree).
+Active scenes without media or motion pack through the native C++
+packer (``native/pack_native.py``, a copy of the JAX package's
+``table_packer.cpp``), bit-identical to the NumPy packer.
 """
 
 from __future__ import annotations
@@ -678,13 +678,14 @@ def kernel_inputs(scene, device, budget: int | None = None) -> tuple:
     ``gbuffer``, as the render loop sets them up: uv rows and the atlas
     (``atlas``/``tex_hw``) with image textures, the vertex-attribute and
     velocity rows the packer finds, and ``kernel_flags``.  The tables
-    are ``TorchTables``, or, when ``budget`` is given and they outgrow it
-    (``streams_on_card``), ``TorchStreamTables`` (``pack_stream_tiles``,
-    passed with ``stream_b=block_b``; the re-tiling is the span
-    ``crt.pack_stream``).  The uploads are one span, ``crt.upload``.  The
-    route's counters, set at each build: ``route.table_bytes``
-    (``table_bytes``, what ``streams_on_card`` compares),
-    ``route.budget_bytes`` (``budget``, only where given),
+    are ``TorchTables``, or, when ``budget`` is given and they outgrow
+    their share of it (``streams_on_card``: all of it where they carry
+    the tree), ``TorchStreamTables`` (``pack_stream_tiles``, passed with
+    ``stream_b=block_b``; the re-tiling is the span ``crt.pack_stream``).
+    The uploads are one span, ``crt.upload``.  The route's counters, set
+    at each build: ``route.table_bytes`` (``table_bytes``, what
+    ``streams_on_card`` compares), ``route.budget_bytes`` (what they were
+    compared with, ``route_budget``; only where a budget is given),
     ``route.streamed`` (0 or 1), ``route.stream_blocks`` (the streamed
     layout's used blocks) and ``route.stream_bytes`` (``stream_bytes``,
     the streamed tables on the device), both 0 for resident tables."""
@@ -692,9 +693,10 @@ def kernel_inputs(scene, device, budget: int | None = None) -> tuple:
         images = has_images(scene)
         packed = pack_scene_tables(scene, with_uv=images)
         nbytes = table_bytes(packed)
-        streamed = budget is not None and streams_on_card(packed, budget)
+        limit = None if budget is None else route_budget(packed, budget)
+        streamed = limit is not None and nbytes > limit
         trace.RECORDER.set("route.table_bytes", nbytes)
-        trace.RECORDER.set("route.budget_bytes", budget)
+        trace.RECORDER.set("route.budget_bytes", limit)
         trace.RECORDER.set("route.streamed", int(streamed))
         tiles = None
         if streamed:
@@ -702,7 +704,7 @@ def kernel_inputs(scene, device, budget: int | None = None) -> tuple:
                 tiles = pack_stream_tiles(packed)
         flags = kernel_flags(scene)
         with _UPLOAD:
-            t = (stream_tables_to_torch(tiles, device, nbytes)
+            t = (stream_tables_to_torch(tiles, device, nbytes, limit)
                  if streamed else tables_to_torch(packed, device))
             if images:
                 flags.update(zip(("atlas", "tex_hw"),
@@ -1048,21 +1050,24 @@ class TorchStreamTables(_t.NamedTuple):
     motion: bool = False
     table_bytes: int = 0  # the resident layout's bytes (table_bytes)
     group_boxes: torch.Tensor | None = None  # group_boxes, STREAM_GROUP_G
+    budget_bytes: int = 0  # what table_bytes outgrew (route_budget)
 
 
 def stream_tables_to_torch(st: StreamTables, device,
-                           resident_bytes: int = 0) -> TorchStreamTables:
+                           resident_bytes: int = 0,
+                           budget_bytes: int = 0) -> TorchStreamTables:
     """Upload streamed tables to ``device``, with their group boxes
     (``group_boxes``: passed as ``render_sample``'s and ``gbuffer``'s
-    ``group_boxes``); ``resident_bytes`` records the resident layout's
-    size (the route's reason)."""
+    ``group_boxes``); ``resident_bytes`` and ``budget_bytes`` record the
+    resident layout's size and the bytes it outgrew (the route's
+    reason)."""
     tiles, boxes, clusters, supers, prim_map, groups = trace.upload(
         device, st.tiles, st.block_boxes, st.clusters, st.supers,
         st.prim_map, group_boxes(st.block_boxes, st.n_blocks))
     return TorchStreamTables(
         tiles, boxes, clusters, supers, int(st.n_blocks), prim_map,
         int(st.cluster), int(st.super_), int(st.block_b), bool(st.vattrs),
-        bool(st.motion), int(resident_bytes), groups)
+        bool(st.motion), int(resident_bytes), groups, int(budget_bytes))
 
 
 def tile_columns(tiles: torch.Tensor, rows: slice, block_b: int,
@@ -1093,31 +1098,50 @@ def stream_bytes(t: TorchStreamTables) -> int:
                                   t.supers, t.prim_map, t.group_boxes))
 
 
-# The share of the card's L2 beyond which the tables stream.  Measured on
-# an NVIDIA H100 80GB HBM3 at 700 W (scripts/stream_crossover.py, smooth
-# heightfield meshes at the main path's 1280x720, 4 spp, depth 12; PERF.md,
-# the streamed walk's findings): the streamed megakernel, whose walk culls
-# by group and block boxes, takes 0.77 of the resident one's time at 0.04
-# of the L2, 0.64 at 0.10 and 0.34 at 0.93; the registered scenes stay
-# below a tenth of the L2 (terrain_big 0.086 at most), where the streamed
-# kernel ranges from 0.92 of the resident time (terrain_big) to 1.23
-# (book2_final with NEE and QMC, 0.018 of the L2).
-STREAM_L2_SHARE = 0.1
+# The card's table route, measured on an NVIDIA H100 80GB HBM3 at 700 W
+# (scripts/stream_crossover.py: CUDA events, the layouts in turns, equal
+# bit for bit; PERF.md, the route's findings).  Tables that carry the
+# megakernel's tree (every scene without media) render faster resident
+# at every size the sweep measured: smooth heightfields of 51,200 to
+# 2,000,000 triangles, 0.10 to 4.01 of the L2, where the streamed layout
+# takes 1.553-2.151x the resident time at the main path's 1280x720,
+# 4 spp, depth 12 and 1.135-1.419x at 640x360, 1 spp, depth 4 (flat and
+# with NEE at 0.82-4.01 of the L2: 1.105-2.115x).  So they stay resident
+# up to the largest tables measured (n = 1000: 210,450,456 B over the
+# card's 52,428,800 B of L2); the sweep says nothing beyond.
+STREAM_L2_SHARE = 210_450_456 / 52_428_800
+# Tables without a tree (media: the refilling walk, closest_hit_blocks)
+# stream past a tenth of the L2: a flat heightfield in book2_final's
+# media flag set takes 1.120 and 1.008 of the resident time streamed at
+# 0.028 and 0.063 of the L2, 0.967 at 0.111 and 0.495-0.863 from 0.249
+# to 4.319 at the main path's shape (at 640x360: 0.356-0.906 at every
+# size).
+MEDIA_L2_SHARE = 0.1
 
 
 def stream_budget(device) -> int | None:
-    """The table bytes above which the card's kernels stream: the L2 of
-    ``device`` (times STREAM_L2_SHARE); None (never) on the CPU, whose
-    plain versions read any layout alike."""
+    """The table bytes above which the card's kernels stream tables that
+    carry the tree: the L2 of ``device`` times STREAM_L2_SHARE (tables
+    without one: ``route_budget``); None (never) on the CPU, whose plain
+    versions read any layout alike."""
     dev = torch.device(device)
     if dev.type != "cuda":
         return None
     l2 = torch.cuda.get_device_properties(dev).L2_cache_size
-    return int(l2 * STREAM_L2_SHARE)
+    return round(l2 * STREAM_L2_SHARE)
+
+
+def route_budget(tables, budget_bytes: int) -> int:
+    """The bytes that ``tables`` are held to under ``budget_bytes``
+    (``stream_budget``): the budget for tables that carry the tree,
+    MEDIA_L2_SHARE / STREAM_L2_SHARE of it for those that do not."""
+    if tables.tree is not None:
+        return int(budget_bytes)
+    return round(int(budget_bytes) * (MEDIA_L2_SHARE / STREAM_L2_SHARE))
 
 
 def streams_on_card(tables, budget_bytes: int) -> bool:
-    """Do the resident tables (S + P + clusters + supers) outgrow
-    ``budget_bytes`` (``stream_budget``), so that the card's kernels read
-    them in the streamed layout?"""
-    return table_bytes(tables) > int(budget_bytes)
+    """Do the resident tables (S + P + clusters + supers) outgrow their
+    share of ``budget_bytes`` (``route_budget``), so that the card's
+    kernels read them in the streamed layout?"""
+    return table_bytes(tables) > route_budget(tables, budget_bytes)

@@ -4,8 +4,8 @@
         [--cases mesh,mesh_cli,book2_final/nee_qmc,terrain_big] [--reps 5]
 
 For each case, the scene's tables packed resident and streamed
-(``tables.pack_stream_tiles``, forced for the registered scenes, whose
-tables fit the card's budget), this reports:
+(``tables.pack_stream_tiles``, forced: every case's tables fit the
+card's budget), this reports:
 
 * ``ms``: the streamed megakernel's and the resident one's median
   CUDA-event ms of ``--reps`` launches after a warm-up, in turns

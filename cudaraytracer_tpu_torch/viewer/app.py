@@ -186,13 +186,16 @@ class _CudaPipeline:
     per progressive frame and one ``gbuffer`` launch per G-buffer (the JAX
     package's ``_PallasPipeline``), and with ``cfg.adaptive`` the tile
     mask and its statistics.  Tables that outgrow the card's budget
-    (``tables.stream_budget``, a tenth of its L2; never on the CPU) are
-    packed in the streamed layout and both kernels run their streamed
-    entries (``stream_b``), where the JAX pipeline streams tables beyond
-    the TPU's scalar memory.  Built anew on every scene edit; a flag
-    combination that no kernel instantiation serves (``--nee`` on a scene
-    without an NEE instantiation) raises ``NotImplementedError`` here, on
-    either device."""
+    (``tables.stream_budget``: tables that carry the megakernel's tree,
+    every scene without media, up to ~4 times the card's L2, the largest
+    measured, where the resident tree walk is faster; media tables up to
+    a tenth of it, where the streamed walk starts to win; never on the
+    CPU) are packed in the streamed layout and both kernels run their
+    streamed entries (``stream_b``), where the JAX pipeline streams
+    tables beyond the TPU's scalar memory.  Built anew on every scene
+    edit; a flag combination that no kernel instantiation serves
+    (``--nee`` on a scene without an NEE instantiation) raises
+    ``NotImplementedError`` here, on either device."""
 
     def __init__(self, scene, cfg: RenderConfig, device: torch.device):
         budget = stream_budget(device)
@@ -202,10 +205,13 @@ class _CudaPipeline:
         if self.stream_b:
             rtlog.rt_info(
                 "Scene (%d prims -> %.1f MB packed tables%s) exceeds the "
-                "card's L2 budget of %.1f MB; the kernels stream block "
-                "tiles from device memory", scene.num_active,
-                self._tabs.table_bytes / 1e6,
-                ", vattr" if self._tabs.vattrs else "", budget / 1e6)
+                "card's resident budget of %.1f MB for tables %s; the "
+                "kernels stream block tiles from device memory",
+                scene.num_active, self._tabs.table_bytes / 1e6,
+                ", vattr" if self._tabs.vattrs else "",
+                self._tabs.budget_bytes / 1e6,
+                "without a tree (media)" if self._flags["has_media"]
+                else "with the tree")
         # the megakernel's NEE keywords (the G-buffer samples no light)
         self._nee = nee_inputs(scene, device) if cfg.nee else {}
         fl = self._flags

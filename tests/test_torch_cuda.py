@@ -608,6 +608,41 @@ def test_pipeline_streams_beyond_the_budget_on_the_card(cuda, monkeypatch):
     assert render_kernel.render_sample.launches == r0
 
 
+def test_heightfield_460k_walks_the_tree_at_the_card_budget(cuda,
+                                                           monkeypatch):
+    """At the card's own budget (``tables.stream_budget``) the registered
+    460,800-triangle mesh stays resident: the pipeline's launches walk
+    the tree, none streams, and the frame and the G-buffer equal the
+    streamed layout's (forced by a budget of 1) bit for bit."""
+    from cudaraytracer_tpu_torch.config import RenderConfig
+    from cudaraytracer_tpu_torch.viewer import app
+
+    name = "heightfield_460k"
+    build, camera = tscenes.SCENES[name]
+    scene = build()
+    cfg = RenderConfig(scene=name, camera_model="look_at", width=320,
+                       height=180, progressive_spp=2, max_depth=6)
+    rs = render_kernel.render_sample
+    out = {}
+    for forced in (False, True):
+        if forced:
+            monkeypatch.setattr(app, "stream_budget", lambda dev: 1)
+        n0 = (rs.launches, rs.tree_launches, rs.streamed_launches)
+        pipe = app._CudaPipeline(scene, cfg, cuda)
+        acc = torch.zeros((cfg.height, cfg.width, 3), device=cuda)
+        for i in range(2):
+            pipe.accumulate(camera(), i, cfg.max_depth, acc,
+                            spp=cfg.progressive_spp)
+        counts = [b - a for a, b in zip(n0, (
+            rs.launches, rs.tree_launches, rs.streamed_launches))]
+        assert counts == ([0, 0, 2] if forced else [2, 2, 0])
+        assert bool(pipe.stream_b) == forced
+        out[forced] = (acc, pipe.gbuffer(camera()))
+    assert torch.equal(out[False][0], out[True][0])
+    assert float(out[False][0].sum()) > 0
+    assert all(torch.equal(a, b) for a, b in zip(out[False][1], out[True][1]))
+
+
 def heightfield_setup(dev, w, h, n=120, nee=False):
     """A smooth heightfield of 2 n^2 triangles (scripts/stream_crossover)
     packed resident and, as beyond a forced budget, streamed: the frame

@@ -42,7 +42,9 @@ from cudaraytracer_tpu_torch.utils import mesh as meshlib  # noqa: E402
 from cudaraytracer_tpu_torch.utils import trace  # noqa: E402
 
 NAME = "heightfield_460k"
-# an NVIDIA H100's stream_budget: a tenth of its 50 MiB L2
+# a tenth of an NVIDIA H100's 50 MiB L2, passed explicitly: the budget
+# under which the full-size tables stream (the card's own stream_budget
+# keeps tables with the tree resident up to ~4 times the L2)
 H100_BUDGET = 5_242_880
 
 
